@@ -1,0 +1,493 @@
+"""Persistent-slot Monte-Carlo trace: the CUDA kernel, its wrapper and its
+plain PyTorch version.
+
+Replaces ``engine/trace_pallas_persistent.py::make_persistent_trace_fn`` of
+the JAX package in the mode the main path runs: exact ("fma") parameter
+selection, count spawn, one geometry row, one cell per block.
+
+Each cell owns ``S = RT * 128`` slots.  A slot walks the state machine
+IC 0/1, FC 2/3, OC 4/5, dead 6, awaiting respawn 7.  At the start of
+iteration ``it`` every dead slot respawns if the cell's spawn count, as it
+stood at the start of the iteration, is below the target ``ctrl[0]``, or if
+``it < ctrl[1]``; the count starts at ``S`` and grows by the respawns.  A
+cell stops when every slot is dead and the target is met, or at
+``max_iters``.  Out-coupled rays inside the cell's eyebox rectangle add one
+to its ``(ny, nx)`` tile.
+
+The kernel (``csrc/persistent_trace.cu``) runs one thread block per cell.
+What bounds it on an H100: per-lane divergent ALU work (region tests, Jones
+products, the branch roulette), a block-wide barrier twice per iteration, and
+shared-memory atomics for deposits; it reads its rows and rays once and
+writes one tile, so it moves almost no HBM traffic.  Its design answers
+that: slot state, cell row, geometry row and the integer tile all live in
+shared memory; strip records are read by index instead of the TPU's one-hot
+selection; the loops over half-plane edges stop at each region's real edge
+count; and deposits are integer ``atomicAdd``s, exact and order-free.
+
+Both versions use the same float32 operations in the same order, with no
+fused multiply-add (the kernel is built with ``-fmad=false``) and
+``rsqrt(x)`` written ``1 / sqrt(x)``, so on the card they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import build
+from .trace_rows import (
+    LANES, MAX_EDGES, PC, PG, rows_to_device,
+    _EBR, _EBS, _EBT, _FC_BLK, _FC_STRIDE, _G_FC_INVW, _G_FC_ROT, _G_FC_TOP,
+    _G_HULL, _G_IC, _G_OC_BT, _G_OC_INVW, _G_OC_ROT, _G_OC_TOP, _G_R1, _G_R2,
+    _GAPS, _HOP2_PH, _IC_BLK, _IC_SA, _IC_SB, _INIT_COS0, _INIT_JA, _INIT_JB,
+    _INIT_SA, _INIT_SB, _OC_BLK, _OC_SOUT, _OC_STRIDE, _TIR_PH,
+)
+from ..ops.rng import draw24, xorshift32_step
+
+MAX_FC = (_OC_BLK - _FC_BLK) // _FC_STRIDE   # strips the cell row has room for
+MAX_OC = (_EBT - _OC_BLK) // _OC_STRIDE
+_SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
+_MASK32 = 0xFFFFFFFF
+
+# kernel launches by wrapper name; the wrapper adds one per launch and
+# nothing else touches it except reset_launch_counts
+launch_counts = {"persistent_trace": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def block_threads(slots: int) -> int:
+    """Threads per block: the largest of 512/256/128 dividing ``slots``."""
+    for t in (512, 256, 128):
+        if slots % t == 0:
+            return t
+    raise ValueError(f"slots ({slots}) must be a multiple of {LANES}")
+
+
+def shared_bytes(slots: int, eyebox_bins: Sequence[int]) -> int:
+    """Dynamic shared memory of one block (must match the kernel's layout)."""
+    ny, nx = eyebox_bins
+    return 4 * (PC + 8 + PG + ny * nx + 11 * slots)
+
+
+def _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
+                  edge_counts, eyebox_bins, max_iters) -> Tuple[int, int]:
+    dev = cell_params.device
+    for name, t, dt in (("cell_params", cell_params, torch.float32),
+                        ("geom_row", geom_row, torch.float32),
+                        ("rays_in", rays_in, torch.float32),
+                        ("rng_in", rng_in, torch.int32),
+                        ("ctrl", ctrl, torch.int32)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, cell_params on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cell_params.dim() != 2 or cell_params.shape[1] != PC:
+        raise ValueError(f"cell_params must be (C, {PC}), got {tuple(cell_params.shape)}")
+    C = cell_params.shape[0]
+    if tuple(geom_row.shape) != (1, PG):
+        raise ValueError(f"geom_row must be (1, {PG}), got {tuple(geom_row.shape)}")
+    if rng_in.dim() != 3 or rng_in.shape[0] != C or rng_in.shape[2] != LANES:
+        raise ValueError(f"rng_in must be (C={C}, RT, {LANES}), got {tuple(rng_in.shape)}")
+    RT = rng_in.shape[1]
+    if (rays_in.dim() != 4 or rays_in.shape[0] not in (1, C)
+            or tuple(rays_in.shape[1:]) != (6, RT, LANES)):
+        raise ValueError(f"rays_in must be (1 or C, 6, {RT}, {LANES}), "
+                         f"got {tuple(rays_in.shape)}")
+    if tuple(ctrl.shape) != (2,):
+        raise ValueError(f"ctrl must be (2,), got {tuple(ctrl.shape)}")
+    if not (1 <= num_fc <= MAX_FC and 1 <= num_oc <= MAX_OC):
+        raise ValueError(f"num_fc/num_oc ({num_fc}, {num_oc}) exceed the cell "
+                         f"row's {MAX_FC}/{MAX_OC} strips")
+    if len(edge_counts) != 3 or not all(0 <= e <= MAX_EDGES for e in edge_counts):
+        raise ValueError(f"edge_counts must be 3 counts <= {MAX_EDGES}")
+    if len(eyebox_bins) != 2 or min(eyebox_bins) < 1:
+        raise ValueError(f"bad eyebox_bins {eyebox_bins}")
+    if max_iters < 1:
+        raise ValueError("max_iters must be positive")
+    return C, RT * LANES
+
+
+def persistent_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
+                     rays_in: torch.Tensor, rng_in: torch.Tensor,
+                     ctrl: torch.Tensor, *, num_fc: int, num_oc: int,
+                     edge_counts: Sequence[int], eyebox_bins: Sequence[int],
+                     max_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trace every cell of the batch; returns ``(hist, nb)``.
+
+    - ``cell_params`` (C, 704) f32 and ``geom_row`` (1, 320) f32: the rows of
+      :mod:`.trace_rows`.
+    - ``rays_in`` (C or 1, 6, RT, 128) f32: launch fields (x, y, ter, tei,
+      tmr, tmi) of every slot, also its respawn values; one tile may serve
+      every cell.
+    - ``rng_in`` (C, RT, 128) int32: per-slot xorshift32 seeds (uint32 bits).
+    - ``ctrl`` (2,) int32: ``[spawn target per cell, spawn_iters]``.
+    - ``hist`` (C, ny, nx) f32 deposit counts; ``nb`` (C, 4) int32
+      ``[bounces, iterations, spawned, 0]`` (the last column keeps the JAX
+      kernel's overflow slot, always 0 here).
+
+    A CPU tensor runs :func:`persistent_trace_reference`; a CUDA tensor
+    launches the kernel or raises.
+    """
+    C, S = _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc,
+                         num_oc, edge_counts, eyebox_bins, max_iters)
+    dev = cell_params.device
+    if dev.type == "cpu":
+        return persistent_trace_reference(
+            cell_params, geom_row, rays_in, rng_in, ctrl, num_fc=num_fc,
+            num_oc=num_oc, edge_counts=edge_counts, eyebox_bins=eyebox_bins,
+            max_iters=max_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"persistent_trace runs on cpu or cuda, not {dev}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("persistent_trace got a CUDA tensor but no CUDA "
+                           "device is available")
+    ny, nx = eyebox_bins
+    smem = shared_bytes(S, eyebox_bins)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{S} slots need {smem} B of shared memory "
+                         f"(limit {_SMEM_LIMIT})")
+    lib = load_kernel()
+    hist = torch.empty((C, ny, nx), dtype=torch.float32, device=dev)
+    nb = torch.empty((C, 4), dtype=torch.int32, device=dev)
+    if C == 0:
+        return hist, nb
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.persistent_trace_launch(
+            cell_params.data_ptr(), geom_row.data_ptr(), rays_in.data_ptr(),
+            int(rays_in.shape[0] == C), rng_in.data_ptr(), ctrl.data_ptr(),
+            hist.data_ptr(), nb.data_ptr(), C, S, num_fc, num_oc,
+            *(int(e) for e in edge_counts), ny, nx, int(max_iters),
+            block_threads(S), stream)
+    if err != 0:
+        msg = lib.persistent_trace_error_string(err).decode()
+        raise RuntimeError(f"persistent_trace launch failed: {msg} ({err})")
+    launch_counts["persistent_trace"] += 1
+    return hist, nb
+
+
+_LIB = None
+
+
+def load_kernel():
+    """Build (at first use) and bind ``csrc/persistent_trace.cu``; raises
+    with the compiler's output if the build fails."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library("persistent_trace")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.persistent_trace_launch.argtypes = (
+            [p, p, p, i, p, p, p, p] + [i] * 11 + [p])
+        lib.persistent_trace_launch.restype = i
+        lib.persistent_trace_error_string.argtypes = [i]
+        lib.persistent_trace_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+
+
+def _jones(j, ter, tei, tmr, tmi):
+    """2x2 complex matvec; ``j`` = 8 coefficients (re/im interleaved)."""
+    ar, ai, br, bi, cr, ci, dr, di = j
+    return (ar * ter - ai * tei + br * tmr - bi * tmi,
+            ar * tei + ai * ter + br * tmi + bi * tmr,
+            cr * ter - ci * tei + dr * tmr - di * tmi,
+            cr * tei + ci * ter + dr * tmi + di * tmr)
+
+
+def _power(v):
+    return v[0] * v[0] + v[1] * v[1] + v[2] * v[2] + v[3] * v[3]
+
+
+def _rsqrt(v):
+    return 1.0 / torch.sqrt(torch.clamp(v, min=1e-30))
+
+
+def _bin(v, hi: int):
+    """floor, clamped to [0, hi], as an index."""
+    return torch.clamp(torch.floor(v), 0, hi).to(torch.int64)
+
+
+def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
+                               num_fc, num_oc, edge_counts, eyebox_bins,
+                               max_iters):
+    """The kernel's function in plain tensor code: the same state machine
+    vectorised over a (C, S) slot tensor, with the same lockstep count spawn.
+    Same signature and outputs as :func:`persistent_trace`."""
+    C, S = _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc,
+                         num_oc, edge_counts, eyebox_bins, max_iters)
+    dev = cell_params.device
+    ny, nx = eyebox_bins
+    n_hull, n_r1, n_r2 = (int(e) for e in edge_counts)
+    target, spawn_iters = (int(v) for v in ctrl.tolist())
+    f32, i64 = torch.float32, torch.int64
+
+    cp = cell_params
+    # 8 zero columns past the row: the "no site" and "no branch C" records
+    cpz = torch.cat([cp, torch.zeros((C, 8), dtype=f32, device=dev)], dim=1)
+    g = geom_row[0]
+
+    def c(j):
+        return cp[:, j:j + 1]
+
+    def take(off):
+        return torch.gather(cpz, 1, off)
+
+    def region(base, n, x, y):
+        inside = torch.ones_like(x, dtype=torch.bool)
+        for e in range(n):
+            inside = inside & (x * g[base + e] + y * g[base + MAX_EDGES + e]
+                               <= g[base + 2 * MAX_EDGES + e])
+        return inside
+
+    def in_ic(px, py):
+        dx = px - g[_G_IC]
+        dy = py - g[_G_IC + 1]
+        return dx * dx + dy * dy <= g[_G_IC + 2]
+
+    rays = rays_in.reshape(rays_in.shape[0], 6, S)
+    x0, y0, ter0, tei0, tmr0, tmi0 = (rays[:, k].expand(C, S) for k in range(6))
+
+    # per-slot init constants: every (re)spawn starts from the same fields
+    pa0 = _jones([c(_INIT_JA + k) for k in range(8)], ter0, tei0, tmr0, tmi0)
+    pb0 = _jones([c(_INIT_JB + k) for k in range(8)], ter0, tei0, tmr0, tmi0)
+    inv_cos0 = 1.0 / c(_INIT_COS0)
+    eff_a0 = _power(pa0) * c(_INIT_SA) * inv_cos0
+    eff_ab0 = eff_a0 + _power(pb0) * c(_INIT_SB) * inv_cos0
+    inv_a0 = _rsqrt(_power(pa0))
+    inv_b0 = _rsqrt(_power(pb0))
+    ta_r, ta_i = pa0[2] * inv_a0, pa0[3] * inv_a0
+    tb_r, tb_i = pb0[2] * inv_b0, pb0[3] * inv_b0
+    fld_a0 = (pa0[0] * inv_a0, pa0[1] * inv_a0,
+              c(_TIR_PH + 0) * ta_r - c(_TIR_PH + 1) * ta_i,
+              c(_TIR_PH + 0) * ta_i + c(_TIR_PH + 1) * ta_r)
+    fld_b0 = (pb0[0] * inv_b0, pb0[1] * inv_b0,
+              c(_TIR_PH + 4) * tb_r - c(_TIR_PH + 5) * tb_i,
+              c(_TIR_PH + 4) * tb_i + c(_TIR_PH + 5) * tb_r)
+    x1a0, y1a0 = x0 + c(_GAPS + 0), y0 + c(_GAPS + 1)
+    x1b0, y1b0 = x0 + c(_GAPS + 4), y0 + c(_GAPS + 5)
+    st1_a0 = torch.where(in_ic(x1a0, y1a0), 0, 2)
+    icin_b0 = in_ic(x1b0, y1b0)
+
+    x, y = x0.clone(), y0.clone()
+    ter, tei, tmr, tmi = ter0.clone(), tei0.clone(), tmr0.clone(), tmi0.clone()
+    cos_th = torch.ones((C, S), dtype=f32, device=dev)
+    gx = torch.zeros((C, S), dtype=f32, device=dev)
+    gy = torch.zeros_like(gx)
+    state = torch.full((C, S), 7, dtype=i64, device=dev)
+    rng = rng_in.reshape(C, S).to(i64) & _MASK32
+    bounces = torch.zeros((C,), dtype=i64, device=dev)
+    spawned = torch.full((C,), S, dtype=i64, device=dev)
+    iters = torch.full((C,), max_iters, dtype=i64, device=dev)
+    done = torch.zeros((C,), dtype=torch.bool, device=dev)
+    hist = torch.zeros((C * ny * nx,), dtype=i64, device=dev)
+    cell_base = (torch.arange(C, device=dev, dtype=i64) * (ny * nx))[:, None]
+    zero_off = torch.full((C, S), PC, dtype=i64, device=dev)
+
+    for it in range(max_iters):
+        exhausted = ((state == 6) & (spawned[:, None] >= target)
+                     & (it >= spawn_iters))
+        now_done = exhausted.all(dim=1) & ~done
+        iters = torch.where(now_done, it, iters)
+        done = done | now_done
+        if bool(done.all()):
+            break
+        # a finished cell's body is a no-op (nothing respawns, nothing lives)
+
+        # ---- respawn, decided on the spawn count at the iteration's start
+        rs = (state == 6) & ((spawned[:, None] < target) | (it < spawn_iters))
+        spawned = spawned + rs.sum(dim=1)
+        state = torch.where(rs, 7, state)
+
+        # ---- init (first IC interaction) of awaiting slots
+        m7 = state == 7
+        rng_new = xorshift32_step(rng)
+        u = draw24(rng_new)
+        rng = torch.where(m7, rng_new, rng)
+        a = m7 & (u <= eff_a0)
+        b = m7 & ~a & (u <= eff_ab0)
+        st1 = torch.where(a, st1_a0, torch.where(b & icin_b0, 1, 6))
+        live = (st1 < 6) & m7
+        x = torch.where(live, torch.where(a, x1a0, x1b0), x)
+        y = torch.where(live, torch.where(a, y1a0, y1b0), y)
+        ter = torch.where(live, torch.where(a, fld_a0[0], fld_b0[0]), ter)
+        tei = torch.where(live, torch.where(a, fld_a0[1], fld_b0[1]), tei)
+        tmr = torch.where(live, torch.where(a, fld_a0[2], fld_b0[2]), tmr)
+        tmi = torch.where(live, torch.where(a, fld_a0[3], fld_b0[3]), tmi)
+        cos_th = torch.where(m7, torch.where(a, c(_IC_SA), c(_IC_SB)), cos_th)
+        gx = torch.where(live, torch.where(a, c(_GAPS + 0), c(_GAPS + 4)), gx)
+        gy = torch.where(live, torch.where(a, c(_GAPS + 1), c(_GAPS + 5)), gy)
+        state = torch.where(m7, st1, state)
+
+        # ---- one bounce for live slots
+        alive = state < 6
+        bounces = bounces + alive.sum(dim=1)
+        state = torch.where(alive & ~region(_G_R1, n_r1, x, y), 6, state)
+        alive = state < 6
+        grp_ic = alive & (state <= 1)
+        grp_fc = alive & ((state == 2) | (state == 3))
+        grp_oc = alive & (state >= 4)
+        bit = state & 1
+
+        in_hull = region(_G_HULL, n_hull, x, y)
+        yrot = g[_G_FC_ROT] * x + g[_G_FC_ROT + 1] * y
+        fc_strip = _bin((g[_G_FC_TOP] - yrot) * g[_G_FC_INVW], num_fc - 1)
+        yr = g[_G_OC_ROT] * x + g[_G_OC_ROT + 1] * y
+        in_rect = ((x >= g[_G_OC_BT]) & (x <= g[_G_OC_BT + 1])
+                   & (y >= g[_G_OC_BT + 2]) & (y <= g[_G_OC_BT + 3]))
+        oc_strip = _bin((g[_G_OC_TOP] - yr) * g[_G_OC_INVW], num_oc - 1)
+        hit_fc = grp_fc & in_hull
+        hit_oc = grp_oc & in_rect
+        interact = grp_ic | hit_fc | hit_oc
+
+        # ---- site record by index: IC block, FC strip or OC strip
+        fc_base = _FC_BLK + _FC_STRIDE * fc_strip
+        oc_base = _OC_BLK + _OC_STRIDE * oc_strip
+        ja_off = torch.where(grp_ic, _IC_BLK + 16 * bit, torch.where(
+            grp_fc, fc_base + 16 * bit, torch.where(
+                grp_oc, oc_base + 24 * bit, zero_off)))
+        jb_off = torch.where(alive, ja_off + 8, zero_off)
+        jc_off = torch.where(grp_oc, oc_base + 24 * bit + 16, zero_off)
+        s_a = take(torch.where(grp_ic, _IC_SA, torch.where(
+            grp_fc, fc_base + 32, torch.where(grp_oc, oc_base + 48, zero_off))))
+        s_b = take(torch.where(grp_ic, _IC_SB, torch.where(
+            grp_fc, fc_base + 33, torch.where(grp_oc, oc_base + 49, zero_off))))
+        ja = [take(ja_off + k) for k in range(8)]
+        jb = [take(jb_off + k) for k in range(8)]
+        jc = [take(jc_off + k) for k in range(8)]
+        pol_a = _jones(ja, ter, tei, tmr, tmi)
+        pol_b = _jones(jb, ter, tei, tmr, tmi)
+        pol_c = _jones(jc, ter, tei, tmr, tmi)
+        inv_cos = 1.0 / cos_th
+        eff_a = _power(pol_a) * s_a * inv_cos
+        eff_b = _power(pol_b) * s_b * inv_cos
+        eff_c = _power(pol_c) * c(_OC_SOUT) * inv_cos
+
+        rng_new = xorshift32_step(rng)
+        u = draw24(rng_new)
+        rng = torch.where(interact, rng_new, rng)
+        br_a = interact & (u <= eff_a) & (eff_a > 0)
+        br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
+        br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
+                & (eff_c > 0))
+        die = interact & ~(br_a | br_b | br_c)
+        accept = br_a | br_b
+
+        dirs = torch.where(br_a, torch.where(grp_oc, 1, 0),
+                           torch.where(grp_oc, 3, torch.where(grp_fc, 1, 2)))
+        ter_n = torch.where(br_a, pol_a[0], pol_b[0])
+        tei_n = torch.where(br_a, pol_a[1], pol_b[1])
+        tmr_n = torch.where(br_a, pol_a[2], pol_b[2])
+        tmi_n = torch.where(br_a, pol_a[3], pol_b[3])
+        inv = _rsqrt(_power((ter_n, tei_n, tmr_n, tmi_n)))
+        phr = take(_TIR_PH + 2 * dirs)
+        phi = take(_TIR_PH + 1 + 2 * dirs)
+        ter_n, tei_n = ter_n * inv, tei_n * inv
+        tr, ti = tmr_n * inv, tmi_n * inv
+        tmr_n, tmi_n = phr * tr - phi * ti, phr * ti + phi * tr
+        cos_n = torch.where(br_a, s_a, s_b)
+        gx_n = take(_GAPS + 2 * dirs)
+        gy_n = take(_GAPS + 1 + 2 * dirs)
+        x_acc = x + gx_n
+        y_acc = y + gy_n
+        icin = in_ic(x_acc, y_acc)
+        st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, torch.where(icin, 0, 2)))
+        st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, torch.where(icin, 1, 6)))
+        st_acc = torch.where(br_a, st_a, st_b)
+
+        # ---- deposit into the cell's tile
+        in_quad = ((x >= c(_EBT)) & (x <= c(_EBT + 1))
+                   & (y >= c(_EBT + 2)) & (y <= c(_EBT + 3)))
+        dep = br_c & in_quad
+        if bool(dep.any()):
+            ix = _bin((x - c(_EBR)) * c(_EBS), nx - 1)
+            iy = _bin((y - c(_EBR + 2)) * c(_EBS + 1), ny - 1)
+            flat = (cell_base + iy * nx + ix)[dep]
+            hist.index_add_(0, flat, torch.ones_like(flat))
+
+        # ---- misses: TIR hops, FC fold-out to the OC, OC exits
+        miss_fc2 = grp_fc & ~in_hull & (state == 2)
+        miss_fc3 = grp_fc & ~in_hull & (state == 3)
+        in_r2 = region(_G_R2, n_r2, x, y)
+        fc3_to_oc = miss_fc3 & ~in_r2
+        hop = (miss_fc2 | (miss_fc3 & in_r2)
+               | (grp_oc & ~in_rect & (state == 4)))
+        miss_oc5 = grp_oc & ~in_rect & (state == 5)
+        h_phr = torch.where(miss_fc2, c(_HOP2_PH + 0), c(_HOP2_PH + 2))
+        h_phi = torch.where(miss_fc2, c(_HOP2_PH + 1), c(_HOP2_PH + 3))
+        hop_tmr = h_phr * tmr - h_phi * tmi
+        hop_tmi = h_phr * tmi + h_phi * tmr
+
+        state = torch.where(accept, st_acc, torch.where(
+            br_c | die | miss_oc5, 6, torch.where(fc3_to_oc, 4, state)))
+        x = torch.where(accept, x_acc, torch.where(hop, x + gx, x))
+        y = torch.where(accept, y_acc, torch.where(hop, y + gy, y))
+        ter = torch.where(accept, ter_n, ter)
+        tei = torch.where(accept, tei_n, tei)
+        tmr = torch.where(accept, tmr_n, torch.where(hop, hop_tmr, tmr))
+        tmi = torch.where(accept, tmi_n, torch.where(hop, hop_tmi, tmi))
+        cos_th = torch.where(accept, cos_n, cos_th)
+        gx = torch.where(accept, gx_n, gx)
+        gy = torch.where(accept, gy_n, gy)
+
+    nb = torch.stack([bounces, iters, spawned, torch.zeros_like(bounces)],
+                     dim=1).to(torch.int32)
+    return hist.to(torch.float32).reshape(C, ny, nx), nb
+
+
+# ---------------------------------------------------------------------------
+
+
+class PersistentTracer(nn.Module):
+    """The persistent trace bound to one design: cell rows and the geometry
+    row held as buffers on the module's device."""
+
+    def __init__(self, cell_params: np.ndarray, geom_row: np.ndarray, *,
+                 num_fc: int, num_oc: int, edge_counts: Sequence[int],
+                 eyebox_bins: Sequence[int], max_iters: int):
+        super().__init__()
+        cp, gr = rows_to_device(cell_params, geom_row, "cpu")
+        self.register_buffer("cell_params", cp)
+        self.register_buffer("geom_row", gr)
+        self.num_fc, self.num_oc = int(num_fc), int(num_oc)
+        self.edge_counts = tuple(int(e) for e in edge_counts)
+        self.eyebox_bins = tuple(int(b) for b in eyebox_bins)
+        self.max_iters = int(max_iters)
+
+    def forward(self, start: int, count: int, rays_in: torch.Tensor,
+                rng_in: torch.Tensor, ctrl: torch.Tensor):
+        """Trace cells ``start .. start + count`` (a contiguous cid run)."""
+        return persistent_trace(
+            self.cell_params[start:start + count], self.geom_row, rays_in,
+            rng_in, ctrl, num_fc=self.num_fc, num_oc=self.num_oc,
+            edge_counts=self.edge_counts, eyebox_bins=self.eyebox_bins,
+            max_iters=self.max_iters)
+
+
+def hist_tiles_to_histogram(hist_tiles: torch.Tensor, cell_ids: np.ndarray,
+                            L: int, M: int, N: int, ny: int,
+                            nx: int) -> torch.Tensor:
+    """(C, ny, >= nx) tiles of cells ``cell_ids`` -> (L, N, M, ny, nx)
+    eyebox histogram on the tiles' device; cells not in ``cell_ids`` stay 0.
+    Tiles wider than ``nx`` (the JAX kernel's 128-lane padding) are cut."""
+    tiles = hist_tiles[:, :, :nx]
+    cid = torch.as_tensor(np.asarray(cell_ids), dtype=torch.int64,
+                          device=tiles.device)
+    flat = tiles.new_zeros((L * M * N, ny, nx))
+    flat.index_copy_(0, cid, tiles)
+    return flat.reshape(L, M, N, ny, nx).permute(0, 2, 1, 3, 4).contiguous()
