@@ -1,25 +1,31 @@
-"""Command-line interface of the port: the ``simulate`` subcommand.
+"""Command-line interface of the port: the ``simulate`` and ``sweep``
+subcommands.
 
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch simulate [...]
+    python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch sweep [...]
 
-The defaults run the main path: the paper design at the reference workload
-(100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations folded into
-one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins) on
-``--device cuda``.
+``simulate``'s defaults run the main path: the paper design at the reference
+workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
+folded into one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins).
+``sweep``'s run the JAX package's ``sweep --engine pallas_persistent``: 8
+coupler periods over 370-405 nm, 256 rays per FoV, gens spawn saturated to
+iteration 256, a 2,048-bounce bound, 100 x 75 FoV.  Both run on
+``--device cuda`` unless ``--device cpu`` asks for the plain PyTorch trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import sys
+import time
 
 import numpy as np
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.models import presets
-
 from .config import TraceConfig
+from .models import presets
 
 
 def _design(args):
@@ -61,6 +67,127 @@ def _check_image_writer() -> None:
                              "neither is installed (drop --image)")
 
 
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--design", default="paper_default",
+                   choices=sorted(presets.PRESETS), help="design preset")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="FIELD=VALUE",
+                   help="override a WaveguideDesign field (repeatable)")
+    p.add_argument("--fov-x", type=int, default=100, help="FoV grid columns")
+    p.add_argument("--fov-y", type=int, default=75, help="FoV grid rows")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' runs the CUDA kernel; 'cpu' its plain "
+                        "PyTorch version")
+
+
+def sweep_designs(args):
+    """The design list of ``sweep``: a Cartesian grid of ``--sweep
+    FIELD=MIN:MAX:N`` axes, else ``--num-designs`` coupler periods (both
+    gratings) over ``--period-min .. --period-max``; returns the designs and
+    the swept field names."""
+    base = _design(args)
+    if not args.sweep:
+        periods = np.linspace(args.period_min, args.period_max,
+                              args.num_designs)
+        return [dataclasses.replace(base, lambda_ic=float(p),
+                                    lambda_oc=float(p))
+                for p in periods], ["lambda_ic"]
+    fields = {f.name for f in dataclasses.fields(base)}
+    axes, conv = [], {}
+    for spec in args.sweep:
+        key, sep, rng = spec.partition("=")
+        parts = rng.split(":")
+        if not sep or key not in fields or len(parts) != 3:
+            raise SystemExit(f"--sweep expects FIELD=MIN:MAX:N over a "
+                             f"WaveguideDesign field; got {spec!r}")
+        cur = getattr(base, key)
+        # bool before int: bool is an int subclass
+        if isinstance(cur, (tuple, bool)):
+            raise SystemExit(f"--sweep {key}: {type(cur).__name__}-valued "
+                             "fields cannot sweep over a linspace; use --set "
+                             "per run")
+        conv[key] = int if isinstance(cur, int) else float
+        vals = np.linspace(float(parts[0]), float(parts[1]), int(parts[2]))
+        if conv[key] is int:
+            # integer fields (num_fc, num_oc, ...) take the unique rounded
+            # grid points
+            vals = np.unique(np.rint(vals).astype(int))
+        axes.append((key, vals))
+    keys = [k for k, _ in axes]
+    designs = [dataclasses.replace(base, **{k: conv[k](v)
+                                            for k, v in zip(keys, vals)})
+               for vals in itertools.product(*(v for _, v in axes))]
+    return designs, keys
+
+
+def sweep_config(args) -> TraceConfig:
+    """The trace configuration of ``sweep``."""
+    return TraceConfig(num_fov_x=args.fov_x, num_fov_y=args.fov_y,
+                       rays_per_fov=args.rays_per_fov,
+                       max_bounces=args.max_bounces, seed=args.seed)
+
+
+def cmd_sweep(args) -> int:
+    from .sweep import SweepResult, run_design_sweep_persistent
+
+    designs, keys = sweep_designs(args)
+    cfg = sweep_config(args)
+
+    def run(group):
+        return run_design_sweep_persistent(
+            group, cfg, spawn_iters=args.spawn_iters,
+            spawn_mode=args.spawn_mode, slots=args.slots,
+            evaluate_metrics=args.metrics, device=args.device)
+
+    # one launch must share strip counts; a sweep over num_fc / num_oc
+    # groups designs by count and stitches results back in design order
+    t0 = time.perf_counter()
+    by_counts = {}
+    for i, d in enumerate(designs):
+        by_counts.setdefault((d.num_fc, d.num_oc), []).append(i)
+    if len(by_counts) == 1:
+        res = run(designs)
+    else:
+        eff = np.empty((len(designs), 3))
+        bounces = np.empty(len(designs), np.int64)
+        mets = [None] * len(designs)
+        for idxs in by_counts.values():
+            r = run([designs[i] for i in idxs])
+            eff[idxs] = r.efficiencies
+            bounces[idxs] = r.bounces
+            for j, i in enumerate(idxs):
+                mets[i] = r.metrics[j] if r.metrics is not None else None
+        res = SweepResult(designs=designs, histograms=None, efficiencies=eff,
+                          bounces=bounces,
+                          metrics=mets if args.metrics else None)
+    wall = time.perf_counter() - t0
+    print(f"{len(designs)} designs in {wall:.2f} s "
+          f"({len(designs) / wall * 3600:,.0f} designs/hour, "
+          f"{int(res.bounces.sum()):,} bounces)")
+
+    def label(d):
+        return " ".join(f"{k}={getattr(d, k):.4g}" for k in keys)
+
+    for i, (d, eff) in enumerate(zip(res.designs, res.efficiencies)):
+        line = (f"{label(d)} -> efficiency B/G/R = "
+                f"{eff[0]*100:6.3f}% {eff[1]*100:6.3f}% {eff[2]*100:6.3f}%")
+        if res.metrics is not None:
+            m = res.metrics[i]
+            line += (f"  dE={m.delta_e:6.2f} u_fov={m.u_fov:.4f} "
+                     f"u_eb={m.u_eyebox:.4f}")
+        print(line)
+    best = int(np.argmax(res.efficiencies.mean(axis=1)))
+    print(f"best mean efficiency: design {best} ({label(res.designs[best])})")
+    if res.metrics is not None:
+        best_de = min(range(len(res.metrics)),
+                      key=lambda i: res.metrics[i].delta_e)
+        print(f"lowest color dispersion: design {best_de} "
+              f"(dE={res.metrics[best_de].delta_e:.2f}, "
+              f"{label(res.designs[best_de])})")
+    return 0
+
+
 def cmd_simulate(args) -> int:
     from .engine.pipeline import Simulator, format_report
 
@@ -76,9 +203,7 @@ def cmd_simulate(args) -> int:
     res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose)
     print(format_report(res))
     if args.image and res.metrics is not None:
-        from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.eval.image import (
-            save_eyebox_center_view,
-        )
+        from .eval.image import save_eyebox_center_view
 
         save_eyebox_center_view(args.image, res.metrics.output_image)
         print(f"Eyebox center view written to {args.image}")
@@ -103,7 +228,7 @@ def cmd_simulate(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gpu_ray_tracing_for_waveguide_based_ar_display_torch",
         description="Waveguide AR display ray tracer (PyTorch + CUDA)")
@@ -111,16 +236,9 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("simulate",
                        help="full-color Monte-Carlo simulation + metrics")
-    p.add_argument("--design", default="paper_default",
-                   choices=sorted(presets.PRESETS), help="design preset")
-    p.add_argument("--set", action="append", default=[], dest="overrides",
-                   metavar="FIELD=VALUE",
-                   help="override a WaveguideDesign field (repeatable)")
-    p.add_argument("--fov-x", type=int, default=100, help="FoV grid columns")
-    p.add_argument("--fov-y", type=int, default=75, help="FoV grid rows")
+    _add_common(p)
     p.add_argument("--luts-dir", default=None,
                    help="directory with lut_*_fullColor.npy (synthetic if absent)")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--rays-per-fov", type=int, default=5000)
     p.add_argument("--num-iter", type=int, default=4,
                    help="iterations, folded into one spawn target per cell")
@@ -131,9 +249,6 @@ def main(argv=None) -> int:
     p.add_argument("--simplify-tol", type=float, default=0.0)
     p.add_argument("--pupil-sampling", default="uniform",
                    choices=("uniform", "r2"))
-    p.add_argument("--device", default="cuda",
-                   help="'cuda' runs the CUDA kernel; 'cpu' its plain "
-                        "PyTorch version")
     p.add_argument("--image", default="",
                    help="write the eye-view PNG here (needs cv2 or PIL)")
     p.add_argument("--json", default=None, help="write metrics JSON here")
@@ -142,7 +257,37 @@ def main(argv=None) -> int:
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_simulate)
 
-    args = parser.parse_args(argv)
+    p = sub.add_parser("sweep", help="batched design sweep (default: coupler "
+                                     "period; --sweep for arbitrary fields)")
+    _add_common(p)
+    p.add_argument("--num-designs", type=int, default=8)
+    p.add_argument("--period-min", type=float, default=370.0)
+    p.add_argument("--period-max", type=float, default=405.0)
+    p.add_argument("--sweep", action="append", default=[],
+                   metavar="FIELD=MIN:MAX:N",
+                   help="sweep any WaveguideDesign field over a linspace "
+                        "(repeatable; multiple axes form a Cartesian grid), "
+                        "e.g. --sweep lambda_ic=370:405:16 "
+                        "--sweep thickness=0.5:0.9:4")
+    p.add_argument("--rays-per-fov", type=int, default=256)
+    p.add_argument("--max-bounces", type=int, default=2048)
+    p.add_argument("--spawn-iters", type=int, default=256,
+                   help="saturating-spawn budget (iterations)")
+    p.add_argument("--spawn-mode", default="gens", choices=("gens", "count"),
+                   help="count = exact per-cell sample target (set "
+                        "--spawn-iters 0 with it)")
+    p.add_argument("--slots", type=int, default=None,
+                   help="persistent lanes per cell (default "
+                        "min(rays_per_fov, 2048))")
+    p.add_argument("--metrics", action="store_true",
+                   help="also evaluate the display metrics per design on "
+                        "the device and report the lowest-dispersion design")
+    p.set_defaults(fn=cmd_sweep)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -1,32 +1,43 @@
 // Persistent-slot Monte-Carlo waveguide trace for NVIDIA Hopper (sm_90a).
 //
 // Replaces engine/trace_pallas_persistent.py::make_persistent_trace_fn of the
-// JAX package (the TPU kernel) in the main path's mode: exact parameter
-// selection, count spawn, one geometry row, one cell per block.  The plain
-// PyTorch version of the same function is
+// JAX package (the TPU kernel) with exact parameter selection and one cell
+// per block, in both spawn modes and with per-design geometry rows.  The
+// plain PyTorch version of the same function is
 // engine/trace_persistent.py::persistent_trace_reference; the two use the same
 // float32 operations in the same order.  Build with -fmad=false so that no
 // multiply-add is contracted: then both give identical histograms and counts.
 //
-// Design (one thread block per (wavelength, FoV) cell):
-//   * the cell row (704 floats), the geometry row (320 floats), the state of
-//     every slot (11 words each) and the cell's (ny, nx) histogram of integer
-//     counts live in dynamic shared memory; each thread owns S / blockDim
-//     slots, strided by blockDim;
-//   * iterations run in lockstep across the block, as the TPU kernel's
-//     count-spawn schedule does: at the start of iteration `it` a dead slot
-//     respawns if the cell's spawn count, as it stood at the start of the
-//     iteration, is below ctrl[0], or if it < ctrl[1]; the count starts at S
-//     and grows by warp-reduced shared atomics; the block stops when every
-//     slot is dead and the target is met, or at max_iters;
+// Design (one thread block per (design, wavelength, FoV) cell):
+//   * the cell row (704 floats), the cell's design's geometry row (320
+//     floats), the state of every slot (12 words each) and the cell's
+//     (ny, nx) histogram of integer counts live in dynamic shared memory;
+//     each thread owns S / blockDim slots, strided by blockDim;
+//   * the grid is D contiguous runs of cpd = C / D cells: block `cell` reads
+//     geometry row cell / cpd, launch tile cell / rays_div and seed block
+//     cell % rng_mod, so one tile per design and one seed block shared by
+//     every design serve a whole sweep chunk without copies;
+//   * count spawn (gens_mode 0): iterations run in lockstep across the
+//     block, as the TPU kernel's count-spawn schedule does: at the start of
+//     iteration `it` a dead slot respawns if the cell's spawn count, as it
+//     stood at the start of the iteration, is below ctrl[0], or if
+//     it < ctrl[1]; the count starts at S and grows by warp-reduced shared
+//     atomics; the block stops when every slot is dead and the target is
+//     met, or at max_iters;
+//   * gens spawn (gens_mode 1): each slot carries its own generation count
+//     (1 after the first spawn); a dead slot respawns while gen < ctrl[0] or
+//     it < ctrl[1] (saturating spawn), and the block stops when every slot is
+//     dead with gen >= ctrl[0] and it >= ctrl[1], or at max_iters; nb[2] is
+//     the sum of the slots' generations;
 //   * FC / OC strip records are read by index (the TPU kernel's one-hot
 //     selection gives the same values); edge loops stop at the region's real
 //     edge count;
 //   * a deposit is an integer atomicAdd into the shared tile: exact and
 //     independent of order; the tile is written out once.
-// What bounds it: per-lane divergent ALU work and two block barriers per
-// iteration.  It reads its rows and rays once and writes one tile, so HBM
-// traffic is negligible.
+// What bounds it: per-lane divergent ALU work, block barriers (two per
+// iteration in count mode, one in gens mode) and, in saturating spawn, the
+// drain tail after ctrl[1].  It reads its rows and rays once and writes one
+// tile, so HBM traffic is small beside the ALU work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +48,7 @@ constexpr int MAX_EDGES = 24;
 constexpr int PC = 704;
 constexpr int PG = 320;
 constexpr int ZPAD = 8;  // zero floats after the cell row: "no record"
-constexpr int STATE_WORDS = 11;
+constexpr int STATE_WORDS = 12;
 
 // cell row layout (engine/trace_rows.py)
 constexpr int INIT_JA = 0, INIT_JB = 8, INIT_SA = 16, INIT_SB = 17,
@@ -52,13 +63,13 @@ constexpr int G_FC_ROT = 0, G_FC_TOP = 2, G_FC_INVW = 3, G_OC_ROT = 4,
 
 struct Args {
   const float* cell_params;  // (C, PC)
-  const float* geom_row;     // (1, PG)
-  const float* rays_in;      // (C or 1, 6, S)
-  int rays_per_cell;         // 1: one tile per cell; 0: one shared tile
-  const uint32_t* rng_in;    // (C, S)
-  const int* ctrl;           // (2,) [spawn target, spawn_iters]
+  const float* geom_row;     // (D, PG), row cell / cpd
+  const float* rays_in;      // (C / rays_div, 6, S), tile cell / rays_div
+  const uint32_t* rng_in;    // (rng_mod, S), block cell % rng_mod
+  const int* ctrl;           // (2,) [target or generations, spawn_iters]
   float* hist;               // (C, ny, nx)
   int* nb;                   // (C, 4) [bounces, iterations, spawned, 0]
+  int cpd, rays_div, rng_mod;
   int S, num_fc, num_oc, n_hull, n_r1, n_r2, ny, nx, max_iters;
 };
 
@@ -111,6 +122,9 @@ __device__ __forceinline__ bool in_ic(const float* g, float px, float py) {
   return dx * dx + dy * dy <= g[G_IC + 2];
 }
 
+// GENS selects the spawn mode at compile time: the count path carries no
+// per-slot test of the mode (one library, two instantiations)
+template <bool GENS>
 __global__ void __launch_bounds__(512)
 persistent_trace_kernel(Args a) {
   extern __shared__ float smem[];
@@ -130,18 +144,21 @@ persistent_trace_kernel(Args a) {
   float* s_gy = s_gx + S;
   int* s_state = reinterpret_cast<int*>(s_gy + S);
   uint32_t* s_rng = reinterpret_cast<uint32_t*>(s_state + S);
+  int* s_gen = reinterpret_cast<int*>(s_rng + S);
   __shared__ int s_spawned;
   __shared__ int s_bounces;
 
   const int cell = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  constexpr bool gens_mode = GENS;
   const float* crow = a.cell_params + (size_t)cell * PC;
-  const float* rays = a.rays_in + (size_t)(a.rays_per_cell ? cell : 0) * 6 * S;
-  const uint32_t* seeds = a.rng_in + (size_t)cell * S;
+  const float* grow = a.geom_row + (size_t)(cell / a.cpd) * PG;
+  const float* rays = a.rays_in + (size_t)(cell / a.rays_div) * 6 * S;
+  const uint32_t* seeds = a.rng_in + (size_t)(cell % a.rng_mod) * S;
 
   for (int j = tid; j < PC + ZPAD; j += nt) cp[j] = j < PC ? crow[j] : 0.0f;
-  for (int j = tid; j < PG; j += nt) g[j] = a.geom_row[j];
+  for (int j = tid; j < PG; j += nt) g[j] = grow[j];
   for (int j = tid; j < ny * nx; j += nt) tile[j] = 0u;
   for (int i = tid; i < S; i += nt) {
     s_x[i] = rays[i];
@@ -155,12 +172,15 @@ persistent_trace_kernel(Args a) {
     s_gy[i] = 0.0f;
     s_state[i] = 7;  // awaiting (re)spawn
     s_rng[i] = seeds[i];
+    if (gens_mode) s_gen[i] = 1;    // the first spawn is generation 1
   }
   if (tid == 0) {
-    s_spawned = S;  // every slot's first spawn counts toward the target
+    // count mode: every slot's first spawn counts toward the target;
+    // gens mode: the generations are summed at the end
+    s_spawned = gens_mode ? 0 : S;
     s_bounces = 0;
   }
-  const int target = a.ctrl[0];
+  const int quota = a.ctrl[0];
   const int spawn_iters = a.ctrl[1];
   const float* zeros = cp + PC;
   __syncthreads();
@@ -168,12 +188,15 @@ persistent_trace_kernel(Args a) {
   int my_bounces = 0;
   int it = 0;
   for (;;) {
-    const int sp = s_spawned;
+    const int sp = gens_mode ? 0 : s_spawned;
     int running = 0;
     for (int i = tid; i < S; i += nt) {
-      if (!(s_state[i] == 6 && sp >= target && it >= spawn_iters)) running = 1;
+      const bool met = gens_mode ? s_gen[i] >= quota : sp >= quota;
+      if (!(s_state[i] == 6 && met && it >= spawn_iters)) running = 1;
     }
-    // barrier: every thread has read `sp` before any thread adds to it
+    // In count mode this barrier also makes every thread read `sp` before
+    // any thread adds to it.  Gens mode needs no other barrier: a thread
+    // reads and writes only the slots it owns.
     running = __syncthreads_or(running);
     if (!running || it >= a.max_iters) break;
 
@@ -186,9 +209,17 @@ persistent_trace_kernel(Args a) {
       float cos_th = s_cos[i], gx = s_gx[i], gy = s_gy[i];
 
       // ---- respawn
-      if (state == 6 && (sp < target || it < spawn_iters)) {
-        state = 7;
-        ++my_respawns;
+      if (state == 6) {
+        if (gens_mode) {
+          const int gen = s_gen[i];
+          if (gen < quota || it < spawn_iters) {
+            state = 7;
+            s_gen[i] = gen + 1;
+          }
+        } else if (sp < quota || it < spawn_iters) {
+          state = 7;
+          ++my_respawns;
+        }
       }
 
       // ---- init: first IC interaction from the slot's launch fields
@@ -372,14 +403,25 @@ persistent_trace_kernel(Args a) {
       s_gx[i] = gx;
       s_gy[i] = gy;
     }
-    const int warp_respawns = __reduce_add_sync(0xffffffffu, my_respawns);
-    if ((tid & 31) == 0 && warp_respawns) atomicAdd(&s_spawned, warp_respawns);
     ++it;
-    __syncthreads();  // the count is complete before the next read
+    if (!gens_mode) {
+      // count mode's second barrier: the spawn count is complete before the
+      // next iteration reads it (the first keeps reads before the adds)
+      const int warp_respawns = __reduce_add_sync(0xffffffffu, my_respawns);
+      if ((tid & 31) == 0 && warp_respawns)
+        atomicAdd(&s_spawned, warp_respawns);
+      __syncthreads();
+    }
   }
 
   const int warp_bounces = __reduce_add_sync(0xffffffffu, my_bounces);
   if ((tid & 31) == 0 && warp_bounces) atomicAdd(&s_bounces, warp_bounces);
+  if (gens_mode) {
+    int my_gens = 0;
+    for (int i = tid; i < S; i += nt) my_gens += s_gen[i];
+    const int warp_gens = __reduce_add_sync(0xffffffffu, my_gens);
+    if ((tid & 31) == 0) atomicAdd(&s_spawned, warp_gens);
+  }
   __syncthreads();
   float* out = a.hist + (size_t)cell * ny * nx;
   for (int j = tid; j < ny * nx; j += nt) out[j] = (float)tile[j];
@@ -396,21 +438,26 @@ persistent_trace_kernel(Args a) {
 
 extern "C" int persistent_trace_launch(
     const void* cell_params, const void* geom_row, const void* rays_in,
-    int rays_per_cell, const void* rng_in, const void* ctrl, void* hist,
-    void* nb, int C, int S, int num_fc, int num_oc, int n_hull, int n_r1,
-    int n_r2, int ny, int nx, int max_iters, int threads, void* stream) {
+    const void* rng_in, const void* ctrl, void* hist, void* nb, int C,
+    int cpd, int rays_div, int rng_mod, int gens_mode, int S, int num_fc,
+    int num_oc, int n_hull, int n_r1, int n_r2, int ny, int nx, int max_iters,
+    int threads, void* stream) {
   if (C <= 0) return 0;
   if (threads <= 0 || threads > 512 || threads % 32 != 0 || S % threads != 0)
+    return (int)cudaErrorInvalidValue;
+  if (cpd <= 0 || C % cpd != 0 || rays_div <= 0 || rng_mod <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.cell_params = static_cast<const float*>(cell_params);
   a.geom_row = static_cast<const float*>(geom_row);
   a.rays_in = static_cast<const float*>(rays_in);
-  a.rays_per_cell = rays_per_cell;
   a.rng_in = static_cast<const uint32_t*>(rng_in);
   a.ctrl = static_cast<const int*>(ctrl);
   a.hist = static_cast<float*>(hist);
   a.nb = static_cast<int*>(nb);
+  a.cpd = cpd;
+  a.rays_div = rays_div;
+  a.rng_mod = rng_mod;
   a.S = S;
   a.num_fc = num_fc;
   a.num_oc = num_oc;
@@ -423,12 +470,12 @@ extern "C" int persistent_trace_launch(
   const size_t smem =
       sizeof(float) * ((size_t)PC + ZPAD + PG + (size_t)ny * nx +
                        (size_t)STATE_WORDS * S);
+  void (*kernel)(Args) = gens_mode ? persistent_trace_kernel<true>
+                                    : persistent_trace_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      persistent_trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  persistent_trace_kernel<<<C, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

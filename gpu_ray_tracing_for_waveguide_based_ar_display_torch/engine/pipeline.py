@@ -3,8 +3,8 @@
 Port of ``engine/pipeline.py`` of the JAX package, restricted to its
 persistent count-spawn path with folded iterations (``engine=
 "pallas_persistent", spawn_mode="count", fold_iterations=True``).  The design
-geometry, LUTs, cell tables, trace geometry and host metrics come from the
-JAX package's numpy modules unchanged; the trace runs through
+geometry, LUTs, cell tables, trace geometry and host metrics are the port's
+own copies of the JAX package's numpy modules; the trace runs through
 :func:`.trace_persistent.persistent_trace` on ``device``: the CUDA kernel on a
 GPU, its plain PyTorch version on the CPU.
 """
@@ -18,25 +18,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design.geometry import (
-    DesignGeometry, generate_geometry,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.engine.trace_geometry import (
-    build_trace_geometry,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.eval.metrics import (
-    EvalResult, efficiencies, evaluate,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.luts.io import (
-    load_or_synthesize,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.luts.packing import (
-    build_cell_tables,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.luts.schema import RcwaLuts
-
 from ..config import EvalConfig, TraceConfig, WaveguideDesign
+from ..design.geometry import DesignGeometry, generate_geometry
+from ..eval.metrics import EvalResult, efficiencies, evaluate
+from ..luts.io import load_or_synthesize
+from ..luts.packing import build_cell_tables
+from ..luts.schema import RcwaLuts
 from . import seeding, trace_persistent, trace_rows
+from .trace_geometry import build_trace_geometry
 from .trace_persistent import PersistentTracer, hist_tiles_to_histogram
 
 

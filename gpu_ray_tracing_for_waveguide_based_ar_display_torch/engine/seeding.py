@@ -13,14 +13,9 @@ from typing import Optional
 
 import numpy as np
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design.convex import (
-    point_in_polygon,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design.geometry import (
-    DesignGeometry,
-)
-
 from ..config import TraceConfig
+from ..design.convex import point_in_polygon
+from ..design.geometry import DesignGeometry
 from ..ops import rng as rng_ops
 
 _PLASTIC = 1.32471795724474602596  # plastic number, root of x^3 = x + 1

@@ -2,27 +2,41 @@
 plain PyTorch version.
 
 Replaces ``engine/trace_pallas_persistent.py::make_persistent_trace_fn`` of
-the JAX package in the mode the main path runs: exact ("fma") parameter
-selection, count spawn, one geometry row, one cell per block.
+the JAX package with exact ("fma") parameter selection and one cell per
+block, in both of its spawn modes and with per-design geometry rows.
 
 Each cell owns ``S = RT * 128`` slots.  A slot walks the state machine
-IC 0/1, FC 2/3, OC 4/5, dead 6, awaiting respawn 7.  At the start of
-iteration ``it`` every dead slot respawns if the cell's spawn count, as it
-stood at the start of the iteration, is below the target ``ctrl[0]``, or if
-``it < ctrl[1]``; the count starts at ``S`` and grows by the respawns.  A
-cell stops when every slot is dead and the target is met, or at
-``max_iters``.  Out-coupled rays inside the cell's eyebox rectangle add one
-to its ``(ny, nx)`` tile.
+IC 0/1, FC 2/3, OC 4/5, dead 6, awaiting respawn 7.  Out-coupled rays inside
+the cell's eyebox rectangle add one to its ``(ny, nx)`` tile.  Dead slots
+respawn under the runtime ``ctrl = [quota, spawn_iters]``:
+
+- ``spawn_mode="count"``: at the start of iteration ``it`` every dead slot
+  respawns if the cell's spawn count, as it stood at the start of the
+  iteration, is below the target ``ctrl[0]``, or if ``it < ctrl[1]``; the
+  count starts at ``S`` and grows by the respawns.  A cell stops when every
+  slot is dead and the target is met, or at ``max_iters``.
+- ``spawn_mode="gens"``: each slot counts its own generations (the first
+  spawn is generation 1) and a dead slot respawns while ``gen < ctrl[0]`` or
+  ``it < ctrl[1]`` (saturating spawn).  A cell stops when every slot is dead
+  with ``gen >= ctrl[0]`` and ``it >= ctrl[1]``, or at ``max_iters``.
+  ``nb[:, 2]`` is the sum of the slots' generations.
+
+The cells may belong to ``D`` designs: ``geom_row`` is ``(D, PG)`` and the
+cells are D contiguous runs of ``cpd = C / D``; cell ``c`` reads geometry
+row ``c // cpd``.  Launch tiles come per cell, per design or one for all;
+seed blocks per cell or one ``(cpd, RT, 128)`` block shared by every design
+(cell ``c`` reads block ``c % cpd``).
 
 The kernel (``csrc/persistent_trace.cu``) runs one thread block per cell.
 What bounds it on an H100: per-lane divergent ALU work (region tests, Jones
-products, the branch roulette), a block-wide barrier twice per iteration, and
+products, the branch roulette), block-wide barriers (two per iteration in
+count mode, one in gens mode), the drain tail of saturating spawn, and
 shared-memory atomics for deposits; it reads its rows and rays once and
-writes one tile, so it moves almost no HBM traffic.  Its design answers
-that: slot state, cell row, geometry row and the integer tile all live in
-shared memory; strip records are read by index instead of the TPU's one-hot
-selection; the loops over half-plane edges stop at each region's real edge
-count; and deposits are integer ``atomicAdd``s, exact and order-free.
+writes one tile.  Its design answers that: slot state, cell row, geometry
+row and the integer tile all live in shared memory; strip records are read
+by index instead of the TPU's one-hot selection; the loops over half-plane
+edges stop at the given edge counts; and deposits are integer
+``atomicAdd``s, exact and order-free.
 
 Both versions use the same float32 operations in the same order, with no
 fused multiply-add (the kernel is built with ``-fmad=false``) and
@@ -52,6 +66,9 @@ MAX_FC = (_OC_BLK - _FC_BLK) // _FC_STRIDE   # strips the cell row has room for
 MAX_OC = (_EBT - _OC_BLK) // _OC_STRIDE
 _SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
 _MASK32 = 0xFFFFFFFF
+# the C parameters of persistent_trace_launch, in order: 7 pointers, 15 ints
+# and the stream
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p]
 
 # kernel launches by wrapper name; the wrapper adds one per launch and
 # nothing else touches it except reset_launch_counts
@@ -71,14 +88,22 @@ def block_threads(slots: int) -> int:
     raise ValueError(f"slots ({slots}) must be a multiple of {LANES}")
 
 
+SPAWN_MODES = ("count", "gens")
+_STATE_WORDS = 12   # words of slot state in shared memory (the kernel's)
+
+
 def shared_bytes(slots: int, eyebox_bins: Sequence[int]) -> int:
     """Dynamic shared memory of one block (must match the kernel's layout)."""
     ny, nx = eyebox_bins
-    return 4 * (PC + 8 + PG + ny * nx + 11 * slots)
+    return 4 * (PC + 8 + PG + ny * nx + _STATE_WORDS * slots)
 
 
 def _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
-                  edge_counts, eyebox_bins, max_iters) -> Tuple[int, int]:
+                  edge_counts, eyebox_bins, max_iters,
+                  spawn_mode) -> Tuple[int, int, int, int, int]:
+    """Validate the launch; returns ``(C, S, cpd, rays_div, rng_mod)``: cell
+    ``c`` reads geometry row ``c // cpd``, launch tile ``c // rays_div`` and
+    seed block ``c % rng_mod``."""
     dev = cell_params.device
     for name, t, dt in (("cell_params", cell_params, torch.float32),
                         ("geom_row", geom_row, torch.float32),
@@ -96,15 +121,27 @@ def _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
     if cell_params.dim() != 2 or cell_params.shape[1] != PC:
         raise ValueError(f"cell_params must be (C, {PC}), got {tuple(cell_params.shape)}")
     C = cell_params.shape[0]
-    if tuple(geom_row.shape) != (1, PG):
-        raise ValueError(f"geom_row must be (1, {PG}), got {tuple(geom_row.shape)}")
-    if rng_in.dim() != 3 or rng_in.shape[0] != C or rng_in.shape[2] != LANES:
-        raise ValueError(f"rng_in must be (C={C}, RT, {LANES}), got {tuple(rng_in.shape)}")
+    if geom_row.dim() != 2 or geom_row.shape[1] != PG or geom_row.shape[0] < 1:
+        raise ValueError(f"geom_row must be (D, {PG}), got {tuple(geom_row.shape)}")
+    D = geom_row.shape[0]
+    if C % D:
+        raise ValueError(f"cells ({C}) must split evenly over the {D} "
+                         "designs of geom_row")
+    cpd = max(C // D, 1)
+    if (rng_in.dim() != 3 or rng_in.shape[0] not in (C, cpd)
+            or rng_in.shape[2] != LANES):
+        raise ValueError(f"rng_in must be (C={C} or C/D={cpd}, RT, {LANES}), "
+                         f"got {tuple(rng_in.shape)}")
     RT = rng_in.shape[1]
-    if (rays_in.dim() != 4 or rays_in.shape[0] not in (1, C)
+    if (rays_in.dim() != 4 or rays_in.shape[0] not in (1, D, C)
             or tuple(rays_in.shape[1:]) != (6, RT, LANES)):
-        raise ValueError(f"rays_in must be (1 or C, 6, {RT}, {LANES}), "
-                         f"got {tuple(rays_in.shape)}")
+        raise ValueError(f"rays_in must be (R, 6, {RT}, {LANES}) with R = 1, "
+                         f"D={D} or C={C}, got {tuple(rays_in.shape)}")
+    rays_div = {C: 1, D: cpd, 1: max(C, 1)}[rays_in.shape[0]]
+    rng_mod = max(rng_in.shape[0], 1)
+    if spawn_mode not in SPAWN_MODES:
+        raise ValueError(f"spawn_mode must be one of {SPAWN_MODES}, "
+                         f"got {spawn_mode!r}")
     if tuple(ctrl.shape) != (2,):
         raise ValueError(f"ctrl must be (2,), got {tuple(ctrl.shape)}")
     if not (1 <= num_fc <= MAX_FC and 1 <= num_oc <= MAX_OC):
@@ -116,23 +153,28 @@ def _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
         raise ValueError(f"bad eyebox_bins {eyebox_bins}")
     if max_iters < 1:
         raise ValueError("max_iters must be positive")
-    return C, RT * LANES
+    return C, RT * LANES, cpd, rays_div, rng_mod
 
 
 def persistent_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
                      rays_in: torch.Tensor, rng_in: torch.Tensor,
                      ctrl: torch.Tensor, *, num_fc: int, num_oc: int,
                      edge_counts: Sequence[int], eyebox_bins: Sequence[int],
-                     max_iters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                     max_iters: int, spawn_mode: str = "count",
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trace every cell of the batch; returns ``(hist, nb)``.
 
-    - ``cell_params`` (C, 704) f32 and ``geom_row`` (1, 320) f32: the rows of
-      :mod:`.trace_rows`.
-    - ``rays_in`` (C or 1, 6, RT, 128) f32: launch fields (x, y, ter, tei,
-      tmr, tmi) of every slot, also its respawn values; one tile may serve
-      every cell.
-    - ``rng_in`` (C, RT, 128) int32: per-slot xorshift32 seeds (uint32 bits).
-    - ``ctrl`` (2,) int32: ``[spawn target per cell, spawn_iters]``.
+    - ``cell_params`` (C, 704) f32: the cell rows of :mod:`.trace_rows`.
+    - ``geom_row`` (D, 320) f32: one geometry row per design, ``C % D == 0``;
+      the cells are D contiguous runs of ``cpd = C / D``.
+    - ``rays_in`` (R, 6, RT, 128) f32 with R = C, D or 1: launch fields (x,
+      y, ter, tei, tmr, tmi) of every slot, also its respawn values: one tile
+      per cell, per design or for every cell.
+    - ``rng_in`` (C or cpd, RT, 128) int32: per-slot xorshift32 seeds (uint32
+      bits), per cell or one block shared by every design (cell ``c`` reads
+      block ``c % cpd``).
+    - ``ctrl`` (2,) int32: ``[spawn target per cell, spawn_iters]`` in count
+      mode, ``[generations per slot, spawn_iters]`` in gens mode.
     - ``hist`` (C, ny, nx) f32 deposit counts; ``nb`` (C, 4) int32
       ``[bounces, iterations, spawned, 0]`` (the last column keeps the JAX
       kernel's overflow slot, always 0 here).
@@ -140,14 +182,15 @@ def persistent_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
     A CPU tensor runs :func:`persistent_trace_reference`; a CUDA tensor
     launches the kernel or raises.
     """
-    C, S = _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc,
-                         num_oc, edge_counts, eyebox_bins, max_iters)
+    C, S, cpd, rays_div, rng_mod = _check_inputs(
+        cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
+        edge_counts, eyebox_bins, max_iters, spawn_mode)
     dev = cell_params.device
     if dev.type == "cpu":
         return persistent_trace_reference(
             cell_params, geom_row, rays_in, rng_in, ctrl, num_fc=num_fc,
             num_oc=num_oc, edge_counts=edge_counts, eyebox_bins=eyebox_bins,
-            max_iters=max_iters)
+            max_iters=max_iters, spawn_mode=spawn_mode)
     if dev.type != "cuda":
         raise ValueError(f"persistent_trace runs on cpu or cuda, not {dev}")
     if not torch.cuda.is_available():
@@ -167,8 +210,9 @@ def persistent_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.persistent_trace_launch(
             cell_params.data_ptr(), geom_row.data_ptr(), rays_in.data_ptr(),
-            int(rays_in.shape[0] == C), rng_in.data_ptr(), ctrl.data_ptr(),
-            hist.data_ptr(), nb.data_ptr(), C, S, num_fc, num_oc,
+            rng_in.data_ptr(), ctrl.data_ptr(), hist.data_ptr(),
+            nb.data_ptr(), C, cpd, rays_div, rng_mod,
+            int(spawn_mode == "gens"), S, num_fc, num_oc,
             *(int(e) for e in edge_counts), ny, nx, int(max_iters),
             block_threads(S), stream)
     if err != 0:
@@ -187,11 +231,9 @@ def load_kernel():
     global _LIB
     if _LIB is None:
         lib = build.load_library("persistent_trace")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.persistent_trace_launch.argtypes = (
-            [p, p, p, i, p, p, p, p] + [i] * 11 + [p])
-        lib.persistent_trace_launch.restype = i
-        lib.persistent_trace_error_string.argtypes = [i]
+        lib.persistent_trace_launch.argtypes = LAUNCH_ARGTYPES
+        lib.persistent_trace_launch.restype = ctypes.c_int
+        lib.persistent_trace_error_string.argtypes = [ctypes.c_int]
         lib.persistent_trace_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -225,22 +267,29 @@ def _bin(v, hi: int):
 
 def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
                                num_fc, num_oc, edge_counts, eyebox_bins,
-                               max_iters):
+                               max_iters, spawn_mode="count"):
     """The kernel's function in plain tensor code: the same state machine
-    vectorised over a (C, S) slot tensor, with the same lockstep count spawn.
-    Same signature and outputs as :func:`persistent_trace`."""
-    C, S = _check_inputs(cell_params, geom_row, rays_in, rng_in, ctrl, num_fc,
-                         num_oc, edge_counts, eyebox_bins, max_iters)
+    vectorised over a (C, S) slot tensor, with the same lockstep spawn
+    schedule.  Same signature and outputs as :func:`persistent_trace`."""
+    C, S, cpd, rays_div, rng_mod = _check_inputs(
+        cell_params, geom_row, rays_in, rng_in, ctrl, num_fc, num_oc,
+        edge_counts, eyebox_bins, max_iters, spawn_mode)
     dev = cell_params.device
     ny, nx = eyebox_bins
     n_hull, n_r1, n_r2 = (int(e) for e in edge_counts)
-    target, spawn_iters = (int(v) for v in ctrl.tolist())
+    quota, spawn_iters = (int(v) for v in ctrl.tolist())
+    gens_mode = spawn_mode == "gens"
     f32, i64 = torch.float32, torch.int64
 
     cp = cell_params
     # 8 zero columns past the row: the "no site" and "no branch C" records
     cpz = torch.cat([cp, torch.zeros((C, 8), dtype=f32, device=dev)], dim=1)
-    g = geom_row[0]
+    cells = torch.arange(C, device=dev)
+    # each cell's design's geometry row, (C, PG); g(j) is a (C, 1) column
+    grows = geom_row.index_select(0, cells // cpd)
+
+    def g(j):
+        return grows[:, j:j + 1]
 
     def c(j):
         return cp[:, j:j + 1]
@@ -251,17 +300,18 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
     def region(base, n, x, y):
         inside = torch.ones_like(x, dtype=torch.bool)
         for e in range(n):
-            inside = inside & (x * g[base + e] + y * g[base + MAX_EDGES + e]
-                               <= g[base + 2 * MAX_EDGES + e])
+            inside = inside & (x * g(base + e) + y * g(base + MAX_EDGES + e)
+                               <= g(base + 2 * MAX_EDGES + e))
         return inside
 
     def in_ic(px, py):
-        dx = px - g[_G_IC]
-        dy = py - g[_G_IC + 1]
-        return dx * dx + dy * dy <= g[_G_IC + 2]
+        dx = px - g(_G_IC)
+        dy = py - g(_G_IC + 1)
+        return dx * dx + dy * dy <= g(_G_IC + 2)
 
-    rays = rays_in.reshape(rays_in.shape[0], 6, S)
-    x0, y0, ter0, tei0, tmr0, tmi0 = (rays[:, k].expand(C, S) for k in range(6))
+    rays = rays_in.reshape(rays_in.shape[0], 6, S).index_select(
+        0, cells // rays_div)
+    x0, y0, ter0, tei0, tmr0, tmi0 = (rays[:, k] for k in range(6))
 
     # per-slot init constants: every (re)spawn starts from the same fields
     pa0 = _jones([c(_INIT_JA + k) for k in range(8)], ter0, tei0, tmr0, tmi0)
@@ -290,7 +340,9 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
     gx = torch.zeros((C, S), dtype=f32, device=dev)
     gy = torch.zeros_like(gx)
     state = torch.full((C, S), 7, dtype=i64, device=dev)
-    rng = rng_in.reshape(C, S).to(i64) & _MASK32
+    rng = (rng_in.reshape(rng_mod, S).index_select(0, cells % rng_mod).to(i64)
+           & _MASK32)
+    gen = torch.ones((C, S), dtype=i64, device=dev)   # first spawn: gen 1
     bounces = torch.zeros((C,), dtype=i64, device=dev)
     spawned = torch.full((C,), S, dtype=i64, device=dev)
     iters = torch.full((C,), max_iters, dtype=i64, device=dev)
@@ -300,8 +352,8 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
     zero_off = torch.full((C, S), PC, dtype=i64, device=dev)
 
     for it in range(max_iters):
-        exhausted = ((state == 6) & (spawned[:, None] >= target)
-                     & (it >= spawn_iters))
+        met = gen >= quota if gens_mode else spawned[:, None] >= quota
+        exhausted = (state == 6) & met & (it >= spawn_iters)
         now_done = exhausted.all(dim=1) & ~done
         iters = torch.where(now_done, it, iters)
         done = done | now_done
@@ -309,9 +361,13 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
             break
         # a finished cell's body is a no-op (nothing respawns, nothing lives)
 
-        # ---- respawn, decided on the spawn count at the iteration's start
-        rs = (state == 6) & ((spawned[:, None] < target) | (it < spawn_iters))
-        spawned = spawned + rs.sum(dim=1)
+        # ---- respawn, decided on the quota as it stood at the iteration's
+        # start (the cell's spawn count, or each slot's generations)
+        rs = (state == 6) & (~met | (it < spawn_iters))
+        if gens_mode:
+            gen = gen + rs
+        else:
+            spawned = spawned + rs.sum(dim=1)
         state = torch.where(rs, 7, state)
 
         # ---- init (first IC interaction) of awaiting slots
@@ -345,12 +401,12 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
         bit = state & 1
 
         in_hull = region(_G_HULL, n_hull, x, y)
-        yrot = g[_G_FC_ROT] * x + g[_G_FC_ROT + 1] * y
-        fc_strip = _bin((g[_G_FC_TOP] - yrot) * g[_G_FC_INVW], num_fc - 1)
-        yr = g[_G_OC_ROT] * x + g[_G_OC_ROT + 1] * y
-        in_rect = ((x >= g[_G_OC_BT]) & (x <= g[_G_OC_BT + 1])
-                   & (y >= g[_G_OC_BT + 2]) & (y <= g[_G_OC_BT + 3]))
-        oc_strip = _bin((g[_G_OC_TOP] - yr) * g[_G_OC_INVW], num_oc - 1)
+        yrot = g(_G_FC_ROT) * x + g(_G_FC_ROT + 1) * y
+        fc_strip = _bin((g(_G_FC_TOP) - yrot) * g(_G_FC_INVW), num_fc - 1)
+        yr = g(_G_OC_ROT) * x + g(_G_OC_ROT + 1) * y
+        in_rect = ((x >= g(_G_OC_BT)) & (x <= g(_G_OC_BT + 1))
+                   & (y >= g(_G_OC_BT + 2)) & (y <= g(_G_OC_BT + 3)))
+        oc_strip = _bin((g(_G_OC_TOP) - yr) * g(_G_OC_INVW), num_oc - 1)
         hit_fc = grp_fc & in_hull
         hit_oc = grp_oc & in_rect
         interact = grp_ic | hit_fc | hit_oc
@@ -445,6 +501,8 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
         gx = torch.where(accept, gx_n, gx)
         gy = torch.where(accept, gy_n, gy)
 
+    if gens_mode:
+        spawned = gen.sum(dim=1)
     nb = torch.stack([bounces, iters, spawned, torch.zeros_like(bounces)],
                      dim=1).to(torch.int32)
     return hist.to(torch.float32).reshape(C, ny, nx), nb

@@ -1,6 +1,6 @@
 """Kernel parameter rows and ray tiles (host numpy).
 
-The numpy half of the JAX package's ``engine/trace_pallas.py``, re-hosted
+The numpy half of the JAX package's ``engine/trace_pallas.py``, copied
 because that module imports Pallas.  The layouts are kept float for float: a
 cell row holds ``PC`` = 704 float32 values, the geometry row ``PG`` = 320, so
 the port's rows diff against the JAX package's as plain arrays.
@@ -13,12 +13,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.luts.packing import (
-    CellTables,
-)
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.engine.trace_geometry import (
-    TraceGeometry,
-)
+from ..luts.packing import CellTables
+from .trace_geometry import TraceGeometry
 
 MAX_EDGES = 24
 LANES = 128

@@ -1,0 +1,302 @@
+"""Display-metric evaluation of the eyebox radiance histogram.
+
+Port of ``evaluation`` (AR_system_evaluation_functions.py:45-163):
+pupil-masked eye-position sampling of the eyebox, pure-white drive through the display
+primary matrix, per-eye-position reconstruction, and the four headline metrics
+(CIE-2000 color dispersion vs D65, FoV uniformity, eyebox uniformity, plus the
+simulated eye-view image stack).  The host part is numpy float64, copied from
+the JAX package's ``eval/metrics.py``; the device part (:func:`pupil_conv`,
+:func:`evaluate_torch`, :func:`evaluate_batch`) is plain PyTorch in the
+stack's dtype (float32 on the card), the counterpart of the JAX package's
+jnp functions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import EvalConfig
+from . import color
+
+# Display primary response matrix (sensor RGB <- per-wavelength intensity) and its
+# XYZ counterpart; numeric constants from AR_system_evaluation_functions.py:47-57.
+DISPLAY_M = np.array(
+    [
+        [1.67430115, -0.76582385, -0.06172232],
+        [-0.12551154, 1.47840695, -0.04124377],
+        [-0.01826868, -0.13098157, 1.61444037],
+    ]
+)
+DISPLAY_M_XYZ = np.array(
+    [
+        [6.424000e-01, 1.891400e-01, 2.511000e-01],
+        [2.650000e-01, 8.849624e-01, 7.390000e-02],
+        [4.999999e-05, 3.693564e-02, 1.528100e+00],
+    ]
+)
+
+
+@dataclasses.dataclass
+class EvalResult:
+    delta_e: float           # mean CIE-2000 color dispersion vs pure white
+    u_fov: float             # field-of-view luminance uniformity, 0-1
+    u_eyebox: float          # eyebox luminance uniformity, 0-1
+    # (FoVy, FoVx, 3, n_epy, n_epx) simulated eye views; None when the caller
+    # asked evaluate(..., with_image=False)
+    output_image: Optional[np.ndarray]
+    eye_luminance: np.ndarray  # (n_epy, n_epx) mean luminance per eye position
+    # eye positions with >= 1 zero-luminance FoV pixel.  Any nonzero count means
+    # u_eyebox degenerates to 0 and u_fov is biased low — the MC sample budget
+    # has not populated every (FoV, eye-position) bin yet (at the reference's
+    # default 5,000 rays/FoV x 4 iters the corner positions are starved; see
+    # tools/convergence_report.py), not that the display has a dead region.
+    starved_eye_positions: int = 0
+
+
+def pupil_mask(size: int) -> np.ndarray:
+    """Circular pupil aperture mask over ``size x size`` bins (:68-74)."""
+    radius = size / 2.0
+    yy, xx = np.ogrid[:size, :size]
+    center = radius - 0.5
+    dist = np.sqrt((xx - center) ** 2 + (yy - center) ** 2)
+    return (dist <= radius).astype(np.float64)
+
+
+def eye_perceived(matrix_eb: np.ndarray, cfg: EvalConfig) -> np.ndarray:
+    """Pupil-integrated radiance at sampled eye positions.
+
+    Returns (L, FoVy, FoVx, n_epy, n_epx).  The reference samples eye positions on a
+    stride instead of a full convolution (:91-109); with the pupil mask separable into
+    row segments this is computed as strided masked window sums.
+    """
+    mask = pupil_mask(cfg.pupil_mask_bins)
+    msize = mask.shape[0]
+    n_l, n_fy, n_fx, n_eby, n_ebx = matrix_eb.shape
+    y0s = np.arange(0, n_eby - msize + 1, cfg.eye_step_y)
+    x0s = np.arange(0, n_ebx - msize + 1, cfg.eye_step_x)
+    out = np.zeros((n_l, n_fy, n_fx, len(y0s), len(x0s)), dtype=matrix_eb.dtype)
+    for iy, y0 in enumerate(y0s):
+        for ix, x0 in enumerate(x0s):
+            patch = matrix_eb[..., y0 : y0 + msize, x0 : x0 + msize]
+            out[..., iy, ix] = np.einsum("...yx,yx->...", patch, mask)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# device metrics (plain PyTorch on the perception stack's device, float32)
+
+
+def pupil_conv(m: torch.Tensor, mask: torch.Tensor,
+               stride: Tuple[int, int]) -> torch.Tensor:
+    """Pupil-window integration over the trailing two (eyebox) axes.
+
+    One VALID ``conv2d`` with the pupil disc as kernel; leading axes are
+    flattened into the conv batch.  The counterpart of the JAX package's
+    ``pupil_conv`` (one ``lax.conv_general_dilated``).  TF32 is off for the
+    call, so a float32 stack is summed in float32 on the card as well.
+    """
+    lead = tuple(m.shape[:-2])
+    flat = m.reshape((-1, 1) + tuple(m.shape[-2:]))        # (B, 1, eby, ebx)
+    kernel = mask.to(device=m.device, dtype=m.dtype)[None, None]
+    keep = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = F.conv2d(flat, kernel, stride=tuple(stride))
+    finally:
+        torch.backends.cudnn.allow_tf32 = keep
+    return out.reshape(lead + tuple(out.shape[-2:]))
+
+
+def _make_eval_core(with_image: bool):
+    """The device colorimetry body shared by :func:`evaluate_torch` and
+    :func:`evaluate_batch`: (B, L, fy, fx, epy, epx) perception stacks ->
+    dict of per-design tensors, in the stacks' dtype.  The same operations as
+    the host :func:`evaluate` (and the JAX package's ``_make_eval_core``),
+    with a leading design axis in place of ``vmap``."""
+    white_linear = color.linearize_srgb(np.ones(3))
+    drive = np.linalg.solve(DISPLAY_M, white_linear)
+    lab_white = color.xyz_to_lab(color.D65_XYZ_100)
+
+    def _ev(perc: torch.Tensor, inv_norm: float) -> dict:
+        dt, dev = perc.dtype, perc.device
+
+        def const(a):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+        perc = perc * inv_norm
+        response = torch.flip(perc.permute(0, 2, 3, 1, 4, 5), dims=(3,))
+        adjusted = const(drive)[None, None, None, :, None, None] * response
+        ep = adjusted.permute(0, 4, 5, 1, 2, 3)      # (B, epy, epx, fy, fx, 3)
+        xyz = ep @ const(DISPLAY_M_XYZ.T)
+        y_chan = xyz[..., 1]                          # (B, epy, epx, fy, fx)
+        y_safe = torch.clamp(y_chan, min=1e-10)
+        xyz_norm = xyz / y_safe[..., None] * 100.0
+        lab = color.xyz_to_lab(xyz_norm, xp=torch)
+        lab = torch.where((y_chan == 0.0)[..., None], 0.0, lab)
+        de = color.delta_e_2000(lab, const(lab_white), xp=torch)
+        any0 = torch.any((y_chan == 0.0).flatten(3), dim=3)
+        ymax = y_chan.amax(dim=(3, 4))
+        ratio = torch.where(any0, 0.0,
+                            y_chan.amin(dim=(3, 4))
+                            / torch.where(ymax > 0, ymax, 1.0))
+        u_eb = torch.where(any0, 0.0, y_chan.mean(dim=(3, 4)))
+        outs = {"delta_e": de.mean(dim=(1, 2, 3, 4)),
+                "ratio_sum": ratio.sum(dim=(1, 2)), "u_eb": u_eb}
+        if with_image:
+            rgb_linear = torch.clamp(ep @ const(DISPLAY_M.T), 0.0, 1.0)
+            srgb = color.apply_srgb_gamma(rgb_linear, xp=torch)
+            peak = srgb.amax(dim=(3, 4, 5), keepdim=True)
+            normed = torch.where(peak > 0,
+                                 srgb / torch.where(peak > 0, peak, 1.0),
+                                 srgb)
+            outs["image"] = normed.permute(0, 3, 4, 5, 1, 2)
+        return outs
+
+    return _ev
+
+
+def _inv_norm(norm: float) -> float:
+    """``1 / norm`` rounded to float32, as the JAX package passes it."""
+    return float(np.float32(1.0 / norm))
+
+
+def _eval_result_from_out(out: dict, d: int, n_epy: int, n_epx: int,
+                          with_image: bool) -> "EvalResult":
+    u_eb = np.asarray(out["u_eb"][d], dtype=np.float64)
+    return EvalResult(
+        delta_e=float(out["delta_e"][d]),
+        u_fov=float(out["ratio_sum"][d]) / (n_epy * n_epx),
+        u_eyebox=0.0 if u_eb.max() == 0 else float(u_eb.min() / u_eb.max()),
+        output_image=(np.asarray(out["image"][d]) if with_image else None),
+        eye_luminance=u_eb,
+        starved_eye_positions=int((u_eb == 0.0).sum()),
+    )
+
+
+def evaluate_torch(perceive: torch.Tensor, cfg: EvalConfig = EvalConfig(),
+                   norm: float = 1.0, with_image: bool = False) -> "EvalResult":
+    """Device-side :func:`evaluate` on a (L, fy, fx, epy, epx) perception
+    stack, in the stack's dtype (float32 on the card): one host pull of two
+    scalars and the (epy, epx) luminance grid (plus the eye views with
+    ``with_image``).  ``norm`` divides the stack as the host path's
+    ``perceive / rays``.  The counterpart of the JAX package's
+    ``evaluate_jnp``; values agree with the float64 host :func:`evaluate` to
+    float32 rounding."""
+    out = _make_eval_core(with_image)(perceive[None], _inv_norm(norm))
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    return _eval_result_from_out(out, 0, perceive.shape[3], perceive.shape[4],
+                                 with_image)
+
+
+def evaluate_batch(perc_stack: torch.Tensor, norm: float = 1.0) -> list:
+    """Batched :func:`evaluate_torch`: (D, L, fy, fx, epy, epx) perception
+    stacks -> list of D :class:`EvalResult`, in one pass over the design axis
+    and one host pull.  The counterpart of the JAX package's
+    ``evaluate_jnp_batch`` (used by full-metric design sweeps)."""
+    out = _make_eval_core(with_image=False)(perc_stack, _inv_norm(norm))
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    n_epy, n_epx = perc_stack.shape[4], perc_stack.shape[5]
+    return [_eval_result_from_out(out, d, n_epy, n_epx, with_image=False)
+            for d in range(perc_stack.shape[0])]
+
+
+def evaluate(matrix_eb: Optional[np.ndarray], cfg: EvalConfig = EvalConfig(),
+             perceive: Optional[np.ndarray] = None,
+             with_image: bool = True) -> EvalResult:
+    """Compute the four display metrics from a (L, FoVy, FoVx, eb_y, eb_x) histogram.
+
+    ``matrix_eb`` should be normalized to per-ray units exactly as the reference
+    driver does (histogram / rays_per_fov / num_iter,
+    gpu_ray_tracing_pro_fullColor.py:197).  Alternatively pass ``perceive`` (an
+    already pupil-integrated (L, fy, fx, n_epy, n_epx) stack, e.g. from
+    :func:`pupil_conv`) and omit the histogram.  ``with_image=False``
+    skips the eye-view image reconstruction (gamma + normalization) — callers
+    that only read the scalar metrics (e.g. the jackknife error-bars loop,
+    which calls this once per sample group) save that host work.
+    """
+    if perceive is None:
+        perceive = eye_perceived(matrix_eb, cfg)
+    n_l, n_fy, n_fx, n_epy, n_epx = perceive.shape
+
+    # pure-white sRGB drive mapped to per-wavelength intensities (:113-118)
+    white_linear = color.linearize_srgb(np.ones(3))
+    drive = np.linalg.solve(DISPLAY_M, white_linear)  # (3,) per-display-primary
+
+    # waveguide response: histogram wavelength order is (B, G, R); flip to (R, G, B)
+    # exactly like the reference's np.flip(..., axis=2) (:121)
+    response = np.flip(np.transpose(perceive, (1, 2, 0, 3, 4)), axis=2)
+    adjusted = drive[None, None, :, None, None] * response  # (fy, fx, 3, epy, epx)
+
+    lab_white = color.xyz_to_lab(color.D65_XYZ_100)
+
+    # vectorized over the (n_epy, n_epx) eye-position grid — the former
+    # 56-iteration Python loop cost ~0.6 s/run on a 1-core host (~20% of the
+    # reference-workload wall); identical math, batched leading axes
+    ep = np.transpose(adjusted, (3, 4, 0, 1, 2))  # (epy, epx, fy, fx, 3)
+    if with_image:
+        rgb_linear = np.clip(ep @ DISPLAY_M.T, 0.0, 1.0)
+        srgb = color.apply_srgb_gamma(rgb_linear)
+        # per-position brightness normalization (color.normalize_brightness
+        # batched: scale each eye image so its peak channel value is 1)
+        peak = srgb.max(axis=(2, 3, 4), keepdims=True)
+        normed = np.where(peak > 0, srgb / np.where(peak > 0, peak, 1.0), srgb)
+        output_image = np.transpose(normed, (2, 3, 4, 0, 1))
+    else:
+        output_image = None
+
+    xyz = ep @ DISPLAY_M_XYZ.T
+    y_chan = xyz[..., 1]                           # (epy, epx, fy, fx)
+    y_safe = np.maximum(y_chan, 1e-10)
+    xyz_norm = xyz / y_safe[..., None] * 100.0
+    lab = color.xyz_to_lab(xyz_norm)
+    lab[y_chan == 0] = 0.0
+    de = color.delta_e_2000(lab, lab_white)        # (epy, epx, fy, fx)
+    # mean over FoV per position, then over positions (equal counts: = global
+    # mean up to float association)
+    delta_e = float(np.mean(de))
+    # a position with any empty (FoV, eye) bin is starved: it contributes 0 to
+    # u_eb and is excluded from the u_fov sum (but still divides by the full
+    # position count) — exactly the former per-position branch
+    any0 = np.any(y_chan == 0, axis=(2, 3))
+    ymax = y_chan.max(axis=(2, 3))
+    ratio = np.where(any0, 0.0,
+                     y_chan.min(axis=(2, 3)) / np.where(ymax > 0, ymax, 1.0))
+    u_eb = np.where(any0, 0.0, y_chan.mean(axis=(2, 3)))
+
+    u_fov = float(ratio.sum()) / (n_epy * n_epx)
+    u_eyebox = 0.0 if u_eb.max() == 0 else float(u_eb.min() / u_eb.max())
+    starved = int((u_eb == 0.0).sum())
+    return EvalResult(
+        delta_e=delta_e,
+        u_fov=u_fov,
+        u_eyebox=u_eyebox,
+        output_image=output_image,
+        eye_luminance=u_eb,
+        starved_eye_positions=starved,
+    )
+
+
+def wavelength_channel_names(n_wavelengths: int) -> list:
+    """Display names per wavelength index: (B, G, R) for the standard 3-channel
+    layout (couplers_coor.py:132), generic ``lmd{i}`` otherwise."""
+    if n_wavelengths == 3:
+        return ["B", "G", "R"]
+    return [f"lmd{i}" for i in range(n_wavelengths)]
+
+
+def efficiencies(matrix_eb: np.ndarray, rays_per_fov: float, num_iter: int) -> dict:
+    """Per-color system efficiency (gpu_ray_tracing_pro_fullColor.py:186-192).
+
+    The xL factor undoes the 1/L wavelength split of the launched rays (x3 in
+    the reference); wavelength index order is (B, G, R) for L=3.
+    """
+    L = matrix_eb.shape[0]
+    num_rays = rays_per_fov * matrix_eb.shape[1] * matrix_eb.shape[2] * L
+    per_fov = matrix_eb.sum(axis=(-2, -1)) / num_rays / num_iter
+    names = wavelength_channel_names(L)
+    return {names[i]: float(per_fov[i].sum() * L) for i in range(L)}

@@ -1,6 +1,6 @@
 """Per-ray xorshift32 RNG and seed hashes.
 
-Port of ``gpu_ray_tracing_for_waveguide_based_ar_display_tpu/ops/rng.py``.  The
+Port of ``ops/rng.py`` of the JAX package.  The
 seed hashes run in numpy (uint32 / uint64 arithmetic, bitwise equal to the JAX
 package's).  The torch versions serve the plain trace: the 32-bit state lives
 in ``int64`` tensors and is masked to 32 bits after every left shift, because

@@ -1,0 +1,334 @@
+"""Batched design sweeps on the persistent trace.
+
+Port of ``sweep/design_sweep.py::run_design_sweep_persistent`` of the JAX
+package.  Each candidate design's geometry and tables are built on the host,
+the designs of a chunk are stacked along the cell axis (D contiguous runs of
+L*M*N cells, one geometry row per design), and ONE launch of
+:func:`..engine.trace_persistent.persistent_trace` traces the whole chunk on
+the device: the CUDA kernel on a GPU, its plain PyTorch version on the CPU.
+Efficiencies, bounces and (optionally) the display metrics reduce on the
+device; nothing is pulled to the host until the end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..config import EvalConfig, TraceConfig, WaveguideDesign
+from ..design.geometry import generate_geometry
+from ..engine import seeding, trace_persistent, trace_rows
+from ..engine.pipeline import resolve_device
+from ..engine.trace_geometry import build_trace_geometry
+from ..eval.metrics import evaluate_batch, pupil_conv, pupil_mask
+from ..luts.packing import build_cell_tables_synthetic_batch
+
+
+@dataclasses.dataclass
+class SweepResult:
+    designs: List[WaveguideDesign]
+    histograms: Optional[np.ndarray]  # (K, L, N, M, ny, nx): kept designs
+    efficiencies: np.ndarray     # (D, L) per-design per-wavelength efficiency
+    bounces: np.ndarray          # (D,)
+    # per-design display metrics (delta_e / u_fov / u_eyebox EvalResults),
+    # filled by run_design_sweep_persistent(evaluate_metrics=True)
+    metrics: Optional[list] = None
+    # host seconds of each layer, kernel milliseconds (CUDA events) and
+    # launches: see run_design_sweep_persistent
+    timings: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class ChunkRows:
+    """Host inputs of one launch over a chunk of ``nd`` designs."""
+    tgeoms: list                 # TraceGeometry per design
+    cell_params: np.ndarray      # (nd * n_cells, PC) float32
+    geom_rows: np.ndarray        # (nd, PG) float32
+    rays: np.ndarray             # (nd or nd * n_cells, 6, RT, 128) float32
+    rng: Optional[np.ndarray]    # (nd * n_cells, RT, 128) uint32; None: shared
+    edge_counts: tuple           # the chunk's largest (hull, r1, r2) counts
+
+
+def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
+                  slots: int, lut_seed: int = 1234,
+                  shared: bool = True) -> ChunkRows:
+    """Host rows and launch tiles of one design chunk.
+
+    Geometry and trace geometry per design; the synthetic LUT -> cell table
+    -> kernel row pipeline once over the chunk's design axis.  ``shared``:
+    one (6, RT, 128) launch tile per design (reused while the in-coupler
+    polygon is unchanged) and no seeds (the launch takes
+    :func:`shared_seed_block`); else every cell's tile and seeds, built on
+    the host.  Edge counts are the chunk's largest: a design's padding
+    half-planes are always true, so its cells see the same regions as in a
+    solo run."""
+    rt = slots // trace_rows.LANES
+    n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
+    geoms = [generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y) for d in designs]
+    tgs = [build_trace_geometry(g, simplify_tol=0.05) for g in geoms]
+    tables = build_cell_tables_synthetic_batch(geoms, seed=lut_seed)
+    cp = trace_rows.build_kernel_cell_params(
+        tables, np.stack([g.eyebox_range for g in geoms]),
+        eyebox_bins=cfg.eyebox_bins)
+    grs = np.stack([trace_rows.build_kernel_geom(tg) for tg in tgs])
+    tiles, rngs = [], []
+    prev_ic, prev = None, None
+    cfg_s = dataclasses.replace(cfg, rays_per_fov=slots)
+    for g in geoms:
+        if shared:
+            if prev_ic is None or not np.array_equal(prev_ic, g.ic):
+                b = seeding.build_ray_batch(g, cfg_s, cell_ids=np.array([0]),
+                                            rays_per_cell=slots)
+                prev_ic, prev = g.ic, trace_rows.pack_ray_blocks(
+                    b, 1, slots, rt)[0][0]
+            tiles.append(prev)
+        else:
+            r_in, rng_in = trace_rows.pack_ray_blocks(
+                seeding.build_ray_batch(g, cfg_s), n_cells, slots, rt)
+            tiles.append(r_in)
+            rngs.append(rng_in)
+    ec = tuple(max(c) for c in zip(*(trace_rows.edge_counts(g) for g in tgs)))
+    return ChunkRows(
+        tgeoms=tgs, cell_params=cp, geom_rows=grs,
+        rays=np.stack(tiles) if shared else np.concatenate(tiles),
+        rng=None if shared else np.concatenate(rngs), edge_counts=ec)
+
+
+def shared_seed_block(cfg: TraceConfig, slots: int) -> np.ndarray:
+    """(L*M*N, RT, 128) uint32 per-slot seeds shared by every design: the
+    seed contract global index ``cid * slots + slot`` (iteration 0), as the
+    per-cell host path and the JAX package's sweep hash it."""
+    n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
+    return seeding.cell_seeds(np.arange(n_cells), slots, 0, n_cells,
+                              cfg.seed).reshape(n_cells, -1, trace_rows.LANES)
+
+
+def _chunk_reduce(tiles, nb, nd: int, n_cells: int, L: int, MN: int, nx: int,
+                  renorm: bool, nominal: int):
+    """(tiles, nb) -> (eff (nd, L), bounces (nd,), factor (C,)) on the device.
+
+    ``factor`` is the per-cell Wald renormalisation nominal / actual spawns,
+    applied to the histogram sums (the JAX package's ``_chunk_reducer``)."""
+    spawned = torch.clamp(nb[:, 2], min=1).to(torch.float32)
+    factor = (nominal / spawned) if renorm else torch.ones_like(spawned)
+    cell_sums = tiles[:, :, :nx].sum(dim=(1, 2)) * factor
+    per_design_l = cell_sums.reshape(nd, L, MN).sum(dim=2)
+    eff = per_design_l / (nominal * MN * L) * L
+    bounces = nb[:, 0].to(torch.int64).reshape(nd, n_cells).sum(dim=1)
+    return eff, bounces, factor
+
+
+def _chunk_perceive(tiles, factor, nd: int, L: int, M: int, N: int, ny: int,
+                    nx: int, mask: torch.Tensor, stride) -> torch.Tensor:
+    """(tiles, factor) -> (nd, L, N, M, epy, epx) pupil-integrated perception
+    stacks: each design's (L, N, M, ny, nx) histogram from its
+    Wald-renormalised tiles (the cell grid is (L, M, N)-major), through
+    :func:`..eval.metrics.pupil_conv`; one design at a time, so the scaled
+    copy never exceeds one design's tiles."""
+    n_cells = L * M * N
+    out = []
+    for d in range(nd):
+        sl = slice(d * n_cells, (d + 1) * n_cells)
+        h = (tiles[sl] * factor[sl, None, None])[:, :, :nx]
+        h = h.reshape(L, M, N, ny, nx).permute(0, 2, 1, 3, 4)
+        out.append(pupil_conv(h, mask, stride))
+    return torch.stack(out)
+
+
+def run_design_sweep_persistent(
+    designs: Sequence[WaveguideDesign],
+    cfg: TraceConfig = TraceConfig(num_fov_x=16, num_fov_y=12,
+                                   rays_per_fov=2048, max_bounces=4096),
+    lut_seed: int = 1234,
+    spawn_iters: int = 256,
+    keep_histograms: Union[bool, Sequence[int]] = False,
+    designs_per_batch: int = 16,
+    _force_host_blocks: bool = False,
+    spawn_mode: str = "gens",
+    slots: Optional[int] = None,
+    evaluate_metrics: bool = False,
+    eval_cfg: Optional[EvalConfig] = None,
+    device="cuda",
+) -> SweepResult:
+    """Trace every design with identical workloads on ``device``.
+
+    The launch grid is ``nd x (L*M*N)`` cells laid out as nd contiguous
+    per-design runs; each cell reads its design's geometry row.  Sweeps
+    larger than ``designs_per_batch`` launch in chunks; chunk k+1's host prep
+    (geometry, trace geometry, the chunk-batched synthetic LUT -> cell table
+    -> kernel row pipeline) runs while chunk k traces on the device.  A tail
+    chunk launches its real design count: chunked and single-launch sweeps
+    give the same results bit for bit.
+
+    ``spawn_mode="gens"``: ``ctrl = [gens, spawn_iters]`` with
+    ``gens = ceil(rays_per_fov / slots)`` generations per slot; with
+    ``spawn_iters > 0`` dead slots keep respawning until that iteration
+    (saturating spawn) and each cell's tile is renormalised to ``slots x
+    gens`` rays (Wald factor nominal / spawned).  ``spawn_mode="count"``:
+    each cell traces its exact ``cfg.rays_per_fov`` target, renormalised the
+    same way.  ``slots`` (default ``min(rays_per_fov, 2048)``) is the lane
+    count per cell.
+
+    With shared pupil samples and fast seeding, each design uploads one
+    ``(6, RT, 128)`` launch tile (reused while the in-coupler polygon is
+    unchanged) and one ``(L*M*N, RT, 128)`` seed block, hashed once per
+    sweep with the seed contract global index ``cid * slots + slot``
+    (:func:`..engine.seeding.cell_seeds`, iteration 0), serves every design.
+    Otherwise, or when the ray indices pass 32 bits, every cell's tile and
+    seeds are built on the host.
+
+    ``evaluate_metrics`` adds the display metrics of each design
+    (``SweepResult.metrics``: pupil integration per chunk on the device,
+    one batched colorimetry pass at the end).  ``keep_histograms`` pulls
+    each design's renormalised (L, N, M, ny, nx) histogram into
+    ``SweepResult.histograms``; a sequence of design indices pulls only
+    those designs' (in design order).
+
+    ``SweepResult.timings``, host seconds: ``prep_s`` (geometry, tables and
+    rows), ``seed_s`` (the shared seed block), ``upload_s`` (rows and tiles
+    to the device), ``keep_s`` (kept histograms to the host) and ``pull_s``
+    (efficiencies and bounces to the host), both waiting for the device,
+    ``metrics_s`` (batched colorimetry and its pull); on a GPU, device
+    milliseconds from CUDA events: ``kernel_ms`` (the launches) and
+    ``reduce_ms`` (Wald factors, efficiency sums and pupil integration);
+    and ``launches``.
+    """
+    dev = resolve_device(device)
+    on_gpu = dev.type == "cuda"
+    if on_gpu:
+        trace_persistent.load_kernel()   # the nvcc build is not sweep time
+    D = len(designs)
+    L, M, N = 3, cfg.num_fov_x, cfg.num_fov_y
+    n_cells = L * M * N
+    ny, nx = cfg.eyebox_bins
+    if spawn_mode not in trace_persistent.SPAWN_MODES:
+        raise ValueError(f"unknown spawn_mode {spawn_mode!r}")
+    count_spawn = spawn_mode == "count"
+    lanes = trace_rows.LANES
+    if slots is None:
+        slots = min(cfg.rays_per_fov, 2048)
+    slots = max(lanes, (min(slots, cfg.rays_per_fov) // lanes) * lanes)
+    gens = -(-cfg.rays_per_fov // slots)
+    nominal = cfg.rays_per_fov if count_spawn else slots * gens
+    renorm = bool(spawn_iters > 0 or count_spawn)
+    if eval_cfg is None:
+        eval_cfg = EvalConfig()
+    broadcast = (cfg.shared_pupil_samples and cfg.rng_mode == "fast"
+                 and n_cells * slots <= 0xFFFFFFFF
+                 and not _force_host_blocks)
+    timings = {"prep_s": 0.0, "seed_s": 0.0, "upload_s": 0.0, "keep_s": 0.0}
+    events = []
+
+    def prep(idx):
+        t0 = time.perf_counter()
+        rows = prepare_chunk([designs[i] for i in idx], cfg, slots,
+                             lut_seed=lut_seed, shared=broadcast)
+        timings["prep_s"] += time.perf_counter() - t0
+        return rows
+
+    rng_cell = None
+    if broadcast:
+        t0 = time.perf_counter()
+        # the seeds travel as int32 holding the same bits
+        rng_cell = torch.from_numpy(
+            shared_seed_block(cfg, slots).view(np.int32)).to(dev)
+        timings["seed_s"] = time.perf_counter() - t0
+
+    mask = torch.as_tensor(pupil_mask(eval_cfg.pupil_mask_bins),
+                           dtype=torch.float32, device=dev)
+    ctrl = torch.tensor([cfg.rays_per_fov if count_spawn else gens,
+                         spawn_iters], dtype=torch.int32, device=dev)
+    db = max(1, min(designs_per_batch, D))
+    chunks = [list(range(s, min(s + db, D))) for s in range(0, D, db)]
+    eff_parts, bounce_parts, nb_parts, perc_parts = [], [], [], []
+    hist_parts = []
+    if keep_histograms is True:
+        keep = set(range(D))
+    else:
+        keep = set(keep_histograms or ())
+    num_fc = num_oc = None
+    launches0 = trace_persistent.launch_counts["persistent_trace"]
+    prepped = prep(chunks[0])
+    for ci, idx in enumerate(chunks):
+        rows = prepped
+        nd = len(idx)
+        if num_fc is None:
+            num_fc, num_oc = rows.tgeoms[0].num_fc, rows.tgeoms[0].num_oc
+        if any(g.num_fc != num_fc or g.num_oc != num_oc for g in rows.tgeoms):
+            raise ValueError("designs in one sweep batch must share strip counts")
+        t0 = time.perf_counter()
+        cp_t = torch.from_numpy(rows.cell_params).to(dev)
+        gr_t = torch.from_numpy(rows.geom_rows).to(dev)
+        if broadcast:
+            rays_in = torch.from_numpy(rows.rays).to(dev)   # (nd, 6, RT, 128)
+            rng_in = rng_cell
+        else:
+            rays_in, rng_in = trace_rows.blocks_to_device(rows.rays, rows.rng,
+                                                          dev)
+        timings["upload_s"] += time.perf_counter() - t0
+        if on_gpu:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+        tiles, nb = trace_persistent.persistent_trace(
+            cp_t, gr_t, rays_in, rng_in, ctrl, num_fc=num_fc, num_oc=num_oc,
+            edge_counts=rows.edge_counts, eyebox_bins=cfg.eyebox_bins,
+            max_iters=cfg.max_bounces, spawn_mode=spawn_mode)
+        if on_gpu:
+            ev[1].record()
+        del cp_t, rays_in
+        nb_parts.append(nb)
+        eff_d, bounce_d, factor = _chunk_reduce(
+            tiles, nb, nd, n_cells, L, M * N, nx, renorm, nominal)
+        eff_parts.append(eff_d)
+        bounce_parts.append(bounce_d)
+        if evaluate_metrics:
+            perc_parts.append(_chunk_perceive(
+                tiles, factor, nd, L, M, N, ny, nx, mask,
+                (eval_cfg.eye_step_y, eval_cfg.eye_step_x)))
+        if on_gpu:
+            ev[2].record()
+            events.append(ev)
+        t0 = time.perf_counter()
+        hist_parts.extend(
+            trace_persistent.hist_tiles_to_histogram(
+                tiles[i * n_cells:(i + 1) * n_cells]
+                * factor[i * n_cells:(i + 1) * n_cells, None, None],
+                np.arange(n_cells), L, M, N, ny, nx).cpu().numpy()
+            for i in range(nd) if idx[i] in keep)
+        del tiles
+        timings["keep_s"] += time.perf_counter() - t0
+        if ci + 1 < len(chunks):
+            prepped = prep(chunks[ci + 1])
+
+    t0 = time.perf_counter()
+    overflowed = int(torch.cat([nb[:, 3] for nb in nb_parts]).sum())
+    if overflowed:
+        raise RuntimeError(
+            f"{overflowed} deposits overflowed (nb[:, 3] != 0): the "
+            "histogram undercounts")
+    efficiencies = torch.cat(eff_parts).cpu().numpy()
+    bounces = torch.cat(bounce_parts).cpu().numpy()
+    timings["pull_s"] = time.perf_counter() - t0
+    metrics = None
+    if evaluate_metrics:
+        t0 = time.perf_counter()
+        metrics = evaluate_batch(torch.cat(perc_parts, dim=0), norm=nominal)
+        timings["metrics_s"] = time.perf_counter() - t0
+    if on_gpu:
+        torch.cuda.synchronize(dev)
+        timings["kernel_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
+        timings["reduce_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
+    timings["launches"] = (trace_persistent.launch_counts["persistent_trace"]
+                           - launches0)
+    return SweepResult(
+        designs=list(designs),
+        histograms=np.stack(hist_parts) if keep_histograms else None,
+        efficiencies=efficiencies,
+        bounces=bounces,
+        metrics=metrics,
+        timings=timings,
+    )

@@ -1,21 +1,31 @@
 """PyTorch port on the card: the CUDA kernel against its plain version.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
-without one.  The file imports no JAX, so it also runs where JAX is absent:
+without one.  The file imports neither JAX nor the JAX package, so it also
+runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design import generate_geometry
-
-from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import TraceConfig
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+    TraceConfig,
+    WaveguideDesign,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+    generate_geometry,
+)
 from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
     pipeline,
     trace_persistent as tp,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+    run_design_sweep_persistent,
 )
 
 M, N = 4, 3
@@ -74,3 +84,68 @@ def test_simulator_on_card_equals_cpu(small, cuda_device):
     assert rg.total_bounces == rc.total_bounces
     assert rg.rays_traced == rc.rays_traced
     assert rg.efficiencies == rc.efficiencies
+
+
+def _design_rows(cfg, periods, device):
+    """Cell rows, geometry rows and launch tiles of one design per coupler
+    period (one Simulator each), and the first design's per-cell seeds as
+    the seed block every design shares."""
+    rows, grs, tiles, ecs = [], [], [], []
+    for p in periods:
+        d = dataclasses.replace(WaveguideDesign(), lambda_ic=p, lambda_oc=p)
+        sim = pipeline.Simulator(design=d, cfg=cfg, device=device,
+                                 persistent_slots=128)
+        rows.append(sim.tracer.cell_params)
+        grs.append(sim.tracer.geom_row)
+        tile, _ = sim._device_ray_blocks(np.arange(1), 128)
+        tiles.append(tile)
+        ecs.append(sim.tracer.edge_counts)
+    seeds = sim._device_ray_blocks(np.arange(3 * M * N), 128)[1]
+    ec = tuple(max(c) for c in zip(*ecs))
+    return (torch.cat(rows), torch.cat(grs), torch.cat(tiles), seeds,
+            dict(num_fc=sim.tracer.num_fc, num_oc=sim.tracer.num_oc,
+                 edge_counts=ec, eyebox_bins=cfg.eyebox_bins, max_iters=600))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,ctrl", [("gens", [2, 0]), ("gens", [1, 64]),
+                                       ("count", [512, 0])],
+                         ids=["gens", "saturating", "count"])
+def test_kernel_modes_equal_plain_version_on_card(small, cuda_device, mode,
+                                                  ctrl):
+    """Gens spawn, saturating spawn and count spawn over D = 3 geometry rows
+    with per-design tiles and a shared seed block: identical results."""
+    geom, cfg = small
+    cp, gr, tiles, seeds, kw = _design_rows(cfg, (380.0, 388.0, 396.0),
+                                            cuda_device)
+    args = (cp, gr, tiles, seeds,
+            torch.tensor(ctrl, dtype=torch.int32, device=cuda_device))
+    n0 = tp.launch_counts["persistent_trace"]
+    hk, nbk = tp.persistent_trace(*args, spawn_mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["persistent_trace"] == n0 + 1
+    hr, nbr = tp.persistent_trace_reference(*args, spawn_mode=mode, **kw)
+    assert hk.shape == (9 * M * N, 80, 120) and hk.sum() > 0
+    assert torch.equal(hk, hr)
+    assert torch.equal(nbk, nbr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,spawn_iters", [("gens", 64), ("count", 0)])
+def test_sweep_design_equals_solo_on_card(cuda_device, mode, spawn_iters):
+    """On the card a sweep's middle design equals its solo sweep bit for
+    bit, and the CPU sweep gives the same histograms."""
+    cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=128,
+                      max_bounces=256, seed=5)
+    designs = [dataclasses.replace(WaveguideDesign(), lambda_ic=p, lambda_oc=p)
+               for p in (380.0, 388.0, 396.0)]
+    kw = dict(spawn_iters=spawn_iters, spawn_mode=mode, keep_histograms=True)
+    res = run_design_sweep_persistent(designs, cfg, device=cuda_device, **kw)
+    solo = run_design_sweep_persistent(designs[1:2], cfg, device=cuda_device,
+                                       **kw)
+    cpu = run_design_sweep_persistent(designs, cfg, device="cpu", **kw)
+    assert res.timings["launches"] == 1
+    np.testing.assert_array_equal(solo.histograms[0], res.histograms[1])
+    assert solo.bounces[0] == res.bounces[1]
+    np.testing.assert_array_equal(cpu.histograms, res.histograms)
+    np.testing.assert_array_equal(cpu.bounces, res.bounces)

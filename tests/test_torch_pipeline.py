@@ -90,19 +90,30 @@ def test_batching_invariance(runs):
 
 
 def test_import_and_cpu_run_load_no_jax(tmp_path):
+    """A process that imports the port and runs a CPU Simulator and a CPU
+    sweep (with metrics) loads neither jax nor any module of the JAX
+    package."""
     code = (
         "import sys\n"
         "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine "
         "import pipeline\n"
         "from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli\n"
         "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config "
-        "import TraceConfig\n"
+        "import TraceConfig, WaveguideDesign\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep "
+        "import run_design_sweep_persistent\n"
         "cfg = TraceConfig(num_fov_x=2, num_fov_y=2, rays_per_fov=128, "
         "num_iter=1, max_bounces=200, seed=1)\n"
         "r = pipeline.Simulator(cfg=cfg, device='cpu', persistent_slots=128)"
         ".run()\n"
         "assert r.rays_traced >= 128 * 12, r.rays_traced\n"
-        "print('JAX' if 'jax' in sys.modules else 'NOJAX')\n"
+        "s = run_design_sweep_persistent([WaveguideDesign()] * 2, cfg, "
+        "spawn_iters=8, evaluate_metrics=True, device='cpu')\n"
+        "assert (s.efficiencies > 0).all() and len(s.metrics) == 2\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
+        "display_tpu')))\n"
+        "print(bad or 'NOJAX')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,

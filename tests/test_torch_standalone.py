@@ -1,0 +1,156 @@
+"""PyTorch port: its own copies of the JAX package's host modules compute
+bitwise what the JAX package computes, on the paper design at 4 x 3 FoV.
+
+Config and presets, design geometry, synthetic LUTs (and their files), cell
+tables (single and design-batched), trace geometry, host metrics and the
+eye-view image."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu import config as jconfig
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design import (
+    generate_geometry as jgenerate_geometry,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.engine.trace_geometry import (
+    build_trace_geometry as jbuild_trace_geometry,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.eval import (
+    image as jimage,
+    metrics as jmetrics,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.luts import (
+    io as jio,
+    packing as jpacking,
+    synthetic as jsynthetic,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.models import (
+    presets as jpresets,
+)
+
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch import config
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+    generate_geometry,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+    build_trace_geometry,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+    image,
+    metrics,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+    io,
+    packing,
+    synthetic,
+)
+from gpu_ray_tracing_for_waveguide_based_ar_display_torch.models import presets
+
+M, N = 4, 3
+PERIODS = (380.0, 388.0, 396.0)
+
+
+def assert_same(a, b, path="value"):
+    """Recursive bitwise equality of dataclasses, dicts, sequences, arrays
+    and scalars; dataclasses of the two packages compare field by field."""
+    if dataclasses.is_dataclass(a):
+        assert dataclasses.is_dataclass(b) and type(a).__name__ == type(b).__name__, path
+        fa = [f.name for f in dataclasses.fields(a)]
+        assert fa == [f.name for f in dataclasses.fields(b)], path
+        for name in fa:
+            assert_same(getattr(a, name), getattr(b, name), f"{path}.{name}")
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and a.keys() == b.keys(), path
+        for k in a:
+            assert_same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert isinstance(b, (list, tuple)) and len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{path}[{i}]")
+    elif isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b or (a != a and b != b), (path, a, b)
+
+
+def _designs(pkg_design):
+    return [dataclasses.replace(pkg_design(), lambda_ic=p, lambda_oc=p)
+            for p in PERIODS]
+
+
+@pytest.fixture(scope="module")
+def geoms():
+    """(port, JAX) geometry of the paper design and two grating variants."""
+    port = [generate_geometry(d, M, N) for d in _designs(config.WaveguideDesign)]
+    ref = [jgenerate_geometry(d, M, N) for d in _designs(jconfig.WaveguideDesign)]
+    return port, ref
+
+
+def test_config_and_presets_equal():
+    for name in ("WaveguideDesign", "TraceConfig", "EvalConfig"):
+        assert_same(getattr(config, name)(), getattr(jconfig, name)(), name)
+    assert sorted(presets.PRESETS) == sorted(jpresets.PRESETS)
+    for name in presets.PRESETS:
+        assert_same(presets.get(name), jpresets.get(name), name)
+
+
+def test_geometry_bitwise(geoms):
+    port, ref = geoms
+    for g, r in zip(port, ref):
+        assert_same(g, r, "geometry")
+
+
+def test_synthetic_luts_bitwise(geoms, tmp_path):
+    """Synthetic LUTs, and the LUT files written by the JAX package read back
+    by the port's loader."""
+    port, ref = geoms
+    lp = synthetic.make_synthetic_luts(port[1], seed=7)
+    lr = jsynthetic.make_synthetic_luts(ref[1], seed=7)
+    assert_same(lp, lr, "luts")
+    jio.save_luts(lr, str(tmp_path))
+    assert io.luts_available(str(tmp_path))
+    assert_same(io.load_or_synthesize(port[1], directory=str(tmp_path)), lr,
+                "loaded luts")
+
+
+def test_cell_tables_bitwise(geoms):
+    port, ref = geoms
+    tp_ = packing.build_cell_tables(port[0], synthetic.make_synthetic_luts(port[0]))
+    tr = jpacking.build_cell_tables(ref[0], jsynthetic.make_synthetic_luts(ref[0]))
+    assert_same(tp_, tr, "tables")
+
+
+def test_cell_tables_synthetic_batch_bitwise(geoms):
+    """The design-batched table pipeline for 3 designs."""
+    port, ref = geoms
+    bp = packing.build_cell_tables_synthetic_batch(port, seed=11)
+    br = jpacking.build_cell_tables_synthetic_batch(ref, seed=11)
+    assert bp.num_cells == 3 * 3 * M * N
+    assert_same(bp, br, "batched tables")
+
+
+@pytest.mark.parametrize("tol", [0.0, 0.05])
+def test_trace_geometry_bitwise(geoms, tol):
+    port, ref = geoms
+    for g, r in zip(port, ref):
+        assert_same(build_trace_geometry(g, simplify_tol=tol),
+                    jbuild_trace_geometry(r, simplify_tol=tol), "trace geometry")
+
+
+def test_host_metrics_bitwise():
+    """Host ``evaluate`` (with the eye views), ``efficiencies`` and the
+    eye-view image on a seeded histogram."""
+    rng = np.random.default_rng(3)
+    hist = rng.poisson(0.6, size=(3, N, M, 80, 120)).astype(np.float32)
+    hist[:, 0, 0, :40] = 0.0     # a starved corner
+    assert_same(metrics.evaluate(hist / 512.0), jmetrics.evaluate(hist / 512.0),
+                "evaluate")
+    assert_same(metrics.efficiencies(hist, 512.0, 2),
+                jmetrics.efficiencies(hist, 512.0, 2), "efficiencies")
+    out = metrics.evaluate(hist / 512.0).output_image
+    assert_same(image.eye_view_uint8(out, 1, 2), jimage.eye_view_uint8(out, 1, 2),
+                "eye view")

@@ -1,8 +1,12 @@
 """PyTorch port: the persistent trace against the JAX persistent kernel.
 
-The plain PyTorch version runs here; the JAX kernel runs in interpret mode in
-the main path's mode (exact "fma" selection, count spawn, no phase gating).
-The CUDA kernel itself runs only on a card: see ``test_torch_cuda.py``."""
+The plain PyTorch version runs here; the JAX kernel runs in interpret mode
+with exact "fma" selection and no phase gating, in count spawn (the main
+path), gens spawn, saturating spawn and with per-design geometry rows (the
+sweep).  The CUDA kernel itself runs only on a card: see
+``test_torch_cuda.py``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -11,7 +15,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.config import TraceConfig
+from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.config import (
+    TraceConfig,
+    WaveguideDesign,
+)
 from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.design import generate_geometry
 from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.engine import (
     seeding as jseeding,
@@ -32,6 +39,8 @@ from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
     trace_rows,
 )
 
+# MAX_ITERS is a multiple of 8: the JAX kernel tests its bound only every
+# cond_interval = 8 iterations, the port after every iteration
 M, N, RT, MAX_ITERS = 4, 3, 1, 600
 C = 3 * M * N
 BINS = (80, 120)
@@ -70,15 +79,15 @@ def traced(rows):
             ht.numpy(), nbt.numpy())
 
 
-def test_plain_trace_matches_jax_kernel(traced):
+def _assert_matches_jax(hj, nbj, ht, nbt):
     """Tolerances: bounces and spawned within 1 %, deposits within
-    max(10, 2 %), per colour within max(10, 3 %).  XLA fuses multiply-adds
-    and rounds rsqrt differently from ``1/sqrt``, so a ray within an ulp of a
-    threshold may branch differently.  Measured on this fixture: identical
-    (586 deposits, 114,069 bounces, 18,737 spawned; every cell's tile equal)."""
-    hj, nbj, ht, nbt = traced
-    assert ht.shape == hj.shape == (C, *BINS)
-    assert nbt.shape == (C, 4) and nbt.dtype == np.int32
+    max(10, 2 %), each run of M*N cells (a colour of one design) within
+    max(10, 3 %); the iteration column is not compared.  XLA fuses
+    multiply-adds and rounds rsqrt differently from ``1/sqrt``, so a ray
+    within an ulp of a threshold may branch differently."""
+    n = hj.shape[0]
+    assert n % C == 0 and ht.shape == hj.shape == (n, *BINS)
+    assert nbt.shape == (n, 4) and nbt.dtype == np.int32
     b_j, b_t = int(nbj[:, 0].sum()), int(nbt[:, 0].sum())
     s_j, s_t = int(nbj[:, 2].sum()), int(nbt[:, 2].sum())
     assert abs(b_t - b_j) <= 0.01 * b_j
@@ -86,11 +95,17 @@ def test_plain_trace_matches_jax_kernel(traced):
     d_j, d_t = hj.sum(), ht.sum()
     assert d_j > 100
     assert abs(d_t - d_j) <= max(10, 0.02 * d_j)
-    for l in range(3):
+    for l in range(n // (M * N)):
         pj = hj[l * M * N:(l + 1) * M * N].sum()
         pt = ht[l * M * N:(l + 1) * M * N].sum()
         assert abs(pt - pj) <= max(10, 0.03 * pj), (l, pt, pj)
     assert (nbt[:, 3] == 0).all()
+
+
+def test_plain_trace_matches_jax_kernel(traced):
+    """Count spawn.  Measured on this fixture: identical (586 deposits,
+    114,069 bounces, 18,737 spawned; every cell's tile equal)."""
+    _assert_matches_jax(*traced)
 
 
 def test_count_spawn_meets_target(traced):
@@ -101,6 +116,90 @@ def test_count_spawn_meets_target(traced):
     assert (nbt[:, 2] < 512 + 128).all()
     assert (nbt[:, 1] < MAX_ITERS).all()   # every cell drained before the bound
     assert np.isfinite(ht).all() and (ht >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def rows_two_designs(rows):
+    """D = 2 designs of 36 cells each: the fixture's design, with its rows,
+    launch tile and per-cell seed block, and the same design at 396 nm
+    gratings.  Per-design geometry rows and launch tiles; one (36, RT, 128)
+    seed block shared by both designs."""
+    cfg, cp, gr, rays, seeds, kw = rows
+    d2 = dataclasses.replace(WaveguideDesign(), lambda_ic=396.0, lambda_oc=396.0)
+    geom = generate_geometry(d2, num_fov_x=M, num_fov_y=N)
+    tgeom = build_trace_geometry(geom, simplify_tol=0.05)
+    cp2 = jrows.build_kernel_cell_params(
+        build_cell_tables(geom, make_synthetic_luts(geom)), geom.eyebox_range)
+    rays2, _ = jrows.pack_ray_blocks(jseeding.build_ray_batch(geom, cfg),
+                                     C, 128, RT)
+    ec = tuple(max(a, b) for a, b in zip(
+        kw["edge_counts"],
+        (len(tgeom.hull_hp), len(tgeom.r1_hp), len(tgeom.r2_hp))))
+    # shared pupil samples: every cell of a design has the same launch tile
+    assert (rays == rays[:1]).all()
+    return (np.concatenate([cp, cp2]),
+            np.concatenate([gr, jrows.build_kernel_geom(tgeom)[None, :]]),
+            np.concatenate([rays[:1], rays2[:1]]), seeds,
+            dict(kw, edge_counts=ec))
+
+
+@pytest.fixture(scope="module")
+def jax_gens_fn(rows, rows_two_designs):
+    """The JAX kernel with ``count_spawn=False``, built (and compiled) once
+    for every gens-mode case."""
+    cfg = rows[0]
+    kw = rows_two_designs[-1]
+    return jpers.make_persistent_trace_fn(
+        cfg, kw["num_fc"], kw["num_oc"], RT, gens=1, interpret=True,
+        phase_gating=False, max_iters=MAX_ITERS, edge_counts=kw["edge_counts"],
+        accum_mode="fma", count_spawn=False)
+
+
+@pytest.fixture(scope="module", params=[[2, 0], [1, 64]], ids=["gens", "saturating"])
+def traced_modes(request, rows_two_designs, jax_gens_fn):
+    """The JAX kernel and the plain version in gens mode, on D = 2 geometry
+    rows with per-design tiles and a shared seed block: two generations per
+    slot (``ctrl = [2, 0]``), and saturating spawn (``[1, 64]``)."""
+    cp, gr, rays, seeds, kw = rows_two_designs
+    ctrl = request.param
+    hj, nbj = jax_gens_fn(cp, gr, rays, seeds, jnp.asarray(ctrl, jnp.int32))
+    rt, st = trace_rows.blocks_to_device(rays, seeds, "cpu")
+    ht, nbt = tp.persistent_trace(
+        torch.from_numpy(cp), torch.from_numpy(gr), rt, st,
+        torch.tensor(ctrl, dtype=torch.int32), spawn_mode="gens", **kw)
+    return (ctrl, np.asarray(hj)[:, :, :BINS[1]], np.asarray(nbj),
+            ht.numpy(), nbt.numpy())
+
+
+def test_gens_modes_match_jax_kernel(traced_modes):
+    """Gens and saturating spawn over D = 2 geometry rows against the JAX
+    kernel, with the tolerances of :func:`_assert_matches_jax`; the spawn
+    count is the sum of the slots' generations."""
+    ctrl, hj, nbj, ht, nbt = traced_modes
+    _assert_matches_jax(hj, nbj, ht, nbt)
+    if ctrl[1] == 0:
+        # every slot runs exactly two generations before its cell stops
+        assert (nbt[:, 2] == 2 * RT * 128).all()
+        assert (nbj[:, 2] == 2 * RT * 128).all()
+    else:
+        # saturating spawn: lanes respawn until iteration 64
+        assert (nbt[:, 2] > RT * 128).all()
+        assert (nbt[:, 1] >= 64).all()
+
+
+def test_design_rows_equal_single_design_runs(rows, traced_modes):
+    """The first design's half of the D = 2 launch equals a one-design
+    launch (one geometry row, a tile per cell, a seed block per cell, its own
+    edge counts) of the fixture, bit for bit."""
+    cfg, cp, gr, rays, seeds, kw = rows
+    ctrl, _, _, ht, nbt = traced_modes
+    cpt, grt = trace_rows.rows_to_device(cp, gr, "cpu")
+    rt, st = trace_rows.blocks_to_device(rays, seeds, "cpu")
+    h1, nb1 = tp.persistent_trace(cpt, grt, rt, st,
+                                  torch.tensor(ctrl, dtype=torch.int32),
+                                  spawn_mode="gens", **kw)
+    np.testing.assert_array_equal(h1.numpy(), ht[:C])
+    np.testing.assert_array_equal(nb1.numpy(), nbt[:C])
 
 
 def test_shared_tile_equals_per_cell_tiles(rows):
@@ -130,7 +229,9 @@ def test_hist_tiles_to_histogram_matches_jax(traced):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "ctrl", "strips"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "ctrl", "strips",
+                                 "designs", "rays_rows", "rng_rows",
+                                 "spawn_mode"])
 def test_wrapper_rejects_bad_inputs(rows, bad):
     cfg, cp, gr, rays, seeds, kw = rows
     cpt, grt = trace_rows.rows_to_device(cp[:2], gr, "cpu")
@@ -145,20 +246,66 @@ def test_wrapper_rejects_bad_inputs(rows, bad):
         rt = rt.transpose(2, 3)
     elif bad == "ctrl":
         ctrl = ctrl[:1]
+    elif bad == "designs":      # 2 cells over 3 designs
+        grt = grt.expand(3, -1).contiguous()
+    elif bad == "rays_rows":    # neither 1, D nor C tiles
+        cpt, st = cpt.repeat(3, 1), st.repeat(3, 1, 1)
+    elif bad == "rng_rows":     # neither C nor C / D seed blocks
+        grt = grt.expand(2, -1).contiguous()
+        st = st.repeat(2, 1, 1)
+    elif bad == "spawn_mode":
+        kw["spawn_mode"] = "saturating"
     else:
         kw["num_fc"] = tp.MAX_FC + 1
     with pytest.raises((TypeError, ValueError)):
         tp.persistent_trace(cpt, grt, rt, st, ctrl, **kw)
 
 
+def test_wrapper_accepts_design_layouts(rows):
+    """Per-design rows with one tile per cell, per design or for all, and
+    seeds per cell or per design: the same cells give the same result
+    whichever layout carries the same values."""
+    cfg, cp, gr, rays, seeds, kw = rows
+    cpt, grt = trace_rows.rows_to_device(cp[:4], gr, "cpu")
+    rt, st = trace_rows.blocks_to_device(rays[:1], seeds[:2], "cpu")
+    gr2 = grt.expand(2, -1).contiguous()
+    ctrl = torch.tensor([1, 8], dtype=torch.int32)
+    kw = dict(kw, max_iters=64, spawn_mode="gens")
+    want = tp.persistent_trace(cpt, grt, rt.expand(4, -1, -1, -1).contiguous(),
+                               st.repeat(2, 1, 1), ctrl, **kw)
+    for rays_in in (rt, rt.expand(2, -1, -1, -1).contiguous()):
+        got = tp.persistent_trace(cpt, gr2, rays_in, st, ctrl, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_block_layout_fits_hopper_shared_memory():
     """The main path's 2,048 slots fit one block's shared memory with an
-    80 x 120 tile; every slot count that is a multiple of 128 gets a block
-    size dividing it."""
-    assert tp.shared_bytes(2048, (80, 120)) <= tp._SMEM_LIMIT
+    80 x 120 tile (12 words of state per slot: 140,832 B), the sweep's 256
+    slots four blocks per SM (54,816 B); every slot count that is a multiple
+    of 128 gets a block size dividing it."""
+    assert tp.shared_bytes(2048, (80, 120)) == 140_832 <= tp._SMEM_LIMIT
+    assert tp.shared_bytes(256, (80, 120)) == 54_816
+    assert 4 * 54_816 <= 233_472   # an H100 SM's shared memory, 228 KB
     for slots in range(128, 4097, 128):
         t = tp.block_threads(slots)
         assert slots % t == 0 and t in (128, 256, 512)
+
+
+def test_launch_argtypes_match_the_c_signature():
+    """The ctypes binding declares the kernel's C parameters in order (a
+    pointer for every pointer, or the call would cut it to 32 bits; an int
+    for every int; none missing), and the wrapper's shared-memory size uses
+    the kernel's words of slot state."""
+    import ctypes
+    import re
+
+    src = (build.CSRC / "persistent_trace.cu").read_text()
+    sig = re.search(r'extern "C" int persistent_trace_launch\((.*?)\)\s*\{',
+                    src, re.S).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in sig.split(",")]
+    assert tp.LAUNCH_ARGTYPES == want
+    assert f"constexpr int STATE_WORDS = {tp._STATE_WORDS};" in src
 
 
 def test_nvcc_missing_raises_clearly(monkeypatch, tmp_path):
