@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--profile PATH] [--phases LIST]
 
 Run from the repository root.  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the ``nvcc`` build of every kernel with its ``-Xptxas -v`` report;
+   and the ``nvcc`` build of every kernel (one ``nvcc`` process per source,
+   started together) with its ``-Xptxas -v`` report;
 2. each kernel against its plain PyTorch version on the card, at the main
    path's per-cell width (paper design, 8 x 6 FoV x 3 wavelengths = 144
    cells, 2,048 slots, spawn target 20,000, 100,000-iteration bound); the
@@ -35,12 +36,37 @@ Run from the repository root.  Phases:
    one launch, 256 rays per FoV, gens spawn saturated to iteration 256,
    2,048-bounce bound) and the README's count sweep (16 periods, 360,000
    cells in one launch, 2,048 rays per FoV, count spawn), both with metrics;
-   design 3 of each must equal its solo sweep bit for bit.
+   design 3 of each must equal its solo sweep bit for bit;
+7. the per-cell kernel against its plain version on the card, at the cell
+   engine's per-cell width (paper design, 8 x 6 FoV x 3 wavelengths = 144
+   cells, 5,000 rays per cell = 40 rows of 128, 5,120 slots): (a) full mode
+   with a 24-iteration budget, (b) resume mode from (a)'s outputs with the
+   rest of the 100,000-iteration budget, (c) full mode with the whole
+   budget; deposit codes, states, RNG streams and bounce counts must be
+   identical everywhere, the 9 float fields for every ray still alive, and
+   (a) + (b) must equal (c); both are timed with CUDA events;
+8. the cell engine at full width through ``Simulator(engine="cell")``: the
+   paper design, 100 x 75 FoV x 3 wavelengths = 22,500 cells, 5,000
+   host-seeded rays per cell in 11 batches of <= 2,048 cells, 80 x 120 bins,
+   a 100,000-bounce bound, metrics on; one of the reference workload's four
+   relaunches (``num_iter=1``: depth is cut, the per-cell width is not); once
+   to the end in one launch per batch and once under the segment-and-compact
+   scheduler, with launch counts reset just before each run and read just
+   after it.  The two histograms and bounce totals must be identical and the
+   histogram's sum equal to the number of deposits.  Every colour's
+   efficiency must lie within 10 % of phase 3's (count spawn weighs launch
+   points by their rays' inverse lifetime, this engine equally).  One more
+   run at 2,048 rays per cell holds the two kernels to each other: it must
+   equal a one-design gens-spawn sweep of the persistent kernel with one
+   generation per slot bit for bit (the same launch tile and seeds), and
+   agree within 2 % with the efficiencies of ten generations per slot.
 
 Any failure exits non-zero without the result line.  On success the line
 before the last is the kernels' JSON summary and the last line is
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes every
-number measured to PATH as JSON.  The port's package ``__init__`` turns
+number measured to PATH as JSON.  ``--phases 1,2,3`` runs only those phases
+(phase 1 always runs) and prints neither summary nor result line: it serves
+comparisons of two versions of one phase within one call.  The port's package ``__init__`` turns
 transparent huge pages off for the process (``GRT_KEEP_THP=1`` keeps them),
 so its host timings run with THP off.
 """
@@ -60,8 +86,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PORT = "gpu_ray_tracing_for_waveguide_based_ar_display_torch"
 JAX_PACKAGE = PORT[:-len("torch")] + "tpu"   # the reference, never imported
-KERNEL_SOURCE = f"{PORT}/csrc/persistent_trace.cu"
-REPLACES = f"{JAX_PACKAGE}/engine/trace_pallas_persistent.py:233"
+KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
+    "persistent_trace": (f"{PORT}/csrc/persistent_trace.cu",
+                         f"{JAX_PACKAGE}/engine/trace_pallas_persistent.py:233"),
+    "cell_trace": (f"{PORT}/csrc/cell_trace.cu",
+                   f"{JAX_PACKAGE}/engine/trace_pallas.py:397"),
+}
 # one NVIDIA H100 SXM (data sheet, 700 W): FP32 rate outside the tensor
 # cores and HBM rate, for the bounds of the kernel line
 PEAK_FP32_OPS = 67e12
@@ -160,63 +190,60 @@ def profile_run(sim, path: str) -> dict:
             "timings": res.timings}
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--record", default=None, metavar="PATH",
-                        help="write every measured number here as JSON")
-    parser.add_argument("--profile", default=None, metavar="PATH",
-                        help="profile one more full run; table to PATH")
-    opts = parser.parse_args()
-    try:
-        import torch
-    except ImportError:
-        fail("torch is not installed")
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: no GPU to run on")
-    if not (ROOT / PORT / "__init__.py").is_file():
-        fail(f"the port package {PORT}/ is not next to chip_smoke.py")
-    sys.path.insert(0, str(ROOT))
-    record = {}
+def save_record(ctx) -> None:
+    if ctx["record_path"]:
+        path = Path(ctx["record_path"])
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(ctx["record"], indent=2))
 
-    # ---- phase 1: card, versions, kernel builds
+
+def phase1(ctx) -> None:
+    """The card, the versions, and every kernel's build."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import build
+
+    record = ctx["record"]
     smi = nvidia_smi()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    paths = build.build_all(KERNELS)
+    both = time.perf_counter() - t0
+    record.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                  build_wall_seconds=both, build_seconds={}, ptxas={})
+    for name, lib_path in zip(KERNELS, paths):
+        info = build.build_info[name]
+        if info["log"]:
+            print(f"nvcc build {name}: {info['seconds']:.2f} s -> "
+                  f"{lib_path.name}")
+        else:
+            print(f"nvcc build {name}: {lib_path.name} already built, not "
+                  "rebuilt")
+        print(f"ptxas {name}: {ptxas_summary(info['log'])}")
+        record["build_seconds"][name] = info["seconds"]
+        record["ptxas"][name] = ptxas_summary(info["log"])
+    print(f"nvcc builds, side by side: {both:.2f} s")
+
+
+def phase2(ctx) -> None:
+    """The persistent kernel against its plain version at the main path's
+    per-cell width."""
+    import numpy as np
+    import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        build, pipeline, trace_persistent as tp,
+        pipeline, trace_persistent as tp,
     )
 
-    t0 = time.perf_counter()
-    lib_path = build.build("persistent_trace")
-    info = build.build_info["persistent_trace"]
-    if info["log"]:
-        print(f"nvcc build persistent_trace: {info['seconds']:.2f} s "
-              f"({time.perf_counter() - t0:.2f} s with checks) -> "
-              f"{lib_path.name}")
-    else:
-        print(f"nvcc build persistent_trace: {lib_path.name} already built, "
-              "not rebuilt")
-    print(f"ptxas: {ptxas_summary(info['log'])}")
-    record["card"] = smi
-    record["torch"] = torch.__version__
-    record["cuda"] = torch.version.cuda
-    record["build_seconds"] = info["seconds"]
-    record["ptxas"] = ptxas_summary(info["log"])
-    dev = torch.device("cuda")
-
-    # ---- phase 2: kernel vs plain at the main path's per-cell width
     cfg2 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000, num_iter=4)
-    sim2 = pipeline.Simulator(cfg=cfg2, device=dev, persistent_slots=2048)
+    sim2 = pipeline.Simulator(cfg=cfg2, device=ctx["dev"], persistent_slots=2048)
     target = cfg2.rays_per_fov * cfg2.num_iter
     n2 = sim2.L * sim2.M * sim2.N
     slots, _ = sim2._slots_gens(target)
-    import numpy as np
-
     rays_in, rng_in = sim2._device_ray_blocks(np.arange(n2), slots)
     ctrl = sim2._pers_ctrl(target)
     tr = sim2.tracer
@@ -240,7 +267,7 @@ def main() -> int:
           f"{int(nbk_h[:, 0].sum())} vs {int(nbp[:, 0].sum())}, spawned "
           f"{int(nbk_h[:, 2].sum())} vs {int(nbp[:, 2].sum())}, iterations "
           f"max {int(nbk_h[:, 1].max())}; max |hist diff| {max_abs}")
-    record["phase2"] = {
+    ctx["record"]["phase2"] = {
         "cells": n2, "slots": slots, "target": target,
         "kernel_ms": ms_kernel, "plain_ms": ms_plain,
         "bound_ms": bound2, "bound_by": bound_by2,
@@ -257,14 +284,29 @@ def main() -> int:
              f"{max_abs})")
     if float(hk.sum()) <= 0:
         fail("phase 2 made no deposits")
-    del sim2, hk, hp, args, rays_in, rng_in
+    ctx["k1_modes"] = [{"mode": "count", "ctrl": [target, 0], "designs": 1,
+                        "cells": n2, "slots": slots, "ms": ms_kernel,
+                        "plain_ms": ms_plain, "bound_ms": bound2,
+                        "bound_by": bound_by2, "max_abs_err": max_abs}]
 
-    # ---- phase 3: the main path at full width
+
+def phase3(ctx) -> None:
+    """The main path at full width (and phase 4, the optional profile)."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+
+    record = ctx["record"]
     cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
     torch.cuda.reset_peak_memory_stats()
     tp.reset_launch_counts()
     t0 = time.perf_counter()
-    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"])
     res = sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -295,9 +337,7 @@ def main() -> int:
         "launches": launches, "batches": batches, "peak_bytes": peak,
         "max_iterations": int(res.cell_stats[:, 1].max()),
     }
-    if opts.record:
-        Path(opts.record).parent.mkdir(parents=True, exist_ok=True)
-        Path(opts.record).write_text(json.dumps(record, indent=2))
+    save_record(ctx)
 
     vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
                                               met.u_eyebox]
@@ -313,39 +353,36 @@ def main() -> int:
     got = float(res.histogram.sum(dtype=np.float64))
     if abs(got - want) > 1e-6 * want:
         fail(f"histogram sum {got} vs efficiencies x rays {want}")
-    if launches["persistent_trace"] != batches:
-        fail(f"persistent_trace launched {launches['persistent_trace']} "
-             f"times, expected one per batch ({batches})")
+    if launches != {"persistent_trace": batches, "cell_trace": 0}:
+        fail(f"launches {launches}, expected one persistent_trace per batch "
+             f"({batches}) and no other kernel")
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
 
     # ---- phase 4 (optional): where the device time of one run goes
-    if opts.profile:
-        record["profile"] = profile_run(sim, opts.profile)
+    if ctx["profile_path"]:
+        record["profile"] = profile_run(sim, ctx["profile_path"])
         print(f"phase 4: {json.dumps(record['profile'])}")
-        if opts.record:
-            Path(opts.record).write_text(json.dumps(record, indent=2))
-    main_launches = launches["persistent_trace"]
-    del sim, res
+        save_record(ctx)
+    ctx["k1_main_launches"] = launches["persistent_trace"]
+    ctx["persistent_efficiencies"] = dict(res.efficiencies)
 
-    # ---- phase 5: the kernel against its plain version in the sweep's modes
-    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+
+def phase5(ctx) -> None:
+    """The persistent kernel against its plain version in the sweep's modes."""
+    import numpy as np
+    import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
-        WaveguideDesign,
-    )
-    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
-        generate_geometry,
+        TraceConfig, WaveguideDesign,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        trace_rows,
-    )
-    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
-        build_trace_geometry,
+        trace_persistent as tp,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
         design_sweep,
     )
 
+    dev = ctx["dev"]
     cfg5 = TraceConfig(num_fov_x=4, num_fov_y=3, rays_per_fov=256,
                        max_bounces=2048)
     designs5 = [dataclasses.replace(WaveguideDesign(), lambda_ic=p, lambda_oc=p)
@@ -359,10 +396,7 @@ def main() -> int:
     kw5 = dict(num_fc=rows5.tgeoms[0].num_fc, num_oc=rows5.tgeoms[0].num_oc,
                edge_counts=rows5.edge_counts, eyebox_bins=cfg5.eyebox_bins,
                max_iters=cfg5.max_bounces)
-    modes = [{"mode": "count", "ctrl": [target, 0], "designs": 1,
-              "cells": n2, "slots": slots, "ms": ms_kernel,
-              "plain_ms": ms_plain, "bound_ms": bound2, "bound_by": bound_by2,
-              "max_abs_err": max_abs}]
+    modes = []
     for mode, ctrl5 in (("gens", [1, 256]), ("gens", [2, 0]),
                         ("count", [256, 0])):
         a5 = inputs5 + (torch.tensor(ctrl5, dtype=torch.int32, device=dev),)
@@ -393,10 +427,29 @@ def main() -> int:
                  f"ctrl {ctrl5} (max |diff| {err})")
         if entry["deposits"] <= 0:
             fail(f"phase 5 {mode} {ctrl5} made no deposits")
-    record["phase5"] = modes[1:]
-    del hk, hp, inputs5, a5
+    ctx["record"]["phase5"] = modes
+    ctx["k1_modes"] = ctx.get("k1_modes", []) + modes
 
-    # ---- phase 6: the design sweep at full width
+
+def phase6(ctx) -> None:
+    """The design sweep at full width."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_persistent as tp, trace_rows,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
+    record = ctx["record"]
     sweeps = (("cli_default", ["sweep", "--metrics"]),
               ("readme_count", ["sweep", "--num-designs", "16",
                                 "--spawn-mode", "count", "--spawn-iters", "0",
@@ -409,7 +462,7 @@ def main() -> int:
         cfg6 = cli.sweep_config(sargs)
         kw6 = dict(spawn_iters=sargs.spawn_iters, spawn_mode=sargs.spawn_mode,
                    slots=sargs.slots, evaluate_metrics=sargs.metrics,
-                   device=dev)
+                   device=ctx["dev"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tp.reset_launch_counts()
@@ -456,8 +509,7 @@ def main() -> int:
             "u_fov": [m.u_fov for m in r6.metrics],
             "u_eyebox": [m.u_eyebox for m in r6.metrics]}
         record["phase6"][name] = entry
-        if opts.record:
-            Path(opts.record).write_text(json.dumps(record, indent=2))
+        save_record(ctx)
         print(f"phase 6 {name}: {len(designs)} designs, {n_cells6:,} cells "
               f"in {n_launch} launch(es): wall {wall6:.3f} s (host prep "
               f"{tm['prep_s']:.3f} s, seeds {tm['seed_s']:.3f} s, upload "
@@ -490,13 +542,295 @@ def main() -> int:
         del r6, solo
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
+    ctx["k1_sweep_launches"] = sweep_launches
 
-    print(json.dumps({"kernels": [{
-        "name": "persistent_trace", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": REPLACES, "launches": main_launches + sweep_launches,
-        "max_abs_err": max(m["max_abs_err"] for m in modes),
-        "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": bound2,
-        "bound_by": bound_by2, "library_ms": None, "modes": modes}]}))
+
+def phase7(ctx) -> None:
+    """The per-cell kernel against its plain version, both modes."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_cell as tc,
+    )
+
+    cfg7 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000, num_iter=1)
+    sim7 = pipeline.Simulator(cfg=cfg7, device=ctx["dev"], engine="cell")
+    n7 = sim7.L * sim7.M * sim7.N
+    cells = np.arange(n7)
+    rays_in, rng_in = sim7._cell_blocks(cells, cfg7.rays_per_fov, 0)
+    tr = sim7.tracer
+    rows, n_r1 = tr.rows(cells), tr.kw["edge_counts"][1]
+    first, budget = 24, cfg7.max_bounces
+
+    def both(name, rays, rng, state, max_bounces):
+        """Kernel and plain version on the same inputs: outputs, times and
+        whether they are identical."""
+        args = (rows, tr.geom_row, rays, rng, state)
+        kw = dict(tr.kw, max_bounces=max_bounces)
+        outk = tc.cell_trace(*args, **kw)             # warm-up + result
+        torch.cuda.synchronize()
+        outp = tc.cell_trace_reference(*args, **kw)   # warm-up + result
+        torch.cuda.synchronize()
+        ms_k = cuda_ms(lambda: tc.cell_trace(*args, **kw), 5)
+        ms_p = cuda_ms(lambda: tc.cell_trace_reference(*args, **kw), 1)
+        dep, nb, ro, so, rgo = outk
+        live = (so < 6)[:, None].expand_as(ro)
+        same = {"dep": torch.equal(dep, outp[0]), "nb": torch.equal(nb, outp[1]),
+                "state": torch.equal(so, outp[3]),
+                "rng": torch.equal(rgo, outp[4]),
+                "live_fields": torch.equal(ro[live], outp[2][live]),
+                "all_fields": torch.equal(ro, outp[2])}
+        err = max(float((dep - outp[0]).abs().max()),
+                  float((nb - outp[1]).abs().max()),
+                  float((so - outp[3]).abs().max()),
+                  float((ro[live] - outp[2][live]).abs().max())
+                  if bool(live.any()) else 0.0)
+        inputs = args if state is not None else args[:4]
+        b, by = bound_ms(inputs, outk, nb, n_r1)
+        nbh = nb.cpu().numpy().astype(np.int64)
+        entry = {"mode": name, "cells": n7, "slots": int(rng[0].numel()),
+                 "max_bounces": max_bounces, "ms": ms_k, "plain_ms": ms_p,
+                 "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                 "identical": same, "deposits": int((dep >= 0).sum()),
+                 "bounces": int(nbh[:, 0].sum()),
+                 "max_iterations": int(nbh[:, 1].max()),
+                 "alive_after": int((so < 6).sum()),
+                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3)}
+        print(f"phase 7: {json.dumps(entry)}")
+        if not all(same[k] for k in ("dep", "nb", "state", "rng",
+                                     "live_fields")):
+            fail(f"cell_trace disagrees with its plain version in {name}: "
+                 f"{same} (max |diff| {err})")
+        return outk, entry
+
+    a, ea = both("full, 24 iterations", rays_in, rng_in, None, first)
+    b, eb = both("resume, the rest of the budget", a[2], a[4], a[3],
+                 budget - first)
+    c, ec = both("full, the whole budget", rays_in, rng_in, None, budget)
+    merged = torch.where(a[0] >= 0, a[0], b[0])
+    whole = {"dep": torch.equal(merged, c[0]),
+             "no ray deposits twice": not bool(((a[0] >= 0) & (b[0] >= 0)).any()),
+             "bounces": torch.equal(a[1][:, 0] + b[1][:, 0], c[1][:, 0]),
+             "state": torch.equal(b[3], c[3]), "rng": torch.equal(b[4], c[4]),
+             "fields": torch.equal(b[2], c[2])}
+    print(f"phase 7: full(24) + resume(rest) against full(whole): {whole}")
+    ctx["record"]["phase7"] = {"modes": [ea, eb, ec], "segments_sum": whole}
+    save_record(ctx)
+    if not all(whole.values()):
+        fail(f"full(24) + resume(rest) differs from full(whole): {whole}")
+    if ec["deposits"] <= 0 or ea["alive_after"] <= 0:
+        fail("phase 7 made no deposits, or no ray outlived the first segment")
+    if ec["alive_after"] != 0:
+        fail(f"{ec['alive_after']} rays outlived the whole budget")
+    ctx["k2_modes"] = [ea, eb, ec]
+
+
+def phase8(ctx) -> None:
+    """The cell engine at full width, monolithic and segmented."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+
+    cfg = TraceConfig()   # 100 x 75 x 3 cells, 5,000 rays per cell and launch
+    iters = 1             # one of the reference workload's four relaunches
+    runs = {}
+    for name, segmented in (("monolithic", False), ("segmented", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], engine="cell",
+                                 segmented=segmented)
+        res = sim.run(num_iter=iters)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(tp.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        n_cells = sim.L * sim.M * sim.N
+        batches = math.ceil(n_cells / 2048) * iters
+        tm, met = res.timings, res.metrics
+        kernel_s = tm["kernel_ms"] / 1e3
+        entry = {
+            "cells": n_cells, "rays_per_cell": cfg.rays_per_fov,
+            "num_iter": iters, "segmented": segmented, "wall_s": wall,
+            "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+            "timings": tm, "total_bounces": res.total_bounces,
+            "bounces_per_s": res.bounces_per_second,
+            "kernel_bounces_per_s": res.total_bounces / kernel_s,
+            "rays_traced": res.rays_traced, "deposits": res.deposits,
+            "efficiencies": res.efficiencies, "delta_e": met.delta_e,
+            "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+            "launches": launches, "batches": batches, "peak_bytes": peak}
+        ctx["record"].setdefault("phase8", {})[name] = entry
+        save_record(ctx)
+        print(pipeline.format_report(res))
+        print(f"phase 8 {name}: {n_cells} cells x {cfg.rays_per_fov} rays, "
+              f"num_iter {iters} of the workload's {cfg.num_iter}: wall "
+              f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
+              f"{res.trace_seconds:.3f} s, host seeding {tm['seed_s']:.3f} s, "
+              f"kernel {tm['kernel_ms']:.1f} ms, compaction "
+              f"{tm.get('compact_ms', 0.0):.1f} ms, deposit scatter "
+              f"{tm['scatter_ms']:.1f} ms, histogram to the host "
+              f"{tm['assemble_s']:.3f} s, metrics {tm['metrics_s']:.3f} s; "
+              f"bounces {res.total_bounces:,} "
+              f"({res.bounces_per_second:.4g}/s end to end, "
+              f"{entry['kernel_bounces_per_s']:.4g}/s kernel), deposits "
+              f"{res.deposits:,}; launches {launches}; peak device memory "
+              f"{peak / 2**20:.1f} MiB")
+        vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
+                                                  met.u_eyebox]
+        if not all(math.isfinite(v) for v in vals) or min(
+                res.efficiencies.values()) <= 0:
+            fail(f"phase 8 {name}: metric not finite or efficiency not "
+                 f"positive in {vals}")
+        got = float(res.histogram.sum(dtype=np.float64))
+        if got != res.deposits or res.deposits <= 0:
+            fail(f"phase 8 {name}: histogram sum {got} vs {res.deposits} "
+                 "deposits")
+        if res.rays_traced != n_cells * cfg.rays_per_fov * iters:
+            fail(f"phase 8 {name}: {res.rays_traced} rays traced")
+        n_launch = launches["cell_trace"]
+        most = batches * math.ceil(cfg.max_bounces / 24)
+        as_scheduled = (2 * batches <= n_launch <= most if segmented
+                        else n_launch == batches)
+        if launches["persistent_trace"] or not as_scheduled:
+            fail(f"phase 8 {name}: launches {launches} for {batches} batches")
+        ref = ctx.get("persistent_efficiencies")
+        if ref is not None:
+            # phase 3 is count spawn: a slot whose rays die early respawns
+            # more often, so launch points weigh by their rays' inverse
+            # lifetime and the estimate differs from this engine's equal
+            # weights; reported, and held to 10 % (the cross-check below
+            # holds the two kernels to each other exactly)
+            rel = {k: v / ref[k] - 1 for k, v in res.efficiencies.items()}
+            entry["efficiency_vs_persistent"] = rel
+            print(f"phase 8 {name}: efficiencies relative to phase 3's: "
+                  + ", ".join(f"{k} {r:+.4f}" for k, r in rel.items()))
+            if max(abs(r) for r in rel.values()) > 0.10:
+                fail(f"phase 8 {name}: efficiencies {res.efficiencies} are "
+                     f"not within 10 % of the persistent engine's {ref}")
+        runs[name] = (res.histogram, res.total_bounces, n_launch)
+    if not (np.array_equal(runs["monolithic"][0], runs["segmented"][0])
+            and runs["monolithic"][1] == runs["segmented"][1]):
+        fail("phase 8: the segmented run differs from the monolithic run")
+    print("phase 8: segmented and monolithic histograms and bounces identical")
+
+    # ---- the two kernels against each other.  With 2,048 rays per cell
+    # the cell engine traces exactly the rays of one generation of the
+    # persistent kernel (the same launch tile, the same per-ray seeds), so a
+    # one-design gens-spawn sweep with one generation per slot must give the
+    # same histogram bit for bit.  Ten generations per slot estimate the same
+    # efficiencies from the same pupil points: within 2 %.
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        WaveguideDesign,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
+    res = sim.run(rays_per_fov=2048, num_iter=1, evaluate_metrics=False)
+    sweep_kw = dict(spawn_iters=0, spawn_mode="gens", slots=2048,
+                    device=ctx["dev"])
+    one = design_sweep.run_design_sweep_persistent(
+        [WaveguideDesign()], dataclasses.replace(cfg, rays_per_fov=2048),
+        keep_histograms=True, **sweep_kw)
+    ten = design_sweep.run_design_sweep_persistent(
+        [WaveguideDesign()], dataclasses.replace(cfg, rays_per_fov=20480),
+        **sweep_kw)
+    names = list(res.efficiencies)
+    eff_cell = [res.efficiencies[k] for k in names]
+    rel_ten = [float(t / c - 1) for t, c in zip(ten.efficiencies[0], eff_cell)]
+    cross = {"rays_per_cell": 2048, "efficiencies": res.efficiencies,
+             "total_bounces": res.total_bounces,
+             "equals_gens1_sweep": bool(
+                 np.array_equal(one.histograms[0], res.histogram)
+                 and int(one.bounces[0]) == res.total_bounces),
+             "gens10_sweep_vs_cell": dict(zip(names, rel_ten))}
+    ref = ctx.get("persistent_efficiencies")
+    if ref is not None:
+        cross["cell_vs_count_spawn"] = {
+            k: res.efficiencies[k] / ref[k] - 1 for k in names}
+    ctx["record"]["phase8"]["cross_check"] = cross
+    save_record(ctx)
+    print(f"phase 8 cross-check: {json.dumps(cross)}")
+    if not cross["equals_gens1_sweep"]:
+        fail("phase 8: the cell engine at 2,048 rays per cell differs from "
+             "the persistent kernel's one-generation sweep")
+    if max(abs(r) for r in rel_ten) > 0.02:
+        fail(f"phase 8: ten generations of the persistent kernel give "
+             f"efficiencies {rel_ten} away from the cell engine's")
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k2_main_launches"] = runs["monolithic"][2] + runs["segmented"][2]
+
+
+PHASES = {1: phase1, 2: phase2, 3: phase3, 5: phase5, 6: phase6, 7: phase7,
+          8: phase8}
+
+
+def kernel_line(ctx) -> dict:
+    """The kernels' summary; a kernel's headline numbers are those of the
+    main path's mode: count spawn, and full mode with the whole budget."""
+    k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
+    out = []
+    for name, modes, head, launches in (
+            ("persistent_trace", k1, k1[0],
+             ctx["k1_main_launches"] + ctx["k1_sweep_launches"]),
+            ("cell_trace", k2, k2[2], ctx["k2_main_launches"])):
+        source, replaces = KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(m["max_abs_err"] for m in modes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None, "modes": modes})
+    return {"kernels": out}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--record", default=None, metavar="PATH",
+                        help="write every measured number here as JSON")
+    parser.add_argument("--profile", default=None, metavar="PATH",
+                        help="profile one more full run; table to PATH")
+    parser.add_argument("--phases", default=None, metavar="LIST",
+                        help="comma-separated phases to run (default: all); "
+                             "a partial run prints no result line")
+    opts = parser.parse_args()
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: no GPU to run on")
+    if not (ROOT / PORT / "__init__.py").is_file():
+        fail(f"the port package {PORT}/ is not next to chip_smoke.py")
+    sys.path.insert(0, str(ROOT))
+    wanted = sorted(PHASES)
+    if opts.phases:
+        wanted = sorted({1} | {int(p) for p in opts.phases.split(",")})
+        if not set(wanted) <= set(PHASES):
+            fail(f"--phases takes {sorted(PHASES)}, got {opts.phases!r}")
+    ctx = {"dev": torch.device("cuda"), "record": {},
+           "record_path": opts.record, "profile_path": opts.profile}
+    for n in wanted:
+        PHASES[n](ctx)
+        torch.cuda.empty_cache()
+    save_record(ctx)
+    if wanted != sorted(PHASES):
+        print(f"chip_smoke: phases {wanted} passed (a partial run: no "
+              "result line)")
+        return 0
+    print(json.dumps(kernel_line(ctx)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,6 +7,9 @@ subcommands.
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
 folded into one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins).
+``simulate --engine cell`` runs the same workload through the per-cell
+kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
+``--engine pallas``).
 ``sweep``'s run the JAX package's ``sweep --engine pallas_persistent``: 8
 coupler periods over 370-405 nm, 256 rays per FoV, gens spawn saturated to
 iteration 256, a 2,048-bounce bound, 100 x 75 FoV.  Both run on
@@ -199,7 +202,8 @@ def cmd_simulate(args) -> int:
                       pupil_sampling=args.pupil_sampling)
     sim = Simulator(design=_design(args), cfg=cfg, luts_dir=args.luts_dir,
                     geometry_simplify_tol=args.simplify_tol,
-                    device=args.device, persistent_slots=args.slots)
+                    device=args.device, persistent_slots=args.slots,
+                    engine=args.engine)
     res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose)
     print(format_report(res))
     if args.image and res.metrics is not None:
@@ -240,12 +244,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--luts-dir", default=None,
                    help="directory with lut_*_fullColor.npy (synthetic if absent)")
     p.add_argument("--rays-per-fov", type=int, default=5000)
+    p.add_argument("--engine", default="persistent",
+                   choices=("persistent", "cell"),
+                   help="persistent = slot-persistent count-spawn kernel; "
+                        "cell = per-cell kernel, every ray seeded on the host")
     p.add_argument("--num-iter", type=int, default=4,
-                   help="iterations, folded into one spawn target per cell")
+                   help="iterations: folded into one spawn target per cell "
+                        "(persistent) or relaunched (cell)")
     p.add_argument("--max-bounces", type=int, default=100_000)
     p.add_argument("--cells-per-batch", type=int, default=2048)
     p.add_argument("--slots", type=int, default=2048,
-                   help="persistent slots per cell")
+                   help="persistent slots per cell (persistent engine)")
     p.add_argument("--simplify-tol", type=float, default=0.0)
     p.add_argument("--pupil-sampling", default="uniform",
                    choices=("uniform", "r2"))

@@ -2,12 +2,14 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles into
 ``build/kernels/<name>-<hash>.so`` under the repository root at first use; the
-hash covers the source and the flags, so an edited source never loads a stale
-library.  A failed build raises with the compiler's output.
+hash covers the source, every header of ``csrc/`` and the flags, so an edited
+source or header never loads a stale library.  A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -43,9 +45,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -69,6 +73,13 @@ def build(name: str) -> Path:
     os.replace(tmp, out)
     build_info[name] = {"seconds": seconds, "log": log}
     return out
+
+
+def build_all(names) -> list:
+    """Build several sources at once, one ``nvcc`` process each."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -1,12 +1,20 @@
-"""End-to-end simulation: design -> LUTs -> persistent trace -> histogram -> metrics.
+"""End-to-end simulation: design -> LUTs -> trace -> histogram -> metrics.
 
-Port of ``engine/pipeline.py`` of the JAX package, restricted to its
-persistent count-spawn path with folded iterations (``engine=
-"pallas_persistent", spawn_mode="count", fold_iterations=True``).  The design
-geometry, LUTs, cell tables, trace geometry and host metrics are the port's
-own copies of the JAX package's numpy modules; the trace runs through
-:func:`.trace_persistent.persistent_trace` on ``device``: the CUDA kernel on a
-GPU, its plain PyTorch version on the CPU.
+Port of ``engine/pipeline.py`` of the JAX package, restricted to two of its
+engines:
+
+- ``engine="persistent"`` (the default): its persistent count-spawn path with
+  folded iterations (``engine="pallas_persistent", spawn_mode="count",
+  fold_iterations=True``), through :func:`.trace_persistent.persistent_trace`;
+- ``engine="cell"``: its per-cell path (``engine="pallas"``) with the general
+  ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
+  histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
+  to the end in one launch per batch or, with ``segmented=True``, under the
+  segment-and-compact scheduler of :mod:`.cell_segments`.
+
+The design geometry, LUTs, cell tables, trace geometry and host metrics are
+the port's own copies of the JAX package's numpy modules; the trace runs on
+``device``: the CUDA kernels on a GPU, their plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -24,20 +32,27 @@ from ..eval.metrics import EvalResult, efficiencies, evaluate
 from ..luts.io import load_or_synthesize
 from ..luts.packing import build_cell_tables
 from ..luts.schema import RcwaLuts
-from . import seeding, trace_persistent, trace_rows
+from . import seeding, trace_cell, trace_persistent, trace_rows
+from .cell_segments import SegmentedCellTracer
+from .timing import EventTimer
+from .trace_cell import CellTracer
 from .trace_geometry import build_trace_geometry
 from .trace_persistent import PersistentTracer, hist_tiles_to_histogram
+
+ENGINES = ("persistent", "cell")
 
 
 @dataclasses.dataclass
 class SimulationResult:
-    histogram: np.ndarray        # (L, FoVy, FoVx, eb_y, eb_x), renormalised counts
+    histogram: np.ndarray        # (L, FoVy, FoVx, eb_y, eb_x) deposit counts
     efficiencies: dict           # {"B", "G", "R"} system efficiency
     metrics: Optional[EvalResult]
     rays_traced: int             # rays actually spawned (count spawn overshoots)
     total_bounces: int
     trace_seconds: float
-    cell_stats: Optional[np.ndarray] = None  # (cells, 4) nb rows, cid order
+    # persistent engine: (cells, 4) nb rows, cid order
+    cell_stats: Optional[np.ndarray] = None
+    deposits: Optional[int] = None   # cell engine: rays that deposited
     timings: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -71,8 +86,15 @@ class Simulator:
                  luts_dir: Optional[str] = None,
                  geom: Optional[DesignGeometry] = None,
                  geometry_simplify_tol: float = 0.0,
-                 device="cuda", persistent_slots: int = 2048):
+                 device="cuda", persistent_slots: int = 2048,
+                 engine: str = "persistent", segmented: bool = False,
+                 segment_bounces: int = 24):
         t0 = time.perf_counter()
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+        if segmented and engine != "cell":
+            raise ValueError("segmented scheduling belongs to engine='cell'")
+        self.engine = engine
         self.device = resolve_device(device)
         self.design = design
         self.cfg = cfg
@@ -91,15 +113,26 @@ class Simulator:
         cp = trace_rows.build_kernel_cell_params(
             self.tables, self.geom.eyebox_range, eyebox_bins=cfg.eyebox_bins)
         gr = trace_rows.build_kernel_geom(self.tgeom)
-        self.tracer = PersistentTracer(
-            cp, gr, num_fc=self.tgeom.num_fc, num_oc=self.tgeom.num_oc,
-            edge_counts=trace_rows.edge_counts(self.tgeom),
-            eyebox_bins=cfg.eyebox_bins, max_iters=cfg.max_bounces,
-        ).to(self.device)
+        kw = dict(num_fc=self.tgeom.num_fc, num_oc=self.tgeom.num_oc,
+                  edge_counts=trace_rows.edge_counts(self.tgeom),
+                  eyebox_bins=cfg.eyebox_bins)
+        self._seg_tracer = None
+        if engine == "persistent":
+            self.tracer = PersistentTracer(cp, gr, max_iters=cfg.max_bounces,
+                                           **kw).to(self.device)
+        else:
+            self.tracer = CellTracer(cp, gr, max_bounces=cfg.max_bounces,
+                                     **kw).to(self.device)
+            if segmented:
+                self._seg_tracer = SegmentedCellTracer(
+                    max_bounces=cfg.max_bounces,
+                    segment_bounces=segment_bounces,
+                    hist_dims=(self.L, self.M, self.N), **kw)
         if self.device.type == "cuda":
-            # build and bind the kernel here, so nvcc counts as setup and
-            # never falls inside a timed run()
-            trace_persistent.load_kernel()
+            # build and bind the engine's kernel here, so nvcc counts as
+            # setup and never falls inside a timed run()
+            (trace_persistent if engine == "persistent"
+             else trace_cell).load_kernel()
         self._tile = None   # (slots, shared launch tile on device)
         self.setup_seconds = time.perf_counter() - t0
 
@@ -160,21 +193,25 @@ class Simulator:
             verbose: bool = False) -> SimulationResult:
         """Trace the full workload and reduce the metrics.
 
-        ``num_iter`` folds into the spawn target: one pass traces
-        ``num_iter * rays_per_fov`` rays per cell with continued per-slot RNG
-        streams (the reference's re-launch loop), paying the drain tail once.
+        Persistent engine: ``num_iter`` folds into the spawn target: one pass
+        traces ``num_iter * rays_per_fov`` rays per cell with continued
+        per-slot RNG streams (the reference's re-launch loop), paying the
+        drain tail once.  Cell engine: ``num_iter`` relaunches of
+        ``rays_per_fov`` rays per cell, each seeded anew.
         """
         rpf = rays_per_fov if rays_per_fov is not None else self.cfg.rays_per_fov
         iters = num_iter if num_iter is not None else self.cfg.num_iter
+        if self.engine == "cell":
+            return self._run_cell(rpf, iters, cells_per_batch,
+                                  evaluate_metrics, eval_cfg, verbose)
         target = rpf * iters
         n_cells = self.L * self.M * self.N
         all_cells = np.arange(n_cells)
         slots, _ = self._slots_gens(target)
         ctrl = self._pers_ctrl(target)
-        on_gpu = self.device.type == "cuda"
         ny, nx = self.cfg.eyebox_bins
         timings = {"seed_s": 0.0}
-        events = []
+        timer = EventTimer(self.device)
 
         t0 = time.perf_counter()
         tiles = torch.empty((n_cells, ny, nx), dtype=torch.float32,
@@ -185,15 +222,9 @@ class Simulator:
             ts = time.perf_counter()
             rays_in, rng_in = self._device_ray_blocks(chunk, slots)
             timings["seed_s"] += time.perf_counter() - ts
-            if on_gpu:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-            tile, nb = self.tracer(int(chunk[0]), len(chunk), rays_in, rng_in,
-                                   ctrl)
-            if on_gpu:
-                ev[1].record()
-                events.append(ev)
+            with timer.span("kernel"):
+                tile, nb = self.tracer(int(chunk[0]), len(chunk), rays_in,
+                                       rng_in, ctrl)
             tiles[start:start + len(chunk)] = self._renorm_tiles(tile, nb, target)
             nbs.append(nb)
             if verbose:
@@ -205,8 +236,7 @@ class Simulator:
         cell_stats = torch.cat(nbs, dim=0).cpu().numpy()
         trace_seconds = time.perf_counter() - t0
         timings["assemble_s"] = time.perf_counter() - ta
-        if on_gpu:
-            timings["kernel_ms"] = sum(a.elapsed_time(b) for a, b in events)
+        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
         del tiles, hist_dev
 
         total_bounces = int(cell_stats[:, 0].astype(np.int64).sum())
@@ -223,6 +253,101 @@ class Simulator:
             rays_traced=total_spawned, total_bounces=total_bounces,
             trace_seconds=trace_seconds, cell_stats=cell_stats,
             timings=timings)
+
+    # ------------------------------------------------------------------
+    # engine="cell": the general loop over iterations and batches
+
+    def _cell_blocks(self, cell_ids: np.ndarray, rays_per_cell: int,
+                     iteration: int):
+        """Every ray of one batch seeded on the host, as kernel blocks on the
+        device: rays_in (C, 6, RT, 128), rng_in (C, RT, 128), RT =
+        ceil(rays_per_cell / 128); padding rays die at init."""
+        batch = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=cell_ids,
+                                        rays_per_cell=rays_per_cell,
+                                        iteration=iteration)
+        rt = -(-rays_per_cell // trace_rows.LANES)
+        rays_in, rng_in = trace_rows.pack_ray_blocks(batch, len(cell_ids),
+                                                     rays_per_cell, rt)
+        return trace_rows.blocks_to_device(rays_in, rng_in, self.device)
+
+    def _trace_blocks(self, cell_ids, rays_in, rng_in, out, timer):
+        """Trace one batch's blocks and add its deposits to ``out``; returns
+        the batch's bounce count (a device scalar, or an int when segmented)
+        and its number of deposits."""
+        base = torch.from_numpy(trace_cell.cell_hist_base(
+            cell_ids, self.M, self.N, *self.cfg.eyebox_bins)).to(self.device)
+        if self._seg_tracer is not None:
+            _, bounces = self._seg_tracer.trace(
+                self.tracer.rows(cell_ids), self.tracer.geom_row, rays_in,
+                rng_in, hist_base=base, out=out, timer=timer)
+            return bounces, self._seg_tracer.deposits
+        with timer.span("kernel"):
+            dep, nb, *_ = self.tracer(cell_ids, rays_in, rng_in)
+        with timer.span("scatter"):
+            deposits = trace_cell.scatter_deposits(out.view(-1), dep, base)
+        return nb[:, 0].sum(), deposits
+
+    def trace_batch(self, cell_ids: np.ndarray, rays_per_cell: int,
+                    iteration: int):
+        """Trace one batch of cells (cell engine); returns ``(histogram
+        (L, N, M, ny, nx) on the device, bounce count, ray count)``."""
+        if self.engine != "cell":
+            raise ValueError("trace_batch belongs to engine='cell'")
+        hist = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
+                           dtype=torch.float32, device=self.device)
+        rays_in, rng_in = self._cell_blocks(cell_ids, rays_per_cell, iteration)
+        bounces, _ = self._trace_blocks(cell_ids, rays_in, rng_in, hist,
+                                        EventTimer("cpu"))
+        return hist, bounces, len(cell_ids) * rays_per_cell
+
+    def _run_cell(self, rpf: int, iters: int, cells_per_batch: int,
+                  evaluate_metrics: bool, eval_cfg: EvalConfig,
+                  verbose: bool) -> SimulationResult:
+        n_cells = self.L * self.M * self.N
+        all_cells = np.arange(n_cells)
+        timings = {"seed_s": 0.0}
+        timer = EventTimer(self.device)
+
+        t0 = time.perf_counter()
+        # the histogram accumulates on the device and is pulled once
+        hist_dev = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
+                               dtype=torch.float32, device=self.device)
+        total_bounces = 0
+        total_rays = 0
+        deposits = 0
+        for it in range(iters):
+            for start in range(0, n_cells, cells_per_batch):
+                chunk = all_cells[start:start + cells_per_batch]
+                ts = time.perf_counter()
+                rays_in, rng_in = self._cell_blocks(chunk, rpf, it)
+                timings["seed_s"] += time.perf_counter() - ts
+                bounces, n_dep = self._trace_blocks(chunk, rays_in, rng_in,
+                                                    hist_dev, timer)
+                total_bounces = total_bounces + bounces
+                deposits += n_dep
+                total_rays += len(chunk) * rpf
+                if verbose:
+                    print(f"iter {it} cells {start}-{start + len(chunk)} "
+                          "dispatched")
+        ta = time.perf_counter()
+        histogram = hist_dev.cpu().numpy()
+        total_bounces = int(total_bounces)
+        trace_seconds = time.perf_counter() - t0
+        timings["assemble_s"] = time.perf_counter() - ta
+        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
+        del hist_dev
+
+        actual_rpf = total_rays / max(n_cells * iters, 1)
+        eff = efficiencies(histogram, actual_rpf, iters)
+        met = None
+        if evaluate_metrics:
+            tm = time.perf_counter()
+            met = evaluate(histogram / actual_rpf / iters, eval_cfg)
+            timings["metrics_s"] = time.perf_counter() - tm
+        return SimulationResult(
+            histogram=histogram, efficiencies=eff, metrics=met,
+            rays_traced=total_rays, total_bounces=total_bounces,
+            trace_seconds=trace_seconds, timings=timings, deposits=deposits)
 
 
 def format_report(result: SimulationResult) -> str:

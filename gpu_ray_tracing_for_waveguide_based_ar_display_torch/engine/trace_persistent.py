@@ -72,7 +72,7 @@ LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 + [ctypes.c_void_p
 
 # kernel launches by wrapper name; the wrapper adds one per launch and
 # nothing else touches it except reset_launch_counts
-launch_counts = {"persistent_trace": 0}
+launch_counts = {"persistent_trace": 0, "cell_trace": 0}
 
 
 def reset_launch_counts() -> None:
@@ -265,6 +265,165 @@ def _bin(v, hi: int):
     return torch.clamp(torch.floor(v), 0, hi).to(torch.int64)
 
 
+class _Rows:
+    """The cell rows and each cell's geometry row as (C, 1) columns ``c(j)``
+    and ``g(j)``; ``take(off)`` reads the cell rows at per-slot offsets, where
+    offsets ``PC .. PC + 7`` read 0: the "no site" and "no branch C" records."""
+
+    def __init__(self, cell_params: torch.Tensor, grows: torch.Tensor):
+        self.cp = cell_params
+        self.cpz = torch.cat([cell_params, cell_params.new_zeros(
+            (cell_params.shape[0], 8))], dim=1)
+        self.grows = grows
+
+    def g(self, j):
+        return self.grows[:, j:j + 1]
+
+    def c(self, j):
+        return self.cp[:, j:j + 1]
+
+    def take(self, off):
+        return torch.gather(self.cpz, 1, off)
+
+    def region(self, base, n, x, y):
+        g = self.g
+        inside = torch.ones_like(x, dtype=torch.bool)
+        for e in range(n):
+            inside = inside & (x * g(base + e) + y * g(base + MAX_EDGES + e)
+                               <= g(base + 2 * MAX_EDGES + e))
+        return inside
+
+    def in_ic(self, px, py):
+        dx = px - self.g(_G_IC)
+        dy = py - self.g(_G_IC + 1)
+        return dx * dx + dy * dy <= self.g(_G_IC + 2)
+
+
+def _bounce_step(rows: _Rows, fields, state, rng, *, num_fc, num_oc,
+                 edge_counts, eyebox_bins):
+    """One bounce of every live slot of a (C, S) block, shared by the plain
+    versions of both trace kernels.
+
+    ``fields`` = (x, y, ter, tei, tmr, tmi, cos_th, gx, gy); ``state`` and
+    ``rng`` are int64.  Returns ``(fields, state, rng, alive, dep, code)``:
+    ``alive`` marks the slots that began the bounce alive, ``dep`` those that
+    out-coupled inside their cell's eyebox rectangle, into bin ``code = iy *
+    nx + ix`` of its (ny, nx) tile."""
+    x, y, ter, tei, tmr, tmi, cos_th, gx, gy = fields
+    g, c, take = rows.g, rows.c, rows.take
+    n_hull, n_r1, n_r2 = (int(e) for e in edge_counts)
+    ny, nx = eyebox_bins
+
+    began = state < 6
+    state = torch.where(began & ~rows.region(_G_R1, n_r1, x, y), 6, state)
+    alive = state < 6
+    grp_ic = alive & (state <= 1)
+    grp_fc = alive & ((state == 2) | (state == 3))
+    grp_oc = alive & (state >= 4)
+    bit = state & 1
+
+    in_hull = rows.region(_G_HULL, n_hull, x, y)
+    yrot = g(_G_FC_ROT) * x + g(_G_FC_ROT + 1) * y
+    fc_strip = _bin((g(_G_FC_TOP) - yrot) * g(_G_FC_INVW), num_fc - 1)
+    yr = g(_G_OC_ROT) * x + g(_G_OC_ROT + 1) * y
+    in_rect = ((x >= g(_G_OC_BT)) & (x <= g(_G_OC_BT + 1))
+               & (y >= g(_G_OC_BT + 2)) & (y <= g(_G_OC_BT + 3)))
+    oc_strip = _bin((g(_G_OC_TOP) - yr) * g(_G_OC_INVW), num_oc - 1)
+    hit_fc = grp_fc & in_hull
+    hit_oc = grp_oc & in_rect
+    interact = grp_ic | hit_fc | hit_oc
+
+    # ---- site record by index: IC block, FC strip or OC strip
+    fc_base = _FC_BLK + _FC_STRIDE * fc_strip
+    oc_base = _OC_BLK + _OC_STRIDE * oc_strip
+    ja_off = torch.where(grp_ic, _IC_BLK + 16 * bit, torch.where(
+        grp_fc, fc_base + 16 * bit, torch.where(
+            grp_oc, oc_base + 24 * bit, PC)))
+    jb_off = torch.where(alive, ja_off + 8, PC)
+    jc_off = torch.where(grp_oc, oc_base + 24 * bit + 16, PC)
+    s_a = take(torch.where(grp_ic, _IC_SA, torch.where(
+        grp_fc, fc_base + 32, torch.where(grp_oc, oc_base + 48, PC))))
+    s_b = take(torch.where(grp_ic, _IC_SB, torch.where(
+        grp_fc, fc_base + 33, torch.where(grp_oc, oc_base + 49, PC))))
+    ja = [take(ja_off + k) for k in range(8)]
+    jb = [take(jb_off + k) for k in range(8)]
+    jc = [take(jc_off + k) for k in range(8)]
+    pol_a = _jones(ja, ter, tei, tmr, tmi)
+    pol_b = _jones(jb, ter, tei, tmr, tmi)
+    pol_c = _jones(jc, ter, tei, tmr, tmi)
+    inv_cos = 1.0 / cos_th
+    eff_a = _power(pol_a) * s_a * inv_cos
+    eff_b = _power(pol_b) * s_b * inv_cos
+    eff_c = _power(pol_c) * c(_OC_SOUT) * inv_cos
+
+    # the stream advances only on an interaction
+    rng_new = xorshift32_step(rng)
+    u = draw24(rng_new)
+    rng = torch.where(interact, rng_new, rng)
+    br_a = interact & (u <= eff_a) & (eff_a > 0)
+    br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
+    br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
+            & (eff_c > 0))
+    die = interact & ~(br_a | br_b | br_c)
+    accept = br_a | br_b
+
+    dirs = torch.where(br_a, torch.where(grp_oc, 1, 0),
+                       torch.where(grp_oc, 3, torch.where(grp_fc, 1, 2)))
+    ter_n = torch.where(br_a, pol_a[0], pol_b[0])
+    tei_n = torch.where(br_a, pol_a[1], pol_b[1])
+    tmr_n = torch.where(br_a, pol_a[2], pol_b[2])
+    tmi_n = torch.where(br_a, pol_a[3], pol_b[3])
+    inv = _rsqrt(_power((ter_n, tei_n, tmr_n, tmi_n)))
+    phr = take(_TIR_PH + 2 * dirs)
+    phi = take(_TIR_PH + 1 + 2 * dirs)
+    ter_n, tei_n = ter_n * inv, tei_n * inv
+    tr, ti = tmr_n * inv, tmi_n * inv
+    tmr_n, tmi_n = phr * tr - phi * ti, phr * ti + phi * tr
+    cos_n = torch.where(br_a, s_a, s_b)
+    gx_n = take(_GAPS + 2 * dirs)
+    gy_n = take(_GAPS + 1 + 2 * dirs)
+    x_acc = x + gx_n
+    y_acc = y + gy_n
+    icin = rows.in_ic(x_acc, y_acc)
+    st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, torch.where(icin, 0, 2)))
+    st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, torch.where(icin, 1, 6)))
+    st_acc = torch.where(br_a, st_a, st_b)
+
+    # ---- deposit: branch C inside the cell's eyebox rectangle
+    in_quad = ((x >= c(_EBT)) & (x <= c(_EBT + 1))
+               & (y >= c(_EBT + 2)) & (y <= c(_EBT + 3)))
+    dep = br_c & in_quad
+    ix = _bin((x - c(_EBR)) * c(_EBS), nx - 1)
+    iy = _bin((y - c(_EBR + 2)) * c(_EBS + 1), ny - 1)
+    code = iy * nx + ix
+
+    # ---- misses: TIR hops by the carried gap, FC fold-out to the OC, OC exits
+    miss_fc2 = grp_fc & ~in_hull & (state == 2)
+    miss_fc3 = grp_fc & ~in_hull & (state == 3)
+    in_r2 = rows.region(_G_R2, n_r2, x, y)
+    fc3_to_oc = miss_fc3 & ~in_r2
+    hop = (miss_fc2 | (miss_fc3 & in_r2)
+           | (grp_oc & ~in_rect & (state == 4)))
+    miss_oc5 = grp_oc & ~in_rect & (state == 5)
+    h_phr = torch.where(miss_fc2, c(_HOP2_PH + 0), c(_HOP2_PH + 2))
+    h_phi = torch.where(miss_fc2, c(_HOP2_PH + 1), c(_HOP2_PH + 3))
+    hop_tmr = h_phr * tmr - h_phi * tmi
+    hop_tmi = h_phr * tmi + h_phi * tmr
+
+    state = torch.where(accept, st_acc, torch.where(
+        br_c | die | miss_oc5, 6, torch.where(fc3_to_oc, 4, state)))
+    fields = (torch.where(accept, x_acc, torch.where(hop, x + gx, x)),
+              torch.where(accept, y_acc, torch.where(hop, y + gy, y)),
+              torch.where(accept, ter_n, ter),
+              torch.where(accept, tei_n, tei),
+              torch.where(accept, tmr_n, torch.where(hop, hop_tmr, tmr)),
+              torch.where(accept, tmi_n, torch.where(hop, hop_tmi, tmi)),
+              torch.where(accept, cos_n, cos_th),
+              torch.where(accept, gx_n, gx),
+              torch.where(accept, gy_n, gy))
+    return fields, state, rng, began, dep, code
+
+
 def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
                                num_fc, num_oc, edge_counts, eyebox_bins,
                                max_iters, spawn_mode="count"):
@@ -276,38 +435,14 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
         edge_counts, eyebox_bins, max_iters, spawn_mode)
     dev = cell_params.device
     ny, nx = eyebox_bins
-    n_hull, n_r1, n_r2 = (int(e) for e in edge_counts)
     quota, spawn_iters = (int(v) for v in ctrl.tolist())
     gens_mode = spawn_mode == "gens"
     f32, i64 = torch.float32, torch.int64
 
-    cp = cell_params
-    # 8 zero columns past the row: the "no site" and "no branch C" records
-    cpz = torch.cat([cp, torch.zeros((C, 8), dtype=f32, device=dev)], dim=1)
     cells = torch.arange(C, device=dev)
-    # each cell's design's geometry row, (C, PG); g(j) is a (C, 1) column
-    grows = geom_row.index_select(0, cells // cpd)
-
-    def g(j):
-        return grows[:, j:j + 1]
-
-    def c(j):
-        return cp[:, j:j + 1]
-
-    def take(off):
-        return torch.gather(cpz, 1, off)
-
-    def region(base, n, x, y):
-        inside = torch.ones_like(x, dtype=torch.bool)
-        for e in range(n):
-            inside = inside & (x * g(base + e) + y * g(base + MAX_EDGES + e)
-                               <= g(base + 2 * MAX_EDGES + e))
-        return inside
-
-    def in_ic(px, py):
-        dx = px - g(_G_IC)
-        dy = py - g(_G_IC + 1)
-        return dx * dx + dy * dy <= g(_G_IC + 2)
+    # each cell's design's geometry row, (C, PG)
+    rows = _Rows(cell_params, geom_row.index_select(0, cells // cpd))
+    c, in_ic = rows.c, rows.in_ic
 
     rays = rays_in.reshape(rays_in.shape[0], 6, S).index_select(
         0, cells // rays_div)
@@ -349,7 +484,6 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
     done = torch.zeros((C,), dtype=torch.bool, device=dev)
     hist = torch.zeros((C * ny * nx,), dtype=i64, device=dev)
     cell_base = (torch.arange(C, device=dev, dtype=i64) * (ny * nx))[:, None]
-    zero_off = torch.full((C, S), PC, dtype=i64, device=dev)
 
     for it in range(max_iters):
         met = gen >= quota if gens_mode else spawned[:, None] >= quota
@@ -390,116 +524,15 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
         gy = torch.where(live, torch.where(a, c(_GAPS + 1), c(_GAPS + 5)), gy)
         state = torch.where(m7, st1, state)
 
-        # ---- one bounce for live slots
-        alive = state < 6
+        # ---- one bounce for live slots; deposits go into the cell's tile
+        fields, state, rng, alive, dep, code = _bounce_step(
+            rows, (x, y, ter, tei, tmr, tmi, cos_th, gx, gy), state, rng,
+            num_fc=num_fc, num_oc=num_oc, edge_counts=edge_counts,
+            eyebox_bins=eyebox_bins)
+        x, y, ter, tei, tmr, tmi, cos_th, gx, gy = fields
         bounces = bounces + alive.sum(dim=1)
-        state = torch.where(alive & ~region(_G_R1, n_r1, x, y), 6, state)
-        alive = state < 6
-        grp_ic = alive & (state <= 1)
-        grp_fc = alive & ((state == 2) | (state == 3))
-        grp_oc = alive & (state >= 4)
-        bit = state & 1
-
-        in_hull = region(_G_HULL, n_hull, x, y)
-        yrot = g(_G_FC_ROT) * x + g(_G_FC_ROT + 1) * y
-        fc_strip = _bin((g(_G_FC_TOP) - yrot) * g(_G_FC_INVW), num_fc - 1)
-        yr = g(_G_OC_ROT) * x + g(_G_OC_ROT + 1) * y
-        in_rect = ((x >= g(_G_OC_BT)) & (x <= g(_G_OC_BT + 1))
-                   & (y >= g(_G_OC_BT + 2)) & (y <= g(_G_OC_BT + 3)))
-        oc_strip = _bin((g(_G_OC_TOP) - yr) * g(_G_OC_INVW), num_oc - 1)
-        hit_fc = grp_fc & in_hull
-        hit_oc = grp_oc & in_rect
-        interact = grp_ic | hit_fc | hit_oc
-
-        # ---- site record by index: IC block, FC strip or OC strip
-        fc_base = _FC_BLK + _FC_STRIDE * fc_strip
-        oc_base = _OC_BLK + _OC_STRIDE * oc_strip
-        ja_off = torch.where(grp_ic, _IC_BLK + 16 * bit, torch.where(
-            grp_fc, fc_base + 16 * bit, torch.where(
-                grp_oc, oc_base + 24 * bit, zero_off)))
-        jb_off = torch.where(alive, ja_off + 8, zero_off)
-        jc_off = torch.where(grp_oc, oc_base + 24 * bit + 16, zero_off)
-        s_a = take(torch.where(grp_ic, _IC_SA, torch.where(
-            grp_fc, fc_base + 32, torch.where(grp_oc, oc_base + 48, zero_off))))
-        s_b = take(torch.where(grp_ic, _IC_SB, torch.where(
-            grp_fc, fc_base + 33, torch.where(grp_oc, oc_base + 49, zero_off))))
-        ja = [take(ja_off + k) for k in range(8)]
-        jb = [take(jb_off + k) for k in range(8)]
-        jc = [take(jc_off + k) for k in range(8)]
-        pol_a = _jones(ja, ter, tei, tmr, tmi)
-        pol_b = _jones(jb, ter, tei, tmr, tmi)
-        pol_c = _jones(jc, ter, tei, tmr, tmi)
-        inv_cos = 1.0 / cos_th
-        eff_a = _power(pol_a) * s_a * inv_cos
-        eff_b = _power(pol_b) * s_b * inv_cos
-        eff_c = _power(pol_c) * c(_OC_SOUT) * inv_cos
-
-        rng_new = xorshift32_step(rng)
-        u = draw24(rng_new)
-        rng = torch.where(interact, rng_new, rng)
-        br_a = interact & (u <= eff_a) & (eff_a > 0)
-        br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
-        br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
-                & (eff_c > 0))
-        die = interact & ~(br_a | br_b | br_c)
-        accept = br_a | br_b
-
-        dirs = torch.where(br_a, torch.where(grp_oc, 1, 0),
-                           torch.where(grp_oc, 3, torch.where(grp_fc, 1, 2)))
-        ter_n = torch.where(br_a, pol_a[0], pol_b[0])
-        tei_n = torch.where(br_a, pol_a[1], pol_b[1])
-        tmr_n = torch.where(br_a, pol_a[2], pol_b[2])
-        tmi_n = torch.where(br_a, pol_a[3], pol_b[3])
-        inv = _rsqrt(_power((ter_n, tei_n, tmr_n, tmi_n)))
-        phr = take(_TIR_PH + 2 * dirs)
-        phi = take(_TIR_PH + 1 + 2 * dirs)
-        ter_n, tei_n = ter_n * inv, tei_n * inv
-        tr, ti = tmr_n * inv, tmi_n * inv
-        tmr_n, tmi_n = phr * tr - phi * ti, phr * ti + phi * tr
-        cos_n = torch.where(br_a, s_a, s_b)
-        gx_n = take(_GAPS + 2 * dirs)
-        gy_n = take(_GAPS + 1 + 2 * dirs)
-        x_acc = x + gx_n
-        y_acc = y + gy_n
-        icin = in_ic(x_acc, y_acc)
-        st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, torch.where(icin, 0, 2)))
-        st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, torch.where(icin, 1, 6)))
-        st_acc = torch.where(br_a, st_a, st_b)
-
-        # ---- deposit into the cell's tile
-        in_quad = ((x >= c(_EBT)) & (x <= c(_EBT + 1))
-                   & (y >= c(_EBT + 2)) & (y <= c(_EBT + 3)))
-        dep = br_c & in_quad
-        if bool(dep.any()):
-            ix = _bin((x - c(_EBR)) * c(_EBS), nx - 1)
-            iy = _bin((y - c(_EBR + 2)) * c(_EBS + 1), ny - 1)
-            flat = (cell_base + iy * nx + ix)[dep]
-            hist.index_add_(0, flat, torch.ones_like(flat))
-
-        # ---- misses: TIR hops, FC fold-out to the OC, OC exits
-        miss_fc2 = grp_fc & ~in_hull & (state == 2)
-        miss_fc3 = grp_fc & ~in_hull & (state == 3)
-        in_r2 = region(_G_R2, n_r2, x, y)
-        fc3_to_oc = miss_fc3 & ~in_r2
-        hop = (miss_fc2 | (miss_fc3 & in_r2)
-               | (grp_oc & ~in_rect & (state == 4)))
-        miss_oc5 = grp_oc & ~in_rect & (state == 5)
-        h_phr = torch.where(miss_fc2, c(_HOP2_PH + 0), c(_HOP2_PH + 2))
-        h_phi = torch.where(miss_fc2, c(_HOP2_PH + 1), c(_HOP2_PH + 3))
-        hop_tmr = h_phr * tmr - h_phi * tmi
-        hop_tmi = h_phr * tmi + h_phi * tmr
-
-        state = torch.where(accept, st_acc, torch.where(
-            br_c | die | miss_oc5, 6, torch.where(fc3_to_oc, 4, state)))
-        x = torch.where(accept, x_acc, torch.where(hop, x + gx, x))
-        y = torch.where(accept, y_acc, torch.where(hop, y + gy, y))
-        ter = torch.where(accept, ter_n, ter)
-        tei = torch.where(accept, tei_n, tei)
-        tmr = torch.where(accept, tmr_n, torch.where(hop, hop_tmr, tmr))
-        tmi = torch.where(accept, tmi_n, torch.where(hop, hop_tmi, tmi))
-        cos_th = torch.where(accept, cos_n, cos_th)
-        gx = torch.where(accept, gx_n, gx)
-        gy = torch.where(accept, gy_n, gy)
+        flat = (cell_base + code)[dep]
+        hist.index_add_(0, flat, torch.ones_like(flat))
 
     if gens_mode:
         spawned = gen.sum(dim=1)

@@ -218,8 +218,16 @@ def rows_to_device(cell_params: np.ndarray, geom_row: np.ndarray,
 
 def blocks_to_device(rays_in: np.ndarray, rng_in: np.ndarray,
                      device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ray tiles (B, 6, RT, 128) float32 and seeds (C, RT, 128) uint32 as
-    tensors on ``device``; the seeds travel as int32 holding the same bits."""
+    """Ray tiles (B, 6 or 9, RT, 128) float32 and seeds (C, RT, 128) uint32
+    as tensors on ``device``; the seeds travel as int32 holding the same
+    bits."""
     rays = torch.from_numpy(np.ascontiguousarray(rays_in, np.float32))
     bits = np.ascontiguousarray(rng_in, np.uint32).view(np.int32)
     return rays.to(device), torch.from_numpy(bits).to(device)
+
+
+def state_to_device(state: np.ndarray, device) -> torch.Tensor:
+    """Per-ray state codes (C, RT, 128) of a saved trace as an int32 tensor
+    on ``device`` (with the 9-field tile and the streams of
+    :func:`blocks_to_device`: what resume mode takes)."""
+    return torch.from_numpy(np.ascontiguousarray(state, np.int32)).to(device)

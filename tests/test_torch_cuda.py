@@ -1,4 +1,4 @@
-"""PyTorch port on the card: the CUDA kernel against its plain version.
+"""PyTorch port on the card: the CUDA kernels against their plain versions.
 
 Every test here needs an NVIDIA GPU, carries the ``cuda`` marker and skips
 without one.  The file imports neither JAX nor the JAX package, so it also
@@ -22,6 +22,7 @@ from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
 )
 from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
     pipeline,
+    trace_cell as tc,
     trace_persistent as tp,
 )
 from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
@@ -149,3 +150,63 @@ def test_sweep_design_equals_solo_on_card(cuda_device, mode, spawn_iters):
     assert solo.bounces[0] == res.bounces[1]
     np.testing.assert_array_equal(cpu.histograms, res.histograms)
     np.testing.assert_array_equal(cpu.bounces, res.bounces)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays_per_cell", [256, 300])
+def test_cell_kernel_equals_plain_version_on_card(small, cuda_device,
+                                                  rays_per_cell):
+    """The per-cell kernel in full mode, in resume mode from its own
+    outputs, and with the whole budget: every output identical to the plain
+    version's (300 rays per cell leave 84 padding slots that die at init),
+    and full(16) + resume(rest) = full(whole)."""
+    geom, cfg = small
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             engine="cell")
+    assert tc._LIB is not None   # built and bound by Simulator.__init__
+    cells = np.arange(3 * M * N)
+    rays_in, rng_in = sim._cell_blocks(cells, rays_per_cell, 0)
+    tr = sim.tracer
+    rows = tr.rows(cells)
+
+    def both(rays, rng, state, budget):
+        args = (rows, tr.geom_row, rays, rng, state)
+        n0 = tp.launch_counts["cell_trace"]
+        outk = tc.cell_trace(*args, max_bounces=budget, **tr.kw)
+        torch.cuda.synchronize()
+        assert tp.launch_counts["cell_trace"] == n0 + 1
+        outp = tc.cell_trace_reference(*args, max_bounces=budget, **tr.kw)
+        for k, p in zip(outk, outp):
+            assert torch.equal(k, p)
+        return outk
+
+    a = both(rays_in, rng_in, None, 16)
+    b = both(a[2], a[4], a[3], cfg.max_bounces - 16)
+    c = both(rays_in, rng_in, None, cfg.max_bounces)
+    assert (a[3] < 6).any() and (c[0] >= 0).sum() > 0
+    assert torch.equal(torch.where(a[0] >= 0, a[0], b[0]), c[0])
+    assert torch.equal(a[1][:, 0] + b[1][:, 0], c[1][:, 0])
+    for k in (2, 3, 4):
+        assert torch.equal(b[k], c[k])
+
+
+@pytest.mark.cuda
+def test_cell_simulator_on_card_segmented_equals_monolithic_and_cpu(
+        small, cuda_device):
+    """On the card the segmented run equals the monolithic run, and both
+    equal the plain version's run on the CPU (IEEE float32 without
+    contraction on both)."""
+    geom, cfg = small
+    kw = dict(cfg=cfg, geom=geom, engine="cell")
+    run = dict(cells_per_batch=16, evaluate_metrics=False)
+    mono = pipeline.Simulator(device=cuda_device, **kw).run(**run)
+    seg = pipeline.Simulator(device=cuda_device, segmented=True,
+                             segment_bounces=8, **kw).run(**run)
+    cpu = pipeline.Simulator(device="cpu", **kw).run(**run)
+    for other in (seg, cpu):
+        np.testing.assert_array_equal(other.histogram, mono.histogram)
+        assert other.total_bounces == mono.total_bounces
+        assert other.deposits == mono.deposits
+        assert other.efficiencies == mono.efficiencies
+    assert mono.histogram.sum() == mono.deposits > 0
+    assert "kernel_ms" in mono.timings and "compact_ms" in seg.timings
