@@ -59,12 +59,45 @@ Run from the repository root.  Phases:
    run at 2,048 rays per cell holds the two kernels to each other: it must
    equal a one-design gens-spawn sweep of the persistent kernel with one
    generation per slot bit for bit (the same launch tile and seeds), and
-   agree within 2 % with the efficiencies of ten generations per slot.
+   agree within 2 % with the efficiencies of ten generations per slot;
+9. the persistent kernel's packed selection, transit jumps and several
+   cells per block against the plain version on the card, at phase 2's
+   fixture (144 cells, 100,000-iteration bound): (a) packed, count target
+   20,000, 2,048 slots; (b) the same with jumps phased by squaring; (c) by
+   cos / sin; (d) packed with two cells of 1,024 slots per block, in count
+   spawn and in gens spawn ``[2, 0]``, each also against its own launch with
+   one cell per block (tile, bounces and spawns equal per cell); (e) packed
+   with jumps by squaring in gens spawn saturated to iteration 256 at 256
+   slots (the sweep's width); (f) packed and (g) packed with jumps by
+   squaring in gens spawn ``[10, 0]`` at 2,048 slots; (h) packed in gens
+   spawn saturated to iteration 256 at 256 slots and (i) the same with four
+   cells of 256 slots per block, also against one cell per block (the two
+   launch shapes of phase 6c that no other row has).  Every mode must equal
+   its plain version bit for bit.  (g) against (f), the same rays hop by hop:
+   bounces within 0.2 %, deposits within 5 %, strictly fewer iterations.
+   (b) against (a): count spawn respawns a slot the sooner the fewer
+   iterations its rays live, and jumps shorten exactly the long transits, so
+   the two runs weigh launch points differently: bounces per spawned ray
+   within 1 %, deposits per spawned ray within 5 %, strictly fewer
+   iterations;
+10. the count-spawn, folded stack with packed selection and transit jumps at
+   full width through ``Simulator(pers_accum_mode="packed",
+   pers_transit_jump=True)``: the reference workload, uncut, every layer
+   timed as in phase 3, then the same with packed selection alone; launch
+   counts reset just before each run and read just after it.  Each colour's
+   efficiency must lie within 5 % of the exact mode's (phase 3: the same
+   seeds), bounces per traced ray within 1 %, and the jump run's summed
+   iterations below the packed run's;
+6c. phase 6's default sweep (8 periods, 180,000 cells, 256 slots, gens spawn
+   saturated to iteration 256) with packed selection and transit jumps, with
+   packed selection alone, and with packed selection and four cells per
+   block, whose kept design must equal the one-cell-per-block run's bit for
+   bit.
 
 Any failure exits non-zero without the result line.  On success the line
 before the last is the kernels' JSON summary and the last line is
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes every
-number measured to PATH as JSON.  ``--phases 1,2,3`` runs only those phases
+number measured to PATH as JSON.  ``--phases 2,3`` or ``--phases 9,10,6c`` runs only those phases
 (phase 1 always runs) and prints neither summary nor result line: it serves
 comparisons of two versions of one phase within one call.  The port's package ``__init__`` turns
 transparent huge pages off for the process (``GRT_KEEP_THP=1`` keeps them),
@@ -113,9 +146,17 @@ def nvidia_smi() -> str:
 
 
 def ptxas_summary(log: str) -> str:
-    """Registers, shared memory and spills from nvcc's -Xptxas -v output."""
-    keep = [ln.strip() for ln in log.splitlines()
-            if re.search(r"registers|spill|smem", ln)]
+    """Registers, shared memory and spills from nvcc's -Xptxas -v output,
+    each kernel instantiation under its template arguments (the persistent
+    kernel's are GENS, SEL, MULTI)."""
+    keep = []
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            targs = re.findall(r"L[bi](\d+)E", entry.group(1))
+            keep.append(f"[{','.join(targs)}]" if targs else "[kernel]")
+        elif re.search(r"registers|spill|smem", ln):
+            keep.append(re.sub(r"^ptxas info\s*:\s*", "", ln.strip()))
     return " | ".join(keep) if keep else "(no ptxas report)"
 
 
@@ -132,19 +173,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(inputs, outputs, nb, n_r1: int):
+def bound_ms(inputs, outputs, nb, n_r1: int, ops_per_edge: int = 4,
+             hops_per_test: int = 1):
     """The least time the card could take for one launch, and what sets it.
 
     Bytes: every input read once and every output written once.  Operations:
     the float32 work every bounce does at least, the r1 containment test
-    (two multiplies, an add and a compare: 4 operations per edge), times
-    this run's bounces; the Jones products, strip selection and
-    roulette of the bounces that interact are not counted, so the bound is a
-    floor."""
+    (two multiplies, an add and a compare: 4 operations per edge; the packed
+    max chain: 3), times this run's bounces; the Jones products, strip
+    selection and roulette of the bounces that interact are not counted, so
+    the bound is a floor.  A transit jump's skipped hops are counted bounces
+    without a test, and the kernel does not report how many it skipped: one
+    test covers at most ``hops_per_test`` counted bounces (15 phased by
+    squaring, 4,095 by cos / sin), so at least bounces / hops_per_test were
+    tested."""
     import torch
 
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    ops = float(nb[:, 0].to(torch.int64).sum()) * 4 * n_r1
+    ops = (float(nb[:, 0].to(torch.int64).sum()) / hops_per_test
+           * ops_per_edge * n_r1)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_FP32_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -366,6 +413,18 @@ def phase3(ctx) -> None:
         save_record(ctx)
     ctx["k1_main_launches"] = launches["persistent_trace"]
     ctx["persistent_efficiencies"] = dict(res.efficiencies)
+    ctx["exact_run"] = stack_stats(res)
+
+
+def stack_stats(res) -> dict:
+    """What phase 10 compares between the persistent engine's stacks."""
+    return {"efficiencies": dict(res.efficiencies),
+            "kernel_ms": res.timings.get("kernel_ms"),
+            "trace_s": res.trace_seconds,
+            "bounces": res.total_bounces, "rays": res.rays_traced,
+            "bounces_per_ray": res.total_bounces / res.rays_traced,
+            "iterations": int(res.cell_stats[:, 1].astype("int64").sum()),
+            "max_iterations": int(res.cell_stats[:, 1].max())}
 
 
 def phase5(ctx) -> None:
@@ -431,8 +490,11 @@ def phase5(ctx) -> None:
     ctx["k1_modes"] = ctx.get("k1_modes", []) + modes
 
 
-def phase6(ctx) -> None:
-    """The design sweep at full width."""
+def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
+    """One full-width sweep from the CLI's arguments ``argv`` (and the
+    kernel ``modes``), its launch count set to 0 just before and read just
+    after; prints and records its layers and checks its outputs.  Returns
+    ``(result, entry, designs, cfg, sweep keywords)``."""
     import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
@@ -449,100 +511,152 @@ def phase6(ctx) -> None:
         design_sweep,
     )
 
-    record = ctx["record"]
+    sargs = cli.build_parser().parse_args(argv)
+    designs, _ = cli.sweep_designs(sargs)
+    cfg6 = cli.sweep_config(sargs)
+    kw6 = dict(spawn_iters=sargs.spawn_iters, spawn_mode=sargs.spawn_mode,
+               slots=sargs.slots, evaluate_metrics=sargs.metrics,
+               device=ctx["dev"], **modes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    r6 = design_sweep.run_design_sweep_persistent(
+        designs, cfg6, keep_histograms=list(keep), **kw6)
+    torch.cuda.synchronize()
+    wall6 = time.perf_counter() - t0
+    n_launch = tp.launch_counts["persistent_trace"]
+    peak6 = torch.cuda.max_memory_allocated()
+    n_cells6 = len(designs) * 3 * cfg6.num_fov_x * cfg6.num_fov_y
+    bounces6 = int(r6.bounces.sum())
+    slots6 = min(cfg6.rays_per_fov, 2048)
+    tgs = [build_trace_geometry(
+        generate_geometry(d, cfg6.num_fov_x, cfg6.num_fov_y), 0.05)
+        for d in designs]
+    n_r1 = min(trace_rows.edge_counts(tg)[1] for tg in tgs)
+    packed = modes.get("accum_mode") == "packed"
+    jump = bool(modes.get("transit_jump"))
+    words = ((1 + tgs[0].num_fc + tgs[0].num_oc) * trace_rows.SEL_NW
+             if packed else 0)
+    nbytes = (n_cells6 * (trace_rows.PC + words + cfg6.eyebox_bins[0]
+                          * cfg6.eyebox_bins[1] + 4) * 4
+              + len(designs) * (trace_rows.PG + 6 * slots6) * 4
+              + n_cells6 // len(designs) * slots6 * 4 + 8)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    # the r1 test of every bounce (3 operations per edge in packed
+    # selection); a jump by squaring covers at most 15 counted bounces
+    t_ops = (bounces6 / (15 if jump else 1) * (3 if packed else 4) * n_r1
+             / PEAK_FP32_OPS * 1e3)
+    tm = r6.timings
+    entry = {
+        "designs": len(designs), "cells": n_cells6,
+        "spawn_mode": sargs.spawn_mode, "spawn_iters": sargs.spawn_iters,
+        "rays_per_fov": cfg6.rays_per_fov, "slots": slots6,
+        "modes": {k: v for k, v in modes.items()},
+        "wall_s": wall6, "host_prep_s": tm["prep_s"],
+        "seed_s": tm["seed_s"], "upload_s": tm["upload_s"],
+        "keep_s": tm["keep_s"], "pull_s": tm["pull_s"],
+        "metrics_s": tm.get("metrics_s"), "kernel_ms": tm["kernel_ms"],
+        "reduce_ms": tm["reduce_ms"],
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bounces": bounces6, "bounces_per_s": bounces6 / wall6,
+        "kernel_bounces_per_s": bounces6 / (tm["kernel_ms"] / 1e3),
+        "launches": n_launch, "peak_bytes": peak6,
+        "designs_per_hour": len(designs) / wall6 * 3600,
+        "efficiencies": r6.efficiencies.tolist(),
+        "delta_e": [m.delta_e for m in r6.metrics],
+        "u_fov": [m.u_fov for m in r6.metrics],
+        "u_eyebox": [m.u_eyebox for m in r6.metrics]}
+    ctx["record"].setdefault(phase, {})[name] = entry
+    save_record(ctx)
+    print(f"phase {phase[5:]} {name}: {len(designs)} designs, {n_cells6:,} "
+          f"cells in {n_launch} launch(es): wall {wall6:.3f} s (host prep "
+          f"{tm['prep_s']:.3f} s, seeds {tm['seed_s']:.3f} s, upload "
+          f"{tm['upload_s']:.3f} s, kept histograms to the host "
+          f"{tm['keep_s']:.3f} s, metrics "
+          f"{tm.get('metrics_s', 0.0):.3f} s), kernel "
+          f"{tm['kernel_ms']:.1f} ms, reduction and pupil integration "
+          f"{tm['reduce_ms']:.1f} ms (kernel bound "
+          f"{entry['bound_ms']:.3f} ms, "
+          f"{entry['bound_by']}); bounces {bounces6:,} "
+          f"({bounces6 / wall6:.4g}/s end to end, "
+          f"{entry['kernel_bounces_per_s']:.4g}/s kernel); peak device "
+          f"memory {peak6 / 2**20:.1f} MiB; "
+          f"{entry['designs_per_hour']:,.0f} designs/hour")
+    eff = r6.efficiencies
+    if eff.shape != (len(designs), 3) or not (np.isfinite(eff).all()
+                                               and (eff > 0).all()):
+        fail(f"phase {phase[5:]} {name}: efficiencies not all positive and "
+             f"finite: {eff.tolist()}")
+    mvals = entry["delta_e"] + entry["u_fov"] + entry["u_eyebox"]
+    if len(r6.metrics) != len(designs) or not all(
+            math.isfinite(v) for v in mvals):
+        fail(f"phase {phase[5:]} {name}: non-finite metrics {mvals}")
+    if n_launch != 1:
+        fail(f"phase {phase[5:]} {name}: {n_launch} launches for one chunk")
+    return r6, entry, designs, cfg6, kw6
+
+
+def phase6(ctx) -> None:
+    """The design sweep at full width."""
+    import numpy as np
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
     sweeps = (("cli_default", ["sweep", "--metrics"]),
               ("readme_count", ["sweep", "--num-designs", "16",
                                 "--spawn-mode", "count", "--spawn-iters", "0",
                                 "--rays-per-fov", "2048", "--metrics"]))
     sweep_launches = 0
-    record["phase6"] = {}
     for name, argv in sweeps:
-        sargs = cli.build_parser().parse_args(argv)
-        designs, _ = cli.sweep_designs(sargs)
-        cfg6 = cli.sweep_config(sargs)
-        kw6 = dict(spawn_iters=sargs.spawn_iters, spawn_mode=sargs.spawn_mode,
-                   slots=sargs.slots, evaluate_metrics=sargs.metrics,
-                   device=ctx["dev"])
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        tp.reset_launch_counts()
-        t0 = time.perf_counter()
-        r6 = design_sweep.run_design_sweep_persistent(
-            designs, cfg6, keep_histograms=[3], **kw6)
-        torch.cuda.synchronize()
-        wall6 = time.perf_counter() - t0
-        n_launch = tp.launch_counts["persistent_trace"]
-        peak6 = torch.cuda.max_memory_allocated()
-        sweep_launches += n_launch
+        r6, entry, designs, cfg6, kw6 = run_sweep(ctx, "phase6", name, argv)
+        sweep_launches += entry["launches"]
         solo = design_sweep.run_design_sweep_persistent(
             designs[3:4], cfg6, keep_histograms=True, **kw6)
-        n_cells6 = len(designs) * 3 * cfg6.num_fov_x * cfg6.num_fov_y
-        bounces6 = int(r6.bounces.sum())
-        slots6 = min(cfg6.rays_per_fov, 2048)
-        n_r1 = min(trace_rows.edge_counts(build_trace_geometry(
-            generate_geometry(d, cfg6.num_fov_x, cfg6.num_fov_y), 0.05))[1]
-            for d in designs)
-        nbytes = (n_cells6 * (trace_rows.PC + cfg6.eyebox_bins[0]
-                              * cfg6.eyebox_bins[1] + 4) * 4
-                  + len(designs) * (trace_rows.PG + 6 * slots6) * 4
-                  + n_cells6 // len(designs) * slots6 * 4 + 8)
-        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-        t_ops = bounces6 * 4 * n_r1 / PEAK_FP32_OPS * 1e3
-        tm = r6.timings
-        entry = {
-            "designs": len(designs), "cells": n_cells6,
-            "spawn_mode": sargs.spawn_mode, "spawn_iters": sargs.spawn_iters,
-            "rays_per_fov": cfg6.rays_per_fov, "slots": slots6,
-            "wall_s": wall6, "host_prep_s": tm["prep_s"],
-            "seed_s": tm["seed_s"], "upload_s": tm["upload_s"],
-            "keep_s": tm["keep_s"], "pull_s": tm["pull_s"],
-            "metrics_s": tm.get("metrics_s"), "kernel_ms": tm["kernel_ms"],
-            "reduce_ms": tm["reduce_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bounces": bounces6, "bounces_per_s": bounces6 / wall6,
-            "kernel_bounces_per_s": bounces6 / (tm["kernel_ms"] / 1e3),
-            "launches": n_launch, "peak_bytes": peak6,
-            "designs_per_hour": len(designs) / wall6 * 3600,
-            "efficiencies": r6.efficiencies.tolist(),
-            "delta_e": [m.delta_e for m in r6.metrics],
-            "u_fov": [m.u_fov for m in r6.metrics],
-            "u_eyebox": [m.u_eyebox for m in r6.metrics]}
-        record["phase6"][name] = entry
-        save_record(ctx)
-        print(f"phase 6 {name}: {len(designs)} designs, {n_cells6:,} cells "
-              f"in {n_launch} launch(es): wall {wall6:.3f} s (host prep "
-              f"{tm['prep_s']:.3f} s, seeds {tm['seed_s']:.3f} s, upload "
-              f"{tm['upload_s']:.3f} s, design 3's histogram to the host "
-              f"{tm['keep_s']:.3f} s, metrics "
-              f"{tm.get('metrics_s', 0.0):.3f} s), kernel "
-              f"{tm['kernel_ms']:.1f} ms, reduction and pupil integration "
-              f"{tm['reduce_ms']:.1f} ms (kernel bound "
-              f"{entry['bound_ms']:.3f} ms, "
-              f"{entry['bound_by']}); bounces {bounces6:,} "
-              f"({bounces6 / wall6:.4g}/s end to end, "
-              f"{entry['kernel_bounces_per_s']:.4g}/s kernel); peak device "
-              f"memory {peak6 / 2**20:.1f} MiB; "
-              f"{entry['designs_per_hour']:,.0f} designs/hour")
-        eff = r6.efficiencies
-        if eff.shape != (len(designs), 3) or not (np.isfinite(eff).all()
-                                                   and (eff > 0).all()):
-            fail(f"phase 6 {name}: efficiencies not all positive and finite: "
-                 f"{eff.tolist()}")
-        mvals = entry["delta_e"] + entry["u_fov"] + entry["u_eyebox"]
-        if len(r6.metrics) != len(designs) or not all(
-                math.isfinite(v) for v in mvals):
-            fail(f"phase 6 {name}: non-finite metrics {mvals}")
         if not (np.array_equal(r6.histograms[0], solo.histograms[0])
                 and r6.bounces[3] == solo.bounces[0]
                 and np.array_equal(r6.efficiencies[3], solo.efficiencies[0])):
             fail(f"phase 6 {name}: design 3 differs from its solo sweep")
-        if n_launch != 1:
-            fail(f"phase 6 {name}: {n_launch} launches for one chunk")
         del r6, solo
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_sweep_launches"] = sweep_launches
+
+
+def phase6c(ctx) -> None:
+    """Phase 6's default sweep in the packed modes."""
+    import numpy as np
+
+    argv = ["sweep", "--metrics"]
+    runs = {}
+    for name, modes in (
+            ("packed_jump", dict(accum_mode="packed", transit_jump=True)),
+            ("packed", dict(accum_mode="packed")),
+            ("packed_k4", dict(accum_mode="packed", cells_per_block=4))):
+        r, entry, *_ = run_sweep(ctx, "phase6c", name, argv, **modes)
+        runs[name] = (r.histograms[0], r.bounces.copy(),
+                      r.efficiencies.copy(), entry)
+        del r
+    h1, b1, e1, _ = runs["packed"]
+    h4, b4, e4, _ = runs["packed_k4"]
+    if not (np.array_equal(h1, h4) and np.array_equal(b1, b4)
+            and np.array_equal(e1, e4)):
+        fail("phase 6c: four cells per block differ from one cell per block")
+    print("phase 6c: four cells per block equal one cell per block (design "
+          "3's histogram, every design's bounces and efficiencies); kernel "
+          + ", ".join(f"{n} {runs[n][3]['kernel_ms']:.1f} ms "
+                      f"({runs[n][3]['bounces']:,} bounces)" for n in runs))
+    rel = np.abs(runs["packed_jump"][2] / e1 - 1).max()
+    print(f"phase 6c: packed + jump efficiencies within {rel:.4f} of packed")
+    # saturating spawn weighs launch points by their rays' inverse lifetime
+    # in iterations, which jumps shorten: reported, and held to 10 %
+    if rel > 0.10:
+        fail(f"phase 6c: jump efficiencies {rel:.4f} away from packed's")
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_packed_sweep_launches"] = sum(runs[n][3]["launches"] for n in runs)
 
 
 def phase7(ctx) -> None:
@@ -772,8 +886,233 @@ def phase8(ctx) -> None:
     ctx["k2_main_launches"] = runs["monolithic"][2] + runs["segmented"][2]
 
 
-PHASES = {1: phase1, 2: phase2, 3: phase3, 5: phase5, 6: phase6, 7: phase7,
-          8: phase8}
+def phase9(ctx) -> None:
+    """Packed selection, transit jumps and several cells per block: the
+    persistent kernel against its plain version."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+
+    dev = ctx["dev"]
+    cfg9 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000, num_iter=4)
+    sim9 = pipeline.Simulator(cfg=cfg9, device=dev, pers_accum_mode="packed")
+    target = cfg9.rays_per_fov * cfg9.num_iter
+    n9 = sim9.L * sim9.M * sim9.N
+    cells = np.arange(n9)
+    tr = sim9.tracer
+    kw9 = dict(num_fc=tr.num_fc, num_oc=tr.num_oc, edge_counts=tr.edge_counts,
+               eyebox_bins=tr.eyebox_bins, max_iters=tr.max_iters,
+               accum_mode="packed", cell_params_packed=tr.cell_params_packed)
+
+    def launch(slots, k, ctrl, spawn_mode, jump, phase, plain):
+        """One launch of ``k`` cells of ``slots`` slots per block: its
+        arguments, keywords and outputs, and the plain version's outputs."""
+        rays_in, rng_in = sim9._device_ray_blocks(cells, slots, cpb=k)
+        args = (tr.cell_params, tr.geom_row, rays_in, rng_in,
+                torch.tensor(ctrl, dtype=torch.int32, device=dev))
+        kw = dict(kw9, spawn_mode=spawn_mode, cells_per_block=k,
+                  transit_jump=jump, jump_phase=phase)
+        out = tp.persistent_trace(*args, **kw)
+        torch.cuda.synchronize()
+        ref, ms_p = None, None
+        if plain:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ref = tp.persistent_trace_reference(*args, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            ms_p = ev[0].elapsed_time(ev[1])
+        return args, kw, out, ref, ms_p
+
+    modes = []
+
+    def both(name, slots, ctrl, spawn_mode="count", k=1, jump=False,
+             phase="pow2"):
+        args, kw, (hk, nbk), (hp, nbp), ms_p = launch(
+            slots, k, ctrl, spawn_mode, jump, phase, True)
+        ms_k = cuda_ms(lambda: tp.persistent_trace(*args, **kw), 5)
+        err = float((hk - hp).abs().max())
+        same = (torch.equal(hk, hp)
+                and torch.equal(nbk[:, [0, 2]], nbp[:, [0, 2]])
+                and torch.equal(nbk[:, 1], nbp[:, 1]))
+        hops = {False: 1, True: 15 if phase == "pow2" else 4095}[jump]
+        b, by = bound_ms((*args, tr.cell_params_packed), (hk, nbk), nbk,
+                         tr.edge_counts[1], ops_per_edge=3, hops_per_test=hops)
+        nbh = nbk.cpu().numpy().astype(np.int64)
+        entry = {"mode": name, "ctrl": ctrl, "spawn_mode": spawn_mode,
+                 "designs": 1, "cells": n9, "slots": slots,
+                 "cells_per_block": k, "transit_jump": jump,
+                 "jump_phase": phase if jump else None, "ms": ms_k,
+                 "plain_ms": ms_p, "bound_ms": b, "bound_by": by,
+                 "max_abs_err": err, "identical": same,
+                 "deposits": float(hk.sum()), "bounces": int(nbh[:, 0].sum()),
+                 "spawned": int(nbh[:, 2].sum()),
+                 "iterations": int(nbh[:, 1].sum()) // k,
+                 "max_iterations": int(nbh[:, 1].max()),
+                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3)}
+        if k > 1:
+            # the same cells, one per block, with the same seeds
+            _, _, (h1, nb1), _, _ = launch(slots, 1, ctrl, spawn_mode, jump,
+                                           phase, False)
+            entry["equals_one_cell_per_block"] = bool(
+                torch.equal(hk, h1)
+                and torch.equal(nbk[:, [0, 2]], nb1[:, [0, 2]]))
+        modes.append(entry)
+        print(f"phase 9: {json.dumps(entry)}")
+        if not same:
+            fail(f"phase 9 {name}: the kernel disagrees with its plain "
+                 f"version (max |hist diff| {err})")
+        if entry["deposits"] <= 0:
+            fail(f"phase 9 {name} made no deposits")
+        if not entry.get("equals_one_cell_per_block", True):
+            fail(f"phase 9 {name}: {k} cells per block differ from one")
+        return entry
+
+    a = both("packed, count", 2048, [target, 0])
+    b = both("packed + jump pow2, count", 2048, [target, 0], jump=True)
+    both("packed + jump cos, count", 2048, [target, 0], jump=True, phase="cos")
+    both("packed, 2 cells per block, count", 1024, [target, 0], k=2)
+    both("packed, 2 cells per block, gens", 1024, [2, 0], "gens", k=2)
+    both("packed + jump pow2, gens saturated", 256, [1, 256], "gens",
+         jump=True)
+    f = both("packed, gens", 2048, [10, 0], "gens")
+    g = both("packed + jump pow2, gens", 2048, [10, 0], "gens", jump=True)
+    both("packed, gens saturated", 256, [1, 256], "gens")
+    both("packed, 4 cells per block, gens saturated", 256, [1, 256], "gens",
+         k=4)
+    ctx["record"]["phase9"] = modes
+    save_record(ctx)
+    # gens spawn traces the same rays with and without jumps; count spawn
+    # respawns by lifetimes in iterations, which jumps change, so its two
+    # runs are compared per spawned ray, with the bar of the Simulators
+    for what, one, jmp, per_ray, bar in (("gens", f, g, False, 0.002),
+                                         ("count", a, b, True, 0.01)):
+        n1, nj = ((one["spawned"], jmp["spawned"]) if per_ray else (1, 1))
+        rel_b = abs(jmp["bounces"] / nj / (one["bounces"] / n1) - 1)
+        rel_d = abs(jmp["deposits"] / nj / (one["deposits"] / n1) - 1)
+        print(f"phase 9: jump against single hops, {what} spawn: bounces "
+              f"{rel_b:.5f}, deposits {rel_d:.5f} apart"
+              f"{' per spawned ray' if per_ray else ''}, iterations "
+              f"{jmp['iterations']} against {one['iterations']}")
+        if (rel_b > bar or rel_d > 0.05
+                or jmp["iterations"] >= one["iterations"]):
+            fail(f"phase 9, {what} spawn: jumps are not within {bar} of the "
+                 "bounces and 5 % of the deposits of single hops with fewer "
+                 "iterations")
+    ctx["k1_modes"] = ctx.get("k1_modes", []) + modes
+
+
+def phase10(ctx) -> None:
+    """The count-spawn, folded, packed stack with and without transit jumps
+    at full width."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+
+    cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
+    target = cfg.rays_per_fov * cfg.num_iter
+    exact = ctx.get("exact_run")
+    if exact is None:
+        # a partial run without phase 3: the exact mode, same seeds, no metrics
+        exact = stack_stats(pipeline.Simulator(cfg=cfg, device=ctx["dev"]).run(
+            evaluate_metrics=False))
+    runs = {"exact": exact}
+    launches10 = 0
+    for name, kw in (("packed_jump", dict(pers_accum_mode="packed",
+                                          pers_transit_jump=True)),
+                     ("packed", dict(pers_accum_mode="packed"))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tp.reset_launch_counts()
+        t0 = time.perf_counter()
+        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **kw)
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(tp.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        n_cells = sim.L * sim.M * sim.N
+        batches = math.ceil(n_cells / 2048)
+        tm, met = res.timings, res.metrics
+        entry = dict(stack_stats(res), cells=n_cells, target=target,
+                     wall_s=wall, setup_s=sim.setup_seconds, timings=tm,
+                     delta_e=met.delta_e, u_fov=met.u_fov,
+                     u_eyebox=met.u_eyebox, launches=launches,
+                     batches=batches, peak_bytes=peak)
+        rel = {k: v / exact["efficiencies"][k] - 1
+               for k, v in res.efficiencies.items()}
+        entry["efficiency_vs_exact"] = rel
+        entry["bounces_per_ray_vs_exact"] = (
+            entry["bounces_per_ray"] / exact["bounces_per_ray"] - 1)
+        runs[name] = entry
+        ctx["record"].setdefault("phase10", {})[name] = entry
+        save_record(ctx)
+        print(pipeline.format_report(res))
+        print(f"phase 10 {name}: {n_cells} cells, target {target} rays/cell: "
+              f"wall {wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
+              f"{res.trace_seconds:.3f} s, kernel {tm['kernel_ms']:.1f} ms, "
+              f"seeding {tm['seed_s']:.3f} s, assembly "
+              f"{tm['assemble_s']:.3f} s, metrics {tm['metrics_s']:.3f} s; "
+              f"bounces {res.total_bounces:,}, rays {res.rays_traced:,}; "
+              f"launches {launches}; peak device memory "
+              f"{peak / 2**20:.1f} MiB; efficiencies relative to the exact "
+              "mode's: " + ", ".join(f"{k} {r:+.4f}" for k, r in rel.items())
+              + f"; bounces per ray {entry['bounces_per_ray_vs_exact']:+.5f}")
+        vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
+                                                  met.u_eyebox]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"phase 10 {name}: non-finite metric in {vals}")
+        if (res.cell_stats[:, 2] < target).any():
+            fail(f"phase 10 {name}: a cell spawned fewer than {target} rays")
+        want = sum(res.efficiencies.values()) / sim.L * target * n_cells
+        got = float(res.histogram.sum(dtype=np.float64))
+        if abs(got - want) > 1e-6 * want:
+            fail(f"phase 10 {name}: histogram sum {got} vs efficiencies x "
+                 f"rays {want}")
+        if launches != {"persistent_trace": batches, "cell_trace": 0}:
+            fail(f"phase 10 {name}: launches {launches}, expected one "
+                 f"persistent_trace per batch ({batches}) and no other kernel")
+        if max(abs(r) for r in rel.values()) > 0.05:
+            fail(f"phase 10 {name}: efficiencies {res.efficiencies} are not "
+                 f"within 5 % of the exact mode's {exact['efficiencies']}")
+        if abs(entry["bounces_per_ray_vs_exact"]) > 0.01:
+            fail(f"phase 10 {name}: bounces per ray "
+                 f"{entry['bounces_per_ray']} against the exact mode's "
+                 f"{exact['bounces_per_ray']}")
+        launches10 += launches["persistent_trace"]
+        del sim, res
+    print("phase 10: exact / packed / packed + jump: kernel "
+          + " / ".join(f"{runs[n]['kernel_ms']:.1f}" for n in
+                       ("exact", "packed", "packed_jump"))
+          + " ms, iterations "
+          + " / ".join(f"{runs[n]['iterations']:,}" for n in
+                       ("exact", "packed", "packed_jump"))
+          + ", bounces "
+          + " / ".join(f"{runs[n]['bounces']:,}" for n in
+                       ("exact", "packed", "packed_jump")))
+    ctx["record"]["phase10"]["exact"] = exact
+    save_record(ctx)
+    if runs["packed_jump"]["iterations"] >= runs["packed"]["iterations"]:
+        fail("phase 10: jumps did not cut the summed iterations")
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_packed_main_launches"] = launches10
+
+
+# in running order; "6c" follows the phases whose results it needs none of
+PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
+          "7": phase7, "8": phase8, "9": phase9, "10": phase10,
+          "6c": phase6c}
 
 
 def kernel_line(ctx) -> dict:
@@ -783,7 +1122,9 @@ def kernel_line(ctx) -> dict:
     out = []
     for name, modes, head, launches in (
             ("persistent_trace", k1, k1[0],
-             ctx["k1_main_launches"] + ctx["k1_sweep_launches"]),
+             ctx["k1_main_launches"] + ctx["k1_sweep_launches"]
+             + ctx["k1_packed_main_launches"]
+             + ctx["k1_packed_sweep_launches"]),
             ("cell_trace", k2, k2[2], ctx["k2_main_launches"])):
         source, replaces = KERNELS[name]
         out.append({
@@ -815,18 +1156,19 @@ def main() -> int:
     if not (ROOT / PORT / "__init__.py").is_file():
         fail(f"the port package {PORT}/ is not next to chip_smoke.py")
     sys.path.insert(0, str(ROOT))
-    wanted = sorted(PHASES)
+    wanted = list(PHASES)
     if opts.phases:
-        wanted = sorted({1} | {int(p) for p in opts.phases.split(",")})
-        if not set(wanted) <= set(PHASES):
-            fail(f"--phases takes {sorted(PHASES)}, got {opts.phases!r}")
+        asked = {"1"} | {p.strip() for p in opts.phases.split(",")}
+        if not asked <= set(PHASES):
+            fail(f"--phases takes {list(PHASES)}, got {opts.phases!r}")
+        wanted = [p for p in PHASES if p in asked]
     ctx = {"dev": torch.device("cuda"), "record": {},
            "record_path": opts.record, "profile_path": opts.profile}
     for n in wanted:
         PHASES[n](ctx)
         torch.cuda.empty_cache()
     save_record(ctx)
-    if wanted != sorted(PHASES):
+    if wanted != list(PHASES):
         print(f"chip_smoke: phases {wanted} passed (a partial run: no "
               "result line)")
         return 0

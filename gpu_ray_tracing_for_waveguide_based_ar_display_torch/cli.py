@@ -203,7 +203,7 @@ def cmd_simulate(args) -> int:
     sim = Simulator(design=_design(args), cfg=cfg, luts_dir=args.luts_dir,
                     geometry_simplify_tol=args.simplify_tol,
                     device=args.device, persistent_slots=args.slots,
-                    engine=args.engine)
+                    engine=args.engine, pers_accum_mode=args.accum_mode)
     res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose)
     print(format_report(res))
     if args.image and res.metrics is not None:
@@ -255,6 +255,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cells-per-batch", type=int, default=2048)
     p.add_argument("--slots", type=int, default=2048,
                    help="persistent slots per cell (persistent engine)")
+    p.add_argument("--accum-mode", default="fma",
+                   choices=("fma", "select", "packed"),
+                   help="persistent engine's parameter selection: fma = exact "
+                        "float32 records (select: the same values); packed = "
+                        "records rounded to bfloat16, within Monte-Carlo "
+                        "tolerance of fma, not bitwise")
     p.add_argument("--simplify-tol", type=float, default=0.0)
     p.add_argument("--pupil-sampling", default="uniform",
                    choices=("uniform", "r2"))

@@ -1,74 +1,161 @@
 // Persistent-slot Monte-Carlo waveguide trace for NVIDIA Hopper (sm_90a).
 //
 // Replaces engine/trace_pallas_persistent.py::make_persistent_trace_fn of the
-// JAX package (the TPU kernel) with exact parameter selection and one cell
-// per block, in both spawn modes and with per-design geometry rows.  The
-// plain PyTorch version of the same function is
-// engine/trace_persistent.py::persistent_trace_reference; the two use the same
-// float32 operations in the same order.  Build with -fmad=false so that no
-// multiply-add is contracted: then both give identical histograms and counts.
+// JAX package (the TPU kernel): exact or bf16-packed parameter selection, one
+// or several cells per block, single TIR hops or transit jumps, both spawn
+// modes, per-design geometry rows.  The plain PyTorch version of the same
+// function is engine/trace_persistent.py::persistent_trace_reference; the two
+// use the same float32 operations in the same order.  Build with -fmad=false
+// so that no multiply-add is contracted: then both give identical histograms
+// and counts.
 //
-// Design (one thread block per (design, wavelength, FoV) cell):
-//   * the cell row (704 floats), the cell's design's geometry row (320
-//     floats), the state of every slot (12 words each) and the cell's
-//     (ny, nx) histogram of integer counts live in dynamic shared memory;
-//     each thread owns S / blockDim slots, strided by blockDim;
-//   * the grid is D contiguous runs of cpd = C / D cells: block `cell` reads
-//     geometry row cell / cpd, launch tile cell / rays_div and seed block
-//     cell % rng_mod, so one tile per design and one seed block shared by
+// Design (one thread block per k consecutive (design, wavelength, FoV) cells,
+// k = 1 unless cells_per_block asks for more):
+//   * each cell's row (704 floats) and, in packed selection, its packed
+//     words, the block's design's geometry row (320 floats), the state of
+//     every slot (12 words each) and each cell's (ny, nx) histogram of integer
+//     counts live in dynamic shared memory;
+//   * the block's S slots are k runs of Hs = S / k, one per cell; its threads
+//     are k groups of blockDim / k (a multiple of 32, so a warp serves one
+//     cell), and a thread owns Hs / (blockDim / k) slots of its cell, strided
+//     by its group's size.  With k = 1 that is S / blockDim slots strided by
+//     blockDim;
+//   * the grid is D contiguous runs of cpd = C / D cells: block b reads
+//     geometry row (b * k) / cpd, launch tile b / rays_div and seed block
+//     b % rng_mod, so one tile per design and one seed block shared by
 //     every design serve a whole sweep chunk without copies;
-//   * count spawn (gens_mode 0): iterations run in lockstep across the
+//   * count spawn (GENS false): iterations run in lockstep across the
 //     block, as the TPU kernel's count-spawn schedule does: at the start of
-//     iteration `it` a dead slot respawns if the cell's spawn count, as it
+//     iteration `it` a dead slot respawns if its cell's spawn count, as it
 //     stood at the start of the iteration, is below ctrl[0], or if
-//     it < ctrl[1]; the count starts at S and grows by warp-reduced shared
-//     atomics; the block stops when every slot is dead and the target is
-//     met, or at max_iters;
-//   * gens spawn (gens_mode 1): each slot carries its own generation count
+//     it < ctrl[1]; a cell's count starts at Hs and grows by warp-reduced
+//     shared atomics; the block stops when every slot is dead and every
+//     cell's target is met, or at max_iters.  A cell that is done does
+//     nothing while the block's other cells finish, so each cell's tile,
+//     bounces and spawns equal those of the same cell alone in a block;
+//   * gens spawn (GENS true): each slot carries its own generation count
 //     (1 after the first spawn); a dead slot respawns while gen < ctrl[0] or
 //     it < ctrl[1] (saturating spawn), and the block stops when every slot is
 //     dead with gen >= ctrl[0] and it >= ctrl[1], or at max_iters; nb[2] is
-//     the sum of the slots' generations;
-//   * FC / OC strip records are read by index (the TPU kernel's one-hot
-//     selection gives the same values); edge loops stop at the region's real
-//     edge count;
+//     the sum of the cell's slots' generations;
+//   * exact selection (SEL 0) reads FC / OC strip records from the cell row
+//     by index (the TPU kernel's one-hot selection gives the same values);
+//     packed selection (SEL >= 1) reads the site's record from the packed
+//     words by (record, word) and widens each bf16 half by a 16-bit shift,
+//     and tests regions by the max chain max_e(x*nx_e + (y*ny_e + mc_e)) <= 0;
+//     edge loops stop at the region's real edge count;
+//   * transit jump (SEL 2: phase by squaring, capped at 15 hops; SEL 3: phase
+//     by cos / sin, capped at 4095): a slot on a pure TIR hop advances k hops
+//     in one iteration, k = the first hop index at which it leaves eff_reg1
+//     (or eff_reg2, state 3) or enters the FC hull (states 2, 3) or the OC
+//     rectangle (state 4).  The per-edge slopes of the two hop lines and
+//     their guarded reciprocals are computed once per block into shared
+//     memory; the region tests on this path also return the bound;
 //   * a deposit is an integer atomicAdd into the shared tile: exact and
 //     independent of order; the tile is written out once.
 // What bounds it: per-lane divergent ALU work, block barriers (two per
 // iteration in count mode, one in gens mode) and, in saturating spawn, the
 // drain tail after ctrl[1].  It reads its rows and rays once and writes one
-// tile, so HBM traffic is small beside the ALU work.
+// tile per cell, so HBM traffic is small beside the ALU work.
+
+#include <math.h>
 
 #include "trace_common.cuh"
 
 namespace {
 
 constexpr int STATE_WORDS = 12;
+constexpr int MAX_CPB = 8;       // cells one block can carry
+constexpr int SEL_NW = 25;       // packed words of one selection record
+// transit-jump reciprocals in shared memory: eff_reg1 exit and hull entry
+// for hop directions 0 and 1, eff_reg2 exit for direction 1, and the signed
+// reciprocals of direction 1's gap
+constexpr int J_REX_R1 = 0, J_REN_H = 2 * MAX_EDGES, J_REX_R2 = 4 * MAX_EDGES,
+              J_RGAP = 5 * MAX_EDGES, JUMP_WORDS = 5 * MAX_EDGES + 8;
 
 struct Args {
   const float* cell_params;  // (C, PC)
-  const float* geom_row;     // (D, PG), row cell / cpd
-  const float* rays_in;      // (C / rays_div, 6, S), tile cell / rays_div
-  const uint32_t* rng_in;    // (rng_mod, S), block cell % rng_mod
+  const float* geom_row;     // (D, PG), row (block * k) / cpd
+  const float* rays_in;      // (R, 6, S), tile block / rays_div
+  const uint32_t* rng_in;    // (rng_mod, S), seed block block % rng_mod
   const int* ctrl;           // (2,) [target or generations, spawn_iters]
+  const int* packed;         // (C, pw) packed selection words, or null
   float* hist;               // (C, ny, nx)
   int* nb;                   // (C, 4) [bounces, iterations, spawned, 0]
-  int cpd, rays_div, rng_mod;
+  int cpd, rays_div, rng_mod, k, pw;
   int S, num_fc, num_oc, n_hull, n_r1, n_r2, ny, nx, max_iters;
 };
 
-// GENS selects the spawn mode at compile time: the count path carries no
-// per-slot test of the mode (one library, two instantiations)
-template <bool GENS>
+// the two bfloat16 halves of a packed word, widened to float32
+__device__ __forceinline__ float bf16_lo(int w) {
+  return __uint_as_float((unsigned)w << 16);
+}
+
+__device__ __forceinline__ float bf16_hi(int w) {
+  return __uint_as_float((unsigned)w & 0xffff0000u);
+}
+
+// four packed words -> one 2x2 complex Jones matrix (8 floats)
+__device__ __forceinline__ void unpack_jones(const int* w, float* o) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    o[2 * j] = bf16_lo(w[j]);
+    o[2 * j + 1] = bf16_hi(w[j]);
+  }
+}
+
+// packed selection's containment test: max_e(x*nx_e + (y*ny_e + mc_e)) <= 0
+__device__ __forceinline__ bool region_max(const float* g, int base, int mc,
+                                           int n, float x, float y) {
+  for (int e = 0; e < n; ++e) {
+    if (!(x * g[base + e] + (y * g[base + MAX_EDGES + e] + g[mc + e]) <= 0.0f))
+      return false;
+  }
+  return true;
+}
+
+// The same test with the transit bound along the slot's hop line: d_e * r_e
+// per edge, reduced by min (EXIT: the hop index at which the first edge is
+// crossed outward, for a slot inside) or by max (entry: the hop index from
+// which every edge is satisfied).
+template <bool EXIT>
+__device__ __forceinline__ bool region_bound(const float* g, int base, int mc,
+                                             int n, float x, float y,
+                                             const float* r, float* bound) {
+  float m = -INFINITY;
+  float b = EXIT ? INFINITY : -INFINITY;
+  for (int e = 0; e < n; ++e) {
+    const float d =
+        x * g[base + e] + (y * g[base + MAX_EDGES + e] + g[mc + e]);
+    m = fmaxf(m, d);
+    const float u = d * r[e];
+    b = EXIT ? fminf(b, u) : fmaxf(b, u);
+  }
+  *bound = b;
+  return m <= 0.0f;
+}
+
+// GENS (the spawn mode), SEL (0 exact selection, 1 packed, 2 packed with
+// transit jumps phased by squaring, 3 the same phased by cos / sin) and MULTI
+// (several cells per block) are compile-time: the exact count path carries no
+// test of any of them (one library, one instantiation per combination in use)
+template <bool GENS, int SEL, bool MULTI>
 __global__ void __launch_bounds__(512)
 persistent_trace_kernel(Args a) {
+  constexpr bool PACKED = SEL >= 1;
+  constexpr bool JUMP = SEL >= 2;
   extern __shared__ float smem[];
   const int S = a.S;
   const int ny = a.ny, nx = a.nx;
-  float* cp = smem;                     // PC + ZPAD
-  float* g = cp + PC + ZPAD;            // PG
-  unsigned* tile = reinterpret_cast<unsigned*>(g + PG);  // ny * nx
-  float* s_x = reinterpret_cast<float*>(tile + ny * nx);
+  const int k = MULTI ? a.k : 1;
+  const int pw = PACKED ? a.pw : 0;
+  float* cps = smem;                          // k x (PC + ZPAD)
+  float* g = cps + k * (PC + ZPAD);           // PG
+  int* pks = reinterpret_cast<int*>(g + PG);  // k x pw
+  float* jmp = reinterpret_cast<float*>(pks + k * pw);   // JUMP_WORDS
+  unsigned* tiles =
+      reinterpret_cast<unsigned*>(jmp + (JUMP ? JUMP_WORDS : 0));  // k x ny*nx
+  float* s_x = reinterpret_cast<float*>(tiles + k * ny * nx);
   float* s_y = s_x + S;
   float* s_ter = s_y + S;
   float* s_tei = s_ter + S;
@@ -80,21 +167,35 @@ persistent_trace_kernel(Args a) {
   int* s_state = reinterpret_cast<int*>(s_gy + S);
   uint32_t* s_rng = reinterpret_cast<uint32_t*>(s_state + S);
   int* s_gen = reinterpret_cast<int*>(s_rng + S);
-  __shared__ int s_spawned;
-  __shared__ int s_bounces;
+  __shared__ int s_spawned[MAX_CPB];
+  __shared__ int s_bounces[MAX_CPB];
 
-  const int cell = blockIdx.x;
+  const int blk = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   constexpr bool gens_mode = GENS;
-  const float* crow = a.cell_params + (size_t)cell * PC;
-  const float* grow = a.geom_row + (size_t)(cell / a.cpd) * PG;
-  const float* rays = a.rays_in + (size_t)(cell / a.rays_div) * 6 * S;
-  const uint32_t* seeds = a.rng_in + (size_t)(cell % a.rng_mod) * S;
+  // this thread's cell of the block, its group of threads and its slots
+  const int ntc = MULTI ? nt / k : nt;     // threads per cell
+  const int h = MULTI ? tid / ntc : 0;     // cell of the block
+  const int tl = MULTI ? tid - h * ntc : tid;
+  const int Hs = MULTI ? S / k : S;        // slots per cell
+  const int s0 = h * Hs;
+  const int cell0 = blk * k;
+  const float* grow = a.geom_row + (size_t)(cell0 / a.cpd) * PG;
+  const float* rays = a.rays_in + (size_t)(blk / a.rays_div) * 6 * S;
+  const uint32_t* seeds = a.rng_in + (size_t)(blk % a.rng_mod) * S;
 
-  for (int j = tid; j < PC + ZPAD; j += nt) cp[j] = j < PC ? crow[j] : 0.0f;
+  for (int c = 0; c < k; ++c) {
+    const float* crow = a.cell_params + (size_t)(cell0 + c) * PC;
+    for (int j = tid; j < PC + ZPAD; j += nt)
+      cps[c * (PC + ZPAD) + j] = j < PC ? crow[j] : 0.0f;
+    if (PACKED) {
+      const int* prow = a.packed + (size_t)(cell0 + c) * pw;
+      for (int j = tid; j < pw; j += nt) pks[c * pw + j] = prow[j];
+    }
+  }
   for (int j = tid; j < PG; j += nt) g[j] = grow[j];
-  for (int j = tid; j < ny * nx; j += nt) tile[j] = 0u;
+  for (int j = tid; j < k * ny * nx; j += nt) tiles[j] = 0u;
   for (int i = tid; i < S; i += nt) {
     s_x[i] = rays[i];
     s_y[i] = rays[S + i];
@@ -109,23 +210,56 @@ persistent_trace_kernel(Args a) {
     s_rng[i] = seeds[i];
     if (gens_mode) s_gen[i] = 1;    // the first spawn is generation 1
   }
-  if (tid == 0) {
+  if (tid < k) {
     // count mode: every slot's first spawn counts toward the target;
     // gens mode: the generations are summed at the end
-    s_spawned = gens_mode ? 0 : S;
-    s_bounces = 0;
+    s_spawned[tid] = gens_mode ? 0 : Hs;
+    s_bounces[tid] = 0;
   }
   const int quota = a.ctrl[0];
   const int spawn_iters = a.ctrl[1];
+  const float* cp = cps + h * (PC + ZPAD);
+  const int* pk = pks + h * pw;
+  unsigned* tile = tiles + h * ny * nx;
   const float* zeros = cp + PC;
   __syncthreads();
+
+  if (JUMP) {
+    // per-edge slopes of the hop lines (direction 0: state 2, direction 1:
+    // states 3 and 4) and their guarded reciprocals.  Exit: the first hop
+    // index past edge e is floor(d_e * rex_e) + 1 with rex_e = -1 / max(s_e,
+    // tiny); receding or parallel edges give a huge positive that never wins
+    // the min.  Entry: edge e holds from hop d_e * ren_e on, ren_e = 1 /
+    // max(-s_e, tiny).
+    for (int e = tid; e < MAX_EDGES; e += nt) {
+      for (int d = 0; d < 2; ++d) {
+        const float gxd = cp[GAPS + 2 * d], gyd = cp[GAPS + 2 * d + 1];
+        const float s1 = g[G_R1 + e] * gxd + g[G_R1 + MAX_EDGES + e] * gyd;
+        const float sh = g[G_HULL + e] * gxd + g[G_HULL + MAX_EDGES + e] * gyd;
+        jmp[J_REX_R1 + d * MAX_EDGES + e] = -1.0f / fmaxf(s1, 1e-30f);
+        jmp[J_REN_H + d * MAX_EDGES + e] = 1.0f / fmaxf(-sh, 1e-30f);
+        if (d == 1) {
+          const float s2 = g[G_R2 + e] * gxd + g[G_R2 + MAX_EDGES + e] * gyd;
+          jmp[J_REX_R2 + e] = -1.0f / fmaxf(s2, 1e-30f);
+        }
+      }
+    }
+    if (tid < 2) {
+      // OC rectangle slab along direction 1: sign-preserving reciprocals of
+      // the gap's components, their magnitude clamped away from zero
+      const float gc = cp[GAPS + 2 + tid];
+      jmp[J_RGAP + tid] = (gc >= 0.0f ? 1.0f : -1.0f) / fmaxf(fabsf(gc), 1e-12f);
+    }
+    __syncthreads();
+  }
 
   int my_bounces = 0;
   int it = 0;
   for (;;) {
-    const int sp = gens_mode ? 0 : s_spawned;
+    const int sp = gens_mode ? 0 : s_spawned[h];
     int running = 0;
-    for (int i = tid; i < S; i += nt) {
+    for (int l = tl; l < Hs; l += ntc) {
+      const int i = s0 + l;
       const bool met = gens_mode ? s_gen[i] >= quota : sp >= quota;
       if (!(s_state[i] == 6 && met && it >= spawn_iters)) running = 1;
     }
@@ -136,7 +270,8 @@ persistent_trace_kernel(Args a) {
     if (!running || it >= a.max_iters) break;
 
     int my_respawns = 0;
-    for (int i = tid; i < S; i += nt) {
+    for (int l = tl; l < Hs; l += ntc) {
+      const int i = s0 + l;
       int state = s_state[i];
       uint32_t rng = s_rng[i];
       float x = s_x[i], y = s_y[i];
@@ -208,15 +343,29 @@ persistent_trace_kernel(Args a) {
       }
 
       // ---- one bounce
+      // transit bounds along the slot's hop line (direction 0 for state 2,
+      // else 1); only the states that hop read them
+      const int jd = state == 2 ? 0 : 1;
+      float ex_r1 = 0.0f, en_hull = 0.0f;
       if (state < 6) {
         ++my_bounces;
-        if (!region(g, G_R1, a.n_r1, x, y)) state = 6;
+        bool in_r1;
+        if (JUMP)
+          in_r1 = region_bound<true>(g, G_R1, G_MC_R1, a.n_r1, x, y,
+                                     jmp + J_REX_R1 + jd * MAX_EDGES, &ex_r1);
+        else if (PACKED)
+          in_r1 = region_max(g, G_R1, G_MC_R1, a.n_r1, x, y);
+        else
+          in_r1 = region(g, G_R1, a.n_r1, x, y);
+        if (!in_r1) state = 6;
       }
       if (state < 6) {
         const bool grp_ic = state <= 1;
         const bool grp_fc = state == 2 || state == 3;
         const bool grp_oc = state >= 4;
         const int bit = state & 1;
+        float rec[24];   // packed selection: the site's unpacked record
+        const int* words = pk;
         const float* ja;
         const float* jc = zeros;
         float s_a, s_b;
@@ -228,11 +377,19 @@ persistent_trace_kernel(Args a) {
           s_b = cp[IC_SB];
           interact = true;
         } else if (grp_fc) {
-          in_hull = region(g, G_HULL, a.n_hull, x, y);
+          if (JUMP)
+            in_hull = region_bound<false>(g, G_HULL, G_MC_HULL, a.n_hull, x, y,
+                                          jmp + J_REN_H + jd * MAX_EDGES,
+                                          &en_hull);
+          else if (PACKED)
+            in_hull = region_max(g, G_HULL, G_MC_HULL, a.n_hull, x, y);
+          else
+            in_hull = region(g, G_HULL, a.n_hull, x, y);
           const float yrot = g[G_FC_ROT] * x + g[G_FC_ROT + 1] * y;
-          const int k = bin_index((g[G_FC_TOP] - yrot) * g[G_FC_INVW],
-                                  a.num_fc - 1);
-          const int base = FC_BLK + FC_STRIDE * k;
+          const int strip = bin_index((g[G_FC_TOP] - yrot) * g[G_FC_INVW],
+                                      a.num_fc - 1);
+          const int base = FC_BLK + FC_STRIDE * strip;
+          words = pk + (1 + strip) * SEL_NW;
           ja = cp + base + 16 * bit;
           s_a = cp[base + 32];
           s_b = cp[base + 33];
@@ -241,9 +398,10 @@ persistent_trace_kernel(Args a) {
           in_rect = x >= g[G_OC_BT] && x <= g[G_OC_BT + 1] &&
                     y >= g[G_OC_BT + 2] && y <= g[G_OC_BT + 3];
           const float yr = g[G_OC_ROT] * x + g[G_OC_ROT + 1] * y;
-          const int k = bin_index((g[G_OC_TOP] - yr) * g[G_OC_INVW],
-                                  a.num_oc - 1);
-          const int base = OC_BLK + OC_STRIDE * k;
+          const int strip = bin_index((g[G_OC_TOP] - yr) * g[G_OC_INVW],
+                                      a.num_oc - 1);
+          const int base = OC_BLK + OC_STRIDE * strip;
+          words = pk + (1 + a.num_fc + strip) * SEL_NW;
           ja = cp + base + 24 * bit;
           jc = ja + 16;
           s_a = cp[base + 48];
@@ -252,6 +410,18 @@ persistent_trace_kernel(Args a) {
         }
 
         if (interact) {
+          if (PACKED) {
+            // record words 0-3 A | bit 0, 4-7 B | bit 0, 8-11 A | bit 1,
+            // 12-15 B | bit 1, 16 (s_a, s_b), 17-20 C | bit 0, 21-24 C | bit 1
+            // (zero on IC and FC records)
+            unpack_jones(words + 8 * bit, rec);
+            unpack_jones(words + 4 + 8 * bit, rec + 8);
+            unpack_jones(words + 17 + 4 * bit, rec + 16);
+            ja = rec;
+            jc = rec + 16;
+            s_a = bf16_lo(words[16]);
+            s_b = bf16_hi(words[16]);
+          }
           float pa[4], pb[4], pc[4];
           jones(ja, ter, tei, tmr, tmi, pa);
           jones(ja + 8, ter, tei, tmr, tmi, pb);
@@ -299,29 +469,91 @@ persistent_trace_kernel(Args a) {
           // misses: TIR hop, FC fold-out to the OC, or OC exit
           bool hop = false;
           int hb = 2;  // hop phasor of direction 1
+          // transit jump: the first hop index at which something happens
+          float kf = 1.0f;
           if (grp_fc) {
+            if (JUMP) kf = fminf(floorf(ex_r1) + 1.0f, ceilf(en_hull));
             if (state == 2) {
               hop = true;
               hb = 0;
-            } else if (region(g, G_R2, a.n_r2, x, y)) {
-              hop = true;
             } else {
-              state = 4;
+              bool in_r2;
+              float ex_r2 = 0.0f;
+              if (JUMP)
+                in_r2 = region_bound<true>(g, G_R2, G_MC_R2, a.n_r2, x, y,
+                                           jmp + J_REX_R2, &ex_r2);
+              else if (PACKED)
+                in_r2 = region_max(g, G_R2, G_MC_R2, a.n_r2, x, y);
+              else
+                in_r2 = region(g, G_R2, a.n_r2, x, y);
+              if (in_r2) {
+                hop = true;
+                if (JUMP) kf = fminf(kf, floorf(ex_r2) + 1.0f);
+              } else {
+                state = 4;
+              }
             }
           } else if (state == 4) {
             hop = true;
+            if (JUMP) {
+              // OC rectangle entry along direction 1 (slab test)
+              const float rgx = jmp[J_RGAP], rgy = jmp[J_RGAP + 1];
+              const float t0x = (g[G_OC_BT + 0] - x) * rgx;
+              const float t1x = (g[G_OC_BT + 1] - x) * rgx;
+              const float t0y = (g[G_OC_BT + 2] - y) * rgy;
+              const float t1y = (g[G_OC_BT + 3] - y) * rgy;
+              const float en_rect =
+                  fmaxf(fminf(t0x, t1x), fminf(t0y, t1y));
+              kf = fminf(floorf(ex_r1) + 1.0f, ceilf(en_rect));
+            }
           } else {
             state = 6;
           }
           if (hop) {
-            const float h_phr = cp[HOP2_PH + hb];
-            const float h_phi = cp[HOP2_PH + hb + 1];
+            float h_phr = cp[HOP2_PH + hb];
+            float h_phi = cp[HOP2_PH + hb + 1];
+            if (JUMP) {
+              // exits happen at floor(u) + 1, entries at ceil(u); one hop at
+              // least, and no more than the phase can carry
+              kf = fminf(fmaxf(kf, 1.0f), SEL == 2 ? 15.0f : 4095.0f);
+              const int ki = (int)kf;
+              my_bounces += ki - 1;   // the skipped hops are bounces too
+              if (SEL == 2) {
+                // phasor^ki by squaring, four bits
+                float zr = h_phr, zi = h_phi;
+                if (!(ki & 1)) {
+                  h_phr = 1.0f;
+                  h_phi = 0.0f;
+                }
+#pragma unroll
+                for (int b = 2; b <= 8; b <<= 1) {
+                  const float zr2 = zr * zr - zi * zi;
+                  zi = 2.0f * zr * zi;
+                  zr = zr2;
+                  if (ki & b) {
+                    const float nrr = h_phr * zr - h_phi * zi;
+                    const float nri = h_phr * zi + h_phi * zr;
+                    h_phr = nrr;
+                    h_phi = nri;
+                  }
+                }
+              } else {
+                const float th = kf * cp[HOP2_ANG + (hb >> 1)];
+                h_phr = cosf(th);
+                h_phi = sinf(th);
+              }
+            }
             const float nr = h_phr * tmr - h_phi * tmi;
             const float ni = h_phr * tmi + h_phi * tmr;
             tmr = nr;
             tmi = ni;
-            x = x + gx;
-            y = y + gy;
+            if (JUMP) {
+              x = x + kf * gx;
+              y = y + kf * gy;
+            } else {
+              x = x + gx;
+              y = y + gy;
+            }
           }
         }
       }
@@ -344,43 +576,68 @@ persistent_trace_kernel(Args a) {
       // next iteration reads it (the first keeps reads before the adds)
       const int warp_respawns = __reduce_add_sync(0xffffffffu, my_respawns);
       if ((tid & 31) == 0 && warp_respawns)
-        atomicAdd(&s_spawned, warp_respawns);
+        atomicAdd(&s_spawned[h], warp_respawns);
       __syncthreads();
     }
   }
 
   const int warp_bounces = __reduce_add_sync(0xffffffffu, my_bounces);
-  if ((tid & 31) == 0 && warp_bounces) atomicAdd(&s_bounces, warp_bounces);
+  if ((tid & 31) == 0 && warp_bounces) atomicAdd(&s_bounces[h], warp_bounces);
   if (gens_mode) {
     int my_gens = 0;
-    for (int i = tid; i < S; i += nt) my_gens += s_gen[i];
+    for (int l = tl; l < Hs; l += ntc) my_gens += s_gen[s0 + l];
     const int warp_gens = __reduce_add_sync(0xffffffffu, my_gens);
-    if ((tid & 31) == 0) atomicAdd(&s_spawned, warp_gens);
+    if ((tid & 31) == 0) atomicAdd(&s_spawned[h], warp_gens);
   }
   __syncthreads();
-  float* out = a.hist + (size_t)cell * ny * nx;
-  for (int j = tid; j < ny * nx; j += nt) out[j] = (float)tile[j];
-  if (tid == 0) {
-    int* nb = a.nb + (size_t)cell * 4;
-    nb[0] = s_bounces;
+  float* out = a.hist + (size_t)cell0 * ny * nx;
+  for (int j = tid; j < k * ny * nx; j += nt) out[j] = (float)tiles[j];
+  if (tid < k) {
+    int* nb = a.nb + (size_t)(cell0 + tid) * 4;
+    nb[0] = s_bounces[tid];
     nb[1] = it;
-    nb[2] = s_spawned;
+    nb[2] = s_spawned[tid];
     nb[3] = 0;
+  }
+}
+
+using Kernel = void (*)(Args);
+
+template <bool GENS>
+Kernel pick_kernel(int sel, bool multi) {
+  switch (sel) {
+    case 0: return persistent_trace_kernel<GENS, 0, false>;
+    // several cells per block exist for plain packed selection only
+    case 1: return multi ? persistent_trace_kernel<GENS, 1, true>
+                         : persistent_trace_kernel<GENS, 1, false>;
+    case 2: return persistent_trace_kernel<GENS, 2, false>;
+    default: return persistent_trace_kernel<GENS, 3, false>;
   }
 }
 
 }  // namespace
 
+// sel: 0 exact selection, 1 packed, 2 packed + transit jump phased by
+// squaring, 3 packed + transit jump phased by cos / sin.  k cells per block
+// (k > 1 with sel 1 only); `packed` is (C, pw) words when sel >= 1.
 extern "C" int persistent_trace_launch(
     const void* cell_params, const void* geom_row, const void* rays_in,
-    const void* rng_in, const void* ctrl, void* hist, void* nb, int C,
-    int cpd, int rays_div, int rng_mod, int gens_mode, int S, int num_fc,
-    int num_oc, int n_hull, int n_r1, int n_r2, int ny, int nx, int max_iters,
-    int threads, void* stream) {
+    const void* rng_in, const void* ctrl, const void* packed, void* hist,
+    void* nb, int C, int cpd, int rays_div, int rng_mod, int gens_mode,
+    int sel, int k, int pw, int S, int num_fc, int num_oc, int n_hull,
+    int n_r1, int n_r2, int ny, int nx, int max_iters, int threads,
+    void* stream) {
   if (C <= 0) return 0;
-  if (threads <= 0 || threads > 512 || threads % 32 != 0 || S % threads != 0)
+  if (k < 1 || k > MAX_CPB || threads <= 0 || threads > 512 ||
+      threads % k != 0 || (threads / k) % 32 != 0 || S % k != 0 ||
+      (S / k) % (threads / k) != 0)
     return (int)cudaErrorInvalidValue;
-  if (cpd <= 0 || C % cpd != 0 || rays_div <= 0 || rng_mod <= 0)
+  if (cpd <= 0 || C % cpd != 0 || cpd % k != 0 || rays_div <= 0 ||
+      rng_mod <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (sel < 0 || sel > 3 || (k > 1 && sel != 1) ||
+      (sel >= 1 && (packed == nullptr ||
+                    pw < (1 + num_fc + num_oc) * SEL_NW)))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.cell_params = static_cast<const float*>(cell_params);
@@ -388,11 +645,14 @@ extern "C" int persistent_trace_launch(
   a.rays_in = static_cast<const float*>(rays_in);
   a.rng_in = static_cast<const uint32_t*>(rng_in);
   a.ctrl = static_cast<const int*>(ctrl);
+  a.packed = static_cast<const int*>(packed);
   a.hist = static_cast<float*>(hist);
   a.nb = static_cast<int*>(nb);
   a.cpd = cpd;
   a.rays_div = rays_div;
   a.rng_mod = rng_mod;
+  a.k = k;
+  a.pw = sel >= 1 ? pw : 0;
   a.S = S;
   a.num_fc = num_fc;
   a.num_oc = num_oc;
@@ -403,14 +663,14 @@ extern "C" int persistent_trace_launch(
   a.nx = nx;
   a.max_iters = max_iters;
   const size_t smem =
-      sizeof(float) * ((size_t)PC + ZPAD + PG + (size_t)ny * nx +
-                       (size_t)STATE_WORDS * S);
-  void (*kernel)(Args) = gens_mode ? persistent_trace_kernel<true>
-                                    : persistent_trace_kernel<false>;
+      sizeof(float) * ((size_t)k * (PC + ZPAD + a.pw + (size_t)ny * nx) + PG +
+                       (sel >= 2 ? JUMP_WORDS : 0) + (size_t)STATE_WORDS * S);
+  Kernel kernel = gens_mode ? pick_kernel<true>(sel, k > 1)
+                            : pick_kernel<false>(sel, k > 1);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<C, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<C / k, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

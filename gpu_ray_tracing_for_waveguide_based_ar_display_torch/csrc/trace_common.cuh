@@ -19,11 +19,12 @@ constexpr int INIT_JA = 0, INIT_JB = 8, INIT_SA = 16, INIT_SB = 17,
               INIT_COS0 = 18, OC_SOUT = 19, GAPS = 20, TIR_PH = 28,
               HOP2_PH = 36, EBR = 44, IC_BLK = 48, IC_SA = 80, IC_SB = 81,
               FC_BLK = 96, FC_STRIDE = 36, OC_BLK = 352, OC_STRIDE = 56,
-              EBT = 688, EBS = 692;
+              EBT = 688, EBS = 692, HOP2_ANG = 694;
 // geometry row layout
 constexpr int G_FC_ROT = 0, G_FC_TOP = 2, G_FC_INVW = 3, G_OC_ROT = 4,
               G_OC_TOP = 6, G_OC_INVW = 7, G_IC = 12, G_HULL = 16, G_R1 = 88,
-              G_R2 = 160, G_OC_BT = 304;
+              G_R2 = 160, G_MC_HULL = 232, G_MC_R1 = 256, G_MC_R2 = 280,
+              G_OC_BT = 304;
 
 __device__ __forceinline__ uint32_t xorshift32(uint32_t s) {
   s ^= s << 13;

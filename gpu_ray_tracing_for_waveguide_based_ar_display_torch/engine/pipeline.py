@@ -5,7 +5,9 @@ engines:
 
 - ``engine="persistent"`` (the default): its persistent count-spawn path with
   folded iterations (``engine="pallas_persistent", spawn_mode="count",
-  fold_iterations=True``), through :func:`.trace_persistent.persistent_trace`;
+  fold_iterations=True``), through :func:`.trace_persistent.persistent_trace`,
+  with its ``pers_accum_mode``, ``pers_cells_per_block``,
+  ``pers_transit_jump`` and ``pers_jump_phase`` options;
 - ``engine="cell"``: its per-cell path (``engine="pallas"``) with the general
   ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
   histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
@@ -88,12 +90,37 @@ class Simulator:
                  geometry_simplify_tol: float = 0.0,
                  device="cuda", persistent_slots: int = 2048,
                  engine: str = "persistent", segmented: bool = False,
-                 segment_bounces: int = 24):
+                 segment_bounces: int = 24, pers_accum_mode: str = "fma",
+                 pers_cells_per_block: int = 1,
+                 pers_transit_jump: bool = False,
+                 pers_jump_phase: str = "pow2"):
+        """``pers_*`` (persistent engine): ``pers_accum_mode="packed"`` reads
+        bfloat16-rounded selection records; ``pers_cells_per_block = k``
+        (packed, shared pupil samples and ``rng_mode="fast"`` only) puts k
+        cells, each with ``persistent_slots`` slots, into one block, except
+        in a batch whose length k does not divide; ``pers_transit_jump``
+        (packed, k = 1) advances a slot on a pure TIR hop to its next event
+        in one iteration, phased by ``pers_jump_phase``.  Packed selection is
+        within Monte-Carlo tolerance of the exact trace, not bitwise.  Jumps
+        are not an unbiased variant of single hops under count spawn: a slot
+        respawns by its rays' lifetime in iterations, which jumps shorten,
+        so the launch-point weights move and the efficiencies shift
+        systematically, by up to about 2 % at the reference workload."""
         t0 = time.perf_counter()
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         if segmented and engine != "cell":
             raise ValueError("segmented scheduling belongs to engine='cell'")
+        # early errors; the launch's own checks own the refusals
+        self._pers_cpb = int(pers_cells_per_block)
+        trace_persistent.check_modes(pers_accum_mode, self._pers_cpb,
+                                     pers_transit_jump, pers_jump_phase)
+        if self._pers_cpb > 1 and not (cfg.shared_pupil_samples
+                                       and cfg.rng_mode == "fast"):
+            raise ValueError(
+                "pers_cells_per_block > 1 requires shared_pupil_samples and "
+                f"rng_mode='fast' (got {cfg.shared_pupil_samples}, "
+                f"{cfg.rng_mode!r})")
         self.engine = engine
         self.device = resolve_device(device)
         self.design = design
@@ -118,8 +145,10 @@ class Simulator:
                   eyebox_bins=cfg.eyebox_bins)
         self._seg_tracer = None
         if engine == "persistent":
-            self.tracer = PersistentTracer(cp, gr, max_iters=cfg.max_bounces,
-                                           **kw).to(self.device)
+            self.tracer = PersistentTracer(
+                cp, gr, max_iters=cfg.max_bounces, accum_mode=pers_accum_mode,
+                transit_jump=pers_transit_jump, jump_phase=pers_jump_phase,
+                **kw).to(self.device)
         else:
             self.tracer = CellTracer(cp, gr, max_bounces=cfg.max_bounces,
                                      **kw).to(self.device)
@@ -143,29 +172,43 @@ class Simulator:
         slots = max(lanes, (slots // lanes) * lanes)
         return slots, -(-rays_per_cell // slots)
 
+    def _shared_blocks(self) -> bool:
+        """One launch tile serves every cell and the seeds hash the ray
+        index (the only path that takes several cells per block)."""
+        return self.cfg.shared_pupil_samples and self.cfg.rng_mode == "fast"
+
     def _device_ray_blocks(self, cell_ids: np.ndarray, slots: int,
-                           iteration: int = 0):
+                           iteration: int = 0, cpb: int = 1):
         """Launch tiles and per-slot seeds of one batch, on the device.
 
         With shared pupil samples and fast seeding, one (1, 6, RT, 128) tile
         serves every cell and the seeds follow the contract global index
-        ``(iteration * cells + cid) * slots + slot``; otherwise the batch is
-        seeded per cell on the host, as the JAX package's general path does.
+        ``(iteration * cells + cid) * slots + slot``; with ``cpb`` cells per
+        block the tile is repeated ``cpb`` times along its rows (every cell
+        of a block respawns from the same samples) and the (C, RT, 128) seeds
+        reshape to (C / cpb, cpb * RT, 128), so each cell keeps its own seed
+        block.  Otherwise the batch is seeded per cell on the host, as the
+        JAX package's general path does.
         """
         rt = slots // trace_rows.LANES
         C = len(cell_ids)
-        if self.cfg.shared_pupil_samples and self.cfg.rng_mode == "fast":
-            if self._tile is None or self._tile[0] != (slots, iteration):
+        if self._shared_blocks():
+            key = (slots, iteration, cpb)
+            if self._tile is None or self._tile[0] != key:
                 one = seeding.build_ray_batch(
                     self.geom, self.cfg, cell_ids=np.array([0]),
                     rays_per_cell=slots, iteration=iteration)
                 tile, _ = trace_rows.pack_ray_blocks(one, 1, slots, rt)
-                self._tile = ((slots, iteration), torch.from_numpy(tile).to(
-                    self.device))
+                tile = np.concatenate([tile] * cpb, axis=2)
+                self._tile = (key, torch.from_numpy(tile).to(self.device))
             seeds = seeding.cell_seeds(cell_ids, slots, iteration,
                                        self.L * self.M * self.N, self.cfg.seed)
-            bits = torch.from_numpy(seeds.view(np.int32).reshape(C, rt, -1))
+            bits = torch.from_numpy(
+                seeds.view(np.int32).reshape(C // cpb, cpb * rt, -1))
             return self._tile[1], bits.to(self.device)
+        if cpb != 1:
+            raise ValueError("several cells per block need shared pupil "
+                             "samples and fast seeding")
         batch = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=cell_ids,
                                         rays_per_cell=slots, iteration=iteration)
         rays_in, rng_in = trace_rows.pack_ray_blocks(batch, C, slots, rt)
@@ -219,12 +262,15 @@ class Simulator:
         nbs = []
         for start in range(0, n_cells, cells_per_batch):
             chunk = all_cells[start:start + cells_per_batch]
+            # a batch that does not split evenly into blocks runs one cell
+            # per block
+            cpb = self._pers_cpb if len(chunk) % self._pers_cpb == 0 else 1
             ts = time.perf_counter()
-            rays_in, rng_in = self._device_ray_blocks(chunk, slots)
+            rays_in, rng_in = self._device_ray_blocks(chunk, slots, cpb=cpb)
             timings["seed_s"] += time.perf_counter() - ts
             with timer.span("kernel"):
                 tile, nb = self.tracer(int(chunk[0]), len(chunk), rays_in,
-                                       rng_in, ctrl)
+                                       rng_in, ctrl, cells_per_block=cpb)
             tiles[start:start + len(chunk)] = self._renorm_tiles(tile, nb, target)
             nbs.append(nb)
             if verbose:

@@ -62,6 +62,9 @@ PG = 320
 
 _EDGE_TOL = 1e-6
 
+SEL_W = 50            # selection record: 34 shared params + 16 OC-only (branch C)
+SEL_NW = SEL_W // 2   # two bf16 values per int32 word
+
 
 def _flat_jones(j: np.ndarray) -> np.ndarray:
     """(..., 2, 2) complex -> (..., 8) float32 (re, im interleaved row-major)."""
@@ -131,6 +134,51 @@ def build_kernel_cell_params(tables: CellTables, eyebox_range_mn: np.ndarray,
         p[:, off + 48] = tables.oc_scale[0][s]
         p[:, off + 49] = tables.oc_scale[1][s]
     return p
+
+
+def selection_row_offsets(num_fc: int, num_oc: int):
+    """The site-selection records: ``(kind, 34 p-offsets, 16 q-offsets)`` for
+    the IC, each FC strip and each OC strip, in that order.
+
+    The p-offsets list where in the cell row the site's ``[A0 B0 A1 B1 s_a
+    s_b]`` record lives (A / B = the two branches' Jones matrices, 0 / 1 = the
+    state bit); the q-offsets the OC-only branch-C Jones of both bits (None
+    for IC and FC rows)."""
+    rows = [("ic", [_IC_BLK + j for j in range(32)] + [_IC_SA, _IC_SB], None)]
+    for k in range(num_fc):
+        base = _FC_BLK + k * _FC_STRIDE
+        rows.append(("fc", [base + j for j in range(34)], None))
+    for k in range(num_oc):
+        base = _OC_BLK + k * _OC_STRIDE
+        rows.append((
+            "oc",
+            [base + j for j in range(16)] + [base + 24 + j for j in range(16)]
+            + [base + 48, base + 49],
+            [base + 16 + j for j in range(8)] + [base + 40 + j for j in range(8)],
+        ))
+    return rows
+
+
+def pack_selection_params(cell_params: np.ndarray, num_fc: int,
+                          num_oc: int) -> np.ndarray:
+    """The selection records rounded to bfloat16 (to nearest, ties to even)
+    and packed two per word: ``(C, (1 + num_fc + num_oc) * 25)`` int32, what
+    ``accum_mode="packed"`` reads in place of the float32 records.
+
+    Word ``w`` of a record holds parameter ``2w`` in bits 0-15 and ``2w + 1``
+    in bits 16-31: words 0-3 branch A | bit 0, 4-7 B | bit 0, 8-11 A | bit 1,
+    12-15 B | bit 1, 16 ``(s_a, s_b)``, 17-20 branch C | bit 0, 21-24 C |
+    bit 1 (zero on IC and FC records).  Widening a half back by a 16-bit
+    shift gives the float32 value of the rounded parameter."""
+    rows = selection_row_offsets(num_fc, num_oc)
+    # one gather over the rows and one zero column (the IC / FC records'
+    # branch C), then neighbouring bfloat16 pairs are the little-endian words
+    offs = torch.tensor([o + (q if q is not None else [PC] * (SEL_W - 34))
+                         for _, o, q in rows]).reshape(-1)
+    cp = torch.from_numpy(np.ascontiguousarray(cell_params, np.float32))
+    vals = torch.cat([cp, cp.new_zeros((cp.shape[0], 1))], dim=1)
+    halves = vals.index_select(1, offs).to(torch.bfloat16).view(torch.int16)
+    return halves.numpy().view("<u4").view(np.int32)
 
 
 def _hp_from_existing(hp: np.ndarray) -> np.ndarray:

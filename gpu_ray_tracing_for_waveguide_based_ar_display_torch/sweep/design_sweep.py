@@ -51,11 +51,14 @@ class ChunkRows:
     rays: np.ndarray             # (nd or nd * n_cells, 6, RT, 128) float32
     rng: Optional[np.ndarray]    # (nd * n_cells, RT, 128) uint32; None: shared
     edge_counts: tuple           # the chunk's largest (hull, r1, r2) counts
+    # (nd * n_cells, records * 25) int32 packed selection words, or None
+    cell_params_packed: Optional[np.ndarray] = None
 
 
 def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
                   slots: int, lut_seed: int = 1234,
-                  shared: bool = True) -> ChunkRows:
+                  shared: bool = True, packed: bool = False,
+                  cells_per_block: int = 1) -> ChunkRows:
     """Host rows and launch tiles of one design chunk.
 
     Geometry and trace geometry per design; the synthetic LUT -> cell table
@@ -65,7 +68,9 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
     :func:`shared_seed_block`); else every cell's tile and seeds, built on
     the host.  Edge counts are the chunk's largest: a design's padding
     half-planes are always true, so its cells see the same regions as in a
-    solo run."""
+    solo run.  ``packed`` adds the packed selection words;
+    ``cells_per_block = k`` (shared only) repeats each design's tile k times
+    along its rows, one run of ``slots`` slots per cell of a block."""
     rt = slots // trace_rows.LANES
     n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
     geoms = [generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y) for d in designs]
@@ -83,8 +88,9 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
             if prev_ic is None or not np.array_equal(prev_ic, g.ic):
                 b = seeding.build_ray_batch(g, cfg_s, cell_ids=np.array([0]),
                                             rays_per_cell=slots)
-                prev_ic, prev = g.ic, trace_rows.pack_ray_blocks(
-                    b, 1, slots, rt)[0][0]
+                tile = trace_rows.pack_ray_blocks(b, 1, slots, rt)[0][0]
+                prev_ic = g.ic
+                prev = np.concatenate([tile] * cells_per_block, axis=1)
             tiles.append(prev)
         else:
             r_in, rng_in = trace_rows.pack_ray_blocks(
@@ -92,19 +98,26 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
             tiles.append(r_in)
             rngs.append(rng_in)
     ec = tuple(max(c) for c in zip(*(trace_rows.edge_counts(g) for g in tgs)))
+    cpk = (trace_rows.pack_selection_params(cp, tgs[0].num_fc, tgs[0].num_oc)
+           if packed else None)
     return ChunkRows(
         tgeoms=tgs, cell_params=cp, geom_rows=grs,
         rays=np.stack(tiles) if shared else np.concatenate(tiles),
-        rng=None if shared else np.concatenate(rngs), edge_counts=ec)
+        rng=None if shared else np.concatenate(rngs), edge_counts=ec,
+        cell_params_packed=cpk)
 
 
-def shared_seed_block(cfg: TraceConfig, slots: int) -> np.ndarray:
+def shared_seed_block(cfg: TraceConfig, slots: int,
+                      cells_per_block: int = 1) -> np.ndarray:
     """(L*M*N, RT, 128) uint32 per-slot seeds shared by every design: the
     seed contract global index ``cid * slots + slot`` (iteration 0), as the
-    per-cell host path and the JAX package's sweep hash it."""
+    per-cell host path and the JAX package's sweep hash it.  With
+    ``cells_per_block = k`` the same seeds as (L*M*N / k, k * RT, 128): each
+    cell of a block keeps its own seed block."""
     n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
     return seeding.cell_seeds(np.arange(n_cells), slots, 0, n_cells,
-                              cfg.seed).reshape(n_cells, -1, trace_rows.LANES)
+                              cfg.seed).reshape(
+        n_cells // cells_per_block, -1, trace_rows.LANES)
 
 
 def _chunk_reduce(tiles, nb, nd: int, n_cells: int, L: int, MN: int, nx: int,
@@ -153,6 +166,9 @@ def run_design_sweep_persistent(
     evaluate_metrics: bool = False,
     eval_cfg: Optional[EvalConfig] = None,
     device="cuda",
+    accum_mode: str = "fma",
+    cells_per_block: int = 1,
+    transit_jump: bool = False,
 ) -> SweepResult:
     """Trace every design with identical workloads on ``device``.
 
@@ -172,6 +188,13 @@ def run_design_sweep_persistent(
     each cell traces its exact ``cfg.rays_per_fov`` target, renormalised the
     same way.  ``slots`` (default ``min(rays_per_fov, 2048)``) is the lane
     count per cell.
+
+    ``accum_mode="packed"`` reads bfloat16-rounded selection records;
+    ``transit_jump`` (packed; the phase by squaring) advances a slot on a
+    pure TIR hop to its next event in one iteration; ``cells_per_block = k``
+    (packed, the shared-seed path, ``L*M*N % k == 0``) puts k cells of
+    ``slots`` slots each into one block, each cell's result equal to its
+    k = 1 result bit for bit.
 
     With shared pupil samples and fast seeding, each design uploads one
     ``(6, RT, 128)`` launch tile (reused while the in-coupler polygon is
@@ -220,13 +243,22 @@ def run_design_sweep_persistent(
     broadcast = (cfg.shared_pupil_samples and cfg.rng_mode == "fast"
                  and n_cells * slots <= 0xFFFFFFFF
                  and not _force_host_blocks)
+    cpb = int(cells_per_block)
+    trace_persistent.check_modes(accum_mode, cpb, transit_jump, "pow2")
+    packed = accum_mode == "packed"
+    if cpb > 1 and (not broadcast or n_cells % cpb):
+        raise ValueError(
+            "cells_per_block > 1 requires the shared-seed path and a cell "
+            f"count divisible by it (got shared={broadcast}, {n_cells} "
+            f"cells, cells_per_block={cpb})")
     timings = {"prep_s": 0.0, "seed_s": 0.0, "upload_s": 0.0, "keep_s": 0.0}
     events = []
 
     def prep(idx):
         t0 = time.perf_counter()
         rows = prepare_chunk([designs[i] for i in idx], cfg, slots,
-                             lut_seed=lut_seed, shared=broadcast)
+                             lut_seed=lut_seed, shared=broadcast,
+                             packed=packed, cells_per_block=cpb)
         timings["prep_s"] += time.perf_counter() - t0
         return rows
 
@@ -235,7 +267,7 @@ def run_design_sweep_persistent(
         t0 = time.perf_counter()
         # the seeds travel as int32 holding the same bits
         rng_cell = torch.from_numpy(
-            shared_seed_block(cfg, slots).view(np.int32)).to(dev)
+            shared_seed_block(cfg, slots, cpb).view(np.int32)).to(dev)
         timings["seed_s"] = time.perf_counter() - t0
 
     mask = torch.as_tensor(pupil_mask(eval_cfg.pupil_mask_bins),
@@ -263,6 +295,8 @@ def run_design_sweep_persistent(
         t0 = time.perf_counter()
         cp_t = torch.from_numpy(rows.cell_params).to(dev)
         gr_t = torch.from_numpy(rows.geom_rows).to(dev)
+        cpk_t = (torch.from_numpy(rows.cell_params_packed).to(dev)
+                 if packed else None)
         if broadcast:
             rays_in = torch.from_numpy(rows.rays).to(dev)   # (nd, 6, RT, 128)
             rng_in = rng_cell
@@ -276,10 +310,12 @@ def run_design_sweep_persistent(
         tiles, nb = trace_persistent.persistent_trace(
             cp_t, gr_t, rays_in, rng_in, ctrl, num_fc=num_fc, num_oc=num_oc,
             edge_counts=rows.edge_counts, eyebox_bins=cfg.eyebox_bins,
-            max_iters=cfg.max_bounces, spawn_mode=spawn_mode)
+            max_iters=cfg.max_bounces, spawn_mode=spawn_mode,
+            accum_mode=accum_mode, cells_per_block=cpb,
+            transit_jump=transit_jump, cell_params_packed=cpk_t)
         if on_gpu:
             ev[1].record()
-        del cp_t, rays_in
+        del cp_t, cpk_t, rays_in
         nb_parts.append(nb)
         eff_d, bounce_d, factor = _chunk_reduce(
             tiles, nb, nd, n_cells, L, M * N, nx, renorm, nominal)

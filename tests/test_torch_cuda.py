@@ -87,6 +87,76 @@ def test_simulator_on_card_equals_cpu(small, cuda_device):
     assert rg.efficiencies == rc.efficiencies
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["packed", "jump_pow2", "jump_cos", "k2",
+                                  "k2_gens", "jump_pow2_gens"])
+def test_packed_modes_equal_plain_version_on_card(small, cuda_device, mode):
+    """Packed selection, transit jumps in both phases and two cells per
+    block, in count and gens spawn: kernel and plain version give identical
+    tiles and counts; with two cells per block each cell's tile, bounces and
+    spawns also equal its one-cell-per-block launch."""
+    geom, cfg = small
+    jump = mode.startswith("jump")
+    sim = pipeline.Simulator(
+        cfg=cfg, geom=geom, device=cuda_device, persistent_slots=128,
+        pers_accum_mode="packed", pers_transit_jump=jump,
+        pers_jump_phase="cos" if "cos" in mode else "pow2")
+    k = 2 if mode.startswith("k2") else 1
+    gens = mode.endswith("gens")
+    cells = np.arange(3 * M * N)
+    tr = sim.tracer
+    ctrl = torch.tensor([2, 0] if gens else [512, 0], dtype=torch.int32,
+                        device=cuda_device)
+    kw = dict(num_fc=tr.num_fc, num_oc=tr.num_oc, edge_counts=tr.edge_counts,
+              eyebox_bins=tr.eyebox_bins, max_iters=tr.max_iters,
+              spawn_mode="gens" if gens else "count", accum_mode="packed",
+              transit_jump=jump, jump_phase=tr.jump_phase,
+              cell_params_packed=tr.cell_params_packed)
+
+    def both(cpb):
+        rays_in, rng_in = sim._device_ray_blocks(cells, 128, cpb=cpb)
+        args = (tr.cell_params, tr.geom_row, rays_in, rng_in, ctrl)
+        n0 = tp.launch_counts["persistent_trace"]
+        hk, nbk = tp.persistent_trace(*args, cells_per_block=cpb, **kw)
+        torch.cuda.synchronize()
+        assert tp.launch_counts["persistent_trace"] == n0 + 1
+        hr, nbr = tp.persistent_trace_reference(*args, cells_per_block=cpb,
+                                                **kw)
+        assert hk.sum() > 0
+        assert torch.equal(hk, hr)
+        assert torch.equal(nbk, nbr)
+        return hk, nbk
+
+    hk, nbk = both(k)
+    if k > 1:
+        h1, nb1 = both(1)
+        assert torch.equal(hk, h1)
+        assert torch.equal(nbk[:, [0, 2]], nb1[:, [0, 2]])
+
+
+@pytest.mark.cuda
+def test_packed_sweep_on_card_equals_cpu_and_cells_per_block(cuda_device):
+    """A packed sweep with transit jumps equals the CPU sweep bit for bit,
+    and a packed sweep with four cells per block equals the one with one."""
+    cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=128,
+                      max_bounces=256, seed=5)
+    designs = [dataclasses.replace(WaveguideDesign(), lambda_ic=p, lambda_oc=p)
+               for p in (380.0, 396.0)]
+    kw = dict(spawn_iters=64, keep_histograms=True, accum_mode="packed")
+    jump = run_design_sweep_persistent(designs, cfg, device=cuda_device,
+                                       transit_jump=True, **kw)
+    cpu = run_design_sweep_persistent(designs, cfg, device="cpu",
+                                      transit_jump=True, **kw)
+    np.testing.assert_array_equal(cpu.histograms, jump.histograms)
+    np.testing.assert_array_equal(cpu.bounces, jump.bounces)
+    one = run_design_sweep_persistent(designs, cfg, device=cuda_device, **kw)
+    four = run_design_sweep_persistent(designs, cfg, device=cuda_device,
+                                       cells_per_block=4, **kw)
+    np.testing.assert_array_equal(one.histograms, four.histograms)
+    np.testing.assert_array_equal(one.bounces, four.bounces)
+    assert one.histograms.sum() > 0
+
+
 def _design_rows(cfg, periods, device):
     """Cell rows, geometry rows and launch tiles of one design per coupler
     period (one Simulator each), and the first design's per-cell seeds as

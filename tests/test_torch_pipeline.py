@@ -90,8 +90,9 @@ def test_batching_invariance(runs):
 
 
 def test_import_and_cpu_run_load_no_jax(tmp_path):
-    """A process that imports the port and runs a CPU Simulator and a CPU
-    sweep (with metrics) loads neither jax nor any module of the JAX
+    """A process that imports the port and runs a CPU Simulator (exact, and
+    packed with transit jumps) and a CPU sweep (packed, two cells per block,
+    with metrics) loads neither jax, ml_dtypes nor any module of the JAX
     package."""
     code = (
         "import sys\n"
@@ -107,10 +108,14 @@ def test_import_and_cpu_run_load_no_jax(tmp_path):
         "r = pipeline.Simulator(cfg=cfg, device='cpu', persistent_slots=128)"
         ".run()\n"
         "assert r.rays_traced >= 128 * 12, r.rays_traced\n"
+        "r = pipeline.Simulator(cfg=cfg, device='cpu', persistent_slots=128, "
+        "pers_accum_mode='packed', pers_transit_jump=True).run()\n"
+        "assert r.rays_traced >= 128 * 12, r.rays_traced\n"
         "s = run_design_sweep_persistent([WaveguideDesign()] * 2, cfg, "
-        "spawn_iters=8, evaluate_metrics=True, device='cpu')\n"
+        "spawn_iters=8, evaluate_metrics=True, device='cpu', "
+        "accum_mode='packed', cells_per_block=2)\n"
         "assert (s.efficiencies > 0).all() and len(s.metrics) == 2\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes') "
         "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
         "display_tpu')))\n"
         "print(bad or 'NOJAX')\n"
