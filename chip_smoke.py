@@ -7,7 +7,15 @@ Run from the repository root.  Phases:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the ``nvcc`` build of every kernel (one ``nvcc`` process per source,
-   started together) with its ``-Xptxas -v`` report;
+   started together) with its ``-Xptxas -v`` report; for each of the
+   persistent kernel's ten instantiations, at the main path's launch shape
+   (2,048 slots per block, 512 threads; packed words of the paper design;
+   two cells of 1,024 slots for several cells per block), the resident
+   blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+   registers, local memory and spills.  It fails if the main path's
+   instantiation (count spawn, exact selection) holds fewer than 2 blocks
+   per SM, if any instantiation holds fewer than its launch bounds ask for,
+   or if any spills;
 2. each kernel against its plain PyTorch version on the card, at the main
    path's per-cell width (paper design, 8 x 6 FoV x 3 wavelengths = 144
    cells, 2,048 slots, spawn target 20,000, 100,000-iteration bound); the
@@ -94,6 +102,12 @@ Run from the repository root.  Phases:
    block, whose kept design must equal the one-cell-per-block run's bit for
    bit.
 
+Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
+fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
+of slot-iterations that made a bounce (with transit jumps a skipped hop
+counts as a bounce, so it may pass 1).  Phases 3 and 10 also record the
+kernel's bound over the whole run (:func:`simulate_bound_ms`).
+
 Any failure exits non-zero without the result line.  On success the line
 before the last is the kernels' JSON summary and the last line is
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes every
@@ -145,19 +159,52 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_entry(line: str):
+    """The label of the kernel instantiation an nvcc -Xptxas -v line starts,
+    its template arguments (the persistent kernel's are GENS, SEL, MULTI),
+    or None."""
+    entry = re.search(r"Compiling entry function '(\S+)'", line)
+    if not entry:
+        return None
+    targs = re.findall(r"L[bi](\d+)E", entry.group(1))
+    return f"[{','.join(targs)}]" if targs else "[kernel]"
+
+
 def ptxas_summary(log: str) -> str:
     """Registers, shared memory and spills from nvcc's -Xptxas -v output,
-    each kernel instantiation under its template arguments (the persistent
-    kernel's are GENS, SEL, MULTI)."""
+    each kernel instantiation under its label."""
     keep = []
     for ln in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\S+)'", ln)
-        if entry:
-            targs = re.findall(r"L[bi](\d+)E", entry.group(1))
-            keep.append(f"[{','.join(targs)}]" if targs else "[kernel]")
+        label = ptxas_entry(ln)
+        if label:
+            keep.append(label)
         elif re.search(r"registers|spill|smem", ln):
             keep.append(re.sub(r"^ptxas info\s*:\s*", "", ln.strip()))
     return " | ".join(keep) if keep else "(no ptxas report)"
+
+
+def ptxas_spills(log: str) -> dict:
+    """Spill store and load bytes of each kernel instantiation in nvcc's
+    -Xptxas -v output, keyed as :func:`ptxas_summary` labels them."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        name = ptxas_entry(ln) or name
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if spill and name is not None:
+            out[name] = int(spill.group(1)) + int(spill.group(2))
+    return out
+
+
+def live_fraction(nb, slots_per_cell: int) -> float:
+    """Bounces per slot-iteration of a launch: sum(nb[:, 0]) / (slots per
+    cell * sum(nb[:, 1])).  ``nb[:, 1]`` is each cell's block's iteration
+    count, so with k cells per block this is sum(nb[:, 0]) / (block slots
+    * summed block iterations)."""
+    import numpy as np
+
+    nb = np.asarray(nb.cpu() if hasattr(nb, "cpu") else nb).astype(np.int64)
+    return float(nb[:, 0].sum()) / (slots_per_cell * float(nb[:, 1].sum()))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -192,6 +239,33 @@ def bound_ms(inputs, outputs, nb, n_r1: int, ops_per_edge: int = 4,
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
     ops = (float(nb[:, 0].to(torch.int64).sum()) / hops_per_test
            * ops_per_edge * n_r1)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = ops / PEAK_FP32_OPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def simulate_bound_ms(sim, res, target: int) -> tuple:
+    """:func:`bound_ms` of a whole ``Simulator.run``: the bytes every launch
+    must move (cell rows, packed words, the shared launch tile and geometry
+    row once per launch, the seeds, the histograms and ``nb``) and the r1
+    test of every bounce, with the selection's operations per edge and a
+    jump's hops per test."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_rows,
+    )
+
+    tr = sim.tracer
+    n = sim.L * sim.M * sim.N
+    slots = sim._slots_gens(target)[0]
+    ny, nx = tr.eyebox_bins
+    packed = tr.accum_mode == "packed"
+    words = tr.cell_params_packed.shape[1] if packed else 0
+    launches = math.ceil(n / 2048)
+    nbytes = (n * (trace_rows.PC + words + slots + ny * nx + 4) * 4
+              + launches * (trace_rows.PG + 6 * slots + 2) * 4)
+    hops = (15 if tr.jump_phase == "pow2" else 4095) if tr.transit_jump else 1
+    ops = (res.total_bounces / hops * (3 if packed else 4)
+           * tr.edge_counts[1])
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = ops / PEAK_FP32_OPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -272,6 +346,81 @@ def phase1(ctx) -> None:
         record["build_seconds"][name] = info["seconds"]
         record["ptxas"][name] = ptxas_summary(info["log"])
     print(f"nvcc builds, side by side: {both:.2f} s")
+    occupancy(ctx, build.build_info["persistent_trace"]["log"])
+
+
+def occupancy(ctx, log: str) -> None:
+    """Resident blocks per SM, registers and spills of each instantiation of
+    the persistent kernel at the main path's launch shape."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig, WaveguideDesign,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_persistent as tp, trace_rows,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+
+    cfg = TraceConfig()
+    tg = build_trace_geometry(generate_geometry(
+        WaveguideDesign(), cfg.num_fov_x, cfg.num_fov_y), 0.05)
+    pw = (1 + tg.num_fc + tg.num_oc) * trace_rows.SEL_NW
+    spills = ptxas_spills(log)
+    rows, faults = [], []
+    for spawn_mode in tp.SPAWN_MODES:
+        for accum, k, jump, phase in (("fma", 1, False, "pow2"),
+                                      ("packed", 1, False, "pow2"),
+                                      ("packed", 2, False, "pow2"),
+                                      ("packed", 1, True, "pow2"),
+                                      ("packed", 1, True, "cos")):
+            occ = tp.kernel_occupancy(
+                2048, spawn_mode, accum, k, jump, phase,
+                pw if accum == "packed" else 0)
+            sel = tp.selection(accum, jump, phase)
+            key = f"[{int(spawn_mode == 'gens')},{sel},{int(k > 1)}]"
+            row = dict(occ, instantiation=key, spawn_mode=spawn_mode,
+                       accum_mode=accum, cells_per_block=k,
+                       transit_jump=jump, jump_phase=phase if jump else None,
+                       spill_bytes=spills.get(key))
+            rows.append(row)
+            print(f"occupancy {key} {spawn_mode}, {accum}"
+                  f"{' + jump ' + phase if jump else ''}, {k} cell(s) of "
+                  f"{2048 // k} slots, {occ['threads']} threads: "
+                  f"{occ['blocks_per_sm']} blocks per SM (launch bounds ask "
+                  f"{occ['launch_bound_blocks']}), {occ['registers']} "
+                  f"registers, {occ['local_bytes']} B local, spills "
+                  f"{row['spill_bytes'] if log else '(not rebuilt)'} B, "
+                  f"shared {occ['dynamic_smem']} + "
+                  f"{occ['static_smem']} B")
+            want = tp.shared_bytes(2048, k, pw if accum == "packed" else 0,
+                                   jump, spawn_mode == "gens")
+            if occ["dynamic_smem"] != want:
+                faults.append(f"{key}: the kernel sizes its shared memory "
+                              f"{occ['dynamic_smem']} B, the wrapper {want} B")
+            if occ["static_smem"] > tp._STATIC_SMEM:
+                faults.append(f"{key}: static shared memory "
+                              f"{occ['static_smem']} B, the wrapper counts "
+                              f"{tp._STATIC_SMEM} B")
+            if occ["blocks_per_sm"] < occ["launch_bound_blocks"]:
+                faults.append(f"{key}: {occ['blocks_per_sm']} blocks per SM, "
+                              f"its launch bounds ask "
+                              f"{occ['launch_bound_blocks']}")
+            # with a library built earlier there is no ptxas report: the
+            # run that built it checked its spills
+            if log and (row["spill_bytes"] is None or row["spill_bytes"] > 0):
+                faults.append(f"{key}: ptxas reports spills "
+                              f"{row['spill_bytes']}")
+    if rows[0]["blocks_per_sm"] < 2:
+        faults.append(f"the main path's instantiation holds "
+                      f"{rows[0]['blocks_per_sm']} block(s) per SM, not 2")
+    ctx["record"]["occupancy"] = rows
+    save_record(ctx)
+    if faults:
+        fail("occupancy: " + "; ".join(faults))
 
 
 def phase2(ctx) -> None:
@@ -308,8 +457,10 @@ def phase2(ctx) -> None:
     same_hist = bool(torch.equal(hk, hp))
     same_nb = bool(torch.equal(nbk[:, [0, 2]], nbp[:, [0, 2]]))
     nbk_h = nbk.cpu().numpy()
+    live2 = live_fraction(nbk_h, slots)
     print(f"phase 2: {n2} cells x {slots} slots, target {target}: kernel "
-          f"{ms_kernel:.3f} ms, plain {ms_plain:.3f} ms; deposits "
+          f"{ms_kernel:.3f} ms, plain {ms_plain:.3f} ms, live fraction "
+          f"{live2:.4f}; deposits "
           f"{float(hk.sum()):.0f} vs {float(hp.sum()):.0f}, bounces "
           f"{int(nbk_h[:, 0].sum())} vs {int(nbp[:, 0].sum())}, spawned "
           f"{int(nbk_h[:, 2].sum())} vs {int(nbp[:, 2].sum())}, iterations "
@@ -324,6 +475,7 @@ def phase2(ctx) -> None:
         "max_abs_err": max_abs, "hist_identical": same_hist,
         "nb_identical": same_nb,
         "bounces_per_s_kernel": int(nbk_h[:, 0].sum()) / (ms_kernel / 1e3),
+        "live_fraction": live2,
     }
     if not (same_hist and same_nb):
         fail(f"kernel disagrees with its plain version (hist identical "
@@ -334,7 +486,8 @@ def phase2(ctx) -> None:
     ctx["k1_modes"] = [{"mode": "count", "ctrl": [target, 0], "designs": 1,
                         "cells": n2, "slots": slots, "ms": ms_kernel,
                         "plain_ms": ms_plain, "bound_ms": bound2,
-                        "bound_by": bound_by2, "max_abs_err": max_abs}]
+                        "bound_by": bound_by2, "max_abs_err": max_abs,
+                        "live_fraction": live2}]
 
 
 def phase3(ctx) -> None:
@@ -363,6 +516,8 @@ def phase3(ctx) -> None:
     target = cfg.rays_per_fov * cfg.num_iter
     batches = math.ceil(n_cells / 2048)
     met = res.metrics
+    live3 = live_fraction(res.cell_stats, sim._slots_gens(target)[0])
+    bound3, bound_by3 = simulate_bound_ms(sim, res, target)
     print(pipeline.format_report(res))
     print(f"phase 3: {n_cells} cells, target {target} rays/cell: wall "
           f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
@@ -370,7 +525,9 @@ def phase3(ctx) -> None:
           f"{res.timings.get('kernel_ms', float('nan')):.1f} ms, seeding "
           f"{res.timings['seed_s']:.3f} s, assembly "
           f"{res.timings['assemble_s']:.3f} s, metrics "
-          f"{res.timings.get('metrics_s', float('nan')):.3f} s; bounces "
+          f"{res.timings.get('metrics_s', float('nan')):.3f} s; kernel "
+          f"bound {bound3:.4f} ms ({bound_by3}); live fraction {live3:.4f}; "
+          "bounces "
           f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), rays "
           f"{res.rays_traced:,}; launches {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB; jax loaded: {'jax' in sys.modules}")
@@ -383,6 +540,7 @@ def phase3(ctx) -> None:
         "delta_e": met.delta_e, "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
         "launches": launches, "batches": batches, "peak_bytes": peak,
         "max_iterations": int(res.cell_stats[:, 1].max()),
+        "live_fraction": live3, "bound_ms": bound3, "bound_by": bound_by3,
     }
     save_record(ctx)
 
@@ -413,18 +571,20 @@ def phase3(ctx) -> None:
         save_record(ctx)
     ctx["k1_main_launches"] = launches["persistent_trace"]
     ctx["persistent_efficiencies"] = dict(res.efficiencies)
-    ctx["exact_run"] = stack_stats(res)
+    ctx["exact_run"] = stack_stats(res, sim._slots_gens(target)[0])
 
 
-def stack_stats(res) -> dict:
-    """What phase 10 compares between the persistent engine's stacks."""
+def stack_stats(res, slots: int) -> dict:
+    """What phase 10 compares between the persistent engine's stacks (a run
+    of ``slots`` slots per cell)."""
     return {"efficiencies": dict(res.efficiencies),
             "kernel_ms": res.timings.get("kernel_ms"),
             "trace_s": res.trace_seconds,
             "bounces": res.total_bounces, "rays": res.rays_traced,
             "bounces_per_ray": res.total_bounces / res.rays_traced,
             "iterations": int(res.cell_stats[:, 1].astype("int64").sum()),
-            "max_iterations": int(res.cell_stats[:, 1].max())}
+            "max_iterations": int(res.cell_stats[:, 1].max()),
+            "live_fraction": live_fraction(res.cell_stats, slots)}
 
 
 def phase5(ctx) -> None:
@@ -478,7 +638,8 @@ def phase5(ctx) -> None:
                  "deposits": float(hk.sum()),
                  "bounces": int(nbh[:, 0].astype(np.int64).sum()),
                  "spawned": int(nbh[:, 2].astype(np.int64).sum()),
-                 "max_iterations": int(nbh[:, 1].max())}
+                 "max_iterations": int(nbh[:, 1].max()),
+                 "live_fraction": live_fraction(nbh, 256)}
         modes.append(entry)
         print(f"phase 5: {json.dumps(entry)}")
         if not same:
@@ -517,14 +678,26 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
     kw6 = dict(spawn_iters=sargs.spawn_iters, spawn_mode=sargs.spawn_mode,
                slots=sargs.slots, evaluate_metrics=sargs.metrics,
                device=ctx["dev"], **modes)
+    nbs = []   # each launch's nb, for the live fraction
+
+    def traced(*args, **kw):
+        hist, nb = trace(*args, **kw)
+        nbs.append(nb)
+        return hist, nb
+
+    trace = tp.persistent_trace
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tp.reset_launch_counts()
-    t0 = time.perf_counter()
-    r6 = design_sweep.run_design_sweep_persistent(
-        designs, cfg6, keep_histograms=list(keep), **kw6)
-    torch.cuda.synchronize()
-    wall6 = time.perf_counter() - t0
+    tp.persistent_trace = traced
+    try:
+        t0 = time.perf_counter()
+        r6 = design_sweep.run_design_sweep_persistent(
+            designs, cfg6, keep_histograms=list(keep), **kw6)
+        torch.cuda.synchronize()
+        wall6 = time.perf_counter() - t0
+    finally:
+        tp.persistent_trace = trace
     n_launch = tp.launch_counts["persistent_trace"]
     peak6 = torch.cuda.max_memory_allocated()
     n_cells6 = len(designs) * 3 * cfg6.num_fov_x * cfg6.num_fov_y
@@ -563,6 +736,7 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
         "bounces": bounces6, "bounces_per_s": bounces6 / wall6,
         "kernel_bounces_per_s": bounces6 / (tm["kernel_ms"] / 1e3),
         "launches": n_launch, "peak_bytes": peak6,
+        "live_fraction": live_fraction(torch.cat(nbs), slots6),
         "designs_per_hour": len(designs) / wall6 * 3600,
         "efficiencies": r6.efficiencies.tolist(),
         "delta_e": [m.delta_e for m in r6.metrics],
@@ -581,8 +755,9 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
           f"{entry['bound_ms']:.3f} ms, "
           f"{entry['bound_by']}); bounces {bounces6:,} "
           f"({bounces6 / wall6:.4g}/s end to end, "
-          f"{entry['kernel_bounces_per_s']:.4g}/s kernel); peak device "
-          f"memory {peak6 / 2**20:.1f} MiB; "
+          f"{entry['kernel_bounces_per_s']:.4g}/s kernel); live fraction "
+          f"{entry['live_fraction']:.4f}; peak device memory "
+          f"{peak6 / 2**20:.1f} MiB; "
           f"{entry['designs_per_hour']:,.0f} designs/hour")
     eff = r6.efficiencies
     if eff.shape != (len(designs), 3) or not (np.isfinite(eff).all()
@@ -954,7 +1129,8 @@ def phase9(ctx) -> None:
                  "spawned": int(nbh[:, 2].sum()),
                  "iterations": int(nbh[:, 1].sum()) // k,
                  "max_iterations": int(nbh[:, 1].max()),
-                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3)}
+                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3),
+                 "live_fraction": live_fraction(nbh, slots)}
         if k > 1:
             # the same cells, one per block, with the same seeds
             _, _, (h1, nb1), _, _ = launch(slots, 1, ctrl, spawn_mode, jump,
@@ -1024,8 +1200,9 @@ def phase10(ctx) -> None:
     exact = ctx.get("exact_run")
     if exact is None:
         # a partial run without phase 3: the exact mode, same seeds, no metrics
-        exact = stack_stats(pipeline.Simulator(cfg=cfg, device=ctx["dev"]).run(
-            evaluate_metrics=False))
+        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"])
+        exact = stack_stats(sim.run(evaluate_metrics=False),
+                            sim._slots_gens(target)[0])
     runs = {"exact": exact}
     launches10 = 0
     for name, kw in (("packed_jump", dict(pers_accum_mode="packed",
@@ -1044,7 +1221,10 @@ def phase10(ctx) -> None:
         n_cells = sim.L * sim.M * sim.N
         batches = math.ceil(n_cells / 2048)
         tm, met = res.timings, res.metrics
-        entry = dict(stack_stats(res), cells=n_cells, target=target,
+        bound10, bound_by10 = simulate_bound_ms(sim, res, target)
+        entry = dict(stack_stats(res, sim._slots_gens(target)[0]),
+                     bound_ms=bound10, bound_by=bound_by10,
+                     cells=n_cells, target=target,
                      wall_s=wall, setup_s=sim.setup_seconds, timings=tm,
                      delta_e=met.delta_e, u_fov=met.u_fov,
                      u_eyebox=met.u_eyebox, launches=launches,
@@ -1060,7 +1240,8 @@ def phase10(ctx) -> None:
         print(pipeline.format_report(res))
         print(f"phase 10 {name}: {n_cells} cells, target {target} rays/cell: "
               f"wall {wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
-              f"{res.trace_seconds:.3f} s, kernel {tm['kernel_ms']:.1f} ms, "
+              f"{res.trace_seconds:.3f} s, kernel {tm['kernel_ms']:.1f} ms "
+              f"(bound {bound10:.4f} ms, {bound_by10}), "
               f"seeding {tm['seed_s']:.3f} s, assembly "
               f"{tm['assemble_s']:.3f} s, metrics {tm['metrics_s']:.3f} s; "
               f"bounces {res.total_bounces:,}, rays {res.rays_traced:,}; "
@@ -1099,6 +1280,9 @@ def phase10(ctx) -> None:
                        ("exact", "packed", "packed_jump"))
           + ", bounces "
           + " / ".join(f"{runs[n]['bounces']:,}" for n in
+                       ("exact", "packed", "packed_jump"))
+          + ", live fraction "
+          + " / ".join(f"{runs[n]['live_fraction']:.4f}" for n in
                        ("exact", "packed", "packed_jump")))
     ctx["record"]["phase10"]["exact"] = exact
     save_record(ctx)

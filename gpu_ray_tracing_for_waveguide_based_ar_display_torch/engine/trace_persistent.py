@@ -48,14 +48,17 @@ earlier or later).
 The kernel (``csrc/persistent_trace.cu``) runs one thread block per cell
 (or per k cells).
 What bounds it on an H100: per-lane divergent ALU work (region tests, Jones
-products, the branch roulette), block-wide barriers (two per iteration in
-count mode, one in gens mode), the drain tail of saturating spawn, and
-shared-memory atomics for deposits; it reads its rows and rays once and
-writes one tile.  Its design answers that: slot state, cell row, geometry
-row and the integer tile all live in shared memory; strip records are read
-by index instead of the TPU's one-hot selection; the loops over half-plane
-edges stop at the given edge counts; and deposits are integer
-``atomicAdd``s, exact and order-free.
+products, the branch roulette) and the block's barrier once per iteration;
+it reads its rows and rays once and writes one histogram per cell.  Its
+design answers that: slot state, cell row and geometry row live in shared
+memory, and each iteration runs only a per-cell work list of the slots that
+act (live, awaiting their first spawn, or respawning), so dead slots cost
+nothing and live ones fill whole warps; deposits are float ``atomicAdd``s
+into ``hist`` in device memory (every count stays below 2^24: exact and
+order-free), which leaves a block of 2,048 slots small enough for two to
+share an SM; strip records are read by index instead of the TPU's one-hot
+selection, and the loops over half-plane edges stop at the given edge
+counts.
 
 Both versions use the same float32 operations in the same order, with no
 fused multiply-add (the kernel is built with ``-fmad=false``) and
@@ -86,18 +89,23 @@ from ..ops.rng import draw24, xorshift32_step
 MAX_FC = (_OC_BLK - _FC_BLK) // _FC_STRIDE   # strips the cell row has room for
 MAX_OC = (_EBT - _OC_BLK) // _OC_STRIDE
 _SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may use
-_STATIC_SMEM = 64       # the kernel's static counters (two ints per block cell)
 _MASK32 = 0xFFFFFFFF
 # the C parameters of persistent_trace_launch, in order: 8 pointers, 18 ints
-# and the stream
+# and the stream; of persistent_trace_occupancy: 6 ints and the result
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+OCCUPANCY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 SPAWN_MODES = ("count", "gens")
 ACCUM_MODES = ("fma", "select", "packed")   # "select" gives "fma"'s values
 JUMP_PHASES = ("pow2", "cos")
 MAX_CPB = 8         # cells one block can carry (the kernel's)
-_STATE_WORDS = 12   # words of slot state in shared memory (the kernel's)
+_STATE_WORDS = 9    # words of slot state in shared memory (the kernel's),
+                    # and one more in gens spawn: the slot's generations
 _JUMP_WORDS = 5 * MAX_EDGES + 8   # transit-jump reciprocals (the kernel's)
+# the kernel's static shared memory, at most: per block cell three list
+# lengths, three respawn counts (count spawn only), the spawn count and the
+# bounce count; and ctrl; rounded up to 16 bytes
+_STATIC_SMEM = -(-(8 * 4 * MAX_CPB + 8) // 16) * 16
 
 # kernel launches by wrapper name; the wrapper adds one per launch and
 # nothing else touches it except reset_launch_counts
@@ -124,31 +132,40 @@ def block_threads(slots: int, cells_per_block: int = 1) -> int:
                      f"block cell ({k} cells of at most {MAX_CPB})")
 
 
-def shared_bytes(slots: int, eyebox_bins: Sequence[int],
-                 cells_per_block: int = 1, packed_words: int = 0,
-                 transit_jump: bool = False) -> int:
+def shared_bytes(slots: int, cells_per_block: int = 1, packed_words: int = 0,
+                 transit_jump: bool = False, gens: bool = False) -> int:
     """Dynamic shared memory of one block of ``slots`` slots (must match the
-    kernel's layout): per block cell a cell row, its ``packed_words`` packed
-    selection words and a tile; the geometry row, the transit-jump
-    reciprocals and 12 words per slot."""
-    ny, nx = eyebox_bins
-    return 4 * (cells_per_block * (PC + 8 + packed_words + ny * nx) + PG
-                + (_JUMP_WORDS if transit_jump else 0) + _STATE_WORDS * slots)
+    kernel's ``shared_bytes``): per block cell a cell row and its
+    ``packed_words`` packed selection words; the geometry row, the
+    transit-jump reciprocals, 9 words of state per slot (10 in gens spawn)
+    and two lists of uint16 slot indices.  The histograms live in device
+    memory, so the eyebox bins take none."""
+    return (4 * (cells_per_block * (PC + 8 + packed_words) + PG
+                 + (_JUMP_WORDS if transit_jump else 0)
+                 + (_STATE_WORDS + int(gens)) * slots) + 2 * 2 * slots)
 
 
-def check_block_fits(slots: int, eyebox_bins: Sequence[int],
-                     cells_per_block: int = 1, packed_words: int = 0,
-                     transit_jump: bool = False) -> int:
-    """The shared memory one block of the launch needs, in bytes; raises if
-    an H100 block cannot have it (the launch never runs a smaller
-    ``cells_per_block`` instead)."""
-    need = shared_bytes(slots, eyebox_bins, cells_per_block, packed_words,
-                        transit_jump) + _STATIC_SMEM
+def check_block_fits(slots: int, cells_per_block: int = 1,
+                     packed_words: int = 0, transit_jump: bool = False,
+                     gens: bool = False) -> int:
+    """The shared memory one block of the launch needs, static part
+    included, in bytes; raises if an H100 block cannot have it (the launch
+    never runs a smaller ``cells_per_block`` instead)."""
+    need = shared_bytes(slots, cells_per_block, packed_words, transit_jump,
+                        gens) + _STATIC_SMEM
     if need > _SMEM_LIMIT:
         raise ValueError(
             f"a block of {cells_per_block} cell(s) and {slots} slots needs "
             f"{need} B of shared memory (limit {_SMEM_LIMIT})")
     return need
+
+
+def selection(accum_mode: str = "fma", transit_jump: bool = False,
+              jump_phase: str = "pow2") -> int:
+    """The kernel's ``sel``: 0 exact, 1 packed, 2 packed + jump by squaring,
+    3 packed + jump by cos / sin."""
+    return int(accum_mode == "packed") + (
+        int(transit_jump) * (1 + JUMP_PHASES.index(jump_phase)))
 
 
 def check_modes(accum_mode: str, cells_per_block: int, transit_jump: bool,
@@ -320,15 +337,15 @@ def persistent_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
     packed = accum_mode == "packed"
     pw = cell_params_packed.shape[1] if packed else 0
     threads = block_threads(S, cells_per_block)
-    check_block_fits(S, eyebox_bins, cells_per_block, pw, transit_jump)
+    check_block_fits(S, cells_per_block, pw, transit_jump,
+                     spawn_mode == "gens")
     lib = load_kernel()
+    # every block zeroes its own cells' histograms before it deposits
     hist = torch.empty((C, ny, nx), dtype=torch.float32, device=dev)
     nb = torch.empty((C, 4), dtype=torch.int32, device=dev)
     if C == 0:
         return hist, nb
-    # 0 exact, 1 packed, 2 packed + jump by squaring, 3 packed + jump by cos
-    sel = int(packed) + (int(transit_jump)
-                         * (1 + JUMP_PHASES.index(jump_phase)))
+    sel = selection(accum_mode, transit_jump, jump_phase)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.persistent_trace_launch(
@@ -357,10 +374,36 @@ def load_kernel():
         lib = build.load_library("persistent_trace")
         lib.persistent_trace_launch.argtypes = LAUNCH_ARGTYPES
         lib.persistent_trace_launch.restype = ctypes.c_int
+        lib.persistent_trace_occupancy.argtypes = OCCUPANCY_ARGTYPES
+        lib.persistent_trace_occupancy.restype = ctypes.c_int
         lib.persistent_trace_error_string.argtypes = [ctypes.c_int]
         lib.persistent_trace_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def kernel_occupancy(slots: int, spawn_mode: str = "count",
+                     accum_mode: str = "fma", cells_per_block: int = 1,
+                     transit_jump: bool = False, jump_phase: str = "pow2",
+                     packed_words: int = 0) -> dict:
+    """What the card makes of the instantiation a launch of these modes
+    runs, at ``slots`` slots per block and :func:`block_threads` threads:
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local memory per thread, dynamic and static shared bytes,
+    and the blocks per SM its launch bounds ask for.  Needs the card."""
+    lib = load_kernel()
+    out = (ctypes.c_int * 6)()
+    threads = block_threads(slots, cells_per_block)
+    err = lib.persistent_trace_occupancy(
+        int(spawn_mode == "gens"),
+        selection(accum_mode, transit_jump, jump_phase), cells_per_block,
+        packed_words, slots, threads, ctypes.addressof(out))
+    if err != 0:
+        msg = lib.persistent_trace_error_string(err).decode()
+        raise RuntimeError(f"persistent_trace_occupancy failed: {msg} ({err})")
+    keys = ("blocks_per_sm", "registers", "local_bytes", "dynamic_smem",
+            "static_smem", "launch_bound_blocks")
+    return dict(zip(keys, list(out)), threads=threads)
 
 
 # ---------------------------------------------------------------------------

@@ -134,6 +134,85 @@ def test_packed_modes_equal_plain_version_on_card(small, cuda_device, mode):
         assert torch.equal(nbk[:, [0, 2]], nb1[:, [0, 2]])
 
 
+def _launch_both(sim, slots, k, ctrl, spawn_mode, max_iters=None):
+    """One launch of the Simulator's tracer on every cell of the fixture,
+    ``k`` cells of ``slots`` slots each per block, and the plain version on
+    the same inputs: both outputs."""
+    tr = sim.tracer
+    cells = np.arange(3 * M * N)
+    rays_in, rng_in = sim._device_ray_blocks(cells, slots, cpb=k)
+    args = (tr.cell_params, tr.geom_row, rays_in, rng_in,
+            torch.tensor(ctrl, dtype=torch.int32, device=rays_in.device))
+    kw = dict(num_fc=tr.num_fc, num_oc=tr.num_oc, edge_counts=tr.edge_counts,
+              eyebox_bins=tr.eyebox_bins,
+              max_iters=max_iters or tr.max_iters, spawn_mode=spawn_mode,
+              accum_mode=tr.accum_mode, cells_per_block=k,
+              transit_jump=tr.transit_jump, jump_phase=tr.jump_phase,
+              cell_params_packed=tr.cell_params_packed)
+    n0 = tp.launch_counts["persistent_trace"]
+    out = tp.persistent_trace(*args, **kw)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["persistent_trace"] == n0 + 1
+    return out, tp.persistent_trace_reference(*args, **kw)
+
+
+_INSTANTIATIONS = {   # selection -> (Simulator keywords, cells per block)
+    "exact": (dict(), 1),
+    "packed": (dict(pers_accum_mode="packed"), 1),
+    "packed_k2": (dict(pers_accum_mode="packed"), 2),
+    "jump_pow2": (dict(pers_accum_mode="packed", pers_transit_jump=True), 1),
+    "jump_cos": (dict(pers_accum_mode="packed", pers_transit_jump=True,
+                      pers_jump_phase="cos"), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sel,spawn,gens", [
+    *((sel, spawn, 1) for spawn in ("count", "gens") for sel in _INSTANTIATIONS),
+    ("exact", "gens", 10)])
+def test_instantiations_equal_plain_version_in_the_drain(small, cuda_device,
+                                                         sel, spawn, gens):
+    """Every instantiation at a drain-heavy fixture, 2,048 slots per block:
+    each slot spawns once (count target = slots per cell, or one generation
+    per slot), so most iterations run a shrinking work list; and exact
+    selection with ten generations per slot.  Histograms and all of ``nb``
+    identical to the plain version's."""
+    geom, cfg = small
+    kw, k = _INSTANTIATIONS[sel]
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             persistent_slots=2048, **kw)
+    slots = 2048 // k
+    ctrl = [gens, 0] if spawn == "gens" else [slots, 0]
+    (hk, nbk), (hr, nbr) = _launch_both(sim, slots, k, ctrl, spawn)
+    assert hk.sum() > 0
+    assert torch.equal(hk, hr)
+    assert torch.equal(nbk, nbr)
+    assert int(nbk[:, 2].sum()) == 3 * M * N * slots * gens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,k,sel,spawn", [
+    (2048, 1, "packed", "count"), (2048, 1, "jump_pow2", "count"),
+    (1024, 2, "packed", "count"), (256, 1, "jump_pow2", "gens"),
+    (2048, 1, "packed", "gens"), (256, 1, "packed", "gens"),
+    (256, 4, "packed", "gens"), (2048, 2, "packed", "count")],
+    ids=["packed", "jump", "k2", "jump_256", "packed_gens", "packed_256",
+         "k4_256", "k2_2048"])
+def test_launch_shapes_still_launch(small, cuda_device, slots, k, sel, spawn):
+    """The launch shapes of the card smoke test's packed phase and of the
+    CPU layout test (slots per cell, cells per block) launch, 16 iterations
+    each, and equal the plain version; so do two cells of 2,048 slots."""
+    geom, cfg = small
+    kw, _ = _INSTANTIATIONS[sel]
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             persistent_slots=slots, **kw)
+    (hk, nbk), (hr, nbr) = _launch_both(
+        sim, slots, k, [2, 0] if spawn == "gens" else [slots, 0], spawn,
+        max_iters=16)
+    assert torch.equal(hk, hr)
+    assert torch.equal(nbk, nbr)
+
+
 @pytest.mark.cuda
 def test_packed_sweep_on_card_equals_cpu_and_cells_per_block(cuda_device):
     """A packed sweep with transit jumps equals the CPU sweep bit for bit,

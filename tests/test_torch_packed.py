@@ -335,17 +335,19 @@ def test_select_is_a_synonym_of_fma(rows):
 
 
 def test_block_layouts_that_fit_hopper_shared_memory():
-    """With the paper design's 14 records (350 packed words) and 80 x 120
-    bins: one cell of 2,048 slots fits, with jumps too; two cells of 1,024
-    and four of 256 fit; two cells of 2,048 do not, and the refusal states
-    the bytes.  Thread groups stay whole warps, 512 threads at most."""
+    """With the paper design's 14 records (350 packed words; the 80 x 120
+    histograms live in device memory): one cell of 2,048 slots fits, with
+    jumps too; two cells of 1,024, four of 256 and now two of 2,048 fit; two
+    cells of 4,096 do not, and the refusal states the bytes.  Thread groups
+    stay whole warps, 512 threads at most."""
     pw = 14 * trace_rows.SEL_NW
-    assert tp.check_block_fits(2048, BINS, 1, pw) == 142_232 + 64
-    assert tp.check_block_fits(2048, BINS, 1, pw, True) == 142_744 + 64
-    assert tp.check_block_fits(2048, BINS, 2, pw) == 184_880 + 64
-    assert tp.check_block_fits(1024, BINS, 4, pw) == 221_024 + 64
-    with pytest.raises(ValueError, match="283248 B"):
-        tp.check_block_fits(4096, BINS, 2, pw)
+    assert tp.check_block_fits(2048, 1, pw) == 87_448 + 272
+    assert tp.check_block_fits(2048, 1, pw, True) == 87_960 + 272
+    assert tp.check_block_fits(2048, 2, pw) == 91_696 + 272
+    assert tp.check_block_fits(1024, 4, pw) == 59_232 + 272
+    assert tp.check_block_fits(4096, 2, pw) == 173_616 + 272
+    with pytest.raises(ValueError, match="337728 B"):
+        tp.check_block_fits(8192, 2, pw)
     for k in range(1, tp.MAX_CPB + 1):
         for per_cell in range(128, 1025, 128):
             t = tp.block_threads(k * per_cell, k)
@@ -451,8 +453,8 @@ def test_simulator_never_quietly_runs_one_cell_per_block(cfg_kw, k):
 
 
 def test_wrapper_constants_are_the_kernels():
-    """The wrapper's block-cell limit and shared-memory words are the
-    constants of the CUDA source."""
+    """The wrapper's block-cell limit, shared-memory words and static
+    counters are those of the CUDA source."""
     src = (build.CSRC / "persistent_trace.cu").read_text()
     common = (build.CSRC / "trace_common.cuh").read_text()
     assert f"constexpr int MAX_CPB = {tp.MAX_CPB};" in src
@@ -460,8 +462,10 @@ def test_wrapper_constants_are_the_kernels():
     assert f"constexpr int MAX_EDGES = {trace_rows.MAX_EDGES};" in common
     assert "JUMP_WORDS = 5 * MAX_EDGES + 8;" in src
     assert tp._JUMP_WORDS == 5 * trace_rows.MAX_EDGES + 8
-    assert "__shared__ int s_spawned[MAX_CPB];" in src
-    assert tp._STATIC_SMEM == 2 * 4 * tp.MAX_CPB
+    for counters in ("s_live[3][MAX_CPB]", "s_resp[3][MAX_CPB]",
+                     "s_spawned[MAX_CPB]", "s_bounces[MAX_CPB]", "s_ctrl[2]"):
+        assert f"__shared__ int {counters};" in src
+    assert tp._STATIC_SMEM == 272 >= (3 + 3 + 1 + 1) * 4 * tp.MAX_CPB + 2 * 4
 
 
 def test_cli_accum_mode_packed(tmp_path, capsys):

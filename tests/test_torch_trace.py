@@ -279,23 +279,38 @@ def test_wrapper_accepts_design_layouts(rows):
 
 
 def test_block_layout_fits_hopper_shared_memory():
-    """The main path's 2,048 slots fit one block's shared memory with an
-    80 x 120 tile (12 words of state per slot: 140,832 B), the sweep's 256
-    slots four blocks per SM (54,816 B); every slot count that is a multiple
-    of 128 gets a block size dividing it."""
-    assert tp.shared_bytes(2048, (80, 120)) == 140_832 <= tp._SMEM_LIMIT
-    assert tp.shared_bytes(256, (80, 120)) == 54_816
-    assert 4 * 54_816 <= 233_472   # an H100 SM's shared memory, 228 KB
+    """The main path's 2,048 slots fit one block's shared memory (9 words of
+    state and two uint16 list entries per slot, the histogram in device
+    memory: 86,048 B), the sweep's 256 slots many blocks per SM (14,368 B;
+    registers hold them to four); every slot count that is a multiple of 128
+    gets a block size dividing it."""
+    assert tp.shared_bytes(2048) == 86_048 <= tp._SMEM_LIMIT
+    assert tp.shared_bytes(256) == 14_368
+    assert tp.shared_bytes(256, gens=True) == 14_368 + 4 * 256
+    assert 4 * (14_368 + tp._STATIC_SMEM + 1_024) <= 233_472   # an H100 SM
     for slots in range(128, 4097, 128):
         t = tp.block_threads(slots)
         assert slots % t == 0 and t in (128, 256, 512)
 
 
+@pytest.mark.parametrize("mode", [
+    dict(), dict(packed_words=14 * trace_rows.SEL_NW),
+    dict(packed_words=14 * trace_rows.SEL_NW, transit_jump=True),
+    dict(cells_per_block=2, packed_words=14 * trace_rows.SEL_NW),
+    dict(gens=True)], ids=["exact", "packed", "packed_jump", "packed_k2", "gens"])
+def test_main_path_block_fits_two_to_an_sm(mode):
+    """The main path's block (2,048 slots, 80 x 120 bins, each selection;
+    packed with the paper design's 14 records) needs at most 115,712 B with
+    its static part: an SM's 228 KB, less the 1 KB the hardware keeps per
+    block, halved."""
+    assert tp.check_block_fits(2048, **mode) <= (233_472 - 2 * 1_024) // 2
+
+
 def test_launch_argtypes_match_the_c_signature():
-    """The ctypes binding declares the kernel's C parameters in order (a
-    pointer for every pointer, or the call would cut it to 32 bits; an int
-    for every int; none missing), and the wrapper's shared-memory size uses
-    the kernel's words of slot state."""
+    """The ctypes bindings declare the C parameters of the launch and of the
+    occupancy query in order (a pointer for every pointer, or the call would
+    cut it to 32 bits; an int for every int; none missing), and the
+    wrapper's shared-memory size uses the kernel's words of slot state."""
     import ctypes
     import re
 
@@ -305,6 +320,10 @@ def test_launch_argtypes_match_the_c_signature():
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int
             for p in sig.split(",")]
     assert tp.LAUNCH_ARGTYPES == want
+    sig = re.search(r'extern "C" int persistent_trace_occupancy\((.*?)\)\s*\{',
+                    src, re.S).group(1)
+    assert tp.OCCUPANCY_ARGTYPES == [
+        ctypes.c_void_p if "*" in p else ctypes.c_int for p in sig.split(",")]
     assert f"constexpr int STATE_WORDS = {tp._STATE_WORDS};" in src
 
 
