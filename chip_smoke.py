@@ -15,7 +15,8 @@ Run from the repository root.  Phases:
    registers, local memory and spills.  It fails if the main path's
    instantiation (count spawn, exact selection) holds fewer than 2 blocks
    per SM, if any instantiation holds fewer than its launch bounds ask for,
-   or if any spills;
+   or if any spills; and the same numbers for the per-cell kernel at 256,
+   128 and 64 threads per block (it fails if that kernel spills);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's per-cell width (paper design, 8 x 6 FoV x 3 wavelengths = 144
    cells, 2,048 slots, spawn target 20,000, 100,000-iteration bound); the
@@ -50,9 +51,13 @@ Run from the repository root.  Phases:
    cells, 5,000 rays per cell = 40 rows of 128, 5,120 slots): (a) full mode
    with a 24-iteration budget, (b) resume mode from (a)'s outputs with the
    rest of the 100,000-iteration budget, (c) full mode with the whole
-   budget; deposit codes, states, RNG streams and bounce counts must be
-   identical everywhere, the 9 float fields for every ray still alive, and
-   (a) + (b) must equal (c); both are timed with CUDA events;
+   budget; deposit codes, states, RNG streams, bounce counts and the 9
+   float fields of every ray must be identical, and (a) + (b) must equal
+   (c); both are timed with CUDA events.  Each call also reports its
+   launch shape and the lane occupancy of the kernel's earlier design, one
+   thread per ray (Σ bounces / Σ over warps of 32 consecutive rays of 32 x
+   the warp's longest ray, from the plain version's per-ray iteration
+   counts);
 8. the cell engine at full width through ``Simulator(engine="cell")``: the
    paper design, 100 x 75 FoV x 3 wavelengths = 22,500 cells, 5,000
    host-seeded rays per cell in 11 batches of <= 2,048 cells, 80 x 120 bins,
@@ -60,14 +65,17 @@ Run from the repository root.  Phases:
    relaunches (``num_iter=1``: depth is cut, the per-cell width is not); once
    to the end in one launch per batch and once under the segment-and-compact
    scheduler, with launch counts reset just before each run and read just
-   after it.  The two histograms and bounce totals must be identical and the
-   histogram's sum equal to the number of deposits.  Every colour's
-   efficiency must lie within 10 % of phase 3's (count spawn weighs launch
-   points by their rays' inverse lifetime, this engine equally).  One more
-   run at 2,048 rays per cell holds the two kernels to each other: it must
-   equal a one-design gens-spawn sweep of the persistent kernel with one
-   generation per slot bit for bit (the same launch tile and seeds), and
-   agree within 2 % with the efficiencies of ten generations per slot;
+   after it; beside each run's kernel time, the summed bound of its
+   launches (:class:`CellLaunchBounds`, read in an untimed replay of the
+   run that must trace the same bounces in as many launches).  The two histograms and bounce
+   totals must be identical and the histogram's sum equal to the number of
+   deposits.  Every colour's efficiency must lie within 10 % of phase 3's
+   (count spawn weighs launch points by their rays' inverse lifetime, this
+   engine equally).  One more run at 2,048 rays per cell holds the two
+   kernels to each other: it must equal a one-design gens-spawn sweep of
+   the persistent kernel with one generation per slot bit for bit (the
+   same launch tile and seeds), and agree within 2 % with the efficiencies
+   of ten generations per slot;
 9. the persistent kernel's packed selection, transit jumps and several
    cells per block against the plain version on the card, at phase 2's
    fixture (144 cells, 100,000-iteration bound): (a) packed, count target
@@ -347,6 +355,40 @@ def phase1(ctx) -> None:
         record["ptxas"][name] = ptxas_summary(info["log"])
     print(f"nvcc builds, side by side: {both:.2f} s")
     occupancy(ctx, build.build_info["persistent_trace"]["log"])
+    cell_occupancy(ctx, build.build_info["cell_trace"]["log"])
+
+
+def cell_occupancy(ctx, log: str) -> None:
+    """Resident blocks per SM, registers and spills of the per-cell kernel
+    at the widths its launch rule gives (128 threads, its launch bounds: the
+    cell engine's batches, phase 7 and most resume tiles; 64: the segmented
+    scheduler's 1-row tiles)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_cell as tc,
+    )
+
+    spills = ptxas_spills(log).get("[kernel]")
+    rows, faults = [], []
+    for threads in (tc.BLOCK_THREADS, 64):
+        occ = dict(tc.kernel_occupancy(threads), spill_bytes=spills)
+        rows.append(occ)
+        print(f"occupancy cell_trace, {threads} threads: "
+              f"{occ['blocks_per_sm']} blocks per SM "
+              f"({occ['blocks_per_sm'] * threads} threads), "
+              f"{occ['registers']} registers, "
+              f"{occ['local_bytes']} B local, spills "
+              f"{spills if log else '(not rebuilt)'} B, static shared "
+              f"{occ['static_smem']} B")
+        if occ["blocks_per_sm"] < 1:
+            faults.append(f"{threads} threads: no block fits an SM")
+    # with a library built earlier there is no ptxas report: the run that
+    # built it checked its spills
+    if log and (spills is None or spills > 0):
+        faults.append(f"ptxas reports spills {spills}")
+    ctx["record"]["cell_occupancy"] = rows
+    save_record(ctx)
+    if faults:
+        fail("cell_trace occupancy: " + "; ".join(faults))
 
 
 def occupancy(ctx, log: str) -> None:
@@ -861,36 +903,39 @@ def phase7(ctx) -> None:
         kw = dict(tr.kw, max_bounces=max_bounces)
         outk = tc.cell_trace(*args, **kw)             # warm-up + result
         torch.cuda.synchronize()
-        outp = tc.cell_trace_reference(*args, **kw)   # warm-up + result
+        # warm-up + result, with each ray's iteration count
+        *outp, ray_its = tc.cell_trace_reference(*args, **kw,
+                                                 ray_iterations=True)
         torch.cuda.synchronize()
         ms_k = cuda_ms(lambda: tc.cell_trace(*args, **kw), 5)
         ms_p = cuda_ms(lambda: tc.cell_trace_reference(*args, **kw), 1)
         dep, nb, ro, so, rgo = outk
-        live = (so < 6)[:, None].expand_as(ro)
         same = {"dep": torch.equal(dep, outp[0]), "nb": torch.equal(nb, outp[1]),
                 "state": torch.equal(so, outp[3]),
                 "rng": torch.equal(rgo, outp[4]),
-                "live_fields": torch.equal(ro[live], outp[2][live]),
                 "all_fields": torch.equal(ro, outp[2])}
         err = max(float((dep - outp[0]).abs().max()),
                   float((nb - outp[1]).abs().max()),
                   float((so - outp[3]).abs().max()),
-                  float((ro[live] - outp[2][live]).abs().max())
-                  if bool(live.any()) else 0.0)
+                  float((ro - outp[2]).abs().max()))
         inputs = args if state is not None else args[:4]
         b, by = bound_ms(inputs, outk, nb, n_r1)
         nbh = nb.cpu().numpy().astype(np.int64)
-        entry = {"mode": name, "cells": n7, "slots": int(rng[0].numel()),
+        C, S = rng.shape[0], int(rng[0].numel())
+        threads, bpc = tc.launch_shape(C, S, tc._sm_count(rng.device))
+        entry = {"mode": name, "cells": n7, "slots": S,
                  "max_bounces": max_bounces, "ms": ms_k, "plain_ms": ms_p,
                  "bound_ms": b, "bound_by": by, "max_abs_err": err,
                  "identical": same, "deposits": int((dep >= 0).sum()),
                  "bounces": int(nbh[:, 0].sum()),
                  "max_iterations": int(nbh[:, 1].max()),
                  "alive_after": int((so < 6).sum()),
-                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3)}
+                 "bounces_per_s_kernel": int(nbh[:, 0].sum()) / (ms_k / 1e3),
+                 "threads": threads, "blocks_per_cell": bpc,
+                 "one_thread_per_ray_lane_occupancy": tc.lane_occupancy(
+                     ray_its)}
         print(f"phase 7: {json.dumps(entry)}")
-        if not all(same[k] for k in ("dep", "nb", "state", "rng",
-                                     "live_fields")):
+        if not all(same.values()):
             fail(f"cell_trace disagrees with its plain version in {name}: "
                  f"{same} (max |diff| {err})")
         return outk, entry
@@ -915,6 +960,55 @@ def phase7(ctx) -> None:
     if ec["alive_after"] != 0:
         fail(f"{ec['alive_after']} rays outlived the whole budget")
     ctx["k2_modes"] = [ea, eb, ec]
+
+
+class CellLaunchBounds:
+    """Keeps what :func:`bound_ms` needs of every ``cell_trace`` launch in
+    its ``with`` block (the bytes each launch moves and its ``nb``, left on
+    the device so that recording adds no synchronisation), and sums the
+    launches' bounds afterwards.  It wraps the wrapper where the cell engine
+    and the segment scheduler call it, so it serves an untimed replay of a
+    timed run; the wrapper alone counts launches."""
+
+    def __init__(self, n_r1: int):
+        self.n_r1, self.launches = n_r1, []
+
+    def __enter__(self):
+        from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+            cell_segments, trace_cell as tc,
+        )
+
+        self._mods = (tc, cell_segments)
+        self._orig = tc.cell_trace
+
+        def recorded(cell_params, geom_row, rays_in, rng_in, state_in=None,
+                     **kw):
+            out = self._orig(cell_params, geom_row, rays_in, rng_in,
+                             state_in, **kw)
+            ins = [cell_params, geom_row, rays_in, rng_in]
+            ins += [] if state_in is None else [state_in]
+            nbytes = sum(t.numel() * t.element_size() for t in (*ins, *out))
+            self.launches.append((nbytes, out[1]))
+            return out
+
+        for mod in self._mods:
+            mod.cell_trace = recorded
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.cell_trace = self._orig
+
+    def bound_ms(self) -> float:
+        """Σ over the launches of max(bytes / HBM rate, r1-test operations
+        / float32 rate), as :func:`bound_ms` counts one launch."""
+        import torch
+
+        total = 0.0
+        for nbytes, nb in self.launches:
+            ops = float(nb[:, 0].to(torch.int64).sum()) * 4 * self.n_r1
+            total += max(nbytes / PEAK_HBM_BYTES, ops / PEAK_FP32_OPS) * 1e3
+        return total
 
 
 def phase8(ctx) -> None:
@@ -1006,11 +1100,24 @@ def phase8(ctx) -> None:
             if max(abs(r) for r in rel.values()) > 0.10:
                 fail(f"phase 8 {name}: efficiencies {res.efficiencies} are "
                      f"not within 10 % of the persistent engine's {ref}")
-        runs[name] = (res.histogram, res.total_bounces, n_launch)
+        runs[name] = (res.histogram, res.total_bounces, n_launch, sim)
     if not (np.array_equal(runs["monolithic"][0], runs["segmented"][0])
             and runs["monolithic"][1] == runs["segmented"][1]):
         fail("phase 8: the segmented run differs from the monolithic run")
     print("phase 8: segmented and monolithic histograms and bounces identical")
+    for name, (_, bounces, n_launch, sim) in runs.items():
+        with CellLaunchBounds(sim.tracer.kw["edge_counts"][1]) as rec:
+            again = sim.run(num_iter=iters, evaluate_metrics=False)
+        if again.total_bounces != bounces or len(rec.launches) != n_launch:
+            fail(f"phase 8 {name}: the replay traced {again.total_bounces} "
+                 f"bounces in {len(rec.launches)} launches, the run "
+                 f"{bounces} in {n_launch}")
+        entry = ctx["record"]["phase8"][name]
+        entry["kernel_bound_ms"] = rec.bound_ms()
+        print(f"phase 8 {name}: kernel {entry['timings']['kernel_ms']:.1f} ms,"
+              f" bound of its {n_launch} launches "
+              f"{entry['kernel_bound_ms']:.3f} ms")
+    save_record(ctx)
 
     # ---- the two kernels against each other.  With 2,048 rays per cell
     # the cell engine traces exactly the rays of one generation of the

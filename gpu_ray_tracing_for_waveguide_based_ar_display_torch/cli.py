@@ -6,7 +6,9 @@ subcommands.
 
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
-folded into one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins).
+folded into one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins)
+and write the eye-view PNG ``Eyebox Center View.png`` into the working
+directory, as the JAX CLI does (``--image ''`` writes none).
 ``simulate --engine cell`` runs the same workload through the per-cell
 kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
 ``--engine pallas``).
@@ -67,7 +69,7 @@ def _check_image_writer() -> None:
             import PIL  # noqa: F401
         except ImportError:
             raise SystemExit("--image needs cv2 or PIL to write the PNG; "
-                             "neither is installed (drop --image)")
+                             "neither is installed (pass --image '')")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -264,8 +266,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--simplify-tol", type=float, default=0.0)
     p.add_argument("--pupil-sampling", default="uniform",
                    choices=("uniform", "r2"))
-    p.add_argument("--image", default="",
-                   help="write the eye-view PNG here (needs cv2 or PIL)")
+    p.add_argument("--image", default="Eyebox Center View.png",
+                   help="write the eye-view PNG here (needs cv2 or PIL; "
+                        "'' writes none)")
     p.add_argument("--json", default=None, help="write metrics JSON here")
     p.add_argument("--save-histogram", default=None, metavar="PATH",
                    help="write the (L, FoVy, FoVx, 80, 120) histogram as .npy")

@@ -15,10 +15,13 @@ the 9 fields, state and stream of every ray come back, so a scheduler
 budget and the tile size are runtime arguments: one library serves every
 segment.
 
-The kernel (``csrc/cell_trace.cu``) runs one thread per ray with its state in
-registers and no barrier inside the loop.  What bounds it on an H100: per-lane
-divergent ALU work, and each warp waiting for its slowest ray; it reads every
-input once and writes every output once.
+The kernel (``csrc/cell_trace.cu``) runs lanes that refill from a per-cell
+queue: each block owns a contiguous range of one cell's rays, and a lane
+whose ray ends writes that ray's outputs and claims the next untraced ray of
+the range, so a warp no longer waits for its slowest ray.  The launch shape
+(threads per block, blocks per cell) follows :func:`launch_shape`.  What
+bounds it on an H100: per-lane divergent ALU work; it reads every input once
+and writes every output once.
 
 Both versions use the same float32 operations in the same order, with no
 fused multiply-add (the kernel is built with ``-fmad=false``) and
@@ -46,10 +49,45 @@ from .trace_rows import (
 )
 from ..ops.rng import draw24, xorshift32_step
 
-# the C parameters of cell_trace_launch, in order: 10 pointers, 11 ints and
+# the C parameters of cell_trace_launch, in order: 10 pointers, 12 ints and
 # the stream
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-BLOCK_THREADS = 128   # one thread per ray; a tile is a multiple of 128 rays
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+BLOCK_THREADS = 128     # the rule's widest block (the kernel's launch bounds)
+MAX_RAYS_PER_LANE = 10  # a block holds at most this many rays per lane ...
+WAVE_BLOCKS = 16        # ... and a launch at least this many blocks per SM,
+MIN_RAYS_PER_LANE = 2   # unless a block would then hold fewer per lane
+
+
+def launch_shape(C: int, S: int, sms: int) -> Tuple[int, int]:
+    """Threads per block and blocks per cell of a launch of ``C`` cells of
+    ``S`` rays on a card of ``sms`` SMs (measured on an H100 with
+    ``tools/k2_variants.py``; see ``PERF.md``).
+
+    - Threads: 128, the kernel's launch bounds (48 registers: an SM holds
+      10 such blocks; 256-thread blocks ran slower), halved (not below 32)
+      while a one-block cell would leave a lane fewer than 2 rays: the
+      segmented scheduler's 1-row resume tiles (128 rays) run 64 threads.
+    - Blocks per cell, each owning a contiguous range of its cell's rays:
+      enough that no block holds more than ``MAX_RAYS_PER_LANE`` rays per
+      lane, so blocks are small and the last ones on the card end close
+      together (a batch of 2,048 cells of 5,120 rays: 4 blocks of 1,280),
+      and enough for ``WAVE_BLOCKS`` blocks per SM over the grid when the
+      cells are few (144 cells of 5,120: 15 blocks of 341-342); but never
+      fewer than ``MIN_RAYS_PER_LANE`` rays per lane.
+    """
+    if C < 1 or S < 1:
+        raise ValueError(f"launch_shape needs C >= 1 and S >= 1, got {C}, {S}")
+    threads = BLOCK_THREADS
+    while threads > 32 and 2 * threads > S:
+        threads //= 2
+    want = max(-(-sms * WAVE_BLOCKS // C),
+               -(-S // (threads * MAX_RAYS_PER_LANE)))
+    most = max(1, S // (threads * MIN_RAYS_PER_LANE))
+    return threads, max(1, min(want, most))
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _check_inputs(cell_params, geom_row, rays_in, rng_in, state_in, num_fc,
@@ -147,6 +185,7 @@ def cell_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
     if C == 0:
         return dep, nb, rays_out, state_out, rng_out
     ny, nx = eyebox_bins
+    threads, blocks_per_cell = launch_shape(C, S, _sm_count(dev))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cell_trace_launch(
@@ -155,7 +194,8 @@ def cell_trace(cell_params: torch.Tensor, geom_row: torch.Tensor,
             rng_in.data_ptr(), dep.data_ptr(), nb.data_ptr(),
             rays_out.data_ptr(), state_out.data_ptr(), rng_out.data_ptr(),
             C, S, num_fc, num_oc, *(int(e) for e in edge_counts), ny, nx,
-            int(min(max_bounces, 2**31 - 1)), BLOCK_THREADS, stream)
+            int(min(max_bounces, 2**31 - 1)), threads, blocks_per_cell,
+            stream)
     if err != 0:
         msg = lib.cell_trace_error_string(err).decode()
         raise RuntimeError(f"cell_trace launch failed: {msg} ({err})")
@@ -174,10 +214,27 @@ def load_kernel():
         lib = build.load_library("cell_trace")
         lib.cell_trace_launch.argtypes = LAUNCH_ARGTYPES
         lib.cell_trace_launch.restype = ctypes.c_int
+        lib.cell_trace_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.cell_trace_occupancy.restype = ctypes.c_int
         lib.cell_trace_error_string.argtypes = [ctypes.c_int]
         lib.cell_trace_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def kernel_occupancy(threads: int = BLOCK_THREADS) -> dict:
+    """What the card makes of the kernel at ``threads`` threads per block:
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    registers and local memory per thread and static shared bytes.  Needs
+    the card."""
+    lib = load_kernel()
+    out = (ctypes.c_int * 4)()
+    err = lib.cell_trace_occupancy(int(threads), ctypes.addressof(out))
+    if err != 0:
+        msg = lib.cell_trace_error_string(err).decode()
+        raise RuntimeError(f"cell_trace_occupancy failed: {msg} ({err})")
+    keys = ("blocks_per_sm", "registers", "local_bytes", "static_smem")
+    return dict(zip(keys, list(out)), threads=int(threads))
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +243,11 @@ def load_kernel():
 
 def cell_trace_reference(cell_params, geom_row, rays_in, rng_in, state_in=None,
                          *, num_fc, num_oc, edge_counts, eyebox_bins,
-                         max_bounces):
+                         max_bounces, ray_iterations=False):
     """The kernel's function in plain tensor code, vectorised over a (C, S)
-    block of rays.  Same signature and outputs as :func:`cell_trace`."""
+    block of rays.  Same signature and outputs as :func:`cell_trace`;
+    ``ray_iterations=True`` appends each ray's iteration count, (C, RT, 128)
+    int32 (the iterations it began alive), for measuring lane occupancy."""
     C, S = _check_inputs(cell_params, geom_row, rays_in, rng_in, state_in,
                          num_fc, num_oc, edge_counts, eyebox_bins, max_bounces)
     dev = cell_params.device
@@ -240,6 +299,8 @@ def cell_trace_reference(cell_params, geom_row, rays_in, rng_in, state_in=None,
     dep = torch.full((C, S), -1, dtype=i64, device=dev)
     bounces = torch.zeros((C,), dtype=i64, device=dev)
     iters = torch.zeros((C,), dtype=i64, device=dev)
+    ray_its = (torch.zeros((C, S), dtype=torch.int32, device=dev)
+               if ray_iterations else None)
     for _ in range(max_bounces):
         if not bool((state < 6).any()):
             break
@@ -248,15 +309,28 @@ def cell_trace_reference(cell_params, geom_row, rays_in, rng_in, state_in=None,
             edge_counts=edge_counts, eyebox_bins=eyebox_bins)
         bounces = bounces + alive.sum(dim=1)
         iters = iters + alive.any(dim=1)
+        if ray_iterations:
+            ray_its += alive
         dep = torch.where(hit, code, dep)
 
     shape = tuple(rng_in.shape)
     rays_out = torch.stack(fields, dim=1).reshape((C, 9) + shape[1:])
     bits = torch.where(rng >= 2**31, rng - 2**32, rng)   # uint32 bits as int32
-    return (dep.to(torch.int32).reshape(shape),
-            torch.stack([bounces, iters], dim=1).to(torch.int32), rays_out,
-            state.to(torch.int32).reshape(shape),
-            bits.to(torch.int32).reshape(shape))
+    out = (dep.to(torch.int32).reshape(shape),
+           torch.stack([bounces, iters], dim=1).to(torch.int32), rays_out,
+           state.to(torch.int32).reshape(shape),
+           bits.to(torch.int32).reshape(shape))
+    return out + (ray_its.reshape(shape),) if ray_iterations else out
+
+
+def lane_occupancy(ray_its: torch.Tensor, warp: int = 32) -> float:
+    """The share of lane-iterations that stepped a live ray when every ray
+    has its own lane and a warp of ``warp`` consecutive rays runs until its
+    longest ray ends (the kernel's earlier design): Σ iterations /
+    Σ over warps of (``warp`` × the warp's longest ray)."""
+    its = ray_its.reshape(-1, warp).to(torch.int64)
+    lanes = warp * its.max(dim=1).values.sum()
+    return float(its.sum()) / float(lanes) if int(lanes) else 1.0
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ M, N, RPC, BUDGET, SEG = 5, 4, 256, 400, 32
 RT = RPC // 128
 C = 3 * M * N
 BINS = (80, 120)
+H100_SMS = 132
 REPO = Path(__file__).resolve().parents[1]
 
 
@@ -238,6 +239,23 @@ def port_tensors(setup):
     _, _, cp, gr, rays, seeds, _ = setup
     return (*trace_rows.rows_to_device(cp, gr, "cpu"),
             *trace_rows.blocks_to_device(rays, seeds, "cpu"))
+
+
+def test_plain_version_ray_iterations(setup, port_tensors):
+    """``ray_iterations=True`` appends each ray's iteration count: they sum
+    to the cell's bounces and their largest is its iterations; the lane
+    occupancy of one thread per ray follows from them."""
+    *out, its = tc.cell_trace_reference(*port_tensors, max_bounces=40,
+                                        ray_iterations=True, **setup[-1])
+    assert its.shape == port_tensors[3].shape and its.dtype == torch.int32
+    flat = its.reshape(its.shape[0], -1)
+    assert torch.equal(flat.sum(dim=1), out[1][:, 0])
+    assert torch.equal(flat.max(dim=1).values, out[1][:, 1])
+    occ = tc.lane_occupancy(its)
+    assert 0.0 < occ < 1.0
+    warps = flat.reshape(-1, 32).to(torch.int64)
+    assert occ == float(warps.sum()) / float(32 * warps.max(dim=1).values.sum())
+    assert tc.lane_occupancy(torch.full((2, 32), 3)) == 1.0
 
 
 @pytest.mark.parametrize("segment_bounces", [SEG, 8])
@@ -485,16 +503,55 @@ def test_wrapper_never_runs_plain_version_for_cuda_tensor(monkeypatch):
 
 def test_launch_argtypes_match_the_c_signature():
     """The ctypes binding declares the kernel's C parameters in order (a
-    pointer for every pointer, an int for every int, none missing), and the
-    wrapper's block size is one the launch accepts."""
+    pointer for every pointer, an int for every int, none missing), and
+    every launch shape the wrapper's rule gives is one the launch accepts:
+    at most the kernel's launch bounds, whole warps, one ray per block at
+    least."""
     src = (build.CSRC / "cell_trace.cu").read_text()
     sig = re.search(r'extern "C" int cell_trace_launch\((.*?)\)\s*\{',
                     src, re.S).group(1)
     want = [ctypes.c_void_p if "*" in p else ctypes.c_int
             for p in sig.split(",")]
     assert tc.LAUNCH_ARGTYPES == want
-    assert f"__launch_bounds__({tc.BLOCK_THREADS})" in src
-    assert trace_rows.LANES % tc.BLOCK_THREADS == 0
+    assert f"constexpr int MAX_THREADS = {tc.BLOCK_THREADS};" in src
+    assert "__launch_bounds__(MAX_THREADS)" in src
+    for C in (1, 3, 36, 144, 2048, 2112, 22500):
+        for rt in (1, 2, 3, 4, 8, 16, 19, 40, 1000):
+            S = rt * trace_rows.LANES
+            threads, bpc = tc.launch_shape(C, S, H100_SMS)
+            assert 32 <= threads <= tc.BLOCK_THREADS and threads % 32 == 0
+            assert 1 <= bpc <= S and C * bpc < 2**31
+            assert S / bpc / threads <= tc.MAX_RAYS_PER_LANE
+
+
+@pytest.mark.parametrize("C,S,shape", [
+    (2048, 5120, (128, 4)),   # the cell engine's batches
+    (144, 5120, (128, 15)),   # chip_smoke phase 7
+    (2048, 128, (64, 1)),     # segmented resume tiles of 1, 2, 4, 8 rows
+    (2048, 256, (128, 1)),
+    (2048, 512, (128, 2)),
+    (2048, 1024, (128, 2)),
+    (36, 256, (128, 1)),      # the card tests' fixtures
+    (36, 384, (128, 1)),
+    (36, 2048, (128, 8)),
+    (1, 128, (64, 1)),
+])
+def test_launch_shape_rule(C, S, shape):
+    """Threads per block and blocks per cell at the launch shapes the port
+    makes, on an H100's 132 SMs: a lane has at least 2 rays at one block
+    per cell; a block holds at most 10 rays per lane, and the grid at least
+    16 blocks per SM unless a block would then hold fewer than 2 rays per
+    lane."""
+    assert tc.launch_shape(C, S, H100_SMS) == shape
+    threads, bpc = shape
+    assert 2 * threads <= S
+    per_lane = S / bpc / threads
+    assert per_lane <= tc.MAX_RAYS_PER_LANE
+    if bpc > 1:
+        assert per_lane >= tc.MIN_RAYS_PER_LANE
+    assert tc.launch_shape(C, S, sms=1)[0] == threads
+    with pytest.raises(ValueError):
+        tc.launch_shape(0, S, H100_SMS)
 
 
 def test_library_name_follows_the_shared_header(monkeypatch, tmp_path):

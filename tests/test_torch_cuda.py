@@ -302,13 +302,14 @@ def test_sweep_design_equals_solo_on_card(cuda_device, mode, spawn_iters):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rays_per_cell", [256, 300])
+@pytest.mark.parametrize("rays_per_cell", [256, 300, 128, 2048])
 def test_cell_kernel_equals_plain_version_on_card(small, cuda_device,
                                                   rays_per_cell):
     """The per-cell kernel in full mode, in resume mode from its own
     outputs, and with the whole budget: every output identical to the plain
-    version's (300 rays per cell leave 84 padding slots that die at init),
-    and full(16) + resume(rest) = full(whole)."""
+    version's (300 rays per cell leave 84 padding slots that die at init;
+    128 is a tile of one row, 64 threads per block; at 2,048 each cell
+    spans 8 blocks), and full(16) + resume(rest) = full(whole)."""
     geom, cfg = small
     sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
                              engine="cell")
@@ -359,3 +360,49 @@ def test_cell_simulator_on_card_segmented_equals_monolithic_and_cpu(
         assert other.efficiencies == mono.efficiencies
     assert mono.histogram.sum() == mono.deposits > 0
     assert "kernel_ms" in mono.timings and "compact_ms" in seg.timings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["budget_1", "dead_after_live",
+                                  "odd_launch_shape"])
+def test_cell_kernel_edge_launches_equal_plain_version_on_card(
+        small, cuda_device, monkeypatch, case):
+    """Every output identical to the plain version's at the launches that
+    strain the refill: a budget of one iteration; a compacted resume tile
+    (the segmented scheduler's) whose dead rays follow the live ones; and a
+    launch shape outside the wrapper's rule, 96 threads and 3 blocks per
+    cell, so that ranges start and end inside warps."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        cell_segments,
+    )
+
+    geom, cfg = small
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             engine="cell")
+    cells = np.arange(3 * M * N)
+    rays_in, rng_in = sim._cell_blocks(cells, 1000, 0)
+    tr = sim.tracer
+    rows = tr.rows(cells)
+    state, budget = None, cfg.max_bounces
+    if case == "budget_1":
+        budget = 1
+    elif case == "dead_after_live":
+        _, _, ro, so, rgo = tc.cell_trace(rows, tr.geom_row, rays_in, rng_in,
+                                          max_bounces=8, **tr.kw)
+        alive = so.reshape(len(cells), -1) < 6
+        n_alive = int(alive.sum(dim=1).max())
+        rows_kept = min(1 << (-(-n_alive // 128) - 1).bit_length(), 8)
+        rays_in, state, rng_in = cell_segments._compact(ro, so, rgo, alive,
+                                                        rows_kept * 128)
+        assert 0 < n_alive and bool((state[:, -1] >= 6).any())
+    else:
+        monkeypatch.setattr(tc, "launch_shape", lambda C, S, sms=0: (96, 3))
+    args = (rows, tr.geom_row, rays_in, rng_in, state)
+    outk = tc.cell_trace(*args, max_bounces=budget, **tr.kw)
+    torch.cuda.synchronize()
+    outp = tc.cell_trace_reference(*args, max_bounces=budget, **tr.kw)
+    for k, p in zip(outk, outp):
+        assert torch.equal(k, p)
+    assert int(outk[1][:, 0].sum()) > 0
+    if case == "budget_1":
+        assert int(outk[1][:, 1].max()) == 1 and bool((outk[3] < 6).any())

@@ -468,9 +468,10 @@ def test_wrapper_constants_are_the_kernels():
     assert tp._STATIC_SMEM == 272 >= (3 + 3 + 1 + 1) * 4 * tp.MAX_CPB + 2 * 4
 
 
-def test_cli_accum_mode_packed(tmp_path, capsys):
+def test_cli_accum_mode_packed(tmp_path, capsys, monkeypatch):
     """``simulate --accum-mode packed`` runs the packed stack; the parser
     takes the JAX CLI's three choices."""
+    monkeypatch.chdir(tmp_path)   # the default --image writes here
     argv = ["simulate", "--device", "cpu", "--fov-x", "2", "--fov-y", "2",
             "--rays-per-fov", "128", "--num-iter", "1", "--max-bounces", "200",
             "--slots", "128"]

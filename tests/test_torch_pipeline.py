@@ -136,6 +136,7 @@ def test_simulator_cuda_without_card_raises(monkeypatch):
 
 def test_cli_default_device_cuda_raises_without_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)   # the default --image writes here
     out = tmp_path / "m.json"
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["simulate", "--fov-x", "2", "--fov-y", "2",
@@ -144,7 +145,8 @@ def test_cli_default_device_cuda_raises_without_card(tmp_path, monkeypatch):
     assert not out.exists()
 
 
-def test_cli_cpu_writes_json(tmp_path, capsys):
+def test_cli_cpu_writes_json(tmp_path, capsys, monkeypatch):
+    monkeypatch.chdir(tmp_path)   # the default --image writes here
     out = tmp_path / "m.json"
     hist = tmp_path / "h.npy"
     assert cli.main(["simulate", "--device", "cpu", "--fov-x", "2", "--fov-y",
@@ -155,6 +157,48 @@ def test_cli_cpu_writes_json(tmp_path, capsys):
     assert data["device"] == "cpu" and data["rays_traced"] >= 128 * 12
     assert np.load(hist).shape == (3, 2, 2, 80, 120)
     assert "Rays traced" in capsys.readouterr().out
+
+
+def test_cli_writes_the_eye_view_png_by_default(tmp_path, capsys,
+                                                monkeypatch):
+    """With no ``--image``, ``simulate`` writes ``Eyebox Center View.png``
+    into the working directory, as the JAX CLI does; it decodes to the
+    eye view of the run's metrics."""
+    from PIL import Image
+
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval.image import (
+        eye_view_uint8,
+    )
+
+    monkeypatch.chdir(tmp_path)
+    results = []
+    run = pipeline.Simulator.run
+    monkeypatch.setattr(pipeline.Simulator, "run",
+                        lambda self, *a, **k: results.append(
+                            run(self, *a, **k)) or results[-1])
+    assert cli.main(["simulate", "--device", "cpu", "--fov-x", "3", "--fov-y",
+                     "2", "--rays-per-fov", "128", "--num-iter", "1",
+                     "--max-bounces", "200", "--slots", "128"]) == 0
+    png = tmp_path / "Eyebox Center View.png"
+    assert f"written to {png.name}" in capsys.readouterr().out
+    want = eye_view_uint8(results[0].metrics.output_image)
+    assert want.shape == (2, 3, 3) and want.any()
+    got = np.asarray(Image.open(png).convert("RGB"))
+    np.testing.assert_array_equal(got, want)
+    assert cli.build_parser().parse_args(["simulate"]).image == png.name
+
+
+def test_cli_without_image_writer_fails_before_the_trace(monkeypatch):
+    """Without cv2 and PIL the default PNG cannot be written: ``simulate``
+    says so before it builds the simulator, not after the trace."""
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    built = []
+    monkeypatch.setattr(pipeline, "Simulator",
+                        lambda *a, **k: built.append(1))
+    with pytest.raises(SystemExit, match="needs cv2 or PIL"):
+        cli.main(["simulate", "--device", "cpu"])
+    assert not built
 
 
 class _ClaimsCuda(torch.Tensor):
