@@ -22,15 +22,19 @@ Run from the repository root.  Phases:
    cells, 2,048 slots, spawn target 20,000, 100,000-iteration bound); the
    histogram and the bounce and spawn counts must be identical; both are
    timed with CUDA events after a warm-up;
-3. the main path at full width through the port's ``Simulator``: the paper
-   design at the reference workload (100 x 75 FoV x 3 wavelengths, 5,000
-   rays per FoV x 4 iterations folded into one target of 20,000 per cell,
-   80 x 120 eyebox bins), with launch counts reset just before it and read
-   just after it;
-4. only with ``--profile PATH``: one more run of the same ``Simulator``
-   under ``torch.profiler``, giving the device's busy time, the kernel's and
-   the histogram copy's device time and the device's idle share of the run;
-   the profiler's table goes to PATH;
+3. the main path at full width through the port's ``Simulator``, as
+   ``simulate`` runs it: the paper design at the reference workload (100 x
+   75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations folded into
+   one count-spawn target of 20,000 per cell, 80 x 120 eyebox bins), seeds
+   hashed on the card, the histogram kept on the card and only the
+   pupil-integrated stack pulled for the host colorimetry, with launch
+   counts reset just before it and read just after it; its layers: seeding
+   (host and CUDA events), kernel, assembly, perception (CUDA events), the
+   stack's pull and the host colorimetry;
+4. only with ``--profile PATH``: one more run of the same ``Simulator``,
+   as phase 3 runs it, under ``torch.profiler``, giving the device's busy
+   time, the kernel's and the device-to-host copies' device time and the
+   device's idle share of the run; the profiler's table goes to PATH;
 5. the kernel against its plain version in the sweep's modes: the paper
    design swept over 3 coupler periods (D = 3 geometry rows, one launch tile
    per design, one shared seed block), 4 x 3 FoV x 3 wavelengths, 256 slots,
@@ -98,8 +102,8 @@ Run from the repository root.  Phases:
    iterations;
 10. the count-spawn, folded stack with packed selection and transit jumps at
    full width through ``Simulator(pers_accum_mode="packed",
-   pers_transit_jump=True)``: the reference workload, uncut, every layer
-   timed as in phase 3, then the same with packed selection alone; launch
+   pers_transit_jump=True)``: the reference workload, uncut, the tail and
+   every layer as in phase 3, then the same with packed selection alone; launch
    counts reset just before each run and read just after it.  Each colour's
    efficiency must lie within 5 % of the exact mode's (phase 3: the same
    seeds), bounces per traced ray within 1 %, and the jump run's summed
@@ -108,7 +112,24 @@ Run from the repository root.  Phases:
    saturated to iteration 256) with packed selection and transit jumps, with
    packed selection alone, and with packed selection and four cells per
    block, whose kept design must equal the one-cell-per-block run's bit for
-   bit.
+   bit;
+11. the device tail and the run options at the reference workload's full
+   width: the card's seed hash equal to the host's over phase 3's index
+   range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
+   at a time) and at the first and last batch of phase 6b's (360,000 cells);
+   one ``Simulator`` run three times, with the host tail, with the stack
+   pulled and with device metrics and the dense scan (51 x 91 eye
+   positions; its time and the run's peak device memory): histograms
+   identical, efficiencies within 1e-6 relative, delta E, FoV and eyebox
+   uniformity within 1e-4; ``wavelengths=(0, 2)``: rows 0 and 2 identical
+   to the full run's, row 1 empty; unfolded count spawn with 4 jackknife
+   groups: standard errors finite, those of the efficiencies and of delta E
+   positive, each efficiency's below the efficiency; gens spawn unfolded
+   (the JAX ``Simulator``'s default), 4 relaunches: each efficiency within 1
+   % of phase 8's cell engine (both weigh launch points equally); and
+   checkpoint and resume at 20 x 15 FoV on each engine, 2 iterations
+   checkpointed and resumed to 3 equal to 3 uninterrupted.  Launch counts
+   are reset at its start and read at its end.
 
 Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
 fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
@@ -286,9 +307,11 @@ def jax_modules() -> list:
 
 
 def profile_run(sim, path: str) -> dict:
-    """One more ``sim.run()`` under ``torch.profiler``: device busy time
-    (sum of the device's self times), the kernel's and the device-to-host
-    copies' share of it, and the idle share of the host-clock window."""
+    """One more ``sim.run()`` under ``torch.profiler``, as ``simulate`` runs
+    it (the histogram on the card, the stack pulled for the host
+    colorimetry): device busy time (sum of the device's self times), the
+    kernel's and the device-to-host copies' share of it, and the idle share
+    of the host-clock window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -297,7 +320,7 @@ def profile_run(sim, path: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = sim.run(evaluate_metrics=False)
+        res = sim.run(histogram_device=True)
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -534,7 +557,6 @@ def phase2(ctx) -> None:
 
 def phase3(ctx) -> None:
     """The main path at full width (and phase 4, the optional profile)."""
-    import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
@@ -549,7 +571,9 @@ def phase3(ctx) -> None:
     tp.reset_launch_counts()
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"])
-    res = sim.run()
+    # as simulate runs it: the histogram stays on the card, the stack is
+    # pulled for the host colorimetry (and the eye-view image)
+    res = sim.run(histogram_device=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -558,16 +582,19 @@ def phase3(ctx) -> None:
     target = cfg.rays_per_fov * cfg.num_iter
     batches = math.ceil(n_cells / 2048)
     met = res.metrics
+    tm = res.timings
     live3 = live_fraction(res.cell_stats, sim._slots_gens(target)[0])
     bound3, bound_by3 = simulate_bound_ms(sim, res, target)
     print(pipeline.format_report(res))
     print(f"phase 3: {n_cells} cells, target {target} rays/cell: wall "
           f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
           f"{res.trace_seconds:.3f} s, kernel "
-          f"{res.timings.get('kernel_ms', float('nan')):.1f} ms, seeding "
-          f"{res.timings['seed_s']:.3f} s, assembly "
-          f"{res.timings['assemble_s']:.3f} s, metrics "
-          f"{res.timings.get('metrics_s', float('nan')):.3f} s; kernel "
+          f"{tm['kernel_ms']:.1f} ms, seeding (device hash) "
+          f"{tm['seed_s']:.3f} s host, {tm['seed_ms']:.1f} ms device, "
+          f"assembly {tm['assemble_s']:.3f} s, tail "
+          f"{tm['metrics_s']:.3f} s (perception {tm['perceive_ms']:.2f} ms "
+          f"device, stack pull {tm['pull_s']:.4f} s, host colorimetry "
+          f"{tm['metrics_s'] - tm['pull_s']:.3f} s); kernel "
           f"bound {bound3:.4f} ms ({bound_by3}); live fraction {live3:.4f}; "
           "bounces "
           f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), rays "
@@ -590,14 +617,18 @@ def phase3(ctx) -> None:
                                               met.u_eyebox]
     if not all(math.isfinite(v) for v in vals):
         fail(f"non-finite metric in {vals}")
-    per_colour = res.histogram.sum(axis=(1, 2, 3, 4), dtype=np.float64)
+    if not (isinstance(res.histogram, torch.Tensor) and res.histogram.is_cuda):
+        fail("phase 3: the histogram left the card")
+    # sums on the card, in float64
+    per_colour = res.histogram.sum(dim=(1, 2, 3, 4),
+                                   dtype=torch.float64).cpu().numpy()
     if (per_colour <= 0).any():
         fail(f"a colour has no deposits: {per_colour}")
     if (res.cell_stats[:, 2] < target).any():
         fail(f"{int((res.cell_stats[:, 2] < target).sum())} cells spawned "
              f"fewer than {target} rays")
     want = sum(res.efficiencies.values()) / sim.L * target * n_cells
-    got = float(res.histogram.sum(dtype=np.float64))
+    got = float(per_colour.sum())
     if abs(got - want) > 1e-6 * want:
         fail(f"histogram sum {got} vs efficiencies x rays {want}")
     if launches != {"persistent_trace": batches, "cell_trace": 0}:
@@ -652,8 +683,7 @@ def phase5(ctx) -> None:
     inputs5 = (torch.from_numpy(rows5.cell_params).to(dev),
                torch.from_numpy(rows5.geom_rows).to(dev),
                torch.from_numpy(rows5.rays).to(dev),
-               torch.from_numpy(design_sweep.shared_seed_block(cfg5, 256)
-                                .view(np.int32)).to(dev))
+               design_sweep.shared_seed_block(cfg5, 256, device=dev))
     kw5 = dict(num_fc=rows5.tgeoms[0].num_fc, num_oc=rows5.tgeoms[0].num_oc,
                edge_counts=rows5.edge_counts, eyebox_bins=cfg5.eyebox_bins,
                max_iters=cfg5.max_bounces)
@@ -1101,6 +1131,7 @@ def phase8(ctx) -> None:
                 fail(f"phase 8 {name}: efficiencies {res.efficiencies} are "
                      f"not within 10 % of the persistent engine's {ref}")
         runs[name] = (res.histogram, res.total_bounces, n_launch, sim)
+        ctx.setdefault("cell_efficiencies", dict(res.efficiencies))
     if not (np.array_equal(runs["monolithic"][0], runs["segmented"][0])
             and runs["monolithic"][1] == runs["segmented"][1]):
         fail("phase 8: the segmented run differs from the monolithic run")
@@ -1293,7 +1324,6 @@ def phase9(ctx) -> None:
 def phase10(ctx) -> None:
     """The count-spawn, folded, packed stack with and without transit jumps
     at full width."""
-    import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
@@ -1320,7 +1350,7 @@ def phase10(ctx) -> None:
         tp.reset_launch_counts()
         t0 = time.perf_counter()
         sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **kw)
-        res = sim.run()
+        res = sim.run(histogram_device=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(tp.launch_counts)
@@ -1349,8 +1379,11 @@ def phase10(ctx) -> None:
               f"wall {wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
               f"{res.trace_seconds:.3f} s, kernel {tm['kernel_ms']:.1f} ms "
               f"(bound {bound10:.4f} ms, {bound_by10}), "
-              f"seeding {tm['seed_s']:.3f} s, assembly "
-              f"{tm['assemble_s']:.3f} s, metrics {tm['metrics_s']:.3f} s; "
+              f"seeding (device hash) {tm['seed_s']:.3f} s host, "
+              f"{tm['seed_ms']:.1f} ms device, assembly "
+              f"{tm['assemble_s']:.3f} s, tail {tm['metrics_s']:.3f} s "
+              f"(perception {tm['perceive_ms']:.2f} ms device, stack pull "
+              f"{tm['pull_s']:.4f} s); "
               f"bounces {res.total_bounces:,}, rays {res.rays_traced:,}; "
               f"launches {launches}; peak device memory "
               f"{peak / 2**20:.1f} MiB; efficiencies relative to the exact "
@@ -1363,7 +1396,7 @@ def phase10(ctx) -> None:
         if (res.cell_stats[:, 2] < target).any():
             fail(f"phase 10 {name}: a cell spawned fewer than {target} rays")
         want = sum(res.efficiencies.values()) / sim.L * target * n_cells
-        got = float(res.histogram.sum(dtype=np.float64))
+        got = float(res.histogram.sum(dtype=torch.float64))
         if abs(got - want) > 1e-6 * want:
             fail(f"phase 10 {name}: histogram sum {got} vs efficiencies x "
                  f"rays {want}")
@@ -1400,10 +1433,228 @@ def phase10(ctx) -> None:
     ctx["k1_packed_main_launches"] = launches10
 
 
+def phase11(ctx) -> None:
+    """The device tail against the host tail, and the run options, at the
+    reference workload's full width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, seeding, trace_persistent as tp,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase11", {})
+    t_phase = time.perf_counter()
+    cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
+    n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
+    slots = 2048
+
+    # ---- seeds: the device hash against the host's, one batch at a time,
+    # over phase 3's index range unfolded (4 iterations) and at the first
+    # and last batch of phase 6b's range (16 designs' cells)
+    batches = 0
+    for it in range(cfg.num_iter):
+        for start in range(0, n_cells, 2048):
+            cells = np.arange(start, min(start + 2048, n_cells))
+            want = seeding.cell_seeds(cells, slots, it, n_cells, cfg.seed)
+            got = seeding.cell_seeds_device(cells, slots, it, n_cells,
+                                            cfg.seed, dev)
+            if not torch.equal(got, torch.from_numpy(
+                    want.view(np.int32)).to(dev)):
+                fail(f"phase 11: device seeds differ at iteration {it}, "
+                     f"cells {start}..")
+            batches += 1
+    n6b = 16 * n_cells
+    for cells in (np.arange(2048), np.arange(n6b - 2048, n6b)):
+        want = seeding.cell_seeds(cells, slots, 0, n6b, 0)
+        got = seeding.cell_seeds_device(cells, slots, 0, n6b, 0, dev)
+        if not torch.equal(got, torch.from_numpy(want.view(np.int32)).to(dev)):
+            fail(f"phase 11: device seeds differ in phase 6b's range at "
+                 f"cells {cells[0]}..")
+    all_cells = np.arange(n_cells)
+    seeding.cell_seeds_device(all_cells, slots, 0, n_cells, cfg.seed, dev)
+    hash_ms = cuda_ms(lambda: seeding.cell_seeds_device(
+        all_cells, slots, 0, n_cells, cfg.seed, dev), 3)
+    rec["seeds"] = {"batches": batches + 2, "identical": True,
+                    "hash_ms_per_iteration": hash_ms}
+    print(f"phase 11 seeds: device = host over {batches} batches of phase "
+          f"3's range (4 x {n_cells:,} cells x {slots} slots) and phase 6b's "
+          f"first and last batch; hash of one iteration's {n_cells:,} x "
+          f"{slots} seeds {hash_ms:.2f} ms")
+
+    # ---- one Simulator, three tails
+    tp.reset_launch_counts()
+    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    host = sim.run()
+    stack = sim.run(histogram_device=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    on_dev = sim.run(histogram_device=True, metrics_device=True,
+                     dense_metrics=True)
+    torch.cuda.synchronize()
+    peak_dense = torch.cuda.max_memory_allocated()
+    host_hist = torch.from_numpy(host.histogram).to(dev)
+    faults = []
+    tails = {}
+    for name, r in (("host", host), ("stack", stack), ("device", on_dev)):
+        tm = r.timings
+        tails[name] = {k: tm.get(k) for k in (
+            "seed_s", "seed_ms", "kernel_ms", "assemble_s", "perceive_ms",
+            "pull_s", "metrics_s", "dense_s")}
+        tails[name].update(trace_s=r.trace_seconds,
+                           efficiencies=r.efficiencies,
+                           delta_e=r.metrics.delta_e, u_fov=r.metrics.u_fov,
+                           u_eyebox=r.metrics.u_eyebox)
+        if name == "host":
+            continue
+        if not torch.equal(r.histogram, host_hist):
+            faults.append(f"{name}: histogram differs from the host tail's")
+        for k, v in host.efficiencies.items():
+            if abs(r.efficiencies[k] - v) > 1e-6 * abs(v):
+                faults.append(f"{name}: efficiency {k} {r.efficiencies[k]} "
+                              f"vs {v}")
+        for k in ("delta_e", "u_fov", "u_eyebox"):
+            a, b = getattr(r.metrics, k), getattr(host.metrics, k)
+            if abs(a - b) > 1e-4 * abs(b):
+                faults.append(f"{name}: {k} {a} vs {b}")
+        tails[name]["max_rel_metric_gap"] = max(
+            abs(getattr(r.metrics, k) / getattr(host.metrics, k) - 1)
+            for k in ("delta_e", "u_fov") if getattr(host.metrics, k))
+    d = on_dev.dense
+    rec["tails"] = tails
+    rec["dense"] = {"eye_positions": list(d.eye_luminance.shape),
+                    "delta_e": d.delta_e, "u_fov": d.u_fov,
+                    "u_eyebox": d.u_eyebox,
+                    "starved": d.starved_eye_positions,
+                    "dense_s": on_dev.timings["dense_s"],
+                    "peak_bytes": peak_dense}
+    def opt(v, f):
+        return "-" if v is None else format(v, f)
+
+    for name, t in tails.items():
+        print(f"phase 11 tail {name}: trace {t['trace_s']:.3f} s (kernel "
+              f"{t['kernel_ms']:.1f} ms, seeds {t['seed_ms']:.1f} ms device,"
+              f" assembly and pull {t['assemble_s']:.3f} s), metrics "
+              f"{t['metrics_s']:.3f} s (perception "
+              f"{opt(t['perceive_ms'], '.2f')} ms device, stack pull "
+              f"{opt(t['pull_s'], '.4f')} s); delta E {t['delta_e']:.6f}, "
+              f"u_fov {t['u_fov']:.6f}")
+    print(f"phase 11 dense: {d.eye_luminance.shape[0]} x "
+          f"{d.eye_luminance.shape[1]} eye positions in "
+          f"{on_dev.timings['dense_s']:.3f} s, delta E {d.delta_e:.4f}, "
+          f"u_fov {d.u_fov:.6f}, starved {d.starved_eye_positions}; peak "
+          f"device memory of that run {peak_dense / 2**20:.1f} MiB")
+    if d.eye_luminance.shape != (51, 91) or not math.isfinite(d.delta_e):
+        faults.append(f"dense scan {d.eye_luminance.shape}, {d.delta_e}")
+    del host_hist, host, on_dev
+
+    # ---- a wavelength subset: its rows are the full run's
+    sub = sim.run(wavelengths=(0, 2), histogram_device=True,
+                  evaluate_metrics=False)
+    rows_same = (torch.equal(sub.histogram[0], stack.histogram[0])
+                 and torch.equal(sub.histogram[2], stack.histogram[2])
+                 and not bool(sub.histogram[1].any()))
+    if not rows_same:
+        faults.append("wavelengths=(0, 2): rows differ from the full run's")
+    rec["subset"] = {"trace_s": sub.trace_seconds,
+                     "kernel_ms": sub.timings["kernel_ms"],
+                     "rows_identical": rows_same}
+    print(f"phase 11 wavelengths (0, 2): rows 0 and 2 "
+          f"{'equal' if rows_same else 'DIFFER FROM'} the full run's, row 1 "
+          f"empty; kernel {sub.timings['kernel_ms']:.1f} ms")
+    del sub, stack
+
+    # ---- unfolded count spawn with error groups (4 jackknife groups)
+    eg = sim.run(error_groups=True, histogram_device=True,
+                 metrics_device=True)
+    se = eg.metric_stderr
+    rec["error_groups"] = {"stderr": se, "efficiencies": eg.efficiencies,
+                           "trace_s": eg.trace_seconds,
+                           "kernel_ms": eg.timings["kernel_ms"],
+                           "perceive_ms": eg.timings["perceive_ms"],
+                           "metrics_s": eg.timings["metrics_s"]}
+    print(f"phase 11 error groups: {json.dumps(se)}; efficiencies "
+          f"{json.dumps(eg.efficiencies)}; trace {eg.trace_seconds:.3f} s, "
+          f"kernel {eg.timings['kernel_ms']:.1f} ms")
+    if not all(math.isfinite(v) and v >= 0 for v in se.values()):
+        faults.append(f"standard errors not finite and >= 0: {se}")
+    for k, v in eg.efficiencies.items():
+        if not 0 < se[f"eff_{k}"] < v:
+            faults.append(f"eff_{k} standard error {se[f'eff_{k}']} vs {v}")
+    if not se["delta_e"] > 0:
+        faults.append(f"delta_e standard error {se['delta_e']}")
+    del eg, sim
+
+    # ---- gens spawn unfolded (the JAX Simulator's default), 4 relaunches
+    gsim = pipeline.Simulator(cfg=cfg, device=dev, spawn_mode="gens",
+                              fold_iterations=False)
+    g = gsim.run(histogram_device=True, metrics_device=True)
+    cell_eff = ctx.get("cell_efficiencies")
+    rel = ({k: g.efficiencies[k] / cell_eff[k] - 1 for k in cell_eff}
+           if cell_eff else None)
+    rec["gens"] = {"efficiencies": g.efficiencies, "vs_cell_engine": rel,
+                   "rays_traced": g.rays_traced,
+                   "total_bounces": g.total_bounces,
+                   "trace_s": g.trace_seconds,
+                   "kernel_ms": g.timings["kernel_ms"]}
+    print(f"phase 11 gens spawn, unfolded: {g.rays_traced:,} rays, "
+          f"{g.total_bounces:,} bounces, kernel {g.timings['kernel_ms']:.1f}"
+          f" ms, trace {g.trace_seconds:.3f} s; efficiencies relative to "
+          f"phase 8's cell engine: {json.dumps(rel)}")
+    if rel is not None and max(abs(r) for r in rel.values()) > 0.01:
+        faults.append(f"gens spawn efficiencies {g.efficiencies} not within "
+                      f"1 % of the cell engine's {cell_eff}")
+    del g, gsim
+
+    # ---- checkpoint and resume at 20 x 15 FoV, on each engine
+    cfg_s = TraceConfig(num_fov_x=20, num_fov_y=15)
+    rec["resume"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for engine in ("persistent", "cell"):
+            s = pipeline.Simulator(cfg=cfg_s, device=dev, engine=engine,
+                                   fold_iterations=False)
+            path = str(Path(tmp) / f"{engine}.npz")
+            kw = dict(evaluate_metrics=False)
+            full = s.run(num_iter=3, **kw)
+            part = s.run(num_iter=2, checkpoint_path=path, **kw)
+            res = s.run(num_iter=3, checkpoint_path=path, **kw)
+            same = (np.array_equal(res.histogram, full.histogram)
+                    and res.total_bounces == full.total_bounces
+                    and res.rays_traced == full.rays_traced)
+            rec["resume"][engine] = {
+                "identical": same, "bounces": full.total_bounces,
+                "partial_bounces": part.total_bounces,
+                "trace_s": [full.trace_seconds, part.trace_seconds,
+                            res.trace_seconds]}
+            print(f"phase 11 resume {engine}: 2 iterations checkpointed + 1 "
+                  f"resumed {'equal' if same else 'DIFFER FROM'} 3 "
+                  f"uninterrupted ({full.total_bounces:,} bounces)")
+            if not same:
+                faults.append(f"{engine}: resumed run differs")
+    launches = dict(tp.launch_counts)
+    wall = time.perf_counter() - t_phase
+    rec.update(launches=launches, wall_s=wall)
+    save_record(ctx)
+    print(f"phase 11: launches {launches}; {wall:.1f} s")
+    if faults:
+        fail("phase 11: " + "; ".join(faults))
+    if not (launches["persistent_trace"] and launches["cell_trace"]):
+        fail(f"phase 11: launches {launches}")
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_tail_launches"] = launches["persistent_trace"]
+    ctx["k2_tail_launches"] = launches["cell_trace"]
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c}
+          "6c": phase6c, "11": phase11}
 
 
 def kernel_line(ctx) -> dict:
@@ -1415,8 +1666,9 @@ def kernel_line(ctx) -> dict:
             ("persistent_trace", k1, k1[0],
              ctx["k1_main_launches"] + ctx["k1_sweep_launches"]
              + ctx["k1_packed_main_launches"]
-             + ctx["k1_packed_sweep_launches"]),
-            ("cell_trace", k2, k2[2], ctx["k2_main_launches"])):
+             + ctx["k1_packed_sweep_launches"] + ctx["k1_tail_launches"]),
+            ("cell_trace", k2, k2[2],
+             ctx["k2_main_launches"] + ctx["k2_tail_launches"])):
         source, replaces = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": source,

@@ -6,9 +6,15 @@ subcommands.
 
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
-folded into one spawn target, a 100,000-bounce bound, 80 x 120 eyebox bins)
-and write the eye-view PNG ``Eyebox Center View.png`` into the working
-directory, as the JAX CLI does (``--image ''`` writes none).
+folded into one count-spawn target, a 100,000-bounce bound, 80 x 120 eyebox
+bins), keep the histogram on the device, pull the pupil-integrated stack for
+the host metrics and write the eye-view PNG ``Eyebox Center View.png`` into
+the working directory, as the JAX CLI does; ``--image ''`` writes none and
+evaluates the metrics on the device.  ``--spawn-mode``, ``--spawn-iters``,
+``--no-fold-iterations``, ``--error-bars``, ``--wavelengths``,
+``--checkpoint`` and ``--dense-eyebox`` mean what they mean in the JAX CLI;
+the port's defaults are count spawn with folded iterations, the JAX CLI's
+gens spawn without folding.
 ``simulate --engine cell`` runs the same workload through the per-cell
 kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
 ``--engine pallas``).
@@ -193,11 +199,37 @@ def cmd_sweep(args) -> int:
     return 0
 
 
+def _check_matplotlib(args) -> None:
+    """``--dense-eyebox PNG`` plots with matplotlib: fail before the trace
+    when it is missing, not after."""
+    if args.dense_eyebox and args.dense_eyebox != "-":
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("matplotlib is required for --dense-eyebox PNG; "
+                             "use '--dense-eyebox -' for the metrics only")
+
+
+def _host_histogram(hist) -> np.ndarray:
+    """The histogram as numpy: a device tensor comes through pinned host
+    memory."""
+    import torch
+
+    if not isinstance(hist, torch.Tensor):
+        return np.asarray(hist)
+    if hist.device.type == "cuda":
+        buf = torch.empty(hist.shape, dtype=hist.dtype, pin_memory=True)
+        buf.copy_(hist)
+        return buf.numpy()
+    return hist.numpy()
+
+
 def cmd_simulate(args) -> int:
     from .engine.pipeline import Simulator, format_report
 
     if args.image:
         _check_image_writer()   # fail before the trace, not after it
+    _check_matplotlib(args)
     cfg = TraceConfig(num_fov_x=args.fov_x, num_fov_y=args.fov_y,
                       rays_per_fov=args.rays_per_fov, num_iter=args.num_iter,
                       max_bounces=args.max_bounces, seed=args.seed,
@@ -205,16 +237,39 @@ def cmd_simulate(args) -> int:
     sim = Simulator(design=_design(args), cfg=cfg, luts_dir=args.luts_dir,
                     geometry_simplify_tol=args.simplify_tol,
                     device=args.device, persistent_slots=args.slots,
-                    engine=args.engine, pers_accum_mode=args.accum_mode)
-    res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose)
+                    engine=args.engine, spawn_mode=args.spawn_mode,
+                    spawn_iters=args.spawn_iters,
+                    fold_iterations=args.fold_iterations,
+                    pers_accum_mode=args.accum_mode)
+    wl = (tuple(int(w) for w in args.wavelengths.split(","))
+          if args.wavelengths else None)
+    # the persistent engine keeps the histogram on the device and pulls the
+    # pupil-integrated stack; the colorimetry runs on the device too unless
+    # the eye-view image (the host colorimetry's) is asked for
+    persistent = args.engine == "persistent"
+    res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose,
+                  wavelengths=wl, checkpoint_path=args.checkpoint,
+                  histogram_device=persistent,
+                  metrics_device=persistent and not args.image,
+                  error_groups=args.error_bars,
+                  dense_metrics=bool(args.dense_eyebox))
     print(format_report(res))
+    if res.metric_stderr:
+        print("MC standard errors (jackknife over num_iter groups):")
+        for k, v in res.metric_stderr.items():
+            print(f"  {k:<10} +/- {v:.3g}")
+    if res.dense is not None and args.dense_eyebox != "-":
+        from .eval.image import save_eyebox_luminance_map
+
+        save_eyebox_luminance_map(args.dense_eyebox, res.dense.eye_luminance)
+        print(f"dense eyebox luminance map written to {args.dense_eyebox}")
     if args.image and res.metrics is not None:
         from .eval.image import save_eyebox_center_view
 
         save_eyebox_center_view(args.image, res.metrics.output_image)
         print(f"Eyebox center view written to {args.image}")
     if args.save_histogram:
-        np.save(args.save_histogram, res.histogram)
+        np.save(args.save_histogram, _host_histogram(res.histogram))
         print(f"eyebox histogram written to {args.save_histogram}")
     if args.json:
         out = {
@@ -228,7 +283,16 @@ def cmd_simulate(args) -> int:
             "rays_traced": res.rays_traced,
             "total_bounces": res.total_bounces,
             "trace_seconds": res.trace_seconds,
+            "metric_stderr": res.metric_stderr,
         }
+        if res.dense is not None:
+            out["dense"] = {
+                "delta_e": res.dense.delta_e,
+                "u_fov": res.dense.u_fov,
+                "u_eyebox": res.dense.u_eyebox,
+                "starved_eye_positions": res.dense.starved_eye_positions,
+                "eye_positions": list(res.dense.eye_luminance.shape),
+            }
         with open(args.json, "w") as f:
             json.dump(out, f, indent=2)
     return 0
@@ -248,11 +312,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rays-per-fov", type=int, default=5000)
     p.add_argument("--engine", default="persistent",
                    choices=("persistent", "cell"),
-                   help="persistent = slot-persistent count-spawn kernel; "
+                   help="persistent = slot-persistent kernel; "
                         "cell = per-cell kernel, every ray seeded on the host")
     p.add_argument("--num-iter", type=int, default=4,
                    help="iterations: folded into one spawn target per cell "
-                        "(persistent) or relaunched (cell)")
+                        "(persistent, --fold-iterations) or relaunched")
+    p.add_argument("--spawn-mode", default="count", choices=("gens", "count"),
+                   help="persistent engine's respawn: count = a per-cell "
+                        "spawn target (the default); gens = a quota of "
+                        "generations per slot (the JAX CLI's default)")
+    p.add_argument("--spawn-iters", type=int, default=0,
+                   help="saturating-spawn iteration budget (persistent; 0 = "
+                        "off)")
+    p.add_argument("--fold-iterations", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="trace num_iter x rays_per_fov in one pass per cell "
+                        "(continued RNG streams; the persistent engine's "
+                        "default); --no-fold-iterations relaunches per "
+                        "iteration")
+    p.add_argument("--error-bars", action="store_true",
+                   help="jackknife Monte-Carlo standard errors over the "
+                        "num_iter groups (persistent; needs num_iter >= 2, "
+                        "suspends folding)")
+    p.add_argument("--wavelengths", default=None,
+                   help="comma-separated wavelength indices to trace (e.g. "
+                        "'1' = green only)")
+    p.add_argument("--checkpoint", default=None,
+                   help="resumable checkpoint path (.npz)")
+    p.add_argument("--dense-eyebox", default=None, metavar="PNG", nargs="?",
+                   const="-",
+                   help="also evaluate the metrics at every valid eye "
+                        "position and, given a PNG path (needs matplotlib), "
+                        "save the full-resolution eyebox luminance map; "
+                        "'-' or no value: metrics only")
     p.add_argument("--max-bounces", type=int, default=100_000)
     p.add_argument("--cells-per-batch", type=int, default=2048)
     p.add_argument("--slots", type=int, default=2048,

@@ -3,20 +3,27 @@
 Port of ``engine/pipeline.py`` of the JAX package, restricted to two of its
 engines:
 
-- ``engine="persistent"`` (the default): its persistent count-spawn path with
-  folded iterations (``engine="pallas_persistent", spawn_mode="count",
-  fold_iterations=True``), through :func:`.trace_persistent.persistent_trace`,
-  with its ``pers_accum_mode``, ``pers_cells_per_block``,
-  ``pers_transit_jump`` and ``pers_jump_phase`` options;
+- ``engine="persistent"`` (the default): its persistent path
+  (``engine="pallas_persistent"``) through
+  :func:`.trace_persistent.persistent_trace`, in count spawn (the port's
+  default) or gens spawn, optionally saturated to ``spawn_iters``, with
+  folded iterations (the port's default) or the relaunch loop, and its
+  ``pers_accum_mode``, ``pers_cells_per_block``, ``pers_transit_jump`` and
+  ``pers_jump_phase`` options;
 - ``engine="cell"``: its per-cell path (``engine="pallas"``) with the general
   ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
   histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
   to the end in one launch per batch or, with ``segmented=True``, under the
   segment-and-compact scheduler of :mod:`.cell_segments`.
 
-The design geometry, LUTs, cell tables, trace geometry and host metrics are
-the port's own copies of the JAX package's numpy modules; the trace runs on
-``device``: the CUDA kernels on a GPU, their plain PyTorch versions on the CPU.
+``run()`` takes the JAX package's options: wavelength subsets, checkpoint
+and resume, a histogram kept on the device with device perception or device
+metrics (persistent engine), jackknife error bars over the iterations
+(persistent engine) and the dense eye-position metrics.  The design
+geometry, LUTs, cell tables, trace geometry and host metrics are the port's
+own copies of the JAX package's numpy modules; the trace, seed hashing and
+device tail run on ``device``: the CUDA kernels on a GPU, their plain
+PyTorch versions on the CPU.
 """
 
 from __future__ import annotations
@@ -30,10 +37,14 @@ import torch
 
 from ..config import EvalConfig, TraceConfig, WaveguideDesign
 from ..design.geometry import DesignGeometry, generate_geometry
-from ..eval.metrics import EvalResult, efficiencies, evaluate
+from ..eval.metrics import (
+    EvalResult, efficiencies, evaluate, evaluate_dense, evaluate_torch,
+    eye_perceived_torch, wavelength_channel_names,
+)
 from ..luts.io import load_or_synthesize
 from ..luts.packing import build_cell_tables
 from ..luts.schema import RcwaLuts
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from . import seeding, trace_cell, trace_persistent, trace_rows
 from .cell_segments import SegmentedCellTracer
 from .timing import EventTimer
@@ -46,16 +57,27 @@ ENGINES = ("persistent", "cell")
 
 @dataclasses.dataclass
 class SimulationResult:
-    histogram: np.ndarray        # (L, FoVy, FoVx, eb_y, eb_x) deposit counts
+    histogram: object            # (L, FoVy, FoVx, eb_y, eb_x) deposit counts
+                                 # (numpy, or a device tensor when the caller
+                                 # asked run(histogram_device=True) to keep it
+                                 # resident)
     efficiencies: dict           # {"B", "G", "R"} system efficiency
     metrics: Optional[EvalResult]
     rays_traced: int             # rays actually spawned (count spawn overshoots)
     total_bounces: int
     trace_seconds: float
-    # persistent engine: (cells, 4) nb rows, cid order
+    # persistent engine: (cells, 4) nb rows of the traced cells in cid
+    # order, summed over this call's iterations
     cell_stats: Optional[np.ndarray] = None
     deposits: Optional[int] = None   # cell engine: rays that deposited
     timings: dict = dataclasses.field(default_factory=dict)
+    # Monte-Carlo standard errors at this run's sampling, from a delete-one
+    # jackknife over the num_iter sample groups (run(..., error_groups=True));
+    # keys: eff_<colour>, delta_e, u_fov, u_eyebox
+    metric_stderr: Optional[dict] = None
+    # the metrics at every valid eye position (run(..., dense_metrics=True));
+    # eye_luminance is the full-resolution map
+    dense: Optional[EvalResult] = None
 
     @property
     def bounces_per_second(self) -> float:
@@ -90,17 +112,31 @@ class Simulator:
                  geometry_simplify_tol: float = 0.0,
                  device="cuda", persistent_slots: int = 2048,
                  engine: str = "persistent", segmented: bool = False,
-                 segment_bounces: int = 24, pers_accum_mode: str = "fma",
+                 segment_bounces: int = 24, spawn_mode: str = "count",
+                 spawn_iters: int = 0, fold_iterations: bool = True,
+                 pers_accum_mode: str = "fma",
                  pers_cells_per_block: int = 1,
                  pers_transit_jump: bool = False,
                  pers_jump_phase: str = "pow2"):
-        """``pers_*`` (persistent engine): ``pers_accum_mode="packed"`` reads
-        bfloat16-rounded selection records; ``pers_cells_per_block = k``
-        (packed, shared pupil samples and ``rng_mode="fast"`` only) puts k
-        cells, each with ``persistent_slots`` slots, into one block, except
-        in a batch whose length k does not divide; ``pers_transit_jump``
-        (packed, k = 1) advances a slot on a pure TIR hop to its next event
-        in one iteration, phased by ``pers_jump_phase``.  Packed selection is
+        """Persistent engine: ``spawn_mode="count"`` respawns a cell's slots
+        until the cell has spawned its target of rays (the histogram is then
+        renormalised by target / spawned); ``"gens"`` gives every slot a
+        quota of generations.  ``spawn_iters > 0`` keeps every slot
+        respawning until that iteration (saturating spawn; renormalised like
+        count spawn).  ``fold_iterations`` traces ``num_iter`` iterations as
+        one spawn target per cell with continued per-slot RNG streams, paying
+        the drain tail once; otherwise ``run()`` relaunches once per
+        iteration, each iteration seeded anew.  The port's defaults, count
+        spawn with folding, are its main path; the JAX package's
+        ``Simulator`` defaults to gens spawn without folding.
+
+        ``pers_*``: ``pers_accum_mode="packed"`` reads bfloat16-rounded
+        selection records; ``pers_cells_per_block = k`` (packed, shared pupil
+        samples and ``rng_mode="fast"`` only) puts k cells, each with
+        ``persistent_slots`` slots, into one block, except in a batch whose
+        length k does not divide; ``pers_transit_jump`` (packed, k = 1)
+        advances a slot on a pure TIR hop to its next event in one
+        iteration, phased by ``pers_jump_phase``.  Packed selection is
         within Monte-Carlo tolerance of the exact trace, not bitwise.  Jumps
         are not an unbiased variant of single hops under count spawn: a slot
         respawns by its rays' lifetime in iterations, which jumps shorten,
@@ -111,6 +147,12 @@ class Simulator:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         if segmented and engine != "cell":
             raise ValueError("segmented scheduling belongs to engine='cell'")
+        if spawn_mode not in trace_persistent.SPAWN_MODES:
+            raise ValueError(f"spawn_mode must be one of "
+                             f"{trace_persistent.SPAWN_MODES}, got {spawn_mode!r}")
+        self._spawn_mode = spawn_mode
+        self._spawn_iters = int(spawn_iters)
+        self._fold_iterations = bool(fold_iterations)
         # early errors; the launch's own checks own the refusals
         self._pers_cpb = int(pers_cells_per_block)
         trace_persistent.check_modes(pers_accum_mode, self._pers_cpb,
@@ -162,7 +204,7 @@ class Simulator:
             # setup and never falls inside a timed run()
             (trace_persistent if engine == "persistent"
              else trace_cell).load_kernel()
-        self._tile = None   # (slots, shared launch tile on device)
+        self._tile = None   # (key, shared launch tile on device)
         self.setup_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
@@ -182,13 +224,15 @@ class Simulator:
         """Launch tiles and per-slot seeds of one batch, on the device.
 
         With shared pupil samples and fast seeding, one (1, 6, RT, 128) tile
-        serves every cell and the seeds follow the contract global index
-        ``(iteration * cells + cid) * slots + slot``; with ``cpb`` cells per
-        block the tile is repeated ``cpb`` times along its rows (every cell
-        of a block respawns from the same samples) and the (C, RT, 128) seeds
-        reshape to (C / cpb, cpb * RT, 128), so each cell keeps its own seed
-        block.  Otherwise the batch is seeded per cell on the host, as the
-        JAX package's general path does.
+        serves every cell and the seeds, hashed on the device
+        (:func:`.seeding.cell_seeds_device`, bitwise the host hash), follow
+        the contract global index ``(iteration * cells + cid) * slots +
+        slot`` for any set of cells; with ``cpb`` cells per block the tile
+        is repeated ``cpb`` times along its rows (every cell of a block
+        respawns from the same samples) and the (C, RT, 128) seeds reshape
+        to (C / cpb, cpb * RT, 128), so each cell keeps its own seed block.
+        Otherwise the batch is seeded per cell on the host, as the JAX
+        package's general path does.
         """
         rt = slots // trace_rows.LANES
         C = len(cell_ids)
@@ -201,11 +245,10 @@ class Simulator:
                 tile, _ = trace_rows.pack_ray_blocks(one, 1, slots, rt)
                 tile = np.concatenate([tile] * cpb, axis=2)
                 self._tile = (key, torch.from_numpy(tile).to(self.device))
-            seeds = seeding.cell_seeds(cell_ids, slots, iteration,
-                                       self.L * self.M * self.N, self.cfg.seed)
-            bits = torch.from_numpy(
-                seeds.view(np.int32).reshape(C // cpb, cpb * rt, -1))
-            return self._tile[1], bits.to(self.device)
+            seeds = seeding.cell_seeds_device(
+                cell_ids, slots, iteration, self.L * self.M * self.N,
+                self.cfg.seed, self.device)
+            return self._tile[1], seeds.reshape(C // cpb, cpb * rt, -1)
         if cpb != 1:
             raise ValueError("several cells per block need shared pupil "
                              "samples and fast seeding")
@@ -214,91 +257,310 @@ class Simulator:
         rays_in, rng_in = trace_rows.pack_ray_blocks(batch, C, slots, rt)
         return trace_rows.blocks_to_device(rays_in, rng_in, self.device)
 
-    def _pers_ctrl(self, rays_per_cell: int) -> torch.Tensor:
-        """``[per-cell spawn target, spawn_iters]`` (count spawn, no
-        saturation)."""
-        return torch.tensor([rays_per_cell, 0], dtype=torch.int32,
+    def _pers_ctrl(self, rays_per_cell: int, gens: int = 1) -> torch.Tensor:
+        """``[per-cell spawn target, spawn_iters]`` in count spawn,
+        ``[generations per slot, spawn_iters]`` in gens spawn."""
+        first = rays_per_cell if self._spawn_mode == "count" else gens
+        return torch.tensor([first, self._spawn_iters], dtype=torch.int32,
                             device=self.device)
 
-    @staticmethod
-    def _renorm_tiles(tiles: torch.Tensor, nb: torch.Tensor,
+    def _pers_nominal(self, slots: int, gens: int, rays_per_cell: int) -> int:
+        """The per-cell ray count the histogram is normalised to."""
+        return rays_per_cell if self._spawn_mode == "count" else slots * gens
+
+    def _renorm_tiles(self, tiles: torch.Tensor, nb: torch.Tensor,
                       nominal_per_cell: int) -> torch.Tensor:
-        """Wald renormalisation: scale each cell's tile by target / spawned
-        (the count overshoots the target by at most one iteration's deaths)."""
+        """Wald renormalisation in count or saturating spawn: scale each
+        cell's tile by nominal / spawned (the spawns overshoot the target by
+        at most one iteration's deaths)."""
+        if self._spawn_iters <= 0 and self._spawn_mode != "count":
+            return tiles
         spawned = torch.clamp(nb[:, 2], min=1).to(torch.float32)
         factor = torch.full_like(spawned, float(nominal_per_cell)) / spawned
         return tiles * factor[:, None, None]
+
+    def _run_cells(self, wavelengths) -> np.ndarray:
+        """The cell ids a run traces: every cell, or those of the
+        ``wavelengths`` subset."""
+        all_cells = np.arange(self.L * self.M * self.N)
+        if wavelengths is None:
+            return all_cells
+        lsel = all_cells // (self.M * self.N)
+        return all_cells[np.isin(lsel, np.asarray(wavelengths))]
+
+    def _tiles_from_hist(self, hist: np.ndarray,
+                         all_cells: np.ndarray) -> torch.Tensor:
+        """Inverse of :func:`.trace_persistent.hist_tiles_to_histogram`: the
+        (len(all_cells), ny, nx) tile accumulator of a (L, N, M, ny, nx)
+        histogram on the device (a permutation: exact)."""
+        ny, nx = self.cfg.eyebox_bins
+        flat = torch.from_numpy(np.ascontiguousarray(hist, np.float32)).to(
+            self.device).permute(0, 2, 1, 3, 4).reshape(-1, ny, nx)
+        return flat.index_select(
+            0, torch.from_numpy(all_cells.astype(np.int64)).to(self.device))
 
     def run(self, rays_per_fov: Optional[int] = None,
             num_iter: Optional[int] = None, cells_per_batch: int = 2048,
             evaluate_metrics: bool = True,
             eval_cfg: EvalConfig = EvalConfig(),
-            verbose: bool = False) -> SimulationResult:
-        """Trace the full workload and reduce the metrics.
+            verbose: bool = False, wavelengths: Optional[tuple] = None,
+            checkpoint_path: Optional[str] = None, checkpoint_every: int = 1,
+            histogram_device: bool = False, error_groups: bool = False,
+            metrics_device: bool = False,
+            dense_metrics: bool = False) -> SimulationResult:
+        """Trace the workload and reduce the metrics.
 
-        Persistent engine: ``num_iter`` folds into the spawn target: one pass
-        traces ``num_iter * rays_per_fov`` rays per cell with continued
-        per-slot RNG streams (the reference's re-launch loop), paying the
-        drain tail once.  Cell engine: ``num_iter`` relaunches of
+        Persistent engine: with folding (and no ``error_groups``),
+        ``num_iter`` folds into the spawn target: one pass traces ``num_iter
+        * rays_per_fov`` rays per cell with continued per-slot RNG streams
+        (the reference's re-launch loop), paying the drain tail once;
+        without it, one launch per iteration and batch, iteration ``it``
+        seeded from ``it``, the per-cell tiles summed in float32 in
+        iteration order.  Cell engine: ``num_iter`` relaunches of
         ``rays_per_fov`` rays per cell, each seeded anew.
+
+        - ``wavelengths``: trace only these wavelength indices; the other
+          cells get no rays.
+        - ``checkpoint_path``: save the histogram, the iterations done and
+          the counters every ``checkpoint_every`` iterations
+          (:mod:`..utils.checkpoint`), and resume from a checkpoint of the
+          same design and configuration; a resumed run is bit for bit an
+          uninterrupted one.  A folded run is one iteration, saved at its
+          end.
+        - ``histogram_device`` (persistent engine): keep the histogram on
+          the device.  Efficiencies come from per-colour device sums and
+          the metrics from the pupil-integrated stack
+          (:func:`eye_perceived_torch`), of which only (L, fy, fx, 7, 8) is
+          pulled for the host colorimetry;
+          ``metrics_device`` runs that colorimetry on the device too
+          (:func:`evaluate_torch`: float32, within ~1e-4 relative of the
+          host's; no eye-view image).
+        - ``error_groups`` (persistent engine, ``num_iter >= 2``; suspends
+          folding): Monte-Carlo standard errors by a delete-one jackknife
+          over the iterations, from one device perception per iteration.
+        - ``dense_metrics``: the metrics at every valid eye position too
+          (:func:`evaluate_dense`, on the device), in ``result.dense``.
+
+        The cell engine keeps the host tail: ``histogram_device``,
+        ``metrics_device`` and ``error_groups`` raise there.
         """
         rpf = rays_per_fov if rays_per_fov is not None else self.cfg.rays_per_fov
         iters = num_iter if num_iter is not None else self.cfg.num_iter
         if self.engine == "cell":
-            return self._run_cell(rpf, iters, cells_per_batch,
-                                  evaluate_metrics, eval_cfg, verbose)
-        target = rpf * iters
-        n_cells = self.L * self.M * self.N
-        all_cells = np.arange(n_cells)
-        slots, _ = self._slots_gens(target)
-        ctrl = self._pers_ctrl(target)
+            for flag, name in ((histogram_device, "histogram_device"),
+                               (metrics_device, "metrics_device"),
+                               (error_groups, "error_groups")):
+                if flag:
+                    raise ValueError(f"{name} belongs to the persistent "
+                                     "engine; engine='cell' keeps the host "
+                                     "tail")
+        if metrics_device and not histogram_device:
+            raise ValueError("metrics_device evaluates the device histogram: "
+                             "pass histogram_device=True with it")
+        if error_groups and iters < 2:
+            raise ValueError("error_groups needs num_iter >= 2 (the "
+                             "iterations are the jackknife groups)")
+        all_cells = self._run_cells(wavelengths)
+        if self.engine == "cell":
+            return self._run_cell(rpf, iters, all_cells, cells_per_batch,
+                                  evaluate_metrics, eval_cfg, verbose,
+                                  checkpoint_path, checkpoint_every,
+                                  dense_metrics)
+        if not error_groups and self._fold_iterations and iters > 1:
+            rpf, iters = rpf * iters, 1
         ny, nx = self.cfg.eyebox_bins
+        n_sel = len(all_cells)
         timings = {"seed_s": 0.0}
         timer = EventTimer(self.device)
+        total_bounces = total_rays = total_spawned = 0
+        start_iter = 0
+        resumed = (load_checkpoint(checkpoint_path, self.design, self.cfg,
+                                   with_extras=True)
+                   if checkpoint_path else None)
+        if resumed is not None:
+            h0, start_iter, total_bounces, extras = resumed
+            total_rays = extras.get("total_rays", 0)
+            total_spawned = extras.get("total_spawned", 0)
+            if error_groups and start_iter:
+                raise ValueError("error_groups does not compose with a "
+                                 "resumed checkpoint (its groups are lost)")
 
         t0 = time.perf_counter()
-        tiles = torch.empty((n_cells, ny, nx), dtype=torch.float32,
-                            device=self.device)
-        nbs = []
-        for start in range(0, n_cells, cells_per_batch):
-            chunk = all_cells[start:start + cells_per_batch]
-            # a batch that does not split evenly into blocks runs one cell
-            # per block
-            cpb = self._pers_cpb if len(chunk) % self._pers_cpb == 0 else 1
-            ts = time.perf_counter()
-            rays_in, rng_in = self._device_ray_blocks(chunk, slots, cpb=cpb)
-            timings["seed_s"] += time.perf_counter() - ts
-            with timer.span("kernel"):
-                tile, nb = self.tracer(int(chunk[0]), len(chunk), rays_in,
-                                       rng_in, ctrl, cells_per_block=cpb)
-            tiles[start:start + len(chunk)] = self._renorm_tiles(tile, nb, target)
-            nbs.append(nb)
-            if verbose:
-                print(f"batch cells {start}-{start + len(chunk)} dispatched")
-        ta = time.perf_counter()
-        hist_dev = hist_tiles_to_histogram(tiles, all_cells, self.L, self.M,
+        acc = (self._tiles_from_hist(h0, all_cells) if resumed is not None
+               else torch.zeros((n_sel, ny, nx), dtype=torch.float32,
+                                device=self.device))
+        slots, gens = self._slots_gens(rpf)
+        nominal = self._pers_nominal(slots, gens, rpf)
+        ctrl = self._pers_ctrl(rpf, gens)
+        stats = np.zeros((n_sel, 4), np.int64)
+        pending = []   # (batch start, nb, rays) of launches not yet pulled
+        snaps = []     # error_groups: cumulative (perception, colour sums)
+
+        def drain():
+            nonlocal total_bounces, total_rays, total_spawned
+            for start, nb, n in pending:
+                nbh = nb.cpu().numpy().astype(np.int64)
+                stats[start:start + len(nbh)] += nbh
+                total_bounces += int(nbh[:, 0].sum())
+                total_spawned += int(nbh[:, 2].sum())
+                total_rays += n
+            pending.clear()
+
+        def assemble():
+            return hist_tiles_to_histogram(acc, all_cells, self.L, self.M,
                                            self.N, ny, nx)
-        histogram = hist_dev.cpu().numpy()
-        cell_stats = torch.cat(nbs, dim=0).cpu().numpy()
+
+        for it in range(start_iter, iters):
+            for start in range(0, n_sel, cells_per_batch):
+                chunk = all_cells[start:start + cells_per_batch]
+                # a batch that does not split evenly into blocks runs one
+                # cell per block
+                cpb = self._pers_cpb if len(chunk) % self._pers_cpb == 0 else 1
+                ts = time.perf_counter()
+                with timer.span("seed"):
+                    rays_in, rng_in = self._device_ray_blocks(chunk, slots, it,
+                                                              cpb=cpb)
+                timings["seed_s"] += time.perf_counter() - ts
+                with timer.span("kernel"):
+                    tile, nb = self.tracer(chunk, rays_in, rng_in, ctrl,
+                                           cells_per_block=cpb,
+                                           spawn_mode=self._spawn_mode)
+                acc[start:start + len(chunk)] += self._renorm_tiles(
+                    tile, nb, nominal)
+                pending.append((start, nb, nominal * len(chunk)))
+                if verbose:
+                    print(f"iter {it} cells {start}-{start + len(chunk)} "
+                          "dispatched")
+            if error_groups:
+                with timer.span("perceive"):
+                    snap = assemble()
+                    snaps.append((eye_perceived_torch(snap, eval_cfg),
+                                  snap.sum(dim=(1, 2, 3, 4),
+                                           dtype=torch.float64)))
+                    del snap
+            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                drain()
+                save_checkpoint(checkpoint_path, assemble().cpu().numpy(),
+                                it + 1, self.design, self.cfg, total_bounces,
+                                extras={"total_rays": total_rays,
+                                        "total_spawned": total_spawned})
+        ta = time.perf_counter()
+        hist_dev = assemble()
+        del acc
+        drain()
+        if histogram_device:
+            histogram = hist_dev
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        else:
+            histogram = hist_dev.cpu().numpy()
+            if not dense_metrics:
+                del hist_dev
+                hist_dev = None
         trace_seconds = time.perf_counter() - t0
         timings["assemble_s"] = time.perf_counter() - ta
-        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
-        del tiles, hist_dev
 
-        total_bounces = int(cell_stats[:, 0].astype(np.int64).sum())
-        total_spawned = int(cell_stats[:, 2].astype(np.int64).sum())
-        # histograms are renormalised to `target` rays per cell
-        eff = efficiencies(histogram, float(target), 1)
+        cells_traced = n_sel * iters
+        actual_rpf = total_rays / cells_traced if cells_traced else rpf
+        eff, met, dense = self._tail(histogram, hist_dev, actual_rpf, iters,
+                                     evaluate_metrics, eval_cfg,
+                                     metrics_device, dense_metrics, timings,
+                                     timer)
+        stderr = (self._jackknife_stderr(snaps, actual_rpf, iters, eval_cfg)
+                  if snaps else None)
+        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
+        # count and saturating spawn trace the rays they spawn
+        rays_traced = (total_spawned if (self._spawn_iters > 0
+                                         or self._spawn_mode == "count")
+                       else total_rays)
+        return SimulationResult(
+            histogram=histogram, efficiencies=eff, metrics=met,
+            rays_traced=rays_traced, total_bounces=total_bounces,
+            trace_seconds=trace_seconds, cell_stats=stats, timings=timings,
+            metric_stderr=stderr, dense=dense)
+
+    def _tail(self, histogram, hist_dev: Optional[torch.Tensor],
+              actual_rpf: float, iters: int, evaluate_metrics: bool,
+              eval_cfg: EvalConfig, metrics_device: bool,
+              dense_metrics: bool, timings: dict, timer: EventTimer):
+        """Efficiencies, metrics and dense metrics of a run's histogram:
+        on the host for a numpy histogram, from device sums and the device
+        perception stack for a device one.  ``hist_dev`` is the histogram on
+        the device (the dense scan's input)."""
+        norm = actual_rpf * iters
+        if isinstance(histogram, np.ndarray):
+            eff = efficiencies(histogram, actual_rpf, iters)
+        else:
+            # per-colour sums on the device, accumulated in float64
+            sums = histogram.sum(dim=(1, 2, 3, 4),
+                                 dtype=torch.float64).cpu().numpy()
+            num = actual_rpf * self.M * self.N * self.L * iters
+            names = wavelength_channel_names(self.L)
+            eff = {names[i]: float(sums[i] / num * self.L)
+                   for i in range(self.L)}
         met = None
         if evaluate_metrics:
             tm = time.perf_counter()
-            met = evaluate(histogram / float(target), eval_cfg)
+            if isinstance(histogram, np.ndarray):
+                met = evaluate(histogram / actual_rpf / iters, eval_cfg)
+            else:
+                with timer.span("perceive"):
+                    perc = eye_perceived_torch(histogram, eval_cfg)
+                if metrics_device:
+                    met = evaluate_torch(perc, eval_cfg, norm=norm)
+                else:
+                    tp = time.perf_counter()
+                    perc = perc.cpu().numpy()
+                    timings["pull_s"] = time.perf_counter() - tp
+                    met = evaluate(None, eval_cfg,
+                                   perceive=perc / actual_rpf / iters)
             timings["metrics_s"] = time.perf_counter() - tm
-        return SimulationResult(
-            histogram=histogram, efficiencies=eff, metrics=met,
-            rays_traced=total_spawned, total_bounces=total_bounces,
-            trace_seconds=trace_seconds, cell_stats=cell_stats,
-            timings=timings)
+        dense = None
+        if dense_metrics:
+            td = time.perf_counter()
+            n_epy = hist_dev.shape[3] - eval_cfg.pupil_mask_bins + 1
+            dense = evaluate_dense(hist_dev, eval_cfg, norm=norm,
+                                   chunk_rows=8 if n_epy > 16 else 0)
+            timings["dense_s"] = time.perf_counter() - td
+        return eff, met, dense
+
+    def _jackknife_stderr(self, snaps, actual_rpf: float, iters: int,
+                          eval_cfg: EvalConfig) -> dict:
+        """Delete-one jackknife over the ``num_iter`` sample groups, on the
+        host in float64.
+
+        ``snaps`` holds per-iteration cumulative (perception stack, colour
+        sums) pairs on the device; consecutive differences are the K
+        independent groups (each iteration has its own seeds).  Each
+        leave-one-out replicate renormalises the other groups' stack to
+        per-ray units and evaluates every metric; SE = sqrt((K - 1) / K *
+        sum (m_i - mean)^2), exact for the linear efficiencies and first
+        order for delta_e and the uniformities."""
+        K = len(snaps)
+        perc = [p.cpu().numpy().astype(np.float64) for p, _ in snaps]
+        sums = [s.cpu().numpy() for _, s in snaps]
+        p_tot, s_tot = perc[-1], sums[-1]
+        groups_p = [perc[0]] + [perc[i] - perc[i - 1] for i in range(1, K)]
+        groups_s = [sums[0]] + [sums[i] - sums[i - 1] for i in range(1, K)]
+        names = wavelength_channel_names(self.L)
+        reps = {k: [] for k in
+                [f"eff_{n}" for n in names] + ["delta_e", "u_fov", "u_eyebox"]}
+        num = actual_rpf * self.M * self.N * self.L * (iters - 1)
+        for i in range(K):
+            m = evaluate(None, eval_cfg,
+                         perceive=(p_tot - groups_p[i]) / actual_rpf
+                         / (iters - 1), with_image=False)
+            s = (s_tot - groups_s[i]) / num * self.L
+            for li, n in enumerate(names):
+                reps[f"eff_{n}"].append(float(s[li]))
+            reps["delta_e"].append(m.delta_e)
+            reps["u_fov"].append(m.u_fov)
+            reps["u_eyebox"].append(m.u_eyebox)
+        out = {}
+        for k, vals in reps.items():
+            v = np.asarray(vals, np.float64)
+            out[k] = float(np.sqrt((K - 1) / K * ((v - v.mean()) ** 2).sum()))
+        return out
 
     # ------------------------------------------------------------------
     # engine="cell": the general loop over iterations and batches
@@ -346,23 +608,34 @@ class Simulator:
                                         EventTimer("cpu"))
         return hist, bounces, len(cell_ids) * rays_per_cell
 
-    def _run_cell(self, rpf: int, iters: int, cells_per_batch: int,
-                  evaluate_metrics: bool, eval_cfg: EvalConfig,
-                  verbose: bool) -> SimulationResult:
-        n_cells = self.L * self.M * self.N
-        all_cells = np.arange(n_cells)
+    def _run_cell(self, rpf: int, iters: int, all_cells: np.ndarray,
+                  cells_per_batch: int, evaluate_metrics: bool,
+                  eval_cfg: EvalConfig, verbose: bool,
+                  checkpoint_path: Optional[str], checkpoint_every: int,
+                  dense_metrics: bool) -> SimulationResult:
         timings = {"seed_s": 0.0}
         timer = EventTimer(self.device)
+        total_bounces = total_rays = deposits = 0
+        start_iter = 0
+        resumed = (load_checkpoint(checkpoint_path, self.design, self.cfg,
+                                   with_extras=True)
+                   if checkpoint_path else None)
 
         t0 = time.perf_counter()
         # the histogram accumulates on the device and is pulled once
-        hist_dev = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
-                               dtype=torch.float32, device=self.device)
-        total_bounces = 0
-        total_rays = 0
-        deposits = 0
-        for it in range(iters):
-            for start in range(0, n_cells, cells_per_batch):
+        if resumed is not None:
+            h0, start_iter, total_bounces, extras = resumed
+            total_rays = extras.get("total_rays", 0)
+            # whole counts: the histogram's sum is its deposits
+            deposits = int(h0.sum(dtype=np.float64))
+            hist_dev = torch.from_numpy(
+                np.ascontiguousarray(h0, np.float32)).to(self.device)
+        else:
+            hist_dev = torch.zeros(
+                (self.L, self.N, self.M, *self.cfg.eyebox_bins),
+                dtype=torch.float32, device=self.device)
+        for it in range(start_iter, iters):
+            for start in range(0, len(all_cells), cells_per_batch):
                 chunk = all_cells[start:start + cells_per_batch]
                 ts = time.perf_counter()
                 rays_in, rng_in = self._cell_blocks(chunk, rpf, it)
@@ -375,25 +648,31 @@ class Simulator:
                 if verbose:
                     print(f"iter {it} cells {start}-{start + len(chunk)} "
                           "dispatched")
+            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                total_bounces = int(total_bounces)
+                save_checkpoint(checkpoint_path, hist_dev.cpu().numpy(),
+                                it + 1, self.design, self.cfg, total_bounces,
+                                extras={"total_rays": total_rays})
         ta = time.perf_counter()
         histogram = hist_dev.cpu().numpy()
         total_bounces = int(total_bounces)
         trace_seconds = time.perf_counter() - t0
         timings["assemble_s"] = time.perf_counter() - ta
-        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
-        del hist_dev
+        if not dense_metrics:
+            del hist_dev
+            hist_dev = None
 
-        actual_rpf = total_rays / max(n_cells * iters, 1)
-        eff = efficiencies(histogram, actual_rpf, iters)
-        met = None
-        if evaluate_metrics:
-            tm = time.perf_counter()
-            met = evaluate(histogram / actual_rpf / iters, eval_cfg)
-            timings["metrics_s"] = time.perf_counter() - tm
+        cells_traced = len(all_cells) * iters
+        actual_rpf = total_rays / cells_traced if cells_traced else rpf
+        eff, met, dense = self._tail(histogram, hist_dev, actual_rpf, iters,
+                                     evaluate_metrics, eval_cfg, False,
+                                     dense_metrics, timings, timer)
+        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
         return SimulationResult(
             histogram=histogram, efficiencies=eff, metrics=met,
             rays_traced=total_rays, total_bounces=total_bounces,
-            trace_seconds=trace_seconds, timings=timings, deposits=deposits)
+            trace_seconds=trace_seconds, timings=timings, deposits=deposits,
+            dense=dense)
 
 
 def format_report(result: SimulationResult) -> str:
@@ -425,4 +704,13 @@ def format_report(result: SimulationResult) -> str:
                 f"  [unconverged: {n} eye position(s) have empty (FoV, eye) "
                 "bins at this sample budget; u_eyebox/u_fov are biased low — "
                 "raise rays_per_fov or num_iter]")
+    if result.dense is not None:
+        d = result.dense
+        n_epy, n_epx = d.eye_luminance.shape
+        lines += [
+            f"Dense scan ({n_epy}x{n_epx} = {n_epy * n_epx:,} eye positions):",
+            f"  delta_e {d.delta_e:.3f}  u_fov {d.u_fov * 100:.2f} %  "
+            f"u_eyebox {d.u_eyebox * 100:.2f} %  "
+            f"starved {d.starved_eye_positions}",
+        ]
     return "\n".join(lines)

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..config import TraceConfig
 from ..design.convex import point_in_polygon
@@ -142,7 +143,8 @@ def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
 
 def cell_seeds(cell_ids: np.ndarray, slots: int, iteration: int,
                total_cells: int, seed: int) -> np.ndarray:
-    """(C, slots) uint32 per-slot seeds of the persistent path.
+    """(C, slots) uint32 per-slot seeds of the persistent path, on the host:
+    the reference :func:`cell_seeds_device` is held to.
 
     Seed contract: global ray index ``(iteration * cells + cid) * slots +
     slot``, hashed by :func:`..ops.rng.seed_fast`.
@@ -152,3 +154,27 @@ def cell_seeds(cell_ids: np.ndarray, slots: int, iteration: int,
            * np.uint64(slots)
            + np.arange(slots, dtype=np.uint64)[None, :])
     return rng_ops.seed_fast(idx, seed)
+
+
+def cell_seeds_device(cell_ids: np.ndarray, slots: int, iteration: int,
+                      total_cells: int, seed: int, device,
+                      cells_per_hash: int = 2048) -> torch.Tensor:
+    """:func:`cell_seeds` hashed on ``device`` (the same seed contract, the
+    same bits): (C, slots) int32 holding the uint32 seeds, as the kernels
+    take them.  The hash runs ``cells_per_hash`` cells at a time, which bounds
+    its int64 temporaries."""
+    ids = np.asarray(cell_ids, np.int64)
+    if len(ids) and np.array_equal(ids, np.arange(ids[0], ids[0] + len(ids))):
+        # made on the device: a copy from pageable host memory would first
+        # wait for the work already queued (the previous batch's launch)
+        cid = torch.arange(int(ids[0]), int(ids[0]) + len(ids), device=device)
+    else:
+        cid = torch.from_numpy(ids).to(device)
+    slot = torch.arange(slots, dtype=torch.int64, device=device)
+    out = torch.empty((len(cid), slots), dtype=torch.int32, device=device)
+    for s in range(0, len(cid), cells_per_hash):
+        idx = ((iteration * total_cells + cid[s:s + cells_per_hash, None])
+               * slots + slot)
+        out[s:s + cells_per_hash] = rng_ops.as_int32_bits(
+            rng_ops.seed_fast_device(idx, seed))
+    return out

@@ -40,7 +40,7 @@ from torch import nn
 from . import build
 from .trace_persistent import (
     MAX_FC, MAX_OC, _MASK32, _Rows, _bounce_step, _jones, _power, _rsqrt,
-    launch_counts,
+    launch_counts, select_cells,
 )
 from .trace_rows import (
     LANES, MAX_EDGES, PC, PG, rows_to_device,
@@ -388,11 +388,7 @@ class CellTracer(nn.Module):
 
     def rows(self, cell_ids) -> torch.Tensor:
         """The cell rows of ``cell_ids`` (a view for a contiguous run)."""
-        cid = np.asarray(cell_ids, np.int64)
-        if len(cid) and np.array_equal(cid, np.arange(cid[0], cid[0] + len(cid))):
-            return self.cell_params[int(cid[0]):int(cid[0]) + len(cid)]
-        return self.cell_params.index_select(
-            0, torch.from_numpy(cid).to(self.cell_params.device))
+        return select_cells(self.cell_params, cell_ids)
 
     def forward(self, cell_ids, rays_in: torch.Tensor, rng_in: torch.Tensor,
                 state_in: Optional[torch.Tensor] = None,

@@ -424,7 +424,13 @@ def _power(v):
 
 
 def _rsqrt(v):
-    return 1.0 / torch.sqrt(torch.clamp(v, min=1e-30))
+    """``1 / sqrt(v)`` as the kernels round it: the float32 square root
+    correctly rounded (``sqrtf``), then its reciprocal.  The root is taken in
+    float64 and rounded to float32, which is the correctly rounded float32
+    root (53 >= 2 * 24 + 2 bits).  torch's float32 ``sqrt`` on the CPU is
+    not correctly rounded, and in some processes one thread's share of a
+    large tensor comes out rounded otherwise (F4 in ROADMAP.md)."""
+    return 1.0 / torch.sqrt(torch.clamp(v, min=1e-30).double()).float()
 
 
 def _bin(v, hi: int):
@@ -900,21 +906,31 @@ class PersistentTracer(nn.Module):
         self.transit_jump = bool(transit_jump)
         self.jump_phase = jump_phase
 
-    def forward(self, start: int, count: int, rays_in: torch.Tensor,
-                rng_in: torch.Tensor, ctrl: torch.Tensor,
-                cells_per_block: int = 1):
-        """Trace cells ``start .. start + count`` (a contiguous cid run),
+    def forward(self, cell_ids, rays_in: torch.Tensor, rng_in: torch.Tensor,
+                ctrl: torch.Tensor, cells_per_block: int = 1,
+                spawn_mode: str = "count"):
+        """Trace the cells ``cell_ids`` (a contiguous run reads its rows and
+        packed words as views; any other set gathers them),
         ``cells_per_block`` of them to a block."""
         packed = self.cell_params_packed
         return persistent_trace(
-            self.cell_params[start:start + count], self.geom_row, rays_in,
+            select_cells(self.cell_params, cell_ids), self.geom_row, rays_in,
             rng_in, ctrl, num_fc=self.num_fc, num_oc=self.num_oc,
             edge_counts=self.edge_counts, eyebox_bins=self.eyebox_bins,
-            max_iters=self.max_iters, accum_mode=self.accum_mode,
-            cells_per_block=cells_per_block, transit_jump=self.transit_jump,
-            jump_phase=self.jump_phase,
+            max_iters=self.max_iters, spawn_mode=spawn_mode,
+            accum_mode=self.accum_mode, cells_per_block=cells_per_block,
+            transit_jump=self.transit_jump, jump_phase=self.jump_phase,
             cell_params_packed=(None if packed is None
-                                else packed[start:start + count]))
+                                else select_cells(packed, cell_ids)))
+
+
+def select_cells(rows: torch.Tensor, cell_ids) -> torch.Tensor:
+    """The rows of ``cell_ids``: a view for a contiguous run, else a
+    gather."""
+    cid = np.asarray(cell_ids, np.int64)
+    if len(cid) and np.array_equal(cid, np.arange(cid[0], cid[0] + len(cid))):
+        return rows[int(cid[0]):int(cid[0]) + len(cid)]
+    return rows.index_select(0, torch.from_numpy(cid).to(rows.device))
 
 
 def hist_tiles_to_histogram(hist_tiles: torch.Tensor, cell_ids: np.ndarray,

@@ -8,7 +8,10 @@ simulated eye-view image stack).  The host part is numpy float64, copied from
 the JAX package's ``eval/metrics.py``; the device part (:func:`pupil_conv`,
 :func:`evaluate_torch`, :func:`evaluate_batch`) is plain PyTorch in the
 stack's dtype (float32 on the card), the counterpart of the JAX package's
-jnp functions.
+jnp functions: pupil integration (:func:`eye_perceived_torch`,
+:func:`eye_perceived_conv`), colorimetry (:func:`evaluate_torch`,
+:func:`evaluate_batch`) and the dense eye-position scan
+(:func:`evaluate_dense`).
 """
 
 from __future__ import annotations
@@ -112,6 +115,33 @@ def pupil_conv(m: torch.Tensor, mask: torch.Tensor,
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 
+def eye_perceived_conv(matrix_eb: torch.Tensor, cfg: EvalConfig = EvalConfig(),
+                       stride: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Pupil integration of a (L, fy, fx, eb_y, eb_x) histogram on its
+    device: one :func:`pupil_conv` with the pupil disc as kernel.
+    ``stride=(1, 1)`` gives every valid eye position (51 x 91 at reference
+    resolution); the default ``(eye_step_y, eye_step_x)`` gives the sampled
+    grid of :func:`eye_perceived`: VALID windows at those steps start at the
+    same ``y0``s and ``x0``s.  The counterpart of the JAX package's
+    ``eye_perceived_conv_jnp``; the sums inside a window may associate
+    differently from :func:`eye_perceived`'s."""
+    if stride is None:
+        stride = (cfg.eye_step_y, cfg.eye_step_x)
+    mask = torch.as_tensor(pupil_mask(cfg.pupil_mask_bins),
+                           dtype=matrix_eb.dtype, device=matrix_eb.device)
+    return pupil_conv(matrix_eb, mask, stride)
+
+
+def eye_perceived_torch(matrix_eb: torch.Tensor,
+                        cfg: EvalConfig = EvalConfig()) -> torch.Tensor:
+    """:func:`eye_perceived` on the histogram's device: (L, fy, fx, 80, 120)
+    -> (L, fy, fx, 7, 8) at reference resolution, so only the stack (about
+    5 MB at the reference workload) need leave the device.  The counterpart
+    of the JAX package's ``eye_perceived_jnp``, computed as
+    :func:`eye_perceived_conv` at the sampled grid's stride."""
+    return eye_perceived_conv(matrix_eb, cfg)
+
+
 def _make_eval_core(with_image: bool):
     """The device colorimetry body shared by :func:`evaluate_torch` and
     :func:`evaluate_batch`: (B, L, fy, fx, epy, epx) perception stacks ->
@@ -203,6 +233,40 @@ def evaluate_batch(perc_stack: torch.Tensor, norm: float = 1.0) -> list:
     n_epy, n_epx = perc_stack.shape[4], perc_stack.shape[5]
     return [_eval_result_from_out(out, d, n_epy, n_epx, with_image=False)
             for d in range(perc_stack.shape[0])]
+
+
+def evaluate_dense(matrix_eb: torch.Tensor, cfg: EvalConfig = EvalConfig(),
+                   norm: float = 1.0, chunk_rows: int = 0) -> EvalResult:
+    """The metrics over every valid eye position (the reference's dense scan,
+    AR_system_evaluation_functions.py:77-89), on the histogram's device: the
+    stride-1 stack of :func:`eye_perceived_conv` through the colorimetry of
+    :func:`evaluate_torch`; ``eye_luminance`` is the full-resolution (epy,
+    epx) map.  ``chunk_rows > 0`` evaluates that many eye-position rows at a
+    time, which bounds the colorimetry's temporaries; chunked and unchunked
+    results agree to float association.  The counterpart of the JAX
+    package's ``evaluate_dense``."""
+    perc = eye_perceived_conv(matrix_eb, cfg, stride=(1, 1))
+    n_epy, n_epx = perc.shape[3], perc.shape[4]
+    if chunk_rows <= 0 or chunk_rows >= n_epy:
+        return evaluate_torch(perc, cfg, norm=norm)
+    core = _make_eval_core(with_image=False)
+    de_sum = ratio_sum = 0.0
+    u_eb_rows = []
+    for y0 in range(0, n_epy, chunk_rows):
+        out = core(perc[None, :, :, :, y0:y0 + chunk_rows], _inv_norm(norm))
+        rows = min(chunk_rows, n_epy - y0)
+        de_sum += float(out["delta_e"][0]) * rows * n_epx
+        ratio_sum += float(out["ratio_sum"][0])
+        u_eb_rows.append(out["u_eb"][0].cpu().numpy().astype(np.float64))
+    u_eb = np.concatenate(u_eb_rows, axis=0)
+    return EvalResult(
+        delta_e=de_sum / (n_epy * n_epx),
+        u_fov=ratio_sum / (n_epy * n_epx),
+        u_eyebox=0.0 if u_eb.max() == 0 else float(u_eb.min() / u_eb.max()),
+        output_image=None,
+        eye_luminance=u_eb,
+        starved_eye_positions=int((u_eb == 0.0).sum()),
+    )
 
 
 def evaluate(matrix_eb: Optional[np.ndarray], cfg: EvalConfig = EvalConfig(),

@@ -107,16 +107,18 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
         cell_params_packed=cpk)
 
 
-def shared_seed_block(cfg: TraceConfig, slots: int,
-                      cells_per_block: int = 1) -> np.ndarray:
-    """(L*M*N, RT, 128) uint32 per-slot seeds shared by every design: the
-    seed contract global index ``cid * slots + slot`` (iteration 0), as the
-    per-cell host path and the JAX package's sweep hash it.  With
-    ``cells_per_block = k`` the same seeds as (L*M*N / k, k * RT, 128): each
-    cell of a block keeps its own seed block."""
+def shared_seed_block(cfg: TraceConfig, slots: int, cells_per_block: int = 1,
+                      device="cpu") -> torch.Tensor:
+    """(L*M*N, RT, 128) int32 per-slot seeds shared by every design, hashed
+    on ``device``: the seed contract global index ``cid * slots + slot``
+    (iteration 0), as the per-cell host path and the JAX package's sweep
+    hash it (:func:`..engine.seeding.cell_seeds_device`, bitwise
+    :func:`..engine.seeding.cell_seeds`).  With ``cells_per_block = k`` the
+    same seeds as (L*M*N / k, k * RT, 128): each cell of a block keeps its
+    own seed block."""
     n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
-    return seeding.cell_seeds(np.arange(n_cells), slots, 0, n_cells,
-                              cfg.seed).reshape(
+    return seeding.cell_seeds_device(np.arange(n_cells), slots, 0, n_cells,
+                                     cfg.seed, device).reshape(
         n_cells // cells_per_block, -1, trace_rows.LANES)
 
 
@@ -199,8 +201,8 @@ def run_design_sweep_persistent(
     With shared pupil samples and fast seeding, each design uploads one
     ``(6, RT, 128)`` launch tile (reused while the in-coupler polygon is
     unchanged) and one ``(L*M*N, RT, 128)`` seed block, hashed once per
-    sweep with the seed contract global index ``cid * slots + slot``
-    (:func:`..engine.seeding.cell_seeds`, iteration 0), serves every design.
+    sweep on the device with the seed contract global index ``cid * slots +
+    slot`` (:func:`shared_seed_block`, iteration 0), serves every design.
     Otherwise, or when the ray indices pass 32 bits, every cell's tile and
     seeds are built on the host.
 
@@ -212,8 +214,9 @@ def run_design_sweep_persistent(
     those designs' (in design order).
 
     ``SweepResult.timings``, host seconds: ``prep_s`` (geometry, tables and
-    rows), ``seed_s`` (the shared seed block), ``upload_s`` (rows and tiles
-    to the device), ``keep_s`` (kept histograms to the host) and ``pull_s``
+    rows), ``seed_s`` (dispatching the shared seed block's hash on the
+    device), ``upload_s`` (rows and tiles to the device), ``keep_s`` (kept
+    histograms to the host) and ``pull_s``
     (efficiencies and bounces to the host), both waiting for the device,
     ``metrics_s`` (batched colorimetry and its pull); on a GPU, device
     milliseconds from CUDA events: ``kernel_ms`` (the launches) and
@@ -265,9 +268,7 @@ def run_design_sweep_persistent(
     rng_cell = None
     if broadcast:
         t0 = time.perf_counter()
-        # the seeds travel as int32 holding the same bits
-        rng_cell = torch.from_numpy(
-            shared_seed_block(cfg, slots, cpb).view(np.int32)).to(dev)
+        rng_cell = shared_seed_block(cfg, slots, cpb, dev)
         timings["seed_s"] = time.perf_counter() - t0
 
     mask = torch.as_tensor(pupil_mask(eval_cfg.pupil_mask_bins),

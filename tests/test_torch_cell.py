@@ -234,6 +234,31 @@ def test_segments_sum_to_the_whole(setup, port_full, port_seg):
         np.testing.assert_array_equal(rest[k], port_full[k])
 
 
+@pytest.mark.parametrize("threads", [1, 3])
+def test_segments_sum_to_the_whole_under_thread_counts(setup, port_full,
+                                                      threads):
+    """The same exact identity with every run under ``threads`` intra-op
+    threads, and the whole run equal to the module's (default threads).
+    torch's float32 ``sqrt`` on the CPU is split between threads in chunks
+    and is not correctly rounded: in some processes one thread's chunk came
+    out rounded otherwise, which broke this identity now and then (F4).
+    The plain version now takes the root in float64."""
+    _, _, _, _, rays, seeds, _ = setup
+    keep = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        full = _port(setup, rays, seeds, budget=BUDGET)
+        seg = _port(setup, rays, seeds, budget=SEG)
+        rest = _port(setup, seg[2], seg[4], seg[3], budget=BUDGET - SEG)
+    finally:
+        torch.set_num_threads(keep)
+    for k in range(5):
+        np.testing.assert_array_equal(full[k], port_full[k])
+    for k in (2, 3, 4):
+        np.testing.assert_array_equal(rest[k], full[k])
+    np.testing.assert_array_equal(seg[1][:, 0] + rest[1][:, 0], full[1][:, 0])
+
+
 @pytest.fixture(scope="module")
 def port_tensors(setup):
     _, _, cp, gr, rays, seeds, _ = setup

@@ -406,3 +406,83 @@ def test_cell_kernel_edge_launches_equal_plain_version_on_card(
     assert int(outk[1][:, 0].sum()) > 0
     if case == "budget_1":
         assert int(outk[1][:, 1].max()) == 1 and bool((outk[3] < 6).any())
+
+
+@pytest.mark.cuda
+def test_device_seeds_equal_host_seeds_on_card(cuda_device):
+    """The int64 splitmix64 on the card, bit for bit the numpy hash, from
+    2^32 on included, and the int32 view wraps as the host's does."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.ops import rng
+
+    idx = np.concatenate([np.arange(1_000_000), np.arange(2**32 - 5000,
+                                                          2**32 + 5000),
+                          np.array([2**40, 2**63 - 1])]).astype(np.uint64)
+    for seed in (0, 6, 2**31 - 1):
+        got = rng.seed_fast_device(
+            torch.from_numpy(idx.astype(np.int64)).to(cuda_device), seed)
+        want = rng.seed_fast(idx, seed)
+        np.testing.assert_array_equal(got.cpu().numpy().astype(np.uint32),
+                                      want)
+        np.testing.assert_array_equal(rng.as_int32_bits(got).cpu().numpy(),
+                                      want.view(np.int32))
+    cells = np.array([3, 4, 5, 70_000, 1])
+    got = seeding.cell_seeds_device(cells, 2048, 3, 700_000, 9, cuda_device,
+                                    cells_per_hash=2)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        seeding.cell_seeds(cells, 2048, 3, 700_000, 9).view(np.int32))
+
+
+@pytest.mark.cuda
+def test_device_tail_equals_host_tail_on_card(small, cuda_device):
+    """Host tail, pulled stack and device metrics of one Simulator on the
+    card: histograms identical, efficiencies within 1e-6 relative, metrics
+    within 1e-4; the card's run equals the CPU's."""
+    geom, cfg = small
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             persistent_slots=128)
+    host = sim.run()
+    stack = sim.run(histogram_device=True)
+    dev = sim.run(histogram_device=True, metrics_device=True,
+                  dense_metrics=True)
+    cpu = pipeline.Simulator(cfg=cfg, geom=geom, device="cpu",
+                             persistent_slots=128).run(evaluate_metrics=False)
+    np.testing.assert_array_equal(host.histogram, cpu.histogram)
+    for r in (stack, dev):
+        assert r.histogram.is_cuda
+        np.testing.assert_array_equal(r.histogram.cpu().numpy(),
+                                      host.histogram)
+        for k, v in host.efficiencies.items():
+            assert abs(r.efficiencies[k] / v - 1) <= 1e-6, k
+        for k in ("delta_e", "u_fov"):
+            a, b = getattr(r.metrics, k), getattr(host.metrics, k)
+            assert abs(a - b) <= 1e-4 * abs(b), k
+    assert dev.dense.eye_luminance.shape == (51, 91)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["persistent", "cell"])
+def test_wavelengths_and_checkpoint_on_card(small, cuda_device, tmp_path,
+                                            engine):
+    """A ``wavelengths=(0, 2)`` run's rows are the full run's and row 1 is
+    zero; two unfolded iterations checkpointed and resumed to three equal
+    three uninterrupted."""
+    geom, cfg = small
+    sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                             persistent_slots=128, engine=engine,
+                             fold_iterations=False)
+    kw = dict(rays_per_fov=128, evaluate_metrics=False, cells_per_batch=16)
+    full = sim.run(num_iter=3, **kw)
+    sub = sim.run(num_iter=3, wavelengths=(0, 2), **kw)
+    for l in (0, 2):
+        np.testing.assert_array_equal(sub.histogram[l], full.histogram[l])
+    assert not sub.histogram[1].any()
+    path = str(tmp_path / "ck.npz")
+    sim.run(num_iter=2, checkpoint_path=path, **kw)
+    resumed = sim.run(num_iter=3, checkpoint_path=path, **kw)
+    np.testing.assert_array_equal(resumed.histogram, full.histogram)
+    assert resumed.total_bounces == full.total_bounces
+    assert resumed.rays_traced == full.rays_traced

@@ -154,3 +154,35 @@ def test_host_metrics_bitwise():
     out = metrics.evaluate(hist / 512.0).output_image
     assert_same(image.eye_view_uint8(out, 1, 2), jimage.eye_view_uint8(out, 1, 2),
                 "eye view")
+
+
+def test_checkpoint_copy_and_file_format(tmp_path):
+    """The port's ``utils/checkpoint.py`` is the JAX package's, fingerprints
+    included: a checkpoint written by either package loads in the other for
+    the same design and configuration, and not for another."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_tpu.utils import (
+        checkpoint as jck,
+    )
+
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.utils import (
+        checkpoint as ck,
+    )
+
+    cfg, jcfg = config.TraceConfig(seed=3), jconfig.TraceConfig(seed=3)
+    d, jd = config.WaveguideDesign(), jconfig.WaveguideDesign()
+    assert ck._fingerprint(d, cfg) == jck._fingerprint(jd, jcfg)
+    assert ck._fingerprint(d, config.TraceConfig(seed=4)) != ck._fingerprint(
+        d, cfg)
+    hist = np.random.default_rng(1).poisson(
+        1.0, size=(3, N, M, 80, 120)).astype(np.float32)
+    for save, load, sd, sc, ld, lc in (
+            (jck.save_checkpoint, ck.load_checkpoint, jd, jcfg, d, cfg),
+            (ck.save_checkpoint, jck.load_checkpoint, d, cfg, jd, jcfg)):
+        path = str(tmp_path / "ck.npz")
+        save(path, hist, 2, sd, sc, 12345, extras={"total_rays": 77,
+                                                   "total_spawned": 80})
+        h, it, bounces, extras = load(path, ld, lc, with_extras=True)
+        np.testing.assert_array_equal(h, hist)
+        assert (it, bounces, extras) == (2, 12345, {"total_rays": 77,
+                                                    "total_spawned": 80})
+        assert load(path, ld, dataclasses.replace(lc, seed=4)) is None
