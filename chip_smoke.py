@@ -130,6 +130,32 @@ Run from the repository root.  Phases:
    checkpoint and resume at 20 x 15 FoV on each engine, 2 iterations
    checkpointed and resumed to 3 equal to 3 uninterrupted.  Launch counts
    are reset at its start and read at its end.
+12. the vector engine at full width through ``Simulator(engine="vector",
+   segmented=True)``: phase 8's workload (22,500 cells, 5,000 host-seeded
+   rays per cell in 11 batches, 80 x 120 bins, a 100,000-bounce bound,
+   metrics on, ``num_iter=1``), with its layers (setup, host seeding, the
+   bounce loop, compaction, scatter, the tail), the steps of each batch, the
+   reads from the device, the wall and the peak device memory; every
+   colour's efficiency within 2 % of phase 8's cell engine (both weigh
+   launch points equally).  The first batch again, to the end in one loop:
+   it must equal the compacted run bit for bit, and its per-ray deposits
+   must agree with K2's (the cell engine, the same host seeds) for at least
+   99.5 % of the rays (the two geometries are simplified at different
+   tolerances).  Then the CLI's default sweep (8 periods, 180,000 cells, 256
+   rays per cell) through ``run_design_sweep``, its wall and peak memory
+   beside phase 6a's; design 3 must equal its solo sweep bit for bit;
+13. the exact splitting engine: (a) the README's case, 16 x 12 FoV x 3
+   wavelengths = 576 cells, 64 launch positions per cell in 32 passes of 2,
+   threshold 1e-6, 8,192-slot wavefronts per cell: nothing truncated, the
+   histogram's sum equal to the deposited weight within 1e-5, and batches of
+   256 and of 100 cells identical (4 passes); (b) 4 of its cells on the card
+   against the CPU: histograms within rtol 2e-4 / atol 1e-10, equal steps,
+   peak widths and truncation, pruned and deposited weight within 1e-4 and
+   1e-5; (c) 256 cells of the 100 x 75 grid at 16 positions (8 passes of
+   2): ms per cell, the widest wavefront and the full grid's time this
+   implies; (d) the global engine on 3 x 2 FoV x 3 wavelengths at 4
+   positions, card against CPU within the same bars.  Phases 12 and 13
+   launch no kernel (the K2 cross-check aside).
 
 Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
 fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
@@ -1651,10 +1677,380 @@ def phase11(ctx) -> None:
     ctx["k2_tail_launches"] = launches["cell_trace"]
 
 
+def phase12(ctx) -> None:
+    """The vector engine at full width, and the CLI's default sweep through
+    the vector sweep."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase12", {})
+    faults = []
+    cfg = TraceConfig()   # 100 x 75 x 3 cells, 5,000 rays per cell
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = pipeline.Simulator(cfg=cfg, device=dev, engine="vector",
+                             segmented=True)
+    res = sim.run(num_iter=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tp.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tm, met = res.timings, res.metrics
+    n_cells = sim.L * sim.M * sim.N
+    entry = {
+        "cells": n_cells, "rays_per_cell": cfg.rays_per_fov, "num_iter": 1,
+        "segment_bounces": sim._segment_bounces, "wall_s": wall,
+        "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+        "seed_s": tm["seed_s"], "init_ms": tm.get("init_ms"),
+        "bounce_ms": tm.get("bounce_ms", 0.0), "compact_ms": tm.get("compact_ms"),
+        "scatter_ms": tm.get("scatter_ms", 0.0), "assemble_s": tm["assemble_s"],
+        "tail_s": tm["metrics_s"], "batch_steps": tm["batch_steps"],
+        "syncs": tm["syncs"], "segments": tm.get("segments"),
+        "total_bounces": res.total_bounces,
+        "bounces_per_s": res.bounces_per_second,
+        "rays_traced": res.rays_traced, "deposits": res.deposits,
+        "efficiencies": res.efficiencies, "delta_e": met.delta_e,
+        "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+        "launches": launches, "peak_bytes": peak}
+    rec["run"] = entry
+    save_record(ctx)
+    print(pipeline.format_report(res))
+    print(f"phase 12: {n_cells} cells x {cfg.rays_per_fov} rays, vector "
+          f"engine, segments of {sim._segment_bounces}: wall {wall:.3f} s "
+          f"(setup {sim.setup_seconds:.3f} s), trace {res.trace_seconds:.3f} "
+          f"s, host seeding {tm['seed_s']:.3f} s, bounce loop "
+          f"{tm.get('bounce_ms', 0.0):.1f} ms (init {tm.get('init_ms', 0.0):.1f} "
+          f"ms), compaction {tm.get('compact_ms', 0.0):.1f} ms, scatter "
+          f"{tm.get('scatter_ms', 0.0):.1f} ms, histogram to the host "
+          f"{tm['assemble_s']:.3f} s, tail {tm['metrics_s']:.3f} s; steps "
+          f"per batch {tm['batch_steps']}, {tm['syncs']} reads from the "
+          f"device, {tm.get('segments', 0)} compactions; bounces "
+          f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), deposits "
+          f"{res.deposits:,}; peak device memory {peak / 2**20:.1f} MiB")
+    vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
+                                              met.u_eyebox]
+    if not all(math.isfinite(v) for v in vals) or min(
+            res.efficiencies.values()) <= 0:
+        faults.append(f"metric not finite or efficiency not positive: {vals}")
+    if float(res.histogram.sum(dtype=np.float64)) != res.deposits:
+        faults.append("histogram sum is not the deposit count")
+    if res.rays_traced != n_cells * cfg.rays_per_fov:
+        faults.append(f"{res.rays_traced} rays traced")
+    if launches["persistent_trace"] or launches["cell_trace"]:
+        faults.append(f"the vector engine launched kernels: {launches}")
+    ref = ctx.get("cell_efficiencies")
+    if ref is not None:
+        rel = {k: v / ref[k] - 1 for k, v in res.efficiencies.items()}
+        entry["vs_cell_engine"] = rel
+        print("phase 12: efficiencies relative to phase 8's cell engine: "
+              + ", ".join(f"{k} {r:+.5f}" for k, r in rel.items()))
+        if max(abs(r) for r in rel.values()) > 0.02:
+            faults.append(f"efficiencies {res.efficiencies} not within 2 % "
+                          f"of phase 8's {ref}")
+
+    # ---- the first batch: monolithic against compacted (the same seeded
+    # rays, seeding not timed), and against K2
+    chunk = np.arange(2048)
+    rays = sim._vector_rays(chunk, cfg.rays_per_fov, 0)
+    hists = [torch.zeros((sim.L, sim.N, sim.M, *cfg.eyebox_bins),
+                         dtype=torch.float32, device=dev) for _ in range(2)]
+
+    def add(h):
+        return lambda r: tv.add_deposits(h.view(-1), r["dep"], r["cid"],
+                                         sim.M, sim.N, *cfg.eyebox_bins)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mono, b_mono = sim.tracer(rays)
+    add(hists[0])(mono)
+    torch.cuda.synchronize()
+    t_mono = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_comp = tv.trace_compacted(sim.tracer, rays, cfg.max_bounces,
+                                sim._segment_bounces, add(hists[1]))
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t0
+    same = (torch.equal(hists[0], hists[1])
+            and int(b_mono.sum()) == int(b_comp.sum()))
+    dep_v = mono["dep"].reshape(len(chunk), -1)
+    del rays, mono, hists
+    tp.reset_launch_counts()
+    cell = pipeline.Simulator(cfg=cfg, device=dev, engine="cell")
+    rays_in, rng_in = cell._cell_blocks(chunk, cfg.rays_per_fov, 0)
+    dep_k2 = cell.tracer(chunk, rays_in, rng_in)[0].reshape(
+        len(chunk), -1)[:, :cfg.rays_per_fov]
+    agree = float((dep_k2 == dep_v).float().mean())
+    dep_rate = (float((dep_v >= 0).float().mean()),
+                float((dep_k2 >= 0).float().mean()))
+    del cell, rays_in, rng_in, dep_k2, dep_v
+    rec["first_batch"] = {
+        "monolithic_s": t_mono, "compacted_s": t_comp,
+        "compacted_equals_monolithic": same,
+        "bounces": int(b_comp.sum()), "k2_per_ray_agreement": agree,
+        "deposit_rate_vector_k2": dep_rate,
+        "k2_comparison_launches": dict(tp.launch_counts)}
+    save_record(ctx)
+    print(f"phase 12 first batch (2,048 cells x 5,000 rays): monolithic "
+          f"{t_mono:.3f} s, compacted {t_comp:.3f} s, "
+          f"{'identical' if same else 'DIFFERENT'}; per-ray deposits equal "
+          f"to K2's (the cell engine, the same host seeds) for {agree:.5f} "
+          f"of the rays (deposit rates {dep_rate[0]:.5f}, {dep_rate[1]:.5f})")
+    if not same:
+        faults.append("compacted first batch differs from monolithic")
+    if agree < 0.995:
+        faults.append(f"per-ray agreement with K2 {agree:.5f} < 0.995")
+    del sim
+    torch.cuda.empty_cache()
+
+    # ---- the CLI's default sweep through the vector sweep
+    sargs = cli.build_parser().parse_args(["sweep", "--engine", "vector"])
+    designs, _ = cli.sweep_designs(sargs)
+    cfg6 = cli.sweep_config(sargs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sw = design_sweep.run_design_sweep(designs, cfg6, device=dev,
+                                       keep_histograms=(3,))
+    torch.cuda.synchronize()
+    wall6 = time.perf_counter() - t0
+    peak6 = torch.cuda.max_memory_allocated()
+    solo = design_sweep.run_design_sweep(designs[3:4], cfg6, device=dev)
+    solo_same = (np.array_equal(sw.histograms[0], solo.histograms[0])
+                 and sw.bounces[3] == solo.bounces[0]
+                 and np.array_equal(sw.efficiencies[3], solo.efficiencies[0]))
+    p6 = ctx["record"].get("phase6", {}).get("cli_default", {})
+    stm = sw.timings
+    rec["sweep"] = {
+        "designs": len(designs), "cells": len(designs) * n_cells,
+        "rays_per_fov": cfg6.rays_per_fov, "wall_s": wall6,
+        "peak_bytes": peak6, "timings": stm,
+        "bounces": sw.bounces.tolist(),
+        "efficiencies": sw.efficiencies.tolist(),
+        "design3_equals_solo": solo_same,
+        "phase6a_wall_s": p6.get("wall_s"),
+        "phase6a_peak_bytes": p6.get("peak_bytes")}
+    save_record(ctx)
+    print(f"phase 12 sweep: {len(designs)} designs, "
+          f"{len(designs) * n_cells:,} cells x {cfg6.rays_per_fov} rays "
+          f"through the vector sweep: wall {wall6:.3f} s (host prep "
+          f"{stm['prep_s']:.3f} s, upload {stm['upload_s']:.3f} s, bounce "
+          f"loop {stm.get('bounce_ms', 0.0):.1f} ms, compaction "
+          f"{stm.get('compact_ms', 0.0):.1f} ms, {stm['steps']} steps, "
+          f"{stm['syncs']} reads from the device), peak device memory "
+          f"{peak6 / 2**20:.1f} MiB; phase 6a (persistent kernel): wall "
+          f"{p6.get('wall_s', float('nan')):.3f} s, peak "
+          f"{p6.get('peak_bytes', float('nan')) / 2**20:.1f} MiB; design 3 "
+          f"{'equals' if solo_same else 'DIFFERS FROM'} its solo sweep")
+    eff = sw.efficiencies
+    if not (np.isfinite(eff).all() and (eff > 0).all()):
+        faults.append(f"sweep efficiencies {eff.tolist()}")
+    if not solo_same:
+        faults.append("sweep design 3 differs from its solo sweep")
+    if faults:
+        fail("phase 12: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
+def phase13(ctx) -> None:
+    """The exact splitting engine: the README's case, card against CPU, a
+    timing chunk at the reference width, the global engine."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, seeding, splitting, trace_persistent as tp, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase13", {})
+    faults = []
+    tp.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # ---- (a) the README's case: 16 x 12 x 3 cells, 64 launch positions per
+    # cell in passes of 2 (the position batching of the repo's exact runs),
+    # threshold 1e-6, 8,192-slot wavefronts per cell
+    cfg = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=2)
+    sim = pipeline.Simulator(cfg=cfg, device=dev, engine="splitting")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sim.run(rays_per_fov=2, num_iter=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = float(res.histogram.sum(dtype=np.float64))
+    out_w = sim.split_out_coupled
+    met = res.metrics
+    a = {"cells": 576, "positions": 64, "wall_s": wall,
+         "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+         "steps": res.total_bounces, "truncated": sim.split_truncated,
+         "pruned": sim.split_pruned, "out_coupled": out_w,
+         "histogram_sum": total, "peak_live": sim.split_peak_live,
+         "efficiencies": res.efficiencies, "delta_e": met.delta_e,
+         "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+         "peak_bytes": torch.cuda.max_memory_allocated()}
+    ledgers = (sim.split_truncated, sim.split_pruned, sim.split_out_coupled)
+    r4 = sim.run(rays_per_fov=2, num_iter=4, evaluate_metrics=False)
+    r4b = sim.run(rays_per_fov=2, num_iter=4, cells_per_batch=100,
+                  evaluate_metrics=False)
+    # a batch's steps are its widest cell's, so only the histograms compare
+    a["chunks_256_100_identical"] = bool(
+        np.array_equal(r4.histogram, r4b.histogram))
+    a["chunks_max_abs_diff"] = float(np.abs(r4.histogram
+                                            - r4b.histogram).max())
+    rec["readme"] = a
+    save_record(ctx)
+    print(f"phase 13a: 576 cells x 64 positions (32 passes of 2): wall "
+          f"{wall:.3f} s, {res.total_bounces} steps; truncated "
+          f"{ledgers[0]}, pruned {ledgers[1]:.6g}, out-coupled "
+          f"{out_w:.8g}, histogram sum {total:.8g}, peak wavefront "
+          f"{sim.split_peak_live} of 8,192; efficiencies "
+          f"{json.dumps(res.efficiencies)}, delta E {met.delta_e:.4f}, "
+          f"u_fov {met.u_fov:.5f}, u_eyebox {met.u_eyebox:.5f}; batches of "
+          f"256 and of 100 cells "
+          f"{'identical' if a['chunks_256_100_identical'] else 'DIFFER'}")
+    if ledgers[0] != 0:
+        faults.append(f"README case truncated {ledgers[0]}")
+    if abs(total - out_w) > 1e-5 * out_w or out_w <= 0:
+        faults.append(f"histogram sum {total} vs out-coupled {out_w}")
+    if not a["chunks_256_100_identical"]:
+        faults.append("two batch sizes give different histograms")
+    del sim, res, r4, r4b
+
+    # ---- (b) card against CPU on 4 of its cells (iteration 0's positions)
+    cells4 = np.array([0, 191, 300, 575])
+    got = {}
+    for d in ("cpu", dev):
+        s = pipeline.Simulator(cfg=cfg, device=d, engine="splitting")
+        h, steps, _ = s.trace_batch(cells4, 2, 0)
+        got[str(d)] = (h.cpu().numpy(), steps, s.split_peak_live,
+                       s.split_truncated, s.split_pruned, s.split_out_coupled)
+    c, g = got["cpu"], got[str(dev)]
+    close = bool(np.allclose(g[0], c[0], rtol=2e-4, atol=1e-10))
+    same_steps = (g[1], g[2], g[3]) == (c[1], c[2], c[3])
+    pr_rel = abs(g[4] - c[4]) / max(c[4], 1e-30)
+    ow_rel = abs(g[5] - c[5]) / max(c[5], 1e-30)
+    rec["card_vs_cpu"] = {
+        "cells": cells4.tolist(), "hist_within_bars": close,
+        "hist_max_abs": float(np.abs(g[0] - c[0]).max()),
+        "bitwise": bool(np.array_equal(g[0], c[0])),
+        "steps": [g[1], c[1]], "peak_live": [g[2], c[2]],
+        "truncated": [g[3], c[3]], "pruned_rel": pr_rel,
+        "out_coupled_rel": ow_rel}
+    save_record(ctx)
+    print(f"phase 13b: card against CPU on cells {cells4.tolist()}: "
+          f"histogram within rtol 2e-4 / atol 1e-10: {close} (bitwise "
+          f"{rec['card_vs_cpu']['bitwise']}); steps {g[1]} / {c[1]}, peak "
+          f"{g[2]} / {c[2]}, truncated {g[3]} / {c[3]}; pruned "
+          f"{pr_rel:.2e}, out-coupled {ow_rel:.2e} relative apart")
+    if not (close and same_steps and pr_rel <= 1e-4 and ow_rel <= 1e-5):
+        faults.append(f"card and CPU differ: {rec['card_vs_cpu']}")
+
+    # ---- (c) a timing chunk at the reference width: 256 cells of the
+    # 100 x 75 grid, 16 positions (8 passes of 2), threshold 1e-6
+    cfg_c = TraceConfig(rays_per_fov=2)
+    sim = pipeline.Simulator(cfg=cfg_c, device=dev, engine="splitting")
+    cells = np.arange(256)
+    steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(8):
+        _, st, _ = sim.trace_batch(cells, 2, it)
+        steps.append(st)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    ms_cell = wall_c * 1e3 / len(cells)
+    rec["timing_chunk"] = {
+        "cells": len(cells), "positions": 16, "wall_s": wall_c,
+        "ms_per_cell": ms_cell, "full_grid_s": ms_cell * 22500 / 1e3,
+        "steps": steps, "peak_live": sim.split_peak_live,
+        "truncated": sim.split_truncated, "pruned": sim.split_pruned}
+    save_record(ctx)
+    print(f"phase 13c: 256 cells of the 100 x 75 grid x 16 positions: "
+          f"{wall_c:.3f} s, {ms_cell:.3f} ms per cell (the full 22,500-cell "
+          f"grid: {ms_cell * 22.5:.1f} s); steps per pass {steps}, peak "
+          f"wavefront {sim.split_peak_live}, truncated "
+          f"{sim.split_truncated}")
+    del sim
+
+    # ---- (d) the global engine on the 3 x 2 fixture, card against CPU
+    cfg_d = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4,
+                        rng_mode="fast", seed=2)
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    tgeom = build_trace_geometry(geom)
+    b = seeding.build_ray_batch(geom, cfg_d)
+    glob = {}
+    for d in ("cpu", dev):
+        rays = tv.make_ray_state(b["x"], b["y"], b["te"], b["tm"], b["cid"],
+                                 b["idx"], b["rng"], device=d)
+        t0 = time.perf_counter()
+        glob[str(d)] = splitting.run_splitting(
+            tables, tgeom, cfg_d, rays, capacity=1 << 15,
+            weight_threshold=1e-5, max_steps=300, device=d)
+        glob[str(d) + "_s"] = time.perf_counter() - t0
+    c, g = glob["cpu"], glob[str(dev)]
+    ok = (np.allclose(g.histogram, c.histogram, rtol=2e-4, atol=1e-10)
+          and g.steps == c.steps and g.truncated == c.truncated == 0
+          and abs(g.out_coupled - c.out_coupled) <= 1e-5 * c.out_coupled
+          and abs(float(g.histogram.sum(dtype=np.float64)) - g.out_coupled)
+          <= 1e-5 * g.out_coupled)
+    rec["global"] = {"steps": g.steps, "out_coupled": [g.out_coupled,
+                                                       c.out_coupled],
+                     "pruned": [g.pruned, c.pruned], "ok": bool(ok),
+                     "card_s": glob[str(dev) + "_s"],
+                     "cpu_s": glob["cpu_s"]}
+    save_record(ctx)
+    print(f"phase 13d: the global engine on 18 cells x 4 positions: card "
+          f"against CPU {'within the bars' if ok else 'OUTSIDE THE BARS'}; "
+          f"{g.steps} steps, out-coupled {g.out_coupled:.8g} / "
+          f"{c.out_coupled:.8g}; card {glob[str(dev) + '_s']:.3f} s")
+    if not ok:
+        faults.append(f"global engine: {rec['global']}")
+    launches = dict(tp.launch_counts)
+    rec["launches"] = launches
+    rec["wall_s"] = time.perf_counter() - t_phase
+    save_record(ctx)
+    if launches["persistent_trace"] or launches["cell_trace"]:
+        faults.append(f"the splitting engine launched kernels: {launches}")
+    if faults:
+        fail("phase 13: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c, "11": phase11}
+          "6c": phase6c, "11": phase11, "12": phase12, "13": phase13}
 
 
 def kernel_line(ctx) -> dict:

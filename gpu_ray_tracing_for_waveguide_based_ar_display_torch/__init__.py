@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of the waveguide AR display ray tracer.
 
 The JAX package beside this one (the ``..._tpu`` package) is the
-reference; this package runs its persistent-trace paths on an NVIDIA GPU
-through one hand-written CUDA kernel (``csrc/persistent_trace.cu``): the main
-path (``simulate``: the count-spawn trace of one design) and the design sweep
-(``sweep``: gens or count spawn over per-design geometry rows).  Module names
-mirror the JAX package's, so each port has an obvious counterpart.  The host
+reference; this package runs its paths on an NVIDIA GPU: the persistent
+trace (``simulate``, ``sweep``) and the per-cell trace (``simulate --engine
+cell``) through hand-written CUDA kernels (``csrc/``), the vector tracer
+(``simulate`` / ``sweep --engine vector``) and the exact splitting engine
+(``simulate --engine splitting``) in plain PyTorch.  Module names mirror the
+JAX package's, so each port has an obvious counterpart.  The host
 modules (config, presets, design geometry, LUTs, cell tables, trace geometry,
 colorimetry, host metrics, image output) are the port's own copies of the
 JAX package's numpy code, bitwise equal in what they compute; the package

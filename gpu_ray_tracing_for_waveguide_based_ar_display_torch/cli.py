@@ -1,8 +1,9 @@
-"""Command-line interface of the port: the ``simulate`` and ``sweep``
-subcommands.
+"""Command-line interface of the port: the ``simulate``, ``sweep`` and
+``plot-design`` subcommands.
 
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch simulate [...]
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch sweep [...]
+    python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch plot-design [...]
 
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
@@ -17,11 +18,21 @@ the port's defaults are count spawn with folded iterations, the JAX CLI's
 gens spawn without folding.
 ``simulate --engine cell`` runs the same workload through the per-cell
 kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
-``--engine pallas``).
+``--engine pallas``); ``--engine vector`` the same relaunches through the
+vector tracer in plain PyTorch, in bounce segments with the survivors
+compacted between them (the JAX package's ``--engine jnp``);
+``--engine splitting`` the zero-variance branch expectation, with
+``--rays-per-fov`` launch positions per cell (at most 4,096: a cell's
+8,192-slot wavefront holds two children per position).  ``--heatmaps PNG``
+writes the per-FoV efficiency heatmaps, one panel per colour.
 ``sweep``'s run the JAX package's ``sweep --engine pallas_persistent``: 8
 coupler periods over 370-405 nm, 256 rays per FoV, gens spawn saturated to
-iteration 256, a 2,048-bounce bound, 100 x 75 FoV.  Both run on
-``--device cuda`` unless ``--device cpu`` asks for the plain PyTorch trace.
+iteration 256, a 2,048-bounce bound, 100 x 75 FoV; ``sweep --engine
+vector`` traces the same designs' rays once each through the vector tracer
+(the JAX package's default sweep engine, ``jnp``).  All run on ``--device
+cuda`` unless ``--device cpu`` asks for the plain PyTorch trace.
+``plot-design`` writes the design's k-space, layout and angular-response
+plots (matplotlib).
 """
 
 from __future__ import annotations
@@ -140,12 +151,17 @@ def sweep_config(args) -> TraceConfig:
 
 
 def cmd_sweep(args) -> int:
-    from .sweep import SweepResult, run_design_sweep_persistent
+    from .sweep import SweepResult, run_design_sweep, run_design_sweep_persistent
 
+    if args.metrics and args.engine != "persistent":
+        print("--metrics requires --engine persistent", file=sys.stderr)
+        return 2
     designs, keys = sweep_designs(args)
     cfg = sweep_config(args)
 
     def run(group):
+        if args.engine == "vector":
+            return run_design_sweep(group, cfg, device=args.device)
         return run_design_sweep_persistent(
             group, cfg, spawn_iters=args.spawn_iters,
             spawn_mode=args.spawn_mode, slots=args.slots,
@@ -200,14 +216,18 @@ def cmd_sweep(args) -> int:
 
 
 def _check_matplotlib(args) -> None:
-    """``--dense-eyebox PNG`` plots with matplotlib: fail before the trace
-    when it is missing, not after."""
-    if args.dense_eyebox and args.dense_eyebox != "-":
+    """``--dense-eyebox PNG`` and ``--heatmaps`` plot with matplotlib: fail
+    before the trace when it is missing, not after."""
+    needs = [name for flag, name in (
+        (args.dense_eyebox and args.dense_eyebox != "-", "--dense-eyebox PNG"),
+        (args.heatmaps, "--heatmaps")) if flag]
+    if needs:
         try:
             import matplotlib  # noqa: F401
         except ImportError:
-            raise SystemExit("matplotlib is required for --dense-eyebox PNG; "
-                             "use '--dense-eyebox -' for the metrics only")
+            raise SystemExit(f"matplotlib is required for {', '.join(needs)};"
+                             " drop the PNG (use '--dense-eyebox -' for the "
+                             "metrics only)")
 
 
 def _host_histogram(hist) -> np.ndarray:
@@ -240,7 +260,8 @@ def cmd_simulate(args) -> int:
                     engine=args.engine, spawn_mode=args.spawn_mode,
                     spawn_iters=args.spawn_iters,
                     fold_iterations=args.fold_iterations,
-                    pers_accum_mode=args.accum_mode)
+                    pers_accum_mode=args.accum_mode,
+                    segmented=args.engine == "vector")
     wl = (tuple(int(w) for w in args.wavelengths.split(","))
           if args.wavelengths else None)
     # the persistent engine keeps the histogram on the device and pulls the
@@ -268,6 +289,12 @@ def cmd_simulate(args) -> int:
 
         save_eyebox_center_view(args.image, res.metrics.output_image)
         print(f"Eyebox center view written to {args.image}")
+    if args.heatmaps:
+        from .eval.image import save_fov_efficiency_heatmaps
+
+        save_fov_efficiency_heatmaps(args.heatmaps,
+                                     _host_histogram(res.histogram))
+        print(f"FoV efficiency heatmaps written to {args.heatmaps}")
     if args.save_histogram:
         np.save(args.save_histogram, _host_histogram(res.histogram))
         print(f"eyebox histogram written to {args.save_histogram}")
@@ -298,6 +325,16 @@ def cmd_simulate(args) -> int:
     return 0
 
 
+def cmd_plot_design(args) -> int:
+    from .design.geometry import generate_geometry
+    from .design.plotting import plot_design
+
+    geom = generate_geometry(_design(args), args.fov_x, args.fov_y)
+    for path in plot_design(geom, prefix=args.prefix):
+        print(f"wrote {path}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="gpu_ray_tracing_for_waveguide_based_ar_display_torch",
@@ -311,9 +348,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory with lut_*_fullColor.npy (synthetic if absent)")
     p.add_argument("--rays-per-fov", type=int, default=5000)
     p.add_argument("--engine", default="persistent",
-                   choices=("persistent", "cell"),
+                   choices=("persistent", "cell", "vector", "splitting"),
                    help="persistent = slot-persistent kernel; "
-                        "cell = per-cell kernel, every ray seeded on the host")
+                        "cell = per-cell kernel, every ray seeded on the host; "
+                        "vector = the vector tracer in plain PyTorch (the "
+                        "JAX engine jnp), compacted between bounce segments; "
+                        "splitting = deterministic zero-variance transport: "
+                        "the exact branch expectation, --rays-per-fov "
+                        "becomes the launch positions per cell (small grids)")
     p.add_argument("--num-iter", type=int, default=4,
                    help="iterations: folded into one spawn target per cell "
                         "(persistent, --fold-iterations) or relaunched")
@@ -361,11 +403,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image", default="Eyebox Center View.png",
                    help="write the eye-view PNG here (needs cv2 or PIL; "
                         "'' writes none)")
+    p.add_argument("--heatmaps", default="", metavar="PNG",
+                   help="write the 3-panel per-FoV efficiency heatmaps here "
+                        "(needs matplotlib)")
     p.add_argument("--json", default=None, help="write metrics JSON here")
     p.add_argument("--save-histogram", default=None, metavar="PATH",
                    help="write the (L, FoVy, FoVx, 80, 120) histogram as .npy")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("plot-design",
+                       help="k-space / layout / angular-response plots")
+    _add_common(p)
+    p.add_argument("--prefix", default="design", help="output file prefix")
+    p.set_defaults(fn=cmd_plot_design)
 
     p = sub.add_parser("sweep", help="batched design sweep (default: coupler "
                                      "period; --sweep for arbitrary fields)")
@@ -381,6 +432,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--sweep thickness=0.5:0.9:4")
     p.add_argument("--rays-per-fov", type=int, default=256)
     p.add_argument("--max-bounces", type=int, default=2048)
+    p.add_argument("--engine", default="persistent",
+                   choices=("persistent", "vector"),
+                   help="persistent = the slot-persistent kernel; vector = "
+                        "the vector tracer, every design's rays traced once")
     p.add_argument("--spawn-iters", type=int, default=256,
                    help="saturating-spawn budget (iterations)")
     p.add_argument("--spawn-mode", default="gens", choices=("gens", "count"),
@@ -391,7 +446,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "min(rays_per_fov, 2048))")
     p.add_argument("--metrics", action="store_true",
                    help="also evaluate the display metrics per design on "
-                        "the device and report the lowest-dispersion design")
+                        "the device and report the lowest-dispersion design "
+                        "(persistent engine)")
     p.set_defaults(fn=cmd_sweep)
     return parser
 

@@ -1,6 +1,6 @@
 """End-to-end simulation: design -> LUTs -> trace -> histogram -> metrics.
 
-Port of ``engine/pipeline.py`` of the JAX package, restricted to two of its
+Port of ``engine/pipeline.py`` of the JAX package, with four of its
 engines:
 
 - ``engine="persistent"`` (the default): its persistent path
@@ -14,7 +14,16 @@ engines:
   ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
   histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
   to the end in one launch per batch or, with ``segmented=True``, under the
-  segment-and-compact scheduler of :mod:`.cell_segments`.
+  segment-and-compact scheduler of :mod:`.cell_segments`;
+- ``engine="vector"``: its portable tracer (``engine="jnp"``) with the
+  general loop, through :class:`.trace_vector.VectorTracer` in plain
+  PyTorch: to the end in one loop per batch or, with ``segmented=True``, in
+  bounce segments with the survivors gathered between them
+  (:meth:`Simulator.trace_batch_compacted`);
+- ``engine="splitting"``: its zero-variance engine
+  (:mod:`.splitting`) with the general loop: every branch followed with its
+  weight, ``rays_per_fov`` launch positions per cell, one wavefront per cell
+  (``splitting_percell``, the default) or one shared by the batch.
 
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device
@@ -30,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -45,14 +55,20 @@ from ..luts.io import load_or_synthesize
 from ..luts.packing import build_cell_tables
 from ..luts.schema import RcwaLuts
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from . import seeding, trace_cell, trace_persistent, trace_rows
+from . import seeding, splitting, trace_cell, trace_persistent, trace_rows
+from . import trace_vector
+from .device import resolve_device
 from .cell_segments import SegmentedCellTracer
 from .timing import EventTimer
 from .trace_cell import CellTracer
 from .trace_geometry import build_trace_geometry
 from .trace_persistent import PersistentTracer, hist_tiles_to_histogram
 
-ENGINES = ("persistent", "cell")
+ENGINES = ("persistent", "cell", "vector", "splitting")
+KERNEL_ENGINES = ("persistent", "cell")   # the engines that run a CUDA kernel
+# slots (cells x capacity) of one per-cell splitting batch: bounds its
+# device memory
+SPLIT_SLOT_BUDGET = 1 << 21
 
 
 @dataclasses.dataclass
@@ -69,7 +85,7 @@ class SimulationResult:
     # persistent engine: (cells, 4) nb rows of the traced cells in cid
     # order, summed over this call's iterations
     cell_stats: Optional[np.ndarray] = None
-    deposits: Optional[int] = None   # cell engine: rays that deposited
+    deposits: Optional[int] = None   # cell, vector engines: rays that deposited
     timings: dict = dataclasses.field(default_factory=dict)
     # Monte-Carlo standard errors at this run's sampling, from a delete-one
     # jackknife over the num_iter sample groups (run(..., error_groups=True));
@@ -88,19 +104,6 @@ class SimulationResult:
         return self.rays_traced / self.trace_seconds if self.trace_seconds else 0.0
 
 
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {str(device)!r} requested but torch.cuda.is_available() "
-                "is False; pass device='cpu' to run the plain PyTorch trace")
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cpu or cuda, got {dev}")
-    return dev
-
-
 class Simulator:
     """One design + LUT set + trace configuration on one device."""
 
@@ -117,7 +120,11 @@ class Simulator:
                  pers_accum_mode: str = "fma",
                  pers_cells_per_block: int = 1,
                  pers_transit_jump: bool = False,
-                 pers_jump_phase: str = "pow2"):
+                 pers_jump_phase: str = "pow2",
+                 splitting_capacity: Optional[int] = None,
+                 splitting_threshold: float = 1e-6,
+                 splitting_max_steps: int = 1024,
+                 splitting_percell: bool = True):
         """Persistent engine: ``spawn_mode="count"`` respawns a cell's slots
         until the cell has spawned its target of rays (the histogram is then
         renormalised by target / spawned); ``"gens"`` gives every slot a
@@ -141,12 +148,27 @@ class Simulator:
         are not an unbiased variant of single hops under count spawn: a slot
         respawns by its rays' lifetime in iterations, which jumps shorten,
         so the launch-point weights move and the efficiencies shift
-        systematically, by up to about 2 % at the reference workload."""
+        systematically, by up to about 2 % at the reference workload.
+
+        ``segmented`` (cell and vector engines) traces each batch in bounce
+        segments of ``segment_bounces``, compacting the survivors between
+        them; the result is the same bit for bit.
+
+        Splitting engine: ``rays_per_fov`` launch positions per cell, every
+        branch followed while its weight exceeds ``splitting_threshold``,
+        for at most ``splitting_max_steps`` steps; ``splitting_percell``
+        (the default) gives every cell its own wavefront of
+        ``splitting_capacity`` slots (default 8,192; 65,536 for the shared
+        wavefront).  ``split_truncated``, ``split_pruned``,
+        ``split_out_coupled`` and ``split_peak_live`` keep the weight lost to
+        a full wavefront, the weight below the threshold, the weight
+        deposited and the widest wavefront seen."""
         t0 = time.perf_counter()
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        if segmented and engine != "cell":
-            raise ValueError("segmented scheduling belongs to engine='cell'")
+        if segmented and engine not in ("cell", "vector"):
+            raise ValueError("segmented scheduling belongs to the cell and "
+                             "vector engines")
         if spawn_mode not in trace_persistent.SPAWN_MODES:
             raise ValueError(f"spawn_mode must be one of "
                              f"{trace_persistent.SPAWN_MODES}, got {spawn_mode!r}")
@@ -172,20 +194,52 @@ class Simulator:
         self.luts = luts if luts is not None else load_or_synthesize(
             self.geom, directory=luts_dir, seed=cfg.seed + 1234)
         self.tables = build_cell_tables(self.geom, self.luts)
-        if geometry_simplify_tol == 0.0:
-            # the kernel holds regions as <= MAX_EDGES half-planes
+        if geometry_simplify_tol == 0.0 and engine in KERNEL_ENGINES:
+            # the kernels hold regions as <= MAX_EDGES half-planes
             geometry_simplify_tol = 0.05
         self.tgeom = build_trace_geometry(self.geom,
                                           simplify_tol=geometry_simplify_tol)
         self.L, self.M, self.N = self.geom.th_out_ic.shape
         self._persistent_slots = int(persistent_slots)
+        self._segmented = bool(segmented)
+        self._segment_bounces = int(segment_bounces)
+        self._seg_tracer = None
+        self._tile = None   # (key, shared launch tile on device)
+        self.stats = {}     # vector engine: steps, syncs, segments
+        if engine == "vector":
+            self.tracer = trace_vector.VectorTracer(
+                [self.tables], [self.tgeom], cfg, device=self.device)
+        elif engine == "splitting":
+            if splitting_capacity is None:
+                # one cell's widest wavefront, or the whole batch's
+                splitting_capacity = 8192 if splitting_percell else 1 << 16
+            self._split_capacity = int(splitting_capacity)
+            self._split_percell = bool(splitting_percell)
+            self._split_kw = dict(capacity=self._split_capacity,
+                                  weight_threshold=splitting_threshold,
+                                  max_steps=splitting_max_steps,
+                                  device=self.device)
+            self._split_fns = {}   # per-cell mode: shared seeds -> trace
+            if not splitting_percell:
+                self._split_trace = splitting.make_splitting_trace_fn(
+                    self.tables, self.tgeom, cfg, **self._split_kw)
+            self.split_truncated = 0.0
+            self.split_pruned = 0.0
+            self.split_out_coupled = 0.0
+            self.split_peak_live = 0
+        else:
+            self._build_kernel_tracer(engine, cfg, pers_accum_mode,
+                                      pers_transit_jump, pers_jump_phase)
+        self.setup_seconds = time.perf_counter() - t0
+
+    def _build_kernel_tracer(self, engine, cfg, pers_accum_mode,
+                             pers_transit_jump, pers_jump_phase) -> None:
         cp = trace_rows.build_kernel_cell_params(
             self.tables, self.geom.eyebox_range, eyebox_bins=cfg.eyebox_bins)
         gr = trace_rows.build_kernel_geom(self.tgeom)
         kw = dict(num_fc=self.tgeom.num_fc, num_oc=self.tgeom.num_oc,
                   edge_counts=trace_rows.edge_counts(self.tgeom),
                   eyebox_bins=cfg.eyebox_bins)
-        self._seg_tracer = None
         if engine == "persistent":
             self.tracer = PersistentTracer(
                 cp, gr, max_iters=cfg.max_bounces, accum_mode=pers_accum_mode,
@@ -194,18 +248,16 @@ class Simulator:
         else:
             self.tracer = CellTracer(cp, gr, max_bounces=cfg.max_bounces,
                                      **kw).to(self.device)
-            if segmented:
+            if self._segmented:
                 self._seg_tracer = SegmentedCellTracer(
                     max_bounces=cfg.max_bounces,
-                    segment_bounces=segment_bounces,
+                    segment_bounces=self._segment_bounces,
                     hist_dims=(self.L, self.M, self.N), **kw)
         if self.device.type == "cuda":
             # build and bind the engine's kernel here, so nvcc counts as
             # setup and never falls inside a timed run()
             (trace_persistent if engine == "persistent"
              else trace_cell).load_kernel()
-        self._tile = None   # (key, shared launch tile on device)
-        self.setup_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     def _slots_gens(self, rays_per_cell: int):
@@ -341,19 +393,23 @@ class Simulator:
         - ``dense_metrics``: the metrics at every valid eye position too
           (:func:`evaluate_dense`, on the device), in ``result.dense``.
 
-        The cell engine keeps the host tail: ``histogram_device``,
-        ``metrics_device`` and ``error_groups`` raise there.
+        The cell, vector and splitting engines run the general loop: every
+        ray seeded on the host, the histogram a sum of per-batch deposits on
+        the device, pulled once; they keep the host tail
+        (``histogram_device``, ``metrics_device`` and ``error_groups`` raise
+        there).  The splitting engine's batches hold at most
+        ``SPLIT_SLOT_BUDGET`` wavefront slots.
         """
         rpf = rays_per_fov if rays_per_fov is not None else self.cfg.rays_per_fov
         iters = num_iter if num_iter is not None else self.cfg.num_iter
-        if self.engine == "cell":
+        if self.engine != "persistent":
             for flag, name in ((histogram_device, "histogram_device"),
                                (metrics_device, "metrics_device"),
                                (error_groups, "error_groups")):
                 if flag:
                     raise ValueError(f"{name} belongs to the persistent "
-                                     "engine; engine='cell' keeps the host "
-                                     "tail")
+                                     f"engine; engine={self.engine!r} keeps "
+                                     "the host tail")
         if metrics_device and not histogram_device:
             raise ValueError("metrics_device evaluates the device histogram: "
                              "pass histogram_device=True with it")
@@ -361,11 +417,14 @@ class Simulator:
             raise ValueError("error_groups needs num_iter >= 2 (the "
                              "iterations are the jackknife groups)")
         all_cells = self._run_cells(wavelengths)
-        if self.engine == "cell":
-            return self._run_cell(rpf, iters, all_cells, cells_per_batch,
-                                  evaluate_metrics, eval_cfg, verbose,
-                                  checkpoint_path, checkpoint_every,
-                                  dense_metrics)
+        if self.engine != "persistent":
+            if self.engine == "splitting" and self._split_percell:
+                cells_per_batch = max(1, min(
+                    cells_per_batch, SPLIT_SLOT_BUDGET // self._split_capacity))
+            return self._run_general(rpf, iters, all_cells, cells_per_batch,
+                                     evaluate_metrics, eval_cfg, verbose,
+                                     checkpoint_path, checkpoint_every,
+                                     dense_metrics)
         if not error_groups and self._fold_iterations and iters > 1:
             rpf, iters = rpf * iters, 1
         ny, nx = self.cfg.eyebox_bins
@@ -563,7 +622,8 @@ class Simulator:
         return out
 
     # ------------------------------------------------------------------
-    # engine="cell": the general loop over iterations and batches
+    # engines "cell", "vector", "splitting": the general loop over
+    # iterations and batches
 
     def _cell_blocks(self, cell_ids: np.ndarray, rays_per_cell: int,
                      iteration: int):
@@ -595,26 +655,187 @@ class Simulator:
             deposits = trace_cell.scatter_deposits(out.view(-1), dep, base)
         return nb[:, 0].sum(), deposits
 
+    def _vector_rays(self, cell_ids: np.ndarray, rays_per_cell: int,
+                     iteration: int) -> dict:
+        """One batch seeded on the host, as a (1, R) vector ray state on the
+        device."""
+        b = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=cell_ids,
+                                    rays_per_cell=rays_per_cell,
+                                    iteration=iteration)
+        rays = trace_vector.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
+                                           b["cid"], b["idx"], b["rng"],
+                                           device=self.device)
+        return {k: v[None] for k, v in rays.items()}
+
+    def _trace_vector(self, rays: dict, out: torch.Tensor, timer,
+                      segment_bounces: Optional[int]):
+        """Trace one batch of the vector engine and add its deposits to
+        ``out``: to the end in one loop (``segment_bounces=None``), or in
+        bounce segments with the survivors compacted between them.  Returns
+        (bounces, deposits) as device scalars."""
+        ny, nx = self.cfg.eyebox_bins
+        deposits = []
+
+        def add(r):
+            deposits.append(trace_vector.add_deposits(
+                out.view(-1), r["dep"], r["cid"], self.M, self.N, ny, nx))
+
+        if segment_bounces is not None:
+            bounces = trace_vector.trace_compacted(
+                self.tracer, rays, self.cfg.max_bounces, segment_bounces,
+                add, timer=timer, stats=self.stats)
+        else:
+            rays, bounces = self.tracer(rays, timer=timer, stats=self.stats)
+            with timer.span("scatter"):
+                add(rays)
+        return bounces.sum(), sum(deposits)
+
+    def _trace_splitting(self, batch: dict, cell_ids: np.ndarray,
+                         rays_per_cell: int):
+        """One batch of the splitting engine: (histogram (L, N, M, ny, nx)
+        on the device, steps).  The weight ledgers accumulate on the
+        Simulator; a truncated wavefront warns (its expectation is biased
+        low)."""
+        ny, nx = self.cfg.eyebox_bins
+        C, P = len(cell_ids), rays_per_cell
+        if not self._split_percell:
+            if 2 * C * P > self._split_capacity:
+                raise ValueError(
+                    f"{C * P} launch rays cannot even seed the "
+                    f"{self._split_capacity}-slot wavefront buffer; lower "
+                    "cells_per_batch / rays_per_fov or raise "
+                    "splitting_capacity")
+            rays = trace_vector.make_ray_state(
+                batch["x"], batch["y"], batch["te"], batch["tm"],
+                batch["cid"], batch["idx"], batch["rng"], device=self.device)
+            hist, out_w, trunc, pruned, steps = self._split_trace(rays)
+            self.split_pruned += float(pruned)
+            self.split_out_coupled += float(out_w)
+            tr = float(trunc)
+            self.split_truncated += tr
+            if tr > 1e-3 * C * P:
+                warnings.warn(
+                    f"splitting wavefront truncated {tr:.3g} weight "
+                    f"({tr / (C * P):.2%} of this batch's launch weight): "
+                    "the expectation is biased low; lower cells_per_batch "
+                    "or raise splitting_capacity")
+            return hist.reshape(self.L, self.N, self.M, ny, nx), steps
+        shared = bool(self.cfg.shared_pupil_samples)
+        te = np.asarray(batch["te"], np.complex128).reshape(C, P)
+        tm = np.asarray(batch["tm"], np.complex128).reshape(C, P)
+        x = np.asarray(batch["x"], np.float64).reshape(C, P)
+        y = np.asarray(batch["y"], np.float64).reshape(C, P)
+        if shared:
+            x, y, te, tm = x[0], y[0], te[0], tm[0]
+        seeds = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                     self.device, torch.float32)
+                 for k, v in (("x", x), ("y", y), ("ter", te.real),
+                              ("tei", te.imag), ("tmr", tm.real),
+                              ("tmi", tm.imag))}
+        if shared not in self._split_fns:
+            self._split_fns[shared] = splitting.make_splitting_cells_fn(
+                self.tables, self.tgeom, self.cfg, per_cell_seeds=not shared,
+                **self._split_kw)
+        tiles, out_w, trunc, pruned, steps, peak = self._split_fns[shared](
+            cell_ids, seeds)
+        self.split_pruned += float(pruned.sum())
+        self.split_out_coupled += float(out_w.sum())
+        tr = float(trunc.sum())
+        self.split_truncated += tr
+        pk = int(peak.max())
+        self.split_peak_live = max(self.split_peak_live, pk)
+        if tr > 0:
+            warnings.warn(
+                f"splitting wavefront truncated {tr:.3g} weight (peak live "
+                f"width {pk}/{self._split_capacity} slots): the expectation "
+                "is biased low; raise splitting_capacity")
+        return splitting.cells_tiles_to_histogram(
+            tiles, cell_ids, self.L, self.M, self.N, ny, nx), steps
+
     def trace_batch(self, cell_ids: np.ndarray, rays_per_cell: int,
                     iteration: int):
-        """Trace one batch of cells (cell engine); returns ``(histogram
-        (L, N, M, ny, nx) on the device, bounce count, ray count)``."""
-        if self.engine != "cell":
-            raise ValueError("trace_batch belongs to engine='cell'")
+        """Trace one batch of cells to the end (cell, vector and splitting
+        engines); returns ``(histogram (L, N, M, ny, nx) on the device,
+        bounce count, ray count)``.  The splitting engine's count is its
+        steps."""
+        n = len(cell_ids) * rays_per_cell
+        if self.engine == "splitting":
+            batch = seeding.build_ray_batch(
+                self.geom, self.cfg, cell_ids=cell_ids,
+                rays_per_cell=rays_per_cell, iteration=iteration)
+            hist, steps = self._trace_splitting(batch, cell_ids,
+                                                rays_per_cell)
+            return hist, steps, n
         hist = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
                            dtype=torch.float32, device=self.device)
+        if self.engine == "vector":
+            bounces, _ = self._trace_vector(
+                self._vector_rays(cell_ids, rays_per_cell, iteration), hist,
+                EventTimer("cpu"), None)
+            return hist, bounces, n
+        if self.engine != "cell":
+            raise ValueError("trace_batch belongs to the cell, vector and "
+                             "splitting engines")
         rays_in, rng_in = self._cell_blocks(cell_ids, rays_per_cell, iteration)
         bounces, _ = self._trace_blocks(cell_ids, rays_in, rng_in, hist,
                                         EventTimer("cpu"))
+        return hist, bounces, n
+
+    def trace_batch_compacted(self, cell_ids: np.ndarray, rays_per_cell: int,
+                              iteration: int,
+                              segment_bounces: Optional[int] = None):
+        """Vector engine: one batch traced in bounce segments of
+        ``segment_bounces`` (default the Simulator's), the survivors gathered
+        on the device between segments so late bounces run on a small
+        batch.  Returns what :meth:`trace_batch` returns, bit for bit (per
+        ray RNG streams carry over; the last segment gets exactly the budget
+        left)."""
+        if self.engine != "vector":
+            raise ValueError("compacted tracing belongs to engine='vector'")
+        hist = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
+                           dtype=torch.float32, device=self.device)
+        bounces, _ = self._trace_vector(
+            self._vector_rays(cell_ids, rays_per_cell, iteration), hist,
+            EventTimer("cpu"), segment_bounces or self._segment_bounces)
         return hist, bounces, len(cell_ids) * rays_per_cell
 
-    def _run_cell(self, rpf: int, iters: int, all_cells: np.ndarray,
-                  cells_per_batch: int, evaluate_metrics: bool,
-                  eval_cfg: EvalConfig, verbose: bool,
-                  checkpoint_path: Optional[str], checkpoint_every: int,
-                  dense_metrics: bool) -> SimulationResult:
+    def _trace_chunk(self, chunk: np.ndarray, rpf: int, it: int,
+                     hist_dev: torch.Tensor, timer: EventTimer,
+                     timings: dict):
+        """Seed and trace one batch of the general loop into ``hist_dev``;
+        returns (bounces, deposits); the splitting engine's bounces are its
+        steps and its deposits None."""
+        ts = time.perf_counter()
+        if self.engine == "cell":
+            rays_in, rng_in = self._cell_blocks(chunk, rpf, it)
+            timings["seed_s"] += time.perf_counter() - ts
+            return self._trace_blocks(chunk, rays_in, rng_in, hist_dev, timer)
+        if self.engine == "vector":
+            rays = self._vector_rays(chunk, rpf, it)
+            timings["seed_s"] += time.perf_counter() - ts
+            steps0 = self.stats.get("steps", 0)
+            out = self._trace_vector(
+                rays, hist_dev, timer,
+                self._segment_bounces if self._segmented else None)
+            timings.setdefault("batch_steps", []).append(
+                self.stats["steps"] - steps0)
+            return out
+        batch = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=chunk,
+                                        rays_per_cell=rpf, iteration=it)
+        timings["seed_s"] += time.perf_counter() - ts
+        with timer.span("trace"):
+            hist, steps = self._trace_splitting(batch, chunk, rpf)
+            hist_dev += hist
+        return steps, None
+
+    def _run_general(self, rpf: int, iters: int, all_cells: np.ndarray,
+                     cells_per_batch: int, evaluate_metrics: bool,
+                     eval_cfg: EvalConfig, verbose: bool,
+                     checkpoint_path: Optional[str], checkpoint_every: int,
+                     dense_metrics: bool) -> SimulationResult:
         timings = {"seed_s": 0.0}
         timer = EventTimer(self.device)
+        self.stats = {}   # vector engine: steps, syncs, segments
         total_bounces = total_rays = deposits = 0
         start_iter = 0
         resumed = (load_checkpoint(checkpoint_path, self.design, self.cfg,
@@ -637,13 +858,10 @@ class Simulator:
         for it in range(start_iter, iters):
             for start in range(0, len(all_cells), cells_per_batch):
                 chunk = all_cells[start:start + cells_per_batch]
-                ts = time.perf_counter()
-                rays_in, rng_in = self._cell_blocks(chunk, rpf, it)
-                timings["seed_s"] += time.perf_counter() - ts
-                bounces, n_dep = self._trace_blocks(chunk, rays_in, rng_in,
-                                                    hist_dev, timer)
+                bounces, n_dep = self._trace_chunk(chunk, rpf, it, hist_dev,
+                                                   timer, timings)
                 total_bounces = total_bounces + bounces
-                deposits += n_dep
+                deposits = None if n_dep is None else deposits + n_dep
                 total_rays += len(chunk) * rpf
                 if verbose:
                     print(f"iter {it} cells {start}-{start + len(chunk)} "
@@ -656,6 +874,7 @@ class Simulator:
         ta = time.perf_counter()
         histogram = hist_dev.cpu().numpy()
         total_bounces = int(total_bounces)
+        deposits = None if deposits is None else int(deposits)
         trace_seconds = time.perf_counter() - t0
         timings["assemble_s"] = time.perf_counter() - ta
         if not dense_metrics:
@@ -668,6 +887,7 @@ class Simulator:
                                      evaluate_metrics, eval_cfg, False,
                                      dense_metrics, timings, timer)
         timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
+        timings.update(self.stats)
         return SimulationResult(
             histogram=histogram, efficiencies=eff, metrics=met,
             rays_traced=total_rays, total_bounces=total_bounces,

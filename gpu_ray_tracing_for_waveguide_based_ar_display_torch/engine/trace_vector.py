@@ -1,0 +1,824 @@
+"""Vector Monte-Carlo tracer: the whole ray batch advances one bounce per step.
+
+Port of ``engine/trace_jnp.py`` of the JAX package (its ``engine="jnp"``).
+Every ray is one element of a masked struct-of-arrays batch; a step applies
+one bounce to every live ray, and the loop ends when no ray is alive or the
+bounce budget is spent.  The step follows the JAX step operation for
+operation (containment tests, the interaction record of the ray's site, the
+2x2 complex Jones products, one roulette draw, the masked update); it runs
+as plain PyTorch on any device.
+
+The batch has a leading design axis: every tensor of the ray state is
+(D, R), and row ``d`` holds the rays of design ``d``, traced with that
+design's tables and geometry.  A design sweep traces D designs in one loop,
+where the JAX package maps its trace over a design axis; the ``Simulator``
+uses D = 1.  Rays that are dead take no part in a step (every update is
+masked and the RNG advances only where a ray interacts), so a design traced
+beside others gives what it gives alone, bit for bit.
+
+Tables.  :func:`as_tables` carries the :class:`CellTables` across as the JAX
+package's ``_as_jnp`` does (complex arrays as trailing (re, im) float
+pairs); :func:`pack_tables` lays them out for the step: one 26-float
+*interaction record* per (cell, site, state bit), site = IC, FC strip s or
+OC strip s, holding the A / B / C branch Jones matrices and the A / B
+scales, so the step reads one record per ray where the JAX step gathers
+seven tables and selects among them (the same values: a selection is
+exact).  Per-cell constants and per-direction hop vectors and phasors sit in
+two more small tables.
+
+Deposits.  A ray out-couples on its last bounce and keeps its position
+after it, so the step only marks the out-coupling and the deposit bin is
+computed once, at the end of the trace call, from that position: the same
+bin the JAX step computes in the step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import TraceConfig
+from ..luts.packing import CellTables, DIR_FC, DIR_IC, DIR_IC2, DIR_OC
+from ..ops.rng import draw_uniform
+from .device import resolve_device
+from .timing import EventTimer
+from .trace_geometry import TraceGeometry
+
+DEAD = 6
+_EDGE_TOL = 1e-6   # the float32-scale edge tolerance of the JAX step
+_OUT = -2          # dep marker: out-coupled this call, bin not yet taken
+REC_W = 26         # interaction record: j_a(8), j_b(8), j_c(8), s_a, s_b
+# per-cell constants: init Jones A / B, init scales A / B, init cos0, IC
+# scales A / B (the cos_th after the first interaction), OC branch C scale,
+# deposit rectangle (xmin, xmax, ymin, ymax)
+_I_JA, _I_JB, _I_SA, _I_SB, _I_COS0, _I_ICA, _I_ICB = 0, 8, 16, 17, 18, 19, 20
+_C_SOUT, _C_EBR = 21, 22
+# per (cell, direction): hop vector (dx, dy), TIR phasor, doubled phasor
+DIR_W = 6
+_HP_PAIRS = 1 << 22   # (position, edge) pairs per exact containment pass
+
+
+def as_tables(tables: CellTables, dtype=torch.float32) -> dict:
+    """The cell tables as CPU tensors, complex arrays as trailing (re, im)
+    pairs: the arrays the JAX package's ``_as_jnp`` gives, bit for bit."""
+    t = {}
+    for f in dataclasses.fields(tables):
+        v = getattr(tables, f.name)
+        if isinstance(v, np.ndarray):
+            if np.iscomplexobj(v):
+                v = np.stack([v.real, v.imag], axis=-1)
+                t[f.name] = torch.from_numpy(v).to(dtype)
+            elif v.dtype.kind == "f":
+                t[f.name] = torch.from_numpy(np.array(v)).to(dtype)
+            else:
+                t[f.name] = torch.from_numpy(np.array(v))
+        else:
+            t[f.name] = v
+    return t
+
+
+def geom_tensors(g: TraceGeometry, dtype=torch.float32) -> dict:
+    """The trace geometry as CPU tensors (the JAX package's ``_geom_jnp``):
+    scalars as 0-d tensors, the deposit rectangles as (M * N, 4)."""
+    def t(v):
+        return torch.tensor(np.asarray(v, np.float64), dtype=dtype)
+
+    return {
+        "ic_center": t(g.ic_center), "ic_radius": t(g.ic_radius),
+        "ic_hp": t(g.ic_hp), "r1_hp": t(g.r1_hp), "r2_hp": t(g.r2_hp),
+        "hull_hp": t(g.hull_hp), "fc_rot": t(g.fc_rot),
+        "fc_top": t(g.fc_top), "fc_width": t(g.fc_width),
+        "oc_rot_y": t(g.oc_rot_y), "oc_bounds": t(g.oc_bounds),
+        "oc_top": t(g.oc_top), "oc_width": t(g.oc_width),
+        "eyebox_range": t(g.eyebox_range.reshape(-1, 4)),
+    }
+
+
+def _pad_hp(hp: torch.Tensor, target: int) -> torch.Tensor:
+    """Pad a half-plane pack with always-true rows (0, 0, 1)."""
+    pad = target - hp.shape[0]
+    if pad <= 0:
+        return hp
+    filler = hp.new_tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)
+    return torch.cat([hp, filler])
+
+
+_HP = ("ic_hp", "r1_hp", "r2_hp", "hull_hp")
+
+
+def stack_geoms(geoms: Sequence[dict]) -> dict:
+    """Stack :func:`geom_tensors` dicts along a leading design axis; the
+    half-plane packs are padded to the largest with always-true rows, which
+    leaves every design's regions as they were."""
+    out = {}
+    for k in geoms[0]:
+        vals = [g[k] for g in geoms]
+        if k in _HP:
+            e = max(v.shape[0] for v in vals)
+            vals = [_pad_hp(v, e) for v in vals]
+        out[k] = torch.stack(vals)
+    return out
+
+
+def _j8(j: torch.Tensor) -> torch.Tensor:
+    """(..., 2, 2, 2) split-real Jones matrices -> (..., 8): row-major
+    entries, (re, im) interleaved."""
+    return j.reshape(*j.shape[:-3], 8)
+
+
+def pack_tables(T: dict, G: dict, cell_ids=None) -> dict:
+    """One design's :func:`as_tables` dict and :func:`geom_tensors` dict in
+    the step's layout (plain tensor operations, so gradients can flow):
+
+    - ``rec`` (26, C * 2 * S): the interaction record of cell c, site s
+      (0: IC; 1 + i: FC strip i; 1 + S_fc + i: OC strip i) and state bit b
+      at entry ``(c * S + s) * 2 + b``; branch C is zero off the OC sites;
+    - ``cell`` (26, C): the per-cell constants (see ``_I_*``, ``_C_*``);
+    - ``dirs`` (6, C * 4): per (cell, direction) hop vector, TIR phasor and
+      doubled phasor.
+
+    Each table is component-major, so a gather (:func:`_take`) gives each
+    component as a contiguous tensor.
+
+    ``cell_ids`` names the global cells of a table cut to some cells (each
+    cell's deposit rectangle follows its FoV); default: all, in order."""
+    C = T["init_cos0"].shape[0]
+
+    def site(jones, scale):
+        # jones (B, S, 2, C, 2, 2, 2), scale (2, S, C) -> (C, S, 2, 8 * B + 2)
+        j = _j8(jones).permute(3, 1, 2, 0, 4)          # (C, S, 2, B, 8)
+        j = j.reshape(*j.shape[:3], -1)
+        if j.shape[-1] < 24:
+            j = torch.cat([j, j.new_zeros(*j.shape[:3], 24 - j.shape[-1])], -1)
+        s = scale.permute(2, 1, 0)[:, :, None, :].expand(C, -1, 2, 2)
+        return torch.cat([j, s], -1)
+
+    ic = site(T["ic_jones"][:, None], T["ic_scale"][:, None])
+    fc = site(T["fc_jones"], T["fc_scale"])
+    oc = site(T["oc_jones"], T["oc_scale"])
+    rec = torch.cat([ic, fc, oc], dim=1).reshape(-1, REC_W)
+    cid = torch.arange(C) if cell_ids is None else torch.as_tensor(cell_ids)
+    mn = (cid.to(G["eyebox_range"].device, torch.int64)
+          % G["eyebox_range"].shape[0])
+    cell = torch.cat([
+        _j8(T["init_jones"][0]), _j8(T["init_jones"][1]),
+        T["init_scale"].T, T["init_cos0"][:, None], T["ic_scale"].T,
+        T["oc_scale_out"][:, None], G["eyebox_range"][mn]], dim=1)
+    dirs = torch.cat([T["gaps"], T["tir_phasor"], T["hop2_phasor"]], dim=-1)
+    return {"rec": rec.T.contiguous(), "cell": cell.T.contiguous(),
+            "dirs": dirs.reshape(-1, DIR_W).T.contiguous()}
+
+
+def stack_tables(packed: Sequence[dict]) -> dict:
+    """Several designs' :func:`pack_tables` dicts as one: the cell axis
+    holds the designs one after another (global cell ``d * C + cid``)."""
+    return {k: torch.cat([p[k] for p in packed], dim=1) for k in packed[0]}
+
+
+# ---------------------------------------------------------------------------
+# step arithmetic (shared with engine/splitting.py)
+
+
+def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entries ``idx`` of a (width, n) table held component-major:
+    (width, *idx.shape), each component contiguous."""
+    return table.index_select(1, idx.reshape(-1)).reshape(table.shape[0],
+                                                          *idx.shape)
+
+
+def _hp_inside(hp: torch.Tensor, x: torch.Tensor,
+               y: torch.Tensor) -> torch.Tensor:
+    """All-of half-plane containment: ``hp`` (D, E, 3) against (D, ...)
+    positions, every (position, edge) pair tested as the JAX step tests it,
+    ``x * a + y * b - c <= tol``."""
+    D = hp.shape[0]
+    d = torch.arange(D, device=x.device).repeat_interleave(x.numel() // D)
+    return _hp_inside_rows(hp, d, x.reshape(-1), y.reshape(-1)).reshape(
+        x.shape)
+
+
+def _hp_inside_rows(hp, d, xs, ys):
+    """Containment of positions ``xs``, ``ys`` (m,) of designs ``d`` (m,)
+    in their design's half-planes ``hp[d]``, at most ``_HP_PAIRS``
+    (position, edge) pairs per pass."""
+    E = hp.shape[1]
+    step = max(1, _HP_PAIRS // E)
+    out = torch.empty(xs.shape, dtype=torch.bool, device=xs.device)
+    for s in range(0, xs.shape[0], step):
+        h = hp[d[s:s + step]]
+        v = (xs[s:s + step, None] * h[..., 0] + ys[s:s + step, None] * h[..., 1]
+             - h[..., 2])
+        out[s:s + step] = (v <= _EDGE_TOL).all(dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# region grids: the containment tests of a bounce, decided by a table lookup
+# wherever the answer cannot depend on rounding
+
+_REGIONS = ("r1_hp", "hull_hp", "r2_hp")
+GRID_N = 256            # grid cells per side
+_GRID_MARGIN = 1e-3     # mm: far above the float32 error of a cell lookup
+_GRID_PAD = 2           # cells of the window beyond the whole-system region
+
+
+def _vertices(hp: torch.Tensor) -> torch.Tensor:
+    """(V, 2) vertices of the convex region of half-planes ``hp`` (E, 3),
+    in float64: the pairwise line intersections that satisfy every
+    half-plane."""
+    a, b, c = hp[:, 0], hp[:, 1], hp[:, 2]
+    det = a[:, None] * b[None, :] - a[None, :] * b[:, None]
+    ok = det.abs() > 1e-12
+    det = torch.where(ok, det, 1.0)
+    x = (c[:, None] * b[None, :] - c[None, :] * b[:, None]) / det
+    y = (a[:, None] * c[None, :] - a[None, :] * c[:, None]) / det
+    x, y = x[ok], y[ok]
+    feas = ((x[:, None] * a + y[:, None] * b - c) <= 1e-6).all(dim=1)
+    return torch.stack([x[feas], y[feas]], dim=1)
+
+
+def add_region_grids(G: dict, n: int = GRID_N) -> dict:
+    """Stacked geometry with a classification grid per design: an n x n
+    window over the whole-system region (padded by ``_GRID_PAD`` cells) in
+    which every cell holds, for r1, the hull and r2, 1 when every position
+    of the cell is inside by the exact float32 test, 0 when every one is
+    outside, 2 otherwise (2 bits per region in ``grid_code``, (D, n, n)).
+
+    A cell is decided in float64 from the float32 half-planes: the cell,
+    widened by ``_GRID_MARGIN``, lies inside when for every edge its largest
+    ``a x + b y - c`` at the corners, plus the float32 rounding bound of the
+    test at the window's largest coordinate, is at most the test's
+    tolerance; outside when for some edge the smallest, less that bound,
+    exceeds it.  A position's cell is ``floor((x - x0) * inv_h)`` in
+    float32, which misses its true cell by far less than the margin, so a
+    lookup of 0 or 1 is what the exact test gives; positions in cells of 2
+    or outside the window take the exact test."""
+    D = G["r1_hp"].shape[0]
+    dev = G["r1_hp"].device
+    codes, x0s, y0s, ixs, iys = [], [], [], [], []
+    for d in range(D):
+        v = _vertices(G["r1_hp"][d].double())
+        lo, hi = v.min(dim=0).values, v.max(dim=0).values
+        h = (hi - lo) / (n - 2 * _GRID_PAD)
+        x0 = (lo[0] - _GRID_PAD * h[0]).float()
+        y0 = (lo[1] - _GRID_PAD * h[1]).float()
+        inv = (1.0 / h).float()
+        k = torch.arange(n + 1, dtype=torch.float64, device=dev)
+        cx = x0.double() + k / inv[0].double()
+        cy = y0.double() + k / inv[1].double()
+        r = float(torch.cat([cx.abs(), cy.abs()]).max())
+        code = torch.zeros((n, n), dtype=torch.int32, device=dev)
+        for shift, key in enumerate(_REGIONS):
+            hp = G[key][d].double()
+            a, b, c = hp[:, 0, None, None], hp[:, 1, None, None], hp[:, 2, None, None]
+            val = a * cx[None, None, :] + b * cy[None, :, None] - c  # (E, iy, ix)
+            cmax = torch.maximum(torch.maximum(val[:, :-1, :-1], val[:, 1:, :-1]),
+                                 torch.maximum(val[:, :-1, 1:], val[:, 1:, 1:]))
+            cmin = torch.minimum(torch.minimum(val[:, :-1, :-1], val[:, 1:, :-1]),
+                                 torch.minimum(val[:, :-1, 1:], val[:, 1:, 1:]))
+            slack = (_GRID_MARGIN * (a.abs() + b.abs())
+                     + 2.0 ** -20 * (r * a.abs() + r * b.abs() + c.abs()))
+            inside = (cmax + slack <= _EDGE_TOL).all(dim=0)
+            outside = (cmin - slack > _EDGE_TOL).any(dim=0)
+            cls = torch.where(inside, 1, torch.where(outside, 0, 2))
+            code |= cls.to(torch.int32) << (2 * shift)
+        codes.append(code)
+        x0s.append(x0)
+        y0s.append(y0)
+        ixs.append(inv[0])
+        iys.append(inv[1])
+    out = dict(G)
+    out.update(grid_code=torch.stack(codes).to(torch.uint8),
+               grid_x0=torch.stack(x0s), grid_y0=torch.stack(y0s),
+               grid_inv_hx=torch.stack(ixs), grid_inv_hy=torch.stack(iys))
+    return out
+
+
+def regions_inside(G: dict, x: torch.Tensor, y: torch.Tensor,
+                   need: torch.Tensor, stats: Optional[dict] = None):
+    """(in r1, in the hull, in r2) of (D, ...) positions, each what
+    :func:`_hp_inside` gives wherever ``need`` is set (elsewhere
+    unspecified): a grid lookup (:func:`add_region_grids`), then the exact
+    test for the positions the lookup leaves open, gathered in one read
+    from the device."""
+    D, n = G["grid_code"].shape[:2]
+    shape = (D,) + (1,) * (x.dim() - 1)
+    ix = torch.floor((x - G["grid_x0"].reshape(shape))
+                     * G["grid_inv_hx"].reshape(shape))
+    iy = torch.floor((y - G["grid_y0"].reshape(shape))
+                     * G["grid_inv_hy"].reshape(shape))
+    inwin = (ix >= 0) & (ix < n) & (iy >= 0) & (iy < n)
+    base = (torch.arange(D, device=x.device) * (n * n)).reshape(shape)
+    flat = (base + torch.clamp(iy, 0, n - 1).to(torch.int64) * n
+            + torch.clamp(ix, 0, n - 1).to(torch.int64))
+    code = torch.where(inwin, G["grid_code"].view(-1)[flat].to(torch.int32),
+                       0b101010)
+    cls = [(code >> (2 * k)) & 3 for k in range(len(_REGIONS))]
+    open_ = need & ((cls[0] == 2) | (cls[1] == 2) | (cls[2] == 2))
+    idx = torch.nonzero(open_.reshape(-1)).squeeze(1)
+    if stats is not None:
+        stats["syncs"] = stats.get("syncs", 0) + 1
+    inside = [c == 1 for c in cls]
+    if idx.numel():
+        d = idx // (x.numel() // D)
+        xs, ys = x.reshape(-1)[idx], y.reshape(-1)[idx]
+        for k, key in enumerate(_REGIONS):
+            inside[k].reshape(-1)[idx] = _hp_inside_rows(G[key], d, xs, ys)
+    return tuple(inside)
+
+
+def _jones_apply(j: torch.Tensor, ter, tei, tmr, tmi):
+    """Split-real complex 2x2 matvec; ``j`` (8, ...) in :func:`_j8`'s
+    order."""
+    ar, ai, br, bi, cr, ci, dr, di = j.unbind(0)
+    return (ar * ter - ai * tei + br * tmr - bi * tmi,
+            ar * tei + ai * ter + br * tmi + bi * tmr,
+            cr * ter - ci * tei + dr * tmr - di * tmi,
+            cr * tei + ci * ter + dr * tmi + di * tmr)
+
+
+def _phase_mul(pr, pi, re, im):
+    """Multiply (re, im) by the unit phasor (pr, pi)."""
+    return pr * re - pi * im, pr * im + pi * re
+
+
+def _power(ter, tei, tmr, tmi):
+    return ter * ter + tei * tei + tmr * tmr + tmi * tmi
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """``1 / sqrt(v)``: in float32 the root is taken in float64 and rounded
+    (the correctly rounded float32 root, which torch's float32 CPU ``sqrt``
+    is not: F4 in ROADMAP.md), then its reciprocal."""
+    if v.dtype == torch.float64:
+        return 1.0 / torch.sqrt(v)
+    return 1.0 / torch.sqrt(v.double()).to(v.dtype)
+
+
+def _bin(v: torch.Tensor, hi: int) -> torch.Tensor:
+    """floor, clamped to [0, hi], as an int64 index."""
+    return torch.clamp(torch.floor(v), 0, hi).to(torch.int64)
+
+
+def _col(G: dict, D: int, ndim: int) -> dict:
+    """The per-design scalars of stacked geometry, shaped to broadcast
+    against (D, ...) tensors of ``ndim`` dimensions."""
+    shape = (D,) + (1,) * (ndim - 1)
+    return {
+        "icx": G["ic_center"][:, 0].reshape(shape),
+        "icy": G["ic_center"][:, 1].reshape(shape),
+        "icr": G["ic_radius"].reshape(shape),
+        "fcr0": G["fc_rot"][:, 0].reshape(shape),
+        "fcr1": G["fc_rot"][:, 1].reshape(shape),
+        "fc_top": G["fc_top"].reshape(shape),
+        "fc_width": G["fc_width"].reshape(shape),
+        "ocr0": G["oc_rot_y"][:, 0].reshape(shape),
+        "ocr1": G["oc_rot_y"][:, 1].reshape(shape),
+        "oc_top": G["oc_top"].reshape(shape),
+        "oc_width": G["oc_width"].reshape(shape),
+        "b": [G["oc_bounds"][:, i].reshape(shape) for i in range(4)],
+    }
+
+
+def in_ic(G: dict, S: dict, x, y, circle: bool):
+    """In-coupler containment: circle test, or the polygon's half-planes."""
+    if circle:
+        dx = x - S["icx"]
+        dy = y - S["icy"]
+        return dx * dx + dy * dy <= S["icr"] * S["icr"]
+    return _hp_inside(G["ic_hp"], x, y)
+
+
+def site_key(S: dict, x, y, state, alive, in_hull, num_fc: int,
+             num_oc: int):
+    """The site and membership tests of a bounce: (grp_ic, grp_fc, grp_oc,
+    in_rect, record key ``site * 2 + bit``)."""
+    grp_ic = alive & (state <= 1)
+    grp_fc = alive & ((state == 2) | (state == 3))
+    grp_oc = alive & (state >= 4)
+    bit = (state & 1).to(torch.int64)
+    yrot = S["fcr0"] * x + S["fcr1"] * y
+    fc_strip = _bin((S["fc_top"] - yrot) / S["fc_width"], num_fc - 1)
+    yr = S["ocr0"] * x + S["ocr1"] * y
+    b = S["b"]
+    in_rect = ((x >= b[0] - _EDGE_TOL) & (x <= b[1] + _EDGE_TOL)
+               & (y >= b[2] - _EDGE_TOL) & (y <= b[3] + _EDGE_TOL))
+    oc_strip = _bin((S["oc_top"] - yr) / S["oc_width"], num_oc - 1)
+    site = torch.where(grp_oc, 1 + num_fc + oc_strip,
+                       torch.where(grp_fc, 1 + fc_strip, 0))
+    return grp_ic, grp_fc, grp_oc, in_rect, site * 2 + bit
+
+
+def deposit_bin(ebr: torch.Tensor, x, y, ny: int, nx: int):
+    """(in the deposit rectangle, bin ``iy * nx + ix``) of positions in
+    per-ray rectangles ``ebr`` (4, ...)."""
+    e0, e1, e2, e3 = ebr.unbind(0)
+    in_quad = ((x >= e0 - _EDGE_TOL) & (x <= e1 + _EDGE_TOL)
+               & (y >= e2 - _EDGE_TOL) & (y <= e3 + _EDGE_TOL))
+    dxb = (e1 - e0) / nx
+    dyb = (e3 - e2) / ny
+    ix = _bin((x - e0) / dxb, nx - 1)
+    iy = _bin((y - e2) / dyb, ny - 1)
+    return in_quad, iy * nx + ix
+
+
+# ---------------------------------------------------------------------------
+# the ray state
+
+
+def make_ray_state(x, y, te, tm, cid, ray_idx, rng_state,
+                   precision: str = "f32", device="cuda") -> dict:
+    """Initial state of a batch from host arrays: (R,) tensors on
+    ``device``; te / tm are the complex polarisation amplitudes, held as
+    split (re, im) fields.  ``precision="f64"`` holds the fields in float64
+    (oracle parity); the trace is float32."""
+    device = resolve_device(device)
+    fdt = torch.float64 if precision == "f64" else torch.float32
+    te = np.asarray(te, np.complex128)
+    tm = np.asarray(tm, np.complex128)
+    r = len(x)
+
+    def f(v):
+        return torch.from_numpy(np.asarray(v, np.float64)).to(device, fdt)
+
+    def i64(v):
+        return torch.from_numpy(np.asarray(v).astype(np.int64)).to(device)
+
+    return {
+        "x": f(x), "y": f(y), "ter": f(te.real), "tei": f(te.imag),
+        "tmr": f(tm.real), "tmi": f(tm.imag),
+        "cos_th": torch.ones(r, dtype=fdt, device=device),
+        "gap_x": torch.zeros(r, dtype=fdt, device=device),
+        "gap_y": torch.zeros(r, dtype=fdt, device=device),
+        "state": torch.zeros(r, dtype=torch.int32, device=device),
+        "rng": i64(rng_state), "dep": torch.full((r,), -1, dtype=torch.int32,
+                                                 device=device),
+        "cid": i64(cid), "idx": i64(ray_idx),
+    }
+
+
+def stack_ray_states(states: Sequence[dict]) -> dict:
+    """(R,) ray states of D designs -> one (D, R) state."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+# ---------------------------------------------------------------------------
+# the trace
+
+
+def make_trace_fn_dynamic(cfg: TraceConfig, num_fc: int, num_oc: int,
+                          mode: str = "full"):
+    """Build ``trace(rays, T, G, max_bounces=None, timer=None, stats=None)
+    -> (rays_final, bounces)`` with the tables and geometry as arguments:
+    ``T`` from :func:`stack_tables` of :func:`pack_tables` dicts, ``G``
+    from :func:`add_region_grids` of :func:`stack_geoms`, ``rays`` (D, R) from
+    :func:`stack_ray_states` (or (R,) for D = 1, returned as (R,)).
+    ``bounces`` is the (D,) int64 count of live rays summed over the steps,
+    per design.
+
+    ``mode="resume"`` skips the first in-coupler interaction and continues
+    the state: the building block of segment-and-compact scheduling.
+    ``max_bounces`` (default ``cfg.max_bounces``) bounds the steps of this
+    call; the loop also ends when no ray is alive, which it reads from the
+    device once per step, besides the step's own read of the positions the
+    containment grids leave open (``stats["syncs"]`` counts both,
+    ``stats["steps"]`` the steps).  ``G`` holds the region grids
+    (:func:`add_region_grids`).  ``timer`` collects the device time of the
+    spans ``init`` and ``bounce``."""
+    if mode not in ("full", "resume"):
+        raise ValueError(f"mode must be 'full' or 'resume', got {mode!r}")
+    ny, nx = cfg.eyebox_bins
+    circle = cfg.ic_test == "circle"
+
+    def init_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict):
+        """First IC interaction from air (reference kernel :860-904)."""
+        pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
+        cell = _take(T["cell"], g)
+        pol_a = _jones_apply(cell[_I_JA:_I_JA + 8], *pol)
+        pol_b = _jones_apply(cell[_I_JB:_I_JB + 8], *pol)
+        cos0 = cell[_I_COS0]
+        eff_a = _power(*pol_a) * cell[_I_SA] / cos0
+        eff_b = _power(*pol_b) * cell[_I_SB] / cos0
+        u, rng = draw_uniform(r["rng"], r["idx"],
+                              torch.ones_like(r["state"], dtype=torch.bool))
+        a = u <= eff_a
+        b = (~a) & (u <= eff_a + eff_b)
+        ter_n, tei_n, tmr_n, tmi_n = (torch.where(a, pa, pb)
+                                      for pa, pb in zip(pol_a, pol_b))
+        inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
+                                 min=1e-30))
+        dirs = torch.where(a, DIR_IC, DIR_IC2)
+        d = _take(T["dirs"], g * 4 + dirs)
+        ter_n, tei_n = ter_n * inv, tei_n * inv
+        tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
+        gx, gy = d[0], d[1]
+        x = r["x"] + gx
+        y = r["y"] + gy
+        ic_in = in_ic(G, S, x, y, circle)
+        state = torch.where(
+            a, torch.where(ic_in, 0, 2),
+            torch.where(b, torch.where(ic_in, 1, DEAD), DEAD)).to(torch.int32)
+        cos_th = torch.where(a, cell[_I_ICA], cell[_I_ICB])
+        live = state < DEAD
+        out = dict(r)
+        out.update(
+            x=torch.where(live, x, r["x"]), y=torch.where(live, y, r["y"]),
+            ter=torch.where(live, ter_n, r["ter"]),
+            tei=torch.where(live, tei_n, r["tei"]),
+            tmr=torch.where(live, tmr_n, r["tmr"]),
+            tmi=torch.where(live, tmi_n, r["tmi"]),
+            cos_th=torch.where(live, cos_th, r["cos_th"]),
+            gap_x=torch.where(live, gx, 0.0), gap_y=torch.where(live, gy, 0.0),
+            state=state, rng=rng)
+        return out
+
+    def bounce_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict,
+                    stats: dict):
+        """One bounce of the whole batch (reference kernel :906-1247)."""
+        x, y, state = r["x"], r["y"], r["state"]
+        alive = state < DEAD
+        in_r1, in_hull, in_r2 = regions_inside(G, x, y, alive, stats)
+        # global containment
+        state = torch.where(alive & ~in_r1, DEAD, state)
+        alive = state < DEAD
+        grp_ic, grp_fc, grp_oc, in_rect, key = site_key(
+            S, x, y, state, alive, in_hull, num_fc, num_oc)
+        hit_fc = grp_fc & in_hull
+        hit_oc = grp_oc & in_rect
+        interact = grp_ic | hit_fc | hit_oc
+
+        rec = _take(T["rec"], g * (2 * (1 + num_fc + num_oc)) + key)
+        pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
+        s_a, s_b = rec[24], rec[25]
+        pol_a = _jones_apply(rec[0:8], *pol)
+        pol_b = _jones_apply(rec[8:16], *pol)
+        pol_c = _jones_apply(rec[16:24], *pol)
+        s_c = _take(T["cell"][_C_SOUT:_C_SOUT + 1], g)[0]
+        inv_cos = 1.0 / r["cos_th"]
+        eff_a = _power(*pol_a) * s_a * inv_cos
+        eff_b = _power(*pol_b) * s_b * inv_cos
+        eff_c = _power(*pol_c) * s_c * inv_cos
+
+        u, rng = draw_uniform(r["rng"], r["idx"], interact)
+        br_a = interact & (u <= eff_a) & (eff_a > 0)
+        br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
+        br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
+                & (eff_c > 0))
+        die_roulette = interact & ~(br_a | br_b | br_c)
+
+        # accepted A / B: renormalise, TIR phasor, hop
+        accept = br_a | br_b
+        dir_a = torch.where(grp_oc, DIR_FC, DIR_IC)
+        dir_b = torch.where(grp_ic, DIR_IC2,
+                            torch.where(grp_fc, DIR_FC, DIR_OC))
+        dirs = torch.where(br_a, dir_a, dir_b)
+        ter_n, tei_n, tmr_n, tmi_n = (torch.where(br_a, pa, pb)
+                                      for pa, pb in zip(pol_a, pol_b))
+        inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
+                                 min=1e-30))
+        d = _take(T["dirs"], g * 4 + dirs)
+        ter_n, tei_n = ter_n * inv, tei_n * inv
+        tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
+        cos_n = torch.where(br_a, s_a, s_b)
+        gx_n, gy_n = d[0], d[1]
+
+        st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, -1))
+        st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, -1))
+        x_acc = x + gx_n
+        y_acc = y + gy_n
+        ic_in = in_ic(G, S, x_acc, y_acc, circle)
+        st_a = torch.where(grp_ic, torch.where(ic_in, 0, 2), st_a)
+        st_b = torch.where(grp_ic, torch.where(ic_in, 1, DEAD), st_b)
+        st_acc = torch.where(br_a, st_a, st_b)
+
+        # out-couple (C): the bin is taken from this position at the end
+        dep = torch.where(br_c, _OUT, r["dep"])
+
+        # misses: TIR hop with the doubled phasor, or a phase transition
+        miss_fc2 = grp_fc & ~in_hull & (state == 2)
+        miss_fc3 = grp_fc & ~in_hull & (state == 3)
+        fc3_to_oc = miss_fc3 & ~in_r2
+        miss_hop_fc3 = miss_fc3 & in_r2
+        miss_oc4 = grp_oc & ~in_rect & (state == 4)
+        miss_oc5 = grp_oc & ~in_rect & (state == 5)
+        hop = miss_fc2 | miss_hop_fc3 | miss_oc4
+        hop_dir = torch.where(miss_fc2, DIR_IC, DIR_FC)
+        hd = _take(T["dirs"], g * 4 + hop_dir)
+
+        new_state = torch.where(
+            accept, st_acc,
+            torch.where(br_c | die_roulette | miss_oc5, DEAD,
+                        torch.where(fc3_to_oc, 4, state))).to(torch.int32)
+        hop_tmr, hop_tmi = _phase_mul(hd[4], hd[5], r["tmr"], r["tmi"])
+        out = dict(r)
+        out.update(
+            x=torch.where(accept, x_acc, torch.where(hop, x + r["gap_x"], x)),
+            y=torch.where(accept, y_acc, torch.where(hop, y + r["gap_y"], y)),
+            ter=torch.where(accept, ter_n, r["ter"]),
+            tei=torch.where(accept, tei_n, r["tei"]),
+            tmr=torch.where(accept, tmr_n,
+                            torch.where(hop, hop_tmr, r["tmr"])),
+            tmi=torch.where(accept, tmi_n,
+                            torch.where(hop, hop_tmi, r["tmi"])),
+            cos_th=torch.where(accept, cos_n, r["cos_th"]),
+            gap_x=torch.where(accept, gx_n, r["gap_x"]),
+            gap_y=torch.where(accept, gy_n, r["gap_y"]),
+            state=new_state, rng=rng, dep=dep)
+        return out
+
+    def trace(rays: dict, T: dict, G: dict, max_bounces: Optional[int] = None,
+              timer: Optional[EventTimer] = None,
+              stats: Optional[dict] = None):
+        flat = rays["x"].dim() == 1
+        r = {k: v[None] for k, v in rays.items()} if flat else dict(rays)
+        D = r["x"].shape[0]
+        if G["fc_top"].shape[0] != D:
+            raise ValueError(f"{D} design rows against "
+                             f"{G['fc_top'].shape[0]} geometries")
+        timer = timer if timer is not None else EventTimer("cpu")
+        stats = stats if stats is not None else {}
+        budget = cfg.max_bounces if max_bounces is None else int(max_bounces)
+        C = T["cell"].shape[1] // D
+        g = r["cid"] + C * torch.arange(D, device=r["cid"].device)[:, None]
+        S = _col(G, D, 2)
+        if mode == "full":
+            with timer.span("init"):
+                r = init_step(r, T, S, g, G)
+        bounces = torch.zeros(D, dtype=torch.int64, device=g.device)
+        it = 0
+        with timer.span("bounce"):
+            while it < budget:
+                n_alive = (r["state"] < DEAD).sum(dim=1)
+                stats["syncs"] = stats.get("syncs", 0) + 1
+                if not bool(n_alive.any()):
+                    break
+                bounces += n_alive
+                r = bounce_step(r, T, S, g, G, stats)
+                it += 1
+            out = r["dep"] == _OUT
+            ebr = _take(T["cell"][_C_EBR:_C_EBR + 4], g)
+            in_quad, b = deposit_bin(ebr, r["x"], r["y"], ny, nx)
+            r["dep"] = torch.where(out, torch.where(in_quad, b, -1),
+                                   r["dep"]).to(torch.int32)
+        stats["steps"] = stats.get("steps", 0) + it
+        if flat:
+            return {k: v[0] for k, v in r.items()}, bounces
+        return r, bounces
+
+    return trace
+
+
+def make_trace_fn(tables: CellTables, tgeom: TraceGeometry, cfg: TraceConfig,
+                  precision: str = "f32", device="cuda"):
+    """Build ``trace(rays) -> (rays_final, bounces)`` with the tables of one
+    design bound on ``device``; ``precision="f64"`` traces in float64
+    (oracle parity)."""
+    device = resolve_device(device)
+    fdt = torch.float64 if precision == "f64" else torch.float32
+    G = geom_tensors(tgeom, fdt)
+    T = {k: v.to(device) for k, v in pack_tables(as_tables(tables, fdt),
+                                                   G).items()}
+    G = {k: v.to(device)
+         for k, v in add_region_grids(stack_geoms([G])).items()}
+    core = make_trace_fn_dynamic(cfg, tgeom.num_fc, tgeom.num_oc)
+
+    def trace(rays, **kw):
+        rays_f, bounces = core(rays, T, G, **kw)
+        return rays_f, bounces.sum()
+
+    return trace
+
+
+class VectorTracer(nn.Module):
+    """The vector trace bound to D designs: their tables and geometry held
+    as buffers on the module's device.  ``forward(rays, mode=, ...)`` runs
+    :func:`make_trace_fn_dynamic`'s trace in full or resume mode."""
+
+    def __init__(self, tables: Sequence[CellTables],
+                 tgeoms: Sequence[TraceGeometry], cfg: TraceConfig,
+                 dtype=torch.float32, device="cpu"):
+        """The tables are packed and the region grids built on ``device``."""
+        super().__init__()
+        num_fc, num_oc = tgeoms[0].num_fc, tgeoms[0].num_oc
+        if any(g.num_fc != num_fc or g.num_oc != num_oc for g in tgeoms):
+            raise ValueError("designs in one trace must share strip counts")
+
+        def to(d):
+            return {k: (v.to(device) if torch.is_tensor(v) else v)
+                    for k, v in d.items()}
+
+        Gs = [to(geom_tensors(g, dtype)) for g in tgeoms]
+        T = stack_tables([pack_tables(to(as_tables(t, dtype)), G)
+                          for t, G in zip(tables, Gs)])
+        for k, v in T.items():
+            self.register_buffer(f"T_{k}", v)
+        for k, v in add_region_grids(stack_geoms(Gs)).items():
+            self.register_buffer(f"G_{k}", v)
+        self.cfg = cfg
+        self.num_fc, self.num_oc = num_fc, num_oc
+        self._fns = {m: make_trace_fn_dynamic(cfg, num_fc, num_oc, mode=m)
+                     for m in ("full", "resume")}
+
+    def tables(self) -> dict:
+        return {k[2:]: v for k, v in self.named_buffers() if k[:2] == "T_"}
+
+    def geometry(self) -> dict:
+        return {k[2:]: v for k, v in self.named_buffers() if k[:2] == "G_"}
+
+    def forward(self, rays: dict, mode: str = "full",
+                max_bounces: Optional[int] = None,
+                timer: Optional[EventTimer] = None,
+                stats: Optional[dict] = None):
+        return self._fns[mode](rays, self.tables(), self.geometry(),
+                               max_bounces=max_bounces, timer=timer,
+                               stats=stats)
+
+
+# ---------------------------------------------------------------------------
+# segment-and-compact scheduling and deposits
+
+
+def compact_rays(rays: dict):
+    """The live rays of each design row moved to the front, stably, and
+    the rows cut to the largest live count ``k`` (one read from the
+    device); rows with fewer live rays keep dead ones, which a step leaves
+    as they are.  Returns ``(rays, k)``."""
+    alive = rays["state"] < DEAD
+    k = int(alive.sum(dim=1).max())
+    order = torch.sort((~alive).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :k]
+    return {key: torch.gather(v, 1, order) for key, v in rays.items()}, k
+
+
+def trace_compacted(tracer: VectorTracer, rays: dict, max_bounces: int,
+                    segment_bounces: int, on_deposits,
+                    timer: Optional[EventTimer] = None,
+                    stats: Optional[dict] = None) -> torch.Tensor:
+    """Trace (D, R) rays in segments of ``segment_bounces`` steps, moving
+    the survivors of every design row together between segments
+    (:func:`compact_rays`) so late steps run on a small batch.  After each
+    segment ``on_deposits(rays)`` receives the segment's final state (its
+    ``dep`` holds the segment's deposits; it is reset before the next).  Per
+    ray RNG streams carry over and the last segment gets exactly the budget
+    left, so the deposits and the (D,) bounce total returned equal one trace
+    of ``max_bounces``, bit for bit."""
+    if segment_bounces < 1:
+        raise ValueError("segment_bounces must be positive")
+    timer = timer if timer is not None else EventTimer("cpu")
+    stats = stats if stats is not None else {}
+    total = None
+    budget = int(max_bounces)
+    mode = "full"
+    while budget > 0:
+        seg = min(segment_bounces, budget)
+        rays, b = tracer(rays, mode=mode, max_bounces=seg, timer=timer,
+                         stats=stats)
+        mode = "resume"
+        total = b if total is None else total + b
+        budget -= seg
+        with timer.span("scatter"):
+            on_deposits(rays)
+        if budget <= 0:
+            break
+        with timer.span("compact"):
+            rays, k = compact_rays(rays)
+            stats["syncs"] = stats.get("syncs", 0) + 1
+            stats["segments"] = stats.get("segments", 0) + 1
+        if k == 0:
+            break
+        rays["dep"] = torch.full_like(rays["dep"], -1)
+    return total
+
+
+def deposits_to_histogram(dep: torch.Tensor, cid: torch.Tensor, L: int,
+                          M: int, N: int, ny: int, nx: int) -> torch.Tensor:
+    """Per-ray terminal deposits -> the (L, N, M, ny, nx) eyebox histogram
+    (the reference's ``matrix_EB`` axis order: lambda, FoV y, FoV x, eyebox
+    y, eyebox x), on ``dep``'s device."""
+    hist = torch.zeros(L * N * M * ny * nx, dtype=torch.float32,
+                       device=dep.device)
+    add_deposits(hist, dep.reshape(-1), cid.reshape(-1), M, N, ny, nx)
+    return hist.reshape(L, N, M, ny, nx)
+
+
+def add_deposits(hist_flat: torch.Tensor, dep: torch.Tensor,
+                 cid: torch.Tensor, M: int, N: int, ny: int, nx: int,
+                 base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Add one per deposit (``dep >= 0``) of rays of cells ``cid`` into a
+    flat (L, N, M, ny, nx) histogram, in place; ``base`` (broadcast against
+    ``dep``) offsets each row, e.g. by design.  Whole counts in float32 sum
+    exactly in any order (below 2^24 per bin).  Returns the number of
+    deposits as a device scalar."""
+    has = dep >= 0
+    l = cid // (M * N)
+    mn = cid % (M * N)
+    flat = ((l * N + mn % N) * M + mn // N) * (ny * nx) + torch.clamp(dep, min=0)
+    if base is not None:
+        flat = flat + base
+    hist_flat.index_add_(0, flat.reshape(-1).to(torch.int64),
+                         has.reshape(-1).to(hist_flat.dtype))
+    return has.sum()

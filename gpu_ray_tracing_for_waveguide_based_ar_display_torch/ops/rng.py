@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 _GOLDEN = np.uint32(0x9E3779B9)
+_RESEED = 0x6D2B79F5
 _MASK32 = 0xFFFFFFFF
 _INV_2_24 = 1.0 / 16777216.0
 
@@ -30,6 +31,18 @@ def draw24(s_new: torch.Tensor) -> torch.Tensor:
     """U[0, 1) float32 from the top 24 bits of a post-step state (exact in
     float32; not ``s * 2^-32``)."""
     return (s_new >> 8).to(torch.float32) * _INV_2_24
+
+
+def draw_uniform(state: torch.Tensor, ray_idx: torch.Tensor,
+                 advance: torch.Tensor):
+    """U[0, 1) float32 per ray, and the state advanced only where
+    ``advance``: a zero state first reseeds from the ray index as
+    ``_RESEED ^ (idx + 1)``; a ray that does not advance keeps its state
+    (its draw means nothing).  ``state`` and ``ray_idx`` are int64 holding
+    uint32 values."""
+    s = torch.where(state == 0, _RESEED ^ ((ray_idx + 1) & _MASK32), state)
+    s_new = xorshift32_step(s)
+    return draw24(s_new), torch.where(advance, s_new, state)
 
 
 def seed_parity(ray_idx: np.ndarray) -> np.ndarray:

@@ -1,1 +1,3 @@
-from .design_sweep import SweepResult, run_design_sweep_persistent  # noqa: F401
+from .design_sweep import (  # noqa: F401
+    SweepResult, run_design_sweep, run_design_sweep_persistent,
+)

@@ -1,7 +1,10 @@
-"""Batched design sweeps on the persistent trace.
+"""Batched design sweeps: the vector trace and the persistent trace.
 
-Port of ``sweep/design_sweep.py::run_design_sweep_persistent`` of the JAX
-package.  Each candidate design's geometry and tables are built on the host,
+Port of ``sweep/design_sweep.py`` of the JAX package.
+:func:`run_design_sweep` (its ``run_design_sweep``) traces every design's
+rays in one vector trace whose leading axis is the design
+(:mod:`..engine.trace_vector`).  :func:`run_design_sweep_persistent`:
+each candidate design's geometry and tables are built on the host,
 the designs of a chunk are stacked along the cell axis (D contiguous runs of
 L*M*N cells, one geometry row per design), and ONE launch of
 :func:`..engine.trace_persistent.persistent_trace` traces the whole chunk on
@@ -21,11 +24,13 @@ import torch
 
 from ..config import EvalConfig, TraceConfig, WaveguideDesign
 from ..design.geometry import generate_geometry
-from ..engine import seeding, trace_persistent, trace_rows
-from ..engine.pipeline import resolve_device
+from ..engine import seeding, trace_persistent, trace_rows, trace_vector
+from ..engine.device import resolve_device
+from ..engine.timing import EventTimer
 from ..engine.trace_geometry import build_trace_geometry
 from ..eval.metrics import evaluate_batch, pupil_conv, pupil_mask
-from ..luts.packing import build_cell_tables_synthetic_batch
+from ..luts.packing import build_cell_tables, build_cell_tables_synthetic_batch
+from ..luts.synthetic import make_synthetic_luts
 
 
 @dataclasses.dataclass
@@ -40,6 +45,99 @@ class SweepResult:
     # host seconds of each layer, kernel milliseconds (CUDA events) and
     # launches: see run_design_sweep_persistent
     timings: dict = dataclasses.field(default_factory=dict)
+
+
+def run_design_sweep(
+    designs: Sequence[WaveguideDesign],
+    cfg: TraceConfig = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=256,
+                                   max_bounces=2048),
+    lut_seed: int = 1234, device="cuda",
+    segment_bounces: Optional[int] = 24,
+    keep_histograms: Union[bool, Sequence[int]] = True,
+) -> SweepResult:
+    """Trace every design with identical workloads on ``device``, in one
+    vector trace over a leading design axis; returns per-design results.
+
+    Each design gets its geometry, synthetic LUTs, cell tables, trace
+    geometry (simplified at 1e-3) and host-seeded ray batch, as the JAX
+    package's sweep builds them; a batch depends on the design only through
+    its in-coupler polygon, so designs that share it share one batch.  All designs must share strip counts
+    (num_fc / num_oc).  ``segment_bounces`` traces in bounce segments with
+    each design's survivors compacted between them (``None``: one loop to
+    the end); the results are the same bit for bit, and each design's equal
+    its solo sweep's.  ``keep_histograms``: every design's (L, N, M, ny, nx)
+    histogram in ``SweepResult.histograms`` (the default, as the JAX sweep),
+    those of a sequence of design indices (in design order), or none.
+
+    ``SweepResult.timings``: host seconds ``prep_s`` (geometry, tables,
+    seeds), ``upload_s`` and ``pull_s``; device milliseconds from CUDA events
+    on a GPU (``init_ms``, ``bounce_ms``, ``compact_ms``, ``scatter_ms``);
+    ``steps``, ``syncs`` (reads from the device that end a step loop or size
+    a compaction) and ``segments``."""
+    dev = resolve_device(device)
+    timings = {}
+    t0 = time.perf_counter()
+    tables, tgeoms, batches = [], [], []
+    prev_ic = None
+    for d in designs:
+        geom = generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y)
+        tables.append(build_cell_tables(
+            geom, make_synthetic_luts(geom, seed=lut_seed)))
+        tgeoms.append(build_trace_geometry(geom, simplify_tol=1e-3))
+        if prev_ic is None or not np.array_equal(prev_ic, geom.ic):
+            batches.append(seeding.build_ray_batch(geom, cfg))
+            prev_ic = geom.ic
+        else:
+            batches.append(batches[-1])
+    timings["prep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tracer = trace_vector.VectorTracer(tables, tgeoms, cfg, device=dev)
+    states = {}
+    for b in batches:
+        if id(b) not in states:
+            states[id(b)] = trace_vector.make_ray_state(
+                b["x"], b["y"], b["te"], b["tm"], b["cid"], b["idx"],
+                b["rng"], device=dev)
+    rays = trace_vector.stack_ray_states([states[id(b)] for b in batches])
+    del batches, states
+    timings["upload_s"] = time.perf_counter() - t0
+
+    D = len(designs)
+    L, M, N = 3, cfg.num_fov_x, cfg.num_fov_y
+    ny, nx = cfg.eyebox_bins
+    size = L * N * M * ny * nx
+    hists = torch.zeros(D * size, dtype=torch.float32, device=dev)
+    base = (torch.arange(D, device=dev) * size)[:, None]
+    timer = EventTimer(dev)
+    stats = {}
+
+    def add(r):
+        trace_vector.add_deposits(hists, r["dep"], r["cid"], M, N, ny, nx,
+                                  base=base)
+
+    if segment_bounces is None:
+        rays, bounces = tracer(rays, timer=timer, stats=stats)
+        with timer.span("scatter"):
+            add(rays)
+    else:
+        bounces = trace_vector.trace_compacted(
+            tracer, rays, cfg.max_bounces, segment_bounces, add, timer=timer,
+            stats=stats)
+    del rays
+    t0 = time.perf_counter()
+    hists = hists.reshape(D, L, N, M, ny, nx)
+    # the JAX sweep's efficiencies: float32 sums over each design's bins
+    eff = (hists.sum(dim=(2, 3, 4, 5)).cpu().numpy()
+           / (L * M * N * cfg.rays_per_fov) * 3)
+    keep = (list(range(D)) if keep_histograms is True
+            else sorted(keep_histograms or ()))
+    kept = hists[keep].cpu().numpy() if keep else None
+    bounces = bounces.cpu().numpy()
+    timings["pull_s"] = time.perf_counter() - t0
+    timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
+    timings.update(stats)
+    return SweepResult(designs=list(designs), histograms=kept,
+                       efficiencies=eff, bounces=bounces, timings=timings)
 
 
 @dataclasses.dataclass

@@ -486,3 +486,86 @@ def test_wavelengths_and_checkpoint_on_card(small, cuda_device, tmp_path,
     np.testing.assert_array_equal(resumed.histogram, full.histogram)
     assert resumed.total_bounces == full.total_bounces
     assert resumed.rays_traced == full.rays_traced
+
+
+# ---------------------------------------------------------------------------
+# the vector and splitting engines (plain PyTorch on the card)
+
+
+@pytest.mark.cuda
+def test_vector_engine_on_card_matches_cpu(small, cuda_device):
+    """The vector tracer on the card against the same code on the CPU: per
+    ray, deposits and states agree for >= 99.5 % of the rays and bounces
+    within 2 % (the P2 bar: the card's float32 and the CPU's may round a few
+    operations differently); on the card the compacted trace equals the
+    monolithic one bit for bit."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    geom, cfg = small
+    sims = {d: pipeline.Simulator(cfg=cfg, geom=geom, engine="vector",
+                                  device=d) for d in ("cpu", cuda_device)}
+    cells = np.arange(3 * M * N)
+    rays = {d: s._vector_rays(cells, 256, 0) for d, s in sims.items()}
+    out = {d: sims[d].tracer(r) for d, r in rays.items()}
+    (rc, bc), (rg, bg) = out["cpu"], out[cuda_device]
+    for k in ("dep", "state"):
+        assert (rg[k].cpu() == rc[k]).float().mean() >= 0.995, k
+    assert abs(int(bg.sum()) - int(bc.sum())) <= 0.02 * int(bc.sum())
+    sim = sims[cuda_device]
+    h, b, _ = sim.trace_batch(cells, 256, 1)
+    hc, bcmp, _ = sim.trace_batch_compacted(cells, 256, 1, segment_bounces=6)
+    assert torch.equal(h, hc) and int(b) == int(bcmp)
+    assert h.is_cuda and float(h.sum()) > 0
+    assert tv.DEAD == 6
+
+
+@pytest.mark.cuda
+def test_splitting_engine_on_card_matches_cpu(cuda_device):
+    """The per-cell splitting engine on the card against the CPU (4 cells,
+    4 positions, threshold 1e-5): tiles within rtol 2e-4 / atol 1e-10, equal
+    steps and peak widths, nothing truncated; on the card, chunks of 1 and 3
+    cells give the tiles of one chunk of 4 bit for bit (deterministic
+    accumulation)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding,
+    )
+
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    tgeom = build_trace_geometry(geom)
+    cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4, seed=2)
+    b = seeding.build_ray_batch(geom, cfg, cell_ids=np.arange(1),
+                                rays_per_cell=4)
+    seeds = {"x": b["x"], "y": b["y"], "ter": b["te"].real,
+             "tei": b["te"].imag, "tmr": b["tm"].real, "tmi": b["tm"].imag}
+    seeds = {k: torch.tensor(v, dtype=torch.float32) for k, v in seeds.items()}
+    cells = np.array([1, 5, 9, 16])
+    kw = dict(capacity=8192, weight_threshold=1e-5, max_steps=300)
+    res = {d: splitting.run_splitting_cells(tables, tgeom, cfg, cells, seeds,
+                                            device=d, **kw)
+           for d in ("cpu", cuda_device)}
+    c, g = res["cpu"], res[cuda_device]
+    assert c.truncated == g.truncated == 0.0
+    np.testing.assert_allclose(g.histogram, c.histogram, rtol=2e-4,
+                               atol=1e-10)
+    assert (g.steps, g.peak_live) == (c.steps, c.peak_live)
+    assert g.out_coupled == pytest.approx(c.out_coupled, rel=1e-5)
+    trace = splitting.make_splitting_cells_fn(tables, tgeom, cfg,
+                                              device=cuda_device, **kw)
+    whole = trace(cells, seeds)[0]
+    parts = torch.cat([trace(cells[:1], seeds)[0], trace(cells[1:], seeds)[0]])
+    assert torch.equal(whole, parts)

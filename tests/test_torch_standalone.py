@@ -186,3 +186,79 @@ def test_checkpoint_copy_and_file_format(tmp_path):
         assert (it, bounces, extras) == (2, 12345, {"total_rays": 77,
                                                     "total_spawned": 80})
         assert load(path, ld, dataclasses.replace(lc, seed=4)) is None
+
+
+def _code_without_imports_and_docstrings(path) -> str:
+    """The module's syntax tree with its imports and docstrings left out."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if not isinstance(body, list):
+            continue
+        body[:] = [n for n in body
+                   if not isinstance(n, (ast.Import, ast.ImportFrom))]
+        if (body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            body.pop(0)
+    return ast.dump(tree)
+
+
+def test_plotting_copy_is_the_jax_original():
+    """The port's ``design/plotting.py`` is the JAX package's, changed only
+    in its imports and docstrings: the same code."""
+    import importlib.util
+
+    def path(pkg):
+        return importlib.util.find_spec(f"{pkg}.design.plotting").origin
+
+    assert (_code_without_imports_and_docstrings(
+        path("gpu_ray_tracing_for_waveguide_based_ar_display_torch"))
+        == _code_without_imports_and_docstrings(
+            path("gpu_ray_tracing_for_waveguide_based_ar_display_tpu")))
+
+
+def test_new_engines_load_no_jax(tmp_path):
+    """A process that runs the vector and splitting engines, the vector
+    sweep and the design plots of the port on the CPU loads neither jax,
+    ml_dtypes nor any module of the JAX package."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import sys\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine "
+        "import pipeline, splitting, trace_vector\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config "
+        "import TraceConfig, WaveguideDesign\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep "
+        "import run_design_sweep\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design "
+        "import generate_geometry, plotting\n"
+        "cfg = TraceConfig(num_fov_x=2, num_fov_y=2, rays_per_fov=32, "
+        "num_iter=1, max_bounces=200, seed=1)\n"
+        "r = pipeline.Simulator(cfg=cfg, device='cpu', engine='vector', "
+        "segmented=True).run()\n"
+        "assert r.deposits > 0, r.deposits\n"
+        "r = pipeline.Simulator(cfg=cfg, device='cpu', engine='splitting', "
+        "splitting_threshold=1e-4).run(rays_per_fov=2)\n"
+        "assert sum(r.efficiencies.values()) > 0\n"
+        "s = run_design_sweep([WaveguideDesign()] * 2, cfg, device='cpu')\n"
+        "assert (s.efficiencies > 0).all()\n"
+        "plotting.plot_design(generate_geometry(num_fov_x=2, num_fov_y=2), "
+        "prefix='d')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes') "
+        "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
+        "display_tpu')))\n"
+        "print(bad or 'NOJAX')\n"
+    )
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(repo), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "NOJAX"
