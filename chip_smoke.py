@@ -156,6 +156,36 @@ Run from the repository root.  Phases:
    implies; (d) the global engine on 3 x 2 FoV x 3 wavelengths at 4
    positions, card against CPU within the same bars.  Phases 12 and 13
    launch no kernel (the K2 cross-check aside).
+14. ``simulate --tail-boost`` at full width through
+   ``engine.hybrid.TailBoostHybrid`` with the CLI's knobs (tau 30 / 20,
+   tiers up to 1024x): the reference workload, count spawn with folding,
+   launch counts reset just before the hybrid's run and read just after
+   it (the pilot's and the bulk's batches and one launch per tier and
+   chunk); the selected cells, tiers, tail rays and launches per tier, the
+   tail's largest ``nb[:, 1]`` against the 100,000-iteration cap and the
+   cells it stopped (ROADMAP F5), pilot, tail and bulk seconds, starved
+   eye positions before (phase 3's run) and after; it fails unless the
+   starved positions fall and every patched metric is finite.  Then four
+   cells of the top tier with their seeds (the tail's iteration tag) and
+   spawn target: the kernel once to the end (each cell reaches its target
+   or the cap), and kernel and plain version over the first 1,024
+   iterations, bit for bit (the plain version takes about 8.5 ms an
+   iteration; the whole ~75,000-iteration chain would take it minutes);
+14b. ``simulate --tail-exact`` at 20 x 15 FoV (the grid cut from 100 x 75;
+   the reference budget per cell) through ``ExactTailHybrid`` with the
+   CLI's knobs: selected cells, pruned weight, pilot (timed twice: its first
+   run holds the process's first uses of the splitting operations), tail
+   and bulk seconds, starved positions; one bulk launch;
+15. ``optimize``: the README's apodization case (16 x 12 FoV, 16 rays per
+   FoV, 4,096 slots, 64 trace steps, 40 Adam steps) and its joint case
+   (24 x 18, 8 rays, tied pitch and orientation with the apodization,
+   ``pupil_bins=24``, 16,384 slots), each with its layers over two timed
+   steps (forward, backward, Adam), its Adam steps cut to a time budget
+   (printed), and the truncated and deposited weight of its first and last
+   trace; both README cases truncate part of their wavefront (as in the
+   JAX package), so the no-truncation check runs on a third case, the
+   apodization grid at 2 rays per FoV in 262,144 slots.  The loss must fall
+   in every case.
 
 Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
 fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
@@ -633,6 +663,7 @@ def phase3(ctx) -> None:
         "bounces_per_s": res.bounces_per_second,
         "rays_traced": res.rays_traced, "efficiencies": res.efficiencies,
         "delta_e": met.delta_e, "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+        "starved_eye_positions": met.starved_eye_positions,
         "launches": launches, "batches": batches, "peak_bytes": peak,
         "max_iterations": int(res.cell_stats[:, 1].max()),
         "live_fraction": live3, "bound_ms": bound3, "bound_by": bound_by3,
@@ -670,6 +701,7 @@ def phase3(ctx) -> None:
         save_record(ctx)
     ctx["k1_main_launches"] = launches["persistent_trace"]
     ctx["persistent_efficiencies"] = dict(res.efficiencies)
+    ctx["main_starved"] = met.starved_eye_positions
     ctx["exact_run"] = stack_stats(res, sim._slots_gens(target)[0])
 
 
@@ -2047,10 +2079,404 @@ def phase13(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
 
 
+def _finite_metrics(res) -> bool:
+    m = res.metrics
+    vals = list(res.efficiencies.values()) + [m.delta_e, m.u_fov, m.u_eyebox]
+    return all(math.isfinite(v) for v in vals)
+
+
+def phase14(ctx) -> None:
+    """``simulate --tail-boost`` at full width, and a top-tier tail chunk of
+    the persistent kernel against its plain version."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid, pipeline, trace_persistent as tp,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase14", {})
+    cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
+    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    before = ctx.get("main_starved")
+    if before is None:   # phase 3 not run: the same run, its metrics
+        before = sim.run(histogram_device=True).metrics.starved_eye_positions
+    # the CLI's hybrid: tau_select 30, tau_target 20, max boost 1024
+    hy = hybrid.TailBoostHybrid(sim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, d = hy.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tp.launch_counts)
+    n_cells = sim.L * sim.M * sim.N
+    batches = math.ceil(n_cells / 2048)
+    budget = cfg.rays_per_fov * cfg.num_iter
+    sel, rows, sums, frag = hy.tail
+    met = res.metrics
+    top = max(d.tiers) if d.tiers else 0
+    rec.update(
+        cells=n_cells, selected_cells=d.selected_cells,
+        tiers={str(k): v for k, v in d.tiers.items()},
+        tier_launches={str(k): v for k, v in d.tier_launches.items()},
+        tail_rays=d.tail_rays, min_pilot_count=d.min_pilot_count,
+        min_tail_expected=d.min_tail_expected,
+        max_tail_iterations=d.max_tail_iterations,
+        tail_cells_at_cap=d.tail_cells_at_cap,
+        iteration_cap=cfg.max_bounces, pilot_s=d.pilot_seconds,
+        tail_s=d.tail_seconds, bulk_s=d.mc_seconds, wall_s=wall,
+        setup_s=sim.setup_seconds, launches=launches,
+        starved_before=before, starved_after=met.starved_eye_positions,
+        efficiencies=res.efficiencies, delta_e=met.delta_e, u_fov=met.u_fov,
+        u_eyebox=met.u_eyebox, peak_bytes=torch.cuda.max_memory_allocated())
+    save_record(ctx)
+    tiers = ", ".join(f"{k}x: {v} groups in {d.tier_launches[k]} launch(es)"
+                      for k, v in sorted(d.tiers.items()))
+    print(f"phase 14: --tail-boost at {n_cells:,} cells, {budget:,} rays per "
+          f"cell: {d.selected_cells:,} cells selected, tiers [{tiers}], "
+          f"{d.tail_rays:,} tail rays (top tier {top * budget:,} rays per "
+          f"cell); largest nb[:, 1] of the tail {d.max_tail_iterations:,} "
+          f"of the {cfg.max_bounces:,}-iteration cap; pilot "
+          f"{d.pilot_seconds:.3f} s, tail {d.tail_seconds:.3f} s, bulk "
+          f"{d.mc_seconds:.3f} s, wall {wall:.3f} s; starved eye positions "
+          f"{before} -> {met.starved_eye_positions}; u_eyebox "
+          f"{met.u_eyebox:.5f}, delta E {met.delta_e:.4f}; launches "
+          f"{launches}")
+    faults = []
+    want = 2 * batches + sum(d.tier_launches.values())
+    if launches != {"persistent_trace": want, "cell_trace": 0}:
+        faults.append(f"launches {launches}, expected {want} persistent")
+    if not met.starved_eye_positions < before:
+        faults.append(f"starved eye positions {before} -> "
+                      f"{met.starved_eye_positions}")
+    if not _finite_metrics(res):
+        faults.append("a patched metric is not finite")
+    if d.tail_cells_at_cap:
+        print(f"phase 14: {d.tail_cells_at_cap} tail cell(s) reached the "
+              f"{cfg.max_bounces:,}-iteration cap before their spawn target "
+              "(ROADMAP F5)")
+
+    # ---- a chunk of the top tier: its cells, seeds (iteration tag) and
+    # spawn target, once to the end (the kernel alone) and over the first
+    # CUT iterations of both the kernel and its plain version
+    cells = sel[frag["cell_tier"] == top][:4]
+    rpc = int(top * budget)
+    slots, gens = sim._slots_gens(rpc)
+    rays_in, rng_in = sim._device_ray_blocks(
+        cells, slots, hybrid.tail_iteration(rpc))
+    tr = sim.tracer
+    args = (tp.select_cells(tr.cell_params, cells).contiguous(),
+            tr.geom_row, rays_in, rng_in, sim._pers_ctrl(rpc, gens))
+    kw = dict(num_fc=tr.num_fc, num_oc=tr.num_oc, edge_counts=tr.edge_counts,
+              eyebox_bins=tr.eyebox_bins)
+    full_ms = cuda_ms(lambda: tp.persistent_trace(
+        *args, max_iters=cfg.max_bounces, **kw), 1)
+    hk, nbk = tp.persistent_trace(*args, max_iters=cfg.max_bounces, **kw)
+    nb_full = nbk.cpu().numpy()
+    cut = ctx.get("top_tier_cut", 1024)
+    hc, nbc = tp.persistent_trace(*args, max_iters=cut, **kw)
+    cut_ms = cuda_ms(lambda: tp.persistent_trace(*args, max_iters=cut, **kw),
+                     1)
+    bound_cut, bound_by_cut = bound_ms(args, (hc, nbc), nbc,
+                                       tr.edge_counts[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp, nbp = tp.persistent_trace_reference(*args, max_iters=cut, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    same = bool(torch.equal(hc, hp) and torch.equal(nbc, nbp))
+    chunk = {
+        "cells": [int(c) for c in cells], "rays_per_cell": rpc,
+        "slots": slots, "iteration_tag": hybrid.tail_iteration(rpc),
+        "full_ms": full_ms, "full_iterations": nb_full[:, 1].tolist(),
+        "full_spawned": nb_full[:, 2].tolist(),
+        "full_bounces": nb_full[:, 0].tolist(),
+        "full_max_bin": float(hk.max()), "cut_iterations": cut,
+        "cut_identical": same, "max_abs_err": float((hc - hp).abs().max()),
+        "cut_ms": cut_ms, "cut_bound_ms": bound_cut,
+        "cut_bound_by": bound_by_cut, "plain_cut_s": plain_s,
+        "plain_full_estimate_s": plain_s * int(nb_full[:, 1].max()) / cut}
+    rec["top_tier_chunk"] = chunk
+    save_record(ctx)
+    print(f"phase 14 top tier: {len(cells)} cells x {rpc:,} rays over "
+          f"{slots} slots (tag {chunk['iteration_tag']}): the kernel to the "
+          f"end {full_ms:.1f} ms, iterations {chunk['full_iterations']}, "
+          f"spawned {chunk['full_spawned']}, bounces "
+          f"{chunk['full_bounces']}, largest bin {chunk['full_max_bin']:.0f}; "
+          f"kernel and plain version over the first {cut} iterations "
+          f"{'identical' if same else 'DIFFER'} (kernel {cut_ms:.2f} ms, "
+          f"bound {bound_cut:.4f} ms ({bound_by_cut}), plain "
+          f"{plain_s:.2f} s; the plain version to the end about "
+          f"{chunk['plain_full_estimate_s']:.0f} s)")
+    if not same:
+        faults.append("the top-tier chunk differs from the plain version")
+    # a cell stops at its spawn target or at the iteration cap (F5: its
+    # tile is renormalised by target / spawned, as in the JAX package)
+    capped = nb_full[:, 1] >= cfg.max_bounces
+    if ((nb_full[:, 2] < rpc) & ~capped).any():
+        faults.append(f"top-tier chunk stopped early: {nb_full.tolist()}")
+    if faults:
+        fail("phase 14: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_hybrid_launches"] = (ctx.get("k1_hybrid_launches", 0)
+                                 + launches["persistent_trace"])
+    ctx["k1_modes"] = ctx.get("k1_modes", []) + [{
+        "mode": "count, top boost tier", "ctrl": [rpc, 0], "designs": 1,
+        "cells": len(cells), "slots": slots, "max_iters": cut,
+        "max_abs_err": chunk["max_abs_err"], "ms": cut_ms,
+        "plain_ms": plain_s * 1e3, "bound_ms": bound_cut,
+        "bound_by": bound_by_cut}]
+
+
+def phase14b(ctx) -> None:
+    """``simulate --tail-exact`` at 20 x 15 FoV (the grid cut from 100 x 75;
+    the reference budget per cell)."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid, pipeline, trace_persistent as tp,
+    )
+
+    dev = ctx["dev"]
+    cfg = TraceConfig(num_fov_x=20, num_fov_y=15)
+    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    before = sim.run(histogram_device=True).metrics.starved_eye_positions
+    # the CLI's exact tail: tau 30, one launch point per pass, 8,192 slots
+    hy = hybrid.ExactTailHybrid(sim, tau=30.0, points_per_pass=1,
+                                capacity=8192, max_steps=1024)
+    torch.cuda.synchronize()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, d = hy.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tp.launch_counts)
+    # the pilot once more: its first run holds the process's first uses of
+    # the splitting engine's operations
+    t0 = time.perf_counter()
+    hy.select()
+    pilot_again = time.perf_counter() - t0
+    met = res.metrics
+    n_cells = sim.L * sim.M * sim.N
+    rec = {"cells": n_cells, "selected_cells": d.selected_cells,
+           "pilot_again_s": pilot_again,
+           "min_expected": d.min_pilot_count, "pruned": d.exact_pruned,
+           "pilot_s": d.pilot_seconds, "tail_s": d.tail_seconds,
+           "bulk_s": d.mc_seconds, "wall_s": wall, "launches": launches,
+           "starved_before": before,
+           "starved_after": met.starved_eye_positions,
+           "efficiencies": res.efficiencies, "delta_e": met.delta_e,
+           "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+           "ms_per_selected_cell": (d.tail_seconds * 1e3
+                                    / max(d.selected_cells, 1))}
+    ctx["record"]["phase14b"] = rec
+    save_record(ctx)
+    print(f"phase 14b: --tail-exact at 20 x 15 FoV ({n_cells} cells): "
+          f"{d.selected_cells} cells selected (expected worst window < 30), "
+          f"pruned weight {d.exact_pruned:.4g}; pilot "
+          f"{d.pilot_seconds:.3f} s (again: {pilot_again:.3f} s), exact "
+          f"tail {d.tail_seconds:.3f} s "
+          f"({rec['ms_per_selected_cell']:.2f} ms per cell at 16 points), "
+          f"bulk {d.mc_seconds:.3f} s; starved eye positions {before} -> "
+          f"{met.starved_eye_positions}; u_eyebox {met.u_eyebox:.5f}; "
+          f"launches {launches}")
+    faults = []
+    if launches != {"persistent_trace": 1, "cell_trace": 0}:
+        faults.append(f"launches {launches}")
+    if not (d.selected_cells and met.starved_eye_positions <= before):
+        faults.append(f"starved {before} -> {met.starved_eye_positions} "
+                      f"with {d.selected_cells} cells selected")
+    if not _finite_metrics(res):
+        faults.append("a patched metric is not finite")
+    if faults:
+        fail("phase 14b: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_hybrid_launches"] = (ctx.get("k1_hybrid_launches", 0)
+                                 + launches["persistent_trace"])
+
+
+TIED = ("lambda_tied", "phi_tied")
+
+
+def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
+                   **kw):
+    """One ``optimize`` case through ``optimize_apodization`` or (``joint``)
+    ``optimize_grating`` with the tied knobs and the apodization: its
+    layers over two timed steps (forward, backward, Adam step), the steps
+    the time budget allows, the run, and the truncated and deposited weight
+    of its first and last trace (every trace's ledger is read)."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.io import (
+        load_or_synthesize,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt import (
+        grating_opt as opt,
+    )
+
+    dev = ctx["dev"]
+    M, N = grid
+    cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=rays,
+                      max_bounces=2048)
+    geom = generate_geometry(num_fov_x=M, num_fov_y=N)
+    tables = build_cell_tables(geom, load_or_synthesize(geom))
+    tgeom = build_trace_geometry(geom)
+    lr = 0.01 if joint else 0.15
+
+    # ---- layers: two steps by hand on the optimiser's own loss
+    rays0 = opt._launch_rays(geom, cfg, rays, None, dev)
+    theta = {k: torch.full((n,), 2.0, device=dev, requires_grad=True)
+             for k, n in (("fc", tgeom.num_fc), ("oc", tgeom.num_oc))}
+    if joint:
+        loss, _ = opt.make_grating_loss(tables, tgeom, cfg, rays0,
+                                        geom.design, opt_params=TIED,
+                                        apodize=True, **kw)
+        theta.update({k: torch.zeros((), device=dev, requires_grad=True)
+                      for k in TIED})
+    else:
+        loss, _ = opt.make_apodization_loss(tables, tgeom, cfg, rays0, **kw)
+    adam = opt._adam(theta, lr)
+    layers = {"forward_ms": [], "backward_ms": [], "adam_ms": []}
+    for _ in range(2):
+        for v in theta.values():
+            v.grad = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with splitting.deterministic():
+            val, _ = loss(theta)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            val.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        adam.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        layers["forward_ms"].append((t1 - t0) * 1e3)
+        layers["backward_ms"].append((t2 - t1) * 1e3)
+        layers["adam_ms"].append((t3 - t2) * 1e3)
+    del loss, theta, adam, val
+    step_s = sum(v[-1] for v in layers.values()) / 1e3
+    steps = max(2, min(steps_asked, int(budget_s / step_s)))
+
+    # ---- the run, every trace's ledger recorded
+    ledger = []
+    make = splitting.make_splitting_trace_fn
+
+    def recording(*a, **k):
+        fn = make(*a, **k)
+
+        def trace(*args):
+            out = fn(*args)
+            ledger.append((float(out[2].detach()), float(out[1].detach())))
+            return out
+        return trace
+
+    torch.cuda.reset_peak_memory_stats()
+    splitting.make_splitting_trace_fn = recording
+    try:
+        t0 = time.perf_counter()
+        if joint:
+            res = opt.optimize_grating(
+                geom, tables, tgeom, cfg, opt_params=TIED, rays_per_fov=rays,
+                steps=steps, learning_rate=lr, apodize=True, device=dev, **kw)
+        else:
+            res = opt.optimize_apodization(
+                geom, tables, tgeom, cfg, rays_per_fov=rays, steps=steps,
+                learning_rate=lr, device=dev, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        splitting.make_splitting_trace_fn = make
+    n0 = len(rays0["x"])
+    (tr0, ow0), (tr1, ow1) = ledger[0], ledger[-1]
+    out = {"grid": [M, N], "rays_per_fov": rays, "launch_rays": n0,
+           "steps_asked": steps_asked, "steps": steps, "wall_s": wall,
+           "s_per_step": wall / (steps + 1), "layers_ms": layers,
+           "loss_history": np.asarray(res.loss_history).tolist(),
+           "efficiency": list(res.efficiency),
+           "nonuniformity": list(res.nonuniformity),
+           "truncated_first_last": [tr0, tr1],
+           "out_coupled_first_last": [ow0, ow1], "traces": len(ledger),
+           "peak_bytes": torch.cuda.max_memory_allocated(), **kw}
+    if joint:
+        out["params"] = res.params
+    ctx["record"].setdefault("phase15", {})[name] = out
+    save_record(ctx)
+    h = res.loss_history
+    cut = "" if steps == steps_asked else f" (cut from {steps_asked})"
+    print(f"phase 15 {name}: {M} x {N} FoV x {rays} rays ({n0:,} launch "
+          f"rays), capacity {kw['capacity']:,}, {kw['fixed_steps']} trace "
+          f"steps: {steps} Adam steps{cut} in {wall:.2f} s; a step: forward "
+          f"{layers['forward_ms'][-1]:.1f} ms, backward "
+          f"{layers['backward_ms'][-1]:.1f} ms, Adam "
+          f"{layers['adam_ms'][-1]:.2f} ms; loss {h[0]:.5f} -> {h[-1]:.5f}; "
+          f"truncated weight {tr0:.4g} -> {tr1:.4g} of {n0:,} launched "
+          f"(deposited {ow0:.4g} -> {ow1:.4g}); peak "
+          f"{out['peak_bytes'] / 2**20:.0f} MiB")
+    return out
+
+
+def phase15(ctx) -> None:
+    """``optimize``: the README's apodization case and joint case (steps cut
+    to the time budget), and a case whose wavefront holds every branch."""
+    cases = [
+        # the README's `optimize --fov-x 16 --fov-y 12 --steps 40` (the
+        # CLI's defaults: 16 rays, 4,096 slots, 64 trace steps, lr 0.15)
+        ("apodization", (16, 12), 16, 40, 48.0, False,
+         dict(capacity=4096, fixed_steps=64)),
+        # the README's joint design: 24 x 18, 8 rays, tied knobs with the
+        # apodization, pupil_bins=24, 16,384 slots, 40 steps at lr 0.01
+        ("joint", (24, 18), 8, 40, 20.0, True,
+         dict(capacity=16384, fixed_steps=64, pupil_bins=24)),
+        # the apodization grid at 2 rays per FoV in a wavefront that holds
+        # every branch (262,144 slots)
+        ("apodization_whole_wavefront", (16, 12), 2, 6, 10.0, False,
+         dict(capacity=1 << 18, fixed_steps=64)),
+    ]
+    faults = []
+    for name, grid, rays, steps, budget, joint, kw in cases:
+        out = _optimize_case(ctx, name, grid, rays, steps, budget, joint,
+                             **kw)
+        h = out["loss_history"]
+        if not (all(math.isfinite(v) for v in h) and h[-1] < h[0]):
+            faults.append(f"{name}: loss {h[0]} -> {h[-1]}")
+        if name.endswith("whole_wavefront") and any(
+                out["truncated_first_last"]):
+            faults.append(f"{name}: truncated {out['truncated_first_last']}")
+    if faults:
+        fail("phase 15: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c, "11": phase11, "12": phase12, "13": phase13}
+          "6c": phase6c, "11": phase11, "12": phase12, "13": phase13,
+          "14": phase14, "14b": phase14b, "15": phase15}
 
 
 def kernel_line(ctx) -> dict:
@@ -2062,7 +2488,8 @@ def kernel_line(ctx) -> dict:
             ("persistent_trace", k1, k1[0],
              ctx["k1_main_launches"] + ctx["k1_sweep_launches"]
              + ctx["k1_packed_main_launches"]
-             + ctx["k1_packed_sweep_launches"] + ctx["k1_tail_launches"]),
+             + ctx["k1_packed_sweep_launches"] + ctx["k1_tail_launches"]
+             + ctx["k1_hybrid_launches"]),
             ("cell_trace", k2, k2[2],
              ctx["k2_main_launches"] + ctx["k2_tail_launches"])):
         source, replaces = KERNELS[name]

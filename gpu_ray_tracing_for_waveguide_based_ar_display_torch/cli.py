@@ -1,9 +1,10 @@
-"""Command-line interface of the port: the ``simulate``, ``sweep`` and
-``plot-design`` subcommands.
+"""Command-line interface of the port: the ``simulate``, ``sweep``,
+``plot-design`` and ``optimize`` subcommands.
 
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch simulate [...]
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch sweep [...]
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch plot-design [...]
+    python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch optimize [...]
 
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
@@ -33,6 +34,14 @@ vector`` traces the same designs' rays once each through the vector tracer
 cuda`` unless ``--device cpu`` asks for the plain PyTorch trace.
 ``plot-design`` writes the design's k-space, layout and angular-response
 plots (matplotlib).
+``simulate --tail-boost`` (persistent engine) and ``--tail-exact`` (any
+engine) patch the Monte-Carlo-starved tail of the eyebox-uniformity metric
+(:mod:`.engine.hybrid`): pilot-selected cells re-resolved by tier-boosted
+passes of the persistent kernel, or by the exact splitting engine, spliced
+into the perception stack.  ``optimize`` runs Adam on the per-strip grating
+apodization (``--params apodization``, the default) or on grating periods
+and orientations (``--params lambda_ic,phi_ic``, ``lambda_tied,phi_tied``)
+through the differentiable splitting tracer (:mod:`.opt`).
 """
 
 from __future__ import annotations
@@ -244,9 +253,76 @@ def _host_histogram(hist) -> np.ndarray:
     return hist.numpy()
 
 
+def _check_tail_flags(args) -> None:
+    """``--tail-boost`` / ``--tail-exact``: one of them, on a single run
+    the splice can patch; refused before the Simulator is built."""
+    if args.tail_boost and args.tail_exact:
+        raise SystemExit("choose ONE of --tail-boost / --tail-exact")
+    if not (args.tail_boost or args.tail_exact):
+        return
+    which = "--tail-boost" if args.tail_boost else "--tail-exact"
+    if args.tail_boost and args.engine != "persistent":
+        raise SystemExit(
+            "--tail-boost requires --engine persistent (the boost tiers "
+            "reuse the persistent kernel's runtime spawn target)")
+    for flag, name in ((args.error_bars, "--error-bars"),
+                       (args.dense_eyebox, "--dense-eyebox"),
+                       (args.checkpoint, "--checkpoint"),
+                       (args.wavelengths, "--wavelengths")):
+        if flag:
+            raise SystemExit(
+                f"{which} does not compose with {name} (the tail splice "
+                "patches the single-run perception stack)")
+
+
+def _tail_hybrid(args, sim):
+    """The tail-patched hybrid of ``--tail-boost`` / ``--tail-exact``, or
+    None."""
+    if args.tail_boost:
+        from .engine.hybrid import TailBoostHybrid
+
+        return TailBoostHybrid(sim, tau_select=args.tail_tau_select,
+                               tau_target=args.tail_tau_target,
+                               max_boost=args.tail_max_boost)
+    if args.tail_exact:
+        from .engine.hybrid import ExactTailHybrid
+
+        # one launch point per pass = two (TE, TM) branch trees in the buffer
+        # at once, which keeps a cell's widest wavefront under 8,192 slots
+        # at the 1e-6 threshold
+        return ExactTailHybrid(sim, tau=args.tail_tau_select,
+                               points_per_pass=1, capacity=8192,
+                               max_steps=1024)
+    return None
+
+
+def _tail_report(diags) -> str:
+    """The hybrid's line under the metric report."""
+    if diags.tail_rays > 0:
+        tiers = ", ".join(
+            f"{int(k)}x:{v}" for k, v in sorted(diags.tiers.items()))
+        return (
+            f"  [tail boost: {diags.selected_cells} starvation-risk cells "
+            f"(worst pilot window < {diags.tau_select:g}) re-resolved by "
+            f"{diags.tail_rays:,} boosted rays in tiers [{tiers}] and "
+            f"spliced into the perception stack — the metrics above use "
+            f"the patched rows; one-time pilot {diags.pilot_seconds:.1f} s "
+            f"+ tail {diags.tail_seconds:.1f} s, MC bulk "
+            f"{diags.mc_seconds:.1f} s]")
+    return (
+        f"  [exact tail: {diags.selected_cells} starvation-risk cells "
+        f"(expected worst window < {diags.tau_select:g}) replaced by "
+        f"their zero-variance branch expectation and spliced into the "
+        f"perception stack — the metrics above use the patched rows; "
+        f"pruned weight {diags.exact_pruned:.3g} bounds the threshold "
+        f"bias; one-time pilot {diags.pilot_seconds:.1f} s + tail "
+        f"{diags.tail_seconds:.1f} s, MC bulk {diags.mc_seconds:.1f} s]")
+
+
 def cmd_simulate(args) -> int:
     from .engine.pipeline import Simulator, format_report
 
+    _check_tail_flags(args)
     if args.image:
         _check_image_writer()   # fail before the trace, not after it
     _check_matplotlib(args)
@@ -268,13 +344,22 @@ def cmd_simulate(args) -> int:
     # pupil-integrated stack; the colorimetry runs on the device too unless
     # the eye-view image (the host colorimetry's) is asked for
     persistent = args.engine == "persistent"
-    res = sim.run(cells_per_batch=args.cells_per_batch, verbose=args.verbose,
-                  wavelengths=wl, checkpoint_path=args.checkpoint,
-                  histogram_device=persistent,
-                  metrics_device=persistent and not args.image,
-                  error_groups=args.error_bars,
-                  dense_metrics=bool(args.dense_eyebox))
+    hy = _tail_hybrid(args, sim)
+    diags = None
+    if hy is not None:
+        res, diags = hy.run(cells_per_batch=args.cells_per_batch,
+                            verbose=args.verbose)
+    else:
+        res = sim.run(cells_per_batch=args.cells_per_batch,
+                      verbose=args.verbose, wavelengths=wl,
+                      checkpoint_path=args.checkpoint,
+                      histogram_device=persistent,
+                      metrics_device=persistent and not args.image,
+                      error_groups=args.error_bars,
+                      dense_metrics=bool(args.dense_eyebox))
     print(format_report(res))
+    if diags is not None:
+        print(_tail_report(diags))
     if res.metric_stderr:
         print("MC standard errors (jackknife over num_iter groups):")
         for k, v in res.metric_stderr.items():
@@ -312,6 +397,20 @@ def cmd_simulate(args) -> int:
             "trace_seconds": res.trace_seconds,
             "metric_stderr": res.metric_stderr,
         }
+        if diags is not None:
+            out["tail_boost"] = {
+                "mode": "boost" if args.tail_boost else "exact",
+                "exact_pruned": diags.exact_pruned,
+                "selected_cells": diags.selected_cells,
+                "tail_rays": diags.tail_rays,
+                "tiers": {str(int(k)): v for k, v in diags.tiers.items()},
+                "tau_select": diags.tau_select,
+                "tau_target": diags.tau_target,
+                "min_pilot_count": diags.min_pilot_count,
+                "min_tail_expected": diags.min_tail_expected,
+                "pilot_seconds": diags.pilot_seconds,
+                "tail_seconds": diags.tail_seconds,
+            }
         if res.dense is not None:
             out["dense"] = {
                 "delta_e": res.dense.delta_e,
@@ -332,6 +431,58 @@ def cmd_plot_design(args) -> int:
     geom = generate_geometry(_design(args), args.fov_x, args.fov_y)
     for path in plot_design(geom, prefix=args.prefix):
         print(f"wrote {path}")
+    return 0
+
+
+def cmd_optimize(args) -> int:
+    from .design.geometry import generate_geometry
+    from .engine.trace_geometry import build_trace_geometry
+    from .luts.io import load_or_synthesize
+    from .luts.packing import build_cell_tables
+    from .opt import optimize_apodization, optimize_grating
+
+    cfg = TraceConfig(num_fov_x=args.fov_x, num_fov_y=args.fov_y,
+                      rays_per_fov=args.rays_per_fov,
+                      max_bounces=args.max_bounces, seed=args.seed)
+    geom = generate_geometry(_design(args), args.fov_x, args.fov_y)
+    luts = load_or_synthesize(geom, args.luts_dir)
+    tables = build_cell_tables(geom, luts)
+    tgeom = build_trace_geometry(geom)
+    t0 = time.perf_counter()
+    kw = dict(rays_per_fov=args.rays_per_fov, steps=args.steps,
+              learning_rate=args.lr, capacity=args.capacity,
+              fixed_steps=args.trace_steps, pupil_bins=args.pupil_loss,
+              device=args.device)
+    if args.params == "apodization":
+        res = optimize_apodization(geom, tables, tgeom, cfg, **kw)
+    else:
+        opt_params = tuple(s.strip() for s in args.params.split(","))
+        res = optimize_grating(geom, tables, tgeom, cfg,
+                               opt_params=opt_params, **kw)
+    wall = time.perf_counter() - t0
+    print(f"{args.steps} Adam steps in {wall:.1f} s; "
+          f"loss {res.loss_history[0]:.4f} -> {res.loss_history[-1]:.4f}")
+    print(f"efficiency  {res.efficiency[0]*100:.3f}% -> "
+          f"{res.efficiency[1]*100:.3f}%")
+    print(f"FoV nonuniformity  {res.nonuniformity[0]:.3f} -> "
+          f"{res.nonuniformity[1]:.3f}")
+    if args.params == "apodization":
+        print("s_fc:", " ".join(f"{s:.3f}" for s in res.s_fc))
+        print("s_oc:", " ".join(f"{s:.3f}" for s in res.s_oc))
+        payload = {"s_fc": res.s_fc.tolist(), "s_oc": res.s_oc.tolist()}
+    else:
+        for k, v in res.params.items():
+            print(f"{k}: {getattr(geom.design, k):.4f} -> {v:.4f}")
+        payload = {"params": res.params}
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({
+                **payload,
+                "loss_history": res.loss_history.tolist(),
+                "efficiency": res.efficiency,
+                "nonuniformity": res.nonuniformity,
+            }, f, indent=2)
+        print(f"wrote {args.json}")
     return 0
 
 
@@ -409,6 +560,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", default=None, help="write metrics JSON here")
     p.add_argument("--save-histogram", default=None, metavar="PATH",
                    help="write the (L, FoVy, FoVx, 80, 120) histogram as .npy")
+    p.add_argument("--tail-boost", action="store_true",
+                   help="tail-patched transport (engine/hybrid.py): "
+                        "pilot-selected starvation-risk (FoV, eye-window) "
+                        "cells are re-resolved by tier-boosted passes of "
+                        "the same kernel and spliced into the perception "
+                        "stack, so u_eyebox carries information at default "
+                        "budgets (requires --engine persistent)")
+    p.add_argument("--tail-exact", action="store_true",
+                   help="like --tail-boost, but the tail rows are the exact "
+                        "branch expectation of the per-cell splitting "
+                        "engine (zero variance); works with any bulk engine")
+    p.add_argument("--tail-tau-select", type=float, default=30.0,
+                   metavar="COUNT", help="select cells whose worst pilot "
+                                         "window count is below this")
+    p.add_argument("--tail-tau-target", type=float, default=20.0,
+                   metavar="COUNT", help="post-boost expected count floor "
+                                         "of the worst window")
+    p.add_argument("--tail-max-boost", type=float, default=1024.0,
+                   metavar="X", help="boost tier cap (bounds the tail's cost "
+                                     "for windows dark by the physics)")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_simulate)
 
@@ -449,6 +620,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "the device and report the lowest-dispersion design "
                         "(persistent engine)")
     p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser(
+        "optimize",
+        help="gradient-based grating design (differentiable splitting "
+             "tracer + Adam)")
+    _add_common(p)
+    p.add_argument("--luts-dir", default=None,
+                   help="directory with lut_*_fullColor.npy (synthetic if absent)")
+    p.add_argument("--rays-per-fov", type=int, default=16)
+    p.add_argument("--max-bounces", type=int, default=2048)
+    p.add_argument("--steps", type=int, default=40, help="Adam steps")
+    p.add_argument("--lr", type=float, default=0.15)
+    p.add_argument("--capacity", type=int, default=4096,
+                   help="splitting wavefront buffer slots")
+    p.add_argument("--trace-steps", type=int, default=64,
+                   help="fixed differentiable trace depth (steps)")
+    p.add_argument("--params", default="apodization",
+                   help="'apodization' (per-strip amplitudes) or a comma "
+                        "list of grating parameters, e.g. 'lambda_ic,phi_ic' "
+                        "or 'lambda_tied,phi_tied' (differentiable analytic "
+                        "tables)")
+    p.add_argument("--pupil-loss", type=int, default=0, metavar="BINS",
+                   help="score the eyebox-uniformity loss term on "
+                        "pupil-integrated radiance (a disc of BINS bins over "
+                        "every valid eye position, what the evaluation "
+                        "metrics measure) instead of raw 0.1 mm bins; 30 = "
+                        "the 3 mm evaluation pupil")
+    p.add_argument("--json", default=None, help="write the optimized design here")
+    p.set_defaults(fn=cmd_optimize)
     return parser
 
 

@@ -331,6 +331,48 @@ class Simulator:
         factor = torch.full_like(spawned, float(nominal_per_cell)) / spawned
         return tiles * factor[:, None, None]
 
+    def trace_batch_tiles(self, cell_ids: np.ndarray, rays_per_cell: int,
+                          iteration: int):
+        """Persistent engine: one launch over the cells ``cell_ids`` (any
+        sorted subset) at ``rays_per_cell`` rays per cell, seeded as
+        ``seeding.build_ray_batch(geom, cfg, cell_ids=cell_ids,
+        rays_per_cell=slots, iteration=iteration)`` seeds them.  Returns
+        ``(tiles (C, ny, nx) on the device, renormalised to nominal units,
+        nb (C, 4), nominal ray count)``.
+
+        Raises before the launch when a counter could leave its exact
+        range: the int32 spawn and bounce counters (a slot makes at most one
+        counted bounce per iteration, or a jump's hops), and the float32
+        histogram counts, exact below 2^24 per bin; a launch whose spawns
+        could pass 2^24 is checked after it instead (a ray deposits at most
+        once, so a bin holds at most the cell's spawns)."""
+        if self.engine != "persistent":
+            raise ValueError("trace_batch_tiles belongs to the persistent "
+                             "engine")
+        slots, gens = self._slots_gens(rays_per_cell)
+        tr = self.tracer
+        hops = ((15 if tr.jump_phase == "pow2" else 4095)
+                if tr.transit_jump else 1)
+        most_spawned = (rays_per_cell + slots if self._spawn_mode == "count"
+                        else slots * gens)
+        if (most_spawned >= 1 << 31
+                or slots * hops * self.cfg.max_bounces >= 1 << 31):
+            raise ValueError(
+                f"{rays_per_cell} rays per cell over {slots} slots and "
+                f"{self.cfg.max_bounces} iterations could pass the kernel's "
+                "int32 counters; lower the boost tier or max_bounces")
+        rays_in, rng_in = self._device_ray_blocks(cell_ids, slots, iteration)
+        tiles, nb = self.tracer(cell_ids, rays_in, rng_in,
+                                self._pers_ctrl(rays_per_cell, gens),
+                                spawn_mode=self._spawn_mode)
+        if most_spawned >= 1 << 24 and float(tiles.max()) >= 1 << 24:
+            raise RuntimeError(
+                "a histogram bin reached 2^24 counts, where float32 counts "
+                "stop being exact; lower the boost tier")
+        nominal = self._pers_nominal(slots, gens, rays_per_cell)
+        return (self._renorm_tiles(tiles, nb, nominal), nb,
+                nominal * len(cell_ids))
+
     def _run_cells(self, wavelengths) -> np.ndarray:
         """The cell ids a run traces: every cell, or those of the
         ``wavelengths`` subset."""

@@ -14,9 +14,10 @@ Two schedules share it:
 1. :func:`make_splitting_trace_fn`: one global ``capacity``-slot wavefront;
    after every step the children are compacted by a stable sort on their
    aliveness (heaviest first), and children that overflow are dropped
-   lightest first into the ``truncated`` ledger.  It takes the options of
-   the differentiable path (``table_arg``, ``fixed_steps``,
-   ``soft_binning``) in their forward form.
+   lightest first into the ``truncated`` ledger.  With the options of the
+   differentiable path (``table_arg``, ``fixed_steps``, ``soft_binning``)
+   the histogram is a function of the tables that autograd differentiates
+   (:mod:`..opt.grating_opt`).
 2. :func:`make_splitting_cells_fn`: one ``capacity``-slot wavefront per
    (lambda, FoV) cell, the rows of a (C, K) batch: each cell's tables are cut
    out once per chunk, each cell deposits into its own (ny, nx) tile, and
@@ -30,7 +31,11 @@ nothing, so the slots left out change no result and no ledger.
 
 The deposits add weights with ``index_add_``, under deterministic algorithms
 (on the card a sorted accumulation in place of float atomics), so a cell's
-tile does not depend on the other cells of its chunk.
+tile does not depend on the other cells of its chunk.  The backward of a
+table gather (``index_select``) is an ``index_add`` too: a gradient is
+deterministic when the backward runs under :func:`deterministic`.  Only the
+global engine with ``table_arg=True`` records a graph; every other trace
+runs under ``torch.no_grad()``.
 
 Not ported: the JAX package's ``fast=True`` lowerings of the per-cell
 engine (site selection by a one-hot matmul, compaction by a variadic sort,
@@ -93,16 +98,17 @@ def _accumulate(hist: torch.Tensor, n: int, idx: torch.Tensor,
     idx, val = idx.reshape(-1), val.reshape(-1)
     use = (idx >= 0) & (val != 0)
     scratch = n + torch.arange(idx.numel(), device=idx.device)
-    with _deterministic():
+    with deterministic():
         hist.index_add_(0, torch.where(use, idx, scratch),
                         torch.where(use, val, 0.0))
 
 
 @contextlib.contextmanager
-def _deterministic():
+def deterministic():
     """Deterministic algorithms for the operations inside: a weighted
     ``index_add_`` accumulates in an order that does not depend on the
-    other cells of a chunk."""
+    other cells of a chunk, and a backward run inside accumulates the
+    gradients of gathers in a fixed order."""
     prev = torch.are_deterministic_algorithms_enabled()
     warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True)
@@ -322,11 +328,13 @@ def make_splitting_trace_fn(tables: CellTables, tgeom: TraceGeometry,
 
     ``table_arg``: the trace takes the :func:`.trace_vector.as_tables` dict
     as a second argument (``trace(rays0, T)``) and packs it inside, so the
-    histogram is a differentiable function of the tables.  ``fixed_steps >
-    0`` runs exactly that many steps, with no stop test.  ``soft_binning``
-    splats each deposit bilinearly over the four nearest bins, a continuous
-    function of the deposit position (it blurs the map by at most half a
-    bin)."""
+    histogram is a differentiable function of the tables: with grad mode
+    on, autograd records the trace (the forward values are those of the
+    closed-over tables bit for bit).  ``fixed_steps > 0`` runs exactly that
+    many steps, with no stop test.  ``soft_binning`` splats each deposit
+    bilinearly over the four nearest bins, a continuous function of the
+    deposit position (it blurs the map by at most half a bin).  Without
+    ``table_arg`` the trace runs under ``torch.no_grad()``."""
     device = resolve_device(device)
     G, G0 = _geometry(tgeom, device)
     ny, nx = cfg.eyebox_bins
@@ -356,6 +364,10 @@ def make_splitting_trace_fn(tables: CellTables, tgeom: TraceGeometry,
         return kept, dropped, width
 
     def trace(rays0: dict, T: Optional[dict] = None):
+        with torch.set_grad_enabled(table_arg and torch.is_grad_enabled()):
+            return _trace(rays0, T)
+
+    def _trace(rays0: dict, T: Optional[dict]):
         if table_arg:
             T = pack_tables({k: (v.to(device) if torch.is_tensor(v) else v)
                              for k, v in T.items()},
@@ -479,6 +491,7 @@ def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
         dropped = torch.where(alive & ~keep, children["w"], 0.0).sum(dim=1)
         return out, dropped, nlive, width
 
+    @torch.no_grad()
     def trace(cell_ids, seeds: dict):
         ids = torch.as_tensor(np.asarray(cell_ids) if not torch.is_tensor(
             cell_ids) else cell_ids).to(device, torch.int64)

@@ -700,9 +700,11 @@ class VectorTracer(nn.Module):
 
     def __init__(self, tables: Sequence[CellTables],
                  tgeoms: Sequence[TraceGeometry], cfg: TraceConfig,
-                 dtype=torch.float32, device="cpu"):
-        """The tables are packed and the region grids built on ``device``."""
+                 dtype=torch.float32, device="cuda"):
+        """The tables are packed and the region grids built on ``device``
+        (the card unless the caller asks for the CPU)."""
         super().__init__()
+        device = resolve_device(device)
         num_fc, num_oc = tgeoms[0].num_fc, tgeoms[0].num_oc
         if any(g.num_fc != num_fc or g.num_oc != num_oc for g in tgeoms):
             raise ValueError("designs in one trace must share strip counts")

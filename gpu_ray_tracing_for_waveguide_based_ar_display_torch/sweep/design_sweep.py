@@ -206,9 +206,10 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
 
 
 def shared_seed_block(cfg: TraceConfig, slots: int, cells_per_block: int = 1,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """(L*M*N, RT, 128) int32 per-slot seeds shared by every design, hashed
-    on ``device``: the seed contract global index ``cid * slots + slot``
+    on ``device`` (the card unless the caller asks for the CPU): the seed
+    contract global index ``cid * slots + slot``
     (iteration 0), as the per-cell host path and the JAX package's sweep
     hash it (:func:`..engine.seeding.cell_seeds_device`, bitwise
     :func:`..engine.seeding.cell_seeds`).  With ``cells_per_block = k`` the
@@ -216,7 +217,7 @@ def shared_seed_block(cfg: TraceConfig, slots: int, cells_per_block: int = 1,
     own seed block."""
     n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
     return seeding.cell_seeds_device(np.arange(n_cells), slots, 0, n_cells,
-                                     cfg.seed, device).reshape(
+                                     cfg.seed, resolve_device(device)).reshape(
         n_cells // cells_per_block, -1, trace_rows.LANES)
 
 

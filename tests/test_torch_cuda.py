@@ -569,3 +569,137 @@ def test_splitting_engine_on_card_matches_cpu(cuda_device):
     whole = trace(cells, seeds)[0]
     parts = torch.cat([trace(cells[:1], seeds)[0], trace(cells[1:], seeds)[0]])
     assert torch.equal(whole, parts)
+
+
+HYBRID_CFG = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=256,
+                         num_iter=1, max_bounces=200, seed=0)
+
+
+@pytest.fixture(scope="module")
+def boosted_tail():
+    """The JAX ``test_hybrid.py`` fixture on the card: one boost tail (8 x 6
+    FoV x 3 wavelengths, 256 rays per FoV, count spawn with folding, 256
+    slots, tiers up to 64x) and two independent long references of the
+    selected cells at 256x and 512x the budget, whose seed tags lie above
+    every tier's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid,
+    )
+
+    sim = pipeline.Simulator(cfg=HYBRID_CFG, device="cuda",
+                             persistent_slots=256)
+    hy = hybrid.TailBoostHybrid(sim, tau_select=35.0, tau_target=25.0,
+                                max_boost=64.0)
+    n0 = tp.launch_counts["persistent_trace"]
+    hy.build_tail(cells_per_batch=64)
+    launches = tp.launch_counts["persistent_trace"] - n0
+    sel, rows, sums, frag = hy.tail
+    n1 = 256 * HYBRID_CFG.rays_per_fov
+    n2 = 512 * HYBRID_CFG.rays_per_fov
+    ref1_rows, ref1_sums, _ = hy._tail_pass(sel, n1)
+    ref2_rows, ref2_sums, _ = hy._tail_pass(sel, n2)
+    return dict(hy=hy, sel=sel, rows=rows, sums=sums, frag=frag, n1=n1,
+                n2=n2, ref1_rows=ref1_rows, ref1_sums=ref1_sums,
+                ref2_sums=ref2_sums, launches=launches)
+
+
+@pytest.mark.cuda
+def test_boost_tail_unbiased_means_match_on_card(boosted_tail):
+    """The JAX ``test_boost_tail_unbiased_means_match``: each selected
+    cell's boosted tile sum agrees with the pooled 256x + 512x reference
+    within its standard error (|z| < 8, mean z within 5 / sqrt(C)), the
+    overdispersion calibrated from the two references; the pilot and the
+    tail ran on the kernel (the pilot's batches, one launch per tier)."""
+    bt = boosted_tail
+    pilot_batches = -(-3 * 8 * 6 // 64)
+    assert bt["launches"] == pilot_batches + len(bt["frag"]["tiers"])
+    sums, n1, n2 = bt["sums"], bt["n1"], bt["n2"]
+    r1, r2 = bt["ref1_sums"], bt["ref2_sums"]
+    n_cell = (np.asarray(bt["frag"]["cell_tier"]) * HYBRID_CFG.rays_per_fov
+              * HYBRID_CFG.num_iter)
+    assert n_cell.shape == sums.shape and (n_cell > 0).all()
+    pooled = (r1 * n1 + r2 * n2) / (n1 + n2)
+    rate = np.maximum(pooled, 1.0 / n2)
+    phi = np.mean((r1 - r2) ** 2 / (rate * (1.0 / n1 + 1.0 / n2)))
+    assert 0.2 < phi < 50.0, phi
+    phi = max(phi, 1.0)
+    z = (sums - pooled) / np.sqrt(
+        phi * rate * (1.0 / n_cell + 1.0 / (n1 + n2)))
+    assert np.abs(z).max() < 8.0, (z.min(), z.max(), phi)
+    assert abs(z.mean()) < 5.0 / np.sqrt(len(z)), (z.mean(), phi)
+
+
+@pytest.mark.cuda
+def test_boost_rows_positive_where_reference_positive_on_card(boosted_tail):
+    """The JAX ``test_boost_rows_positive_where_reference_positive``: the
+    boosted rows are positive in every lambda-combined window the 256x
+    reference reaches with at least 80 counts."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid,
+    )
+
+    bt = boosted_tail
+    rows, ref_rows, n_ref = bt["rows"], bt["ref1_rows"], bt["n1"]
+    assert bt["frag"]["tail_rays"] > 0
+    sim = bt["hy"].sim
+    _, n, m = hybrid._cell_lnm(bt["sel"], sim.M, sim.N)
+    gid = n * sim.M + m
+    gids = np.unique(gid)
+    gi = np.searchsorted(gids, gid)
+    comb = np.zeros((len(gids),) + rows.shape[1:])
+    ref_comb = np.zeros_like(comb)
+    np.add.at(comb, gi, rows)
+    np.add.at(ref_comb, gi, ref_rows)
+    substantial = ref_comb * n_ref >= 80.0
+    assert substantial.any()
+    assert (comb[substantial] > 0.0).all(), int(
+        (comb[substantial] == 0).sum())
+
+
+@pytest.mark.cuda
+def test_apodization_gradients_on_card_equal_cpu(cuda_device):
+    """The apodization loss and its gradients at ``test_opt.py``'s fixture
+    (3 x 2 FoV, 8 rays, 1,024 slots, 32 steps, pupil term on) on the card
+    against the plain run on the CPU: loss within 1e-5, gradients within
+    rtol 1e-3 / atol 2e-6; two backward passes on the card bit for bit
+    (gradients under deterministic algorithms)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt import (
+        grating_opt as opt,
+    )
+
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    tgeom = build_trace_geometry(geom)
+    cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=8,
+                      max_bounces=64, rng_mode="fast", seed=5)
+    got = {}
+    for d in ("cpu", cuda_device, cuda_device):
+        rays = opt._launch_rays(geom, cfg, 8, None, d)
+        loss, _ = opt.make_apodization_loss(tables, tgeom, cfg, rays,
+                                            capacity=1024, fixed_steps=32,
+                                            pupil_bins=6)
+        theta = {k: torch.full((n,), 2.0, device=d, requires_grad=True)
+                 for k, n in (("fc", tgeom.num_fc), ("oc", tgeom.num_oc))}
+        v, _ = opt.value_and_grad(loss, theta)
+        got.setdefault(str(d), []).append(
+            (v, {k: t.grad.cpu().numpy() for k, t in theta.items()}))
+    (vc, gc), = got["cpu"]
+    (vg, gg), (vg2, gg2) = got[str(cuda_device)]
+    assert vg == pytest.approx(vc, rel=1e-5)
+    for k in gc:
+        assert np.abs(gg[k]).max() > 0, k
+        np.testing.assert_allclose(gg[k], gc[k], rtol=1e-3, atol=2e-6,
+                                   err_msg=k)
+        np.testing.assert_array_equal(gg[k], gg2[k])
+    assert vg == vg2

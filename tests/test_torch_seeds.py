@@ -114,7 +114,7 @@ def test_simulator_seed_blocks_equal_host_seeds(sim, cells, cpb, iteration):
 @pytest.mark.parametrize("cpb", [1, 4])
 def test_sweep_seed_block_equals_host_seeds(cpb):
     cfg = dataclasses.replace(TraceConfig(num_fov_x=4, num_fov_y=3), seed=11)
-    got = design_sweep.shared_seed_block(cfg, 256, cpb)
+    got = design_sweep.shared_seed_block(cfg, 256, cpb, device="cpu")
     want = seeding.cell_seeds(np.arange(36), 256, 0, 36, 11).view(np.int32)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(),

@@ -222,8 +222,9 @@ def test_plotting_copy_is_the_jax_original():
 
 def test_new_engines_load_no_jax(tmp_path):
     """A process that runs the vector and splitting engines, the vector
-    sweep and the design plots of the port on the CPU loads neither jax,
-    ml_dtypes nor any module of the JAX package."""
+    sweep, the design plots, the boost-tail hybrid and a joint grating
+    optimisation step of the port on the CPU loads neither jax, ml_dtypes,
+    optax nor any module of the JAX package."""
     import os
     import subprocess
     import sys
@@ -251,7 +252,19 @@ def test_new_engines_load_no_jax(tmp_path):
         "assert (s.efficiencies > 0).all()\n"
         "plotting.plot_design(generate_geometry(num_fov_x=2, num_fov_y=2), "
         "prefix='d')\n"
-        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes') "
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine "
+        "import hybrid\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt "
+        "import optimize_grating\n"
+        "ps = pipeline.Simulator(cfg=cfg, device='cpu', persistent_slots=128)\n"
+        "r, d = hybrid.TailBoostHybrid(ps, max_boost=2.0).run()\n"
+        "assert d.tail_rays > 0 and r.metrics is not None\n"
+        "o = optimize_grating(ps.geom, ps.tables, ps.tgeom, cfg, steps=1, "
+        "rays_per_fov=2, capacity=256, fixed_steps=4, apodize=True, "
+        "device='cpu')\n"
+        "assert len(o.loss_history) == 2\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', "
+        "'optax') "
         "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
         "display_tpu')))\n"
         "print(bad or 'NOJAX')\n"
