@@ -186,6 +186,33 @@ Run from the repository root.  Phases:
    JAX package), so the no-truncation check runs on a third case, the
    apodization grid at 2 rays per FoV in 262,144 slots.  The loss must fall
    in every case.
+16. the mesh (``parallel/shard.py``; one H100, so no multi-GPU scaling is
+   measured): (a) an NCCL process group of world size 1 in this process and
+   ``Simulator(mesh=)`` at the reference workload: histogram (SHA-256 of its
+   bytes), bounces, efficiencies and metrics bit for bit phase 3's; (b) two
+   spawned ranks on the one card over gloo run the same through
+   ``Simulator(mesh=)``, each rank its half of every batch, the tiles
+   gathered through host memory: every rank's result equal to phase 3's;
+   each rank's K1 time, gather time and wall; (c) four ranks on a 2 x 2
+   ``(cells, samples)`` mesh at phase 2's size (144 cells, 2,048 slots,
+   count target 10,000 per seed block): the sample-sharded trace and the
+   2 x 2 trace equal the sums of the one-rank runs with the same seed
+   blocks, and the cell-sharded trace with one shared launch tile equals it
+   with per-cell copies and the one-rank run; (d) two ranks run phase 6a's
+   sweep with a mesh: every design's efficiencies, bounces and metrics and
+   design 3's kept histogram bitwise phase 6a's; (e) an NCCL group of two
+   ranks on the one card: whether NCCL refuses it (recorded).  Launch counts
+   are reset just before (a), (b) and (d) and read just after; (b) and (d)
+   count in their ranks;
+17. ``simulate --profile-dir`` through the CLI on the card at 20 x 15 FoV
+   (the grid cut 25x): the ``torch.profiler`` trace must exist and name K1's
+   CUDA kernel among its device events;
+18. the reference workload with ``TraceConfig(pupil_sampler="native")``: the
+   native pupil sampler built by ``g++`` from the port's copy of
+   ``host_sampler.cpp`` (its build time), launch counts reset just before
+   the run and read just after; every colour's efficiency finite, positive
+   and within 2 % of phase 3's (the same count spawn and cell seeds, other
+   pupil points).
 
 Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
 fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
@@ -207,6 +234,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
 import re
@@ -396,6 +424,12 @@ def profile_run(sim, path: str) -> dict:
             "device_busy_s": busy, "kernel_device_s": kernel,
             "dtoh_copy_s": dtoh, "idle_share": 1.0 - busy / window,
             "timings": res.timings}
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's or an array's bytes, on the host."""
+    a = t.cpu().numpy() if hasattr(t, "cpu") else t
+    return hashlib.sha256(a.tobytes()).hexdigest()
 
 
 def save_record(ctx) -> None:
@@ -700,6 +734,10 @@ def phase3(ctx) -> None:
         print(f"phase 4: {json.dumps(record['profile'])}")
         save_record(ctx)
     ctx["k1_main_launches"] = launches["persistent_trace"]
+    ctx["main_run"] = {"digest": digest(res.histogram),
+                       "bounces": res.total_bounces,
+                       "efficiencies": dict(res.efficiencies),
+                       "metrics": [met.delta_e, met.u_fov, met.u_eyebox]}
     ctx["persistent_efficiencies"] = dict(res.efficiencies)
     ctx["main_starved"] = met.starved_eye_positions
     ctx["exact_run"] = stack_stats(res, sim._slots_gens(target)[0])
@@ -903,6 +941,15 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
     return r6, entry, designs, cfg6, kw6
 
 
+def sweep_summary(r) -> dict:
+    """What phase 16 holds a mesh sweep to: every design's efficiencies,
+    bounces and metrics, and the kept histogram's digest."""
+    return {"efficiencies": r.efficiencies.tolist(),
+            "bounces": r.bounces.tolist(),
+            "metrics": [[m.delta_e, m.u_fov, m.u_eyebox] for m in r.metrics],
+            "kept": digest(r.histograms[0])}
+
+
 def phase6(ctx) -> None:
     """The design sweep at full width."""
     import numpy as np
@@ -918,6 +965,8 @@ def phase6(ctx) -> None:
     for name, argv in sweeps:
         r6, entry, designs, cfg6, kw6 = run_sweep(ctx, "phase6", name, argv)
         sweep_launches += entry["launches"]
+        if name == "cli_default":
+            ctx["sweep6a"] = sweep_summary(r6)
         solo = design_sweep.run_design_sweep_persistent(
             designs[3:4], cfg6, keep_histograms=True, **kw6)
         if not (np.array_equal(r6.histograms[0], solo.histograms[0])
@@ -2472,11 +2521,382 @@ def phase15(ctx) -> None:
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
 
+
+# ---- phase 16: the mesh.  The ranks' functions are module-level: a spawned
+# rank imports this file to find them
+
+
+def _mesh_simulate_rank(rank: int, world: int) -> dict:
+    """One rank of phase 16b: the reference workload through
+    ``Simulator(mesh=)`` on a 1-D mesh over the one card."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel import (
+        shard,
+    )
+
+    mesh = shard.make_mesh((world,), ("cells",), "cuda")
+    dev = shard.mesh_device(mesh)
+    t0 = time.perf_counter()
+    sim = pipeline.Simulator(cfg=TraceConfig(), device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    tp.reset_launch_counts()
+    t1 = time.perf_counter()
+    res = sim.run(histogram_device=True)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = tp.launch_counts["persistent_trace"]
+    met = res.metrics
+    tm = res.timings
+    return {"mesh": shard.describe_mesh(mesh), "digest": digest(res.histogram),
+            "bounces": res.total_bounces,
+            "efficiencies": dict(res.efficiencies),
+            "metrics": [met.delta_e, met.u_fov, met.u_eyebox],
+            "wall_s": t2 - t0, "run_s": t2 - t1,
+            "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+            "kernel_ms": tm["kernel_ms"], "gather_ms": tm["gather_ms"],
+            "gather_s": tm["gather_s"], "seed_ms": tm["seed_ms"],
+            "metrics_s": tm["metrics_s"], "launches": launches,
+            # what the rank sends: its tiles and nb rows of every batch
+            "sent_bytes": (sim.L * sim.M * sim.N // world
+                           * (res.histogram[0, 0, 0].numel() * 4 + 16))}
+
+
+def _mesh_k1_rank(rank: int, world: int) -> dict:
+    """One rank of phase 16c: K1 at phase 2's size on a 2 x 2 (cells,
+    samples) mesh over the one card, each sharded form against the one-rank
+    runs of this rank."""
+    import functools
+
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.ops import (
+        rng as rng_ops,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel import (
+        shard,
+    )
+
+    mesh = shard.make_mesh((2, 2), ("cells", "samples"), "cuda")
+    dev = shard.mesh_device(mesh)
+    cfg2 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000,
+                       num_iter=4)
+    sim = pipeline.Simulator(cfg=cfg2, device=dev, persistent_slots=2048)
+    n2 = sim.L * sim.M * sim.N
+    target = cfg2.rays_per_fov * cfg2.num_iter // 2   # a half per seed block
+    slots, _ = sim._slots_gens(target)
+    tile, rng = sim._device_ray_blocks(np.arange(n2), slots)
+    tr = sim.tracer
+    fn = functools.partial(
+        tp.persistent_trace, num_fc=tr.num_fc, num_oc=tr.num_oc,
+        edge_counts=tr.edge_counts, eyebox_bins=tr.eyebox_bins,
+        max_iters=tr.max_iters, spawn_mode="count")
+    ctrl = sim._pers_ctrl(target)
+    # two distinct seed blocks: the seeds plus 7919 * (d + 1), in uint32
+    blocks = torch.stack([rng_ops.as_int32_bits(
+        (rng.to(torch.int64) + 7919 * (d + 1)) & 0xFFFFFFFF)
+        for d in range(2)])
+    one = [fn(tr.cell_params, tr.geom_row, tile, blocks[d], ctrl)
+           for d in range(2)]
+    sums = (one[0][0] + one[1][0], one[0][1] + one[1][1])
+    out = {"mesh": shard.describe_mesh(mesh)}
+    t, nb = shard.make_sample_sharded_cell_trace_fn(fn, mesh, "samples")(
+        tr.cell_params, tr.geom_row, tile, blocks, ctrl)
+    out["samples"] = bool(torch.equal(t, sums[0]) and torch.equal(nb, sums[1]))
+    t, nb = shard.make_2d_sharded_cell_trace_fn(fn, mesh)(
+        tr.cell_params, tr.geom_row, tile, blocks, ctrl)
+    out["2x2"] = bool(torch.equal(t, sums[0]) and torch.equal(nb, sums[1]))
+    cells = shard.make_sharded_cell_trace_fn(fn, mesh, "cells")
+    ts, nbs = cells(tr.cell_params, tr.geom_row, tile, blocks[0], ctrl)
+    copies = tile.expand(n2, -1, -1, -1).contiguous()
+    tc, nbc = cells(tr.cell_params, tr.geom_row, copies, blocks[0], ctrl)
+    out["shared_tile"] = bool(
+        torch.equal(ts, tc) and torch.equal(nbs, nbc)
+        and torch.equal(ts, one[0][0]) and torch.equal(nbs, one[0][1]))
+    out["deposits"] = float(sums[0].sum())
+    return out
+
+
+def _mesh_sweep_rank(rank: int, world: int) -> dict:
+    """One rank of phase 16d: phase 6a's sweep with a mesh over the one
+    card."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_persistent as tp,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel import (
+        shard,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        run_design_sweep_persistent,
+    )
+
+    mesh = shard.make_mesh((world,), ("designs",), "cuda")
+    sargs = cli.build_parser().parse_args(["sweep", "--metrics"])
+    designs, _ = cli.sweep_designs(sargs)
+    torch.cuda.synchronize()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = run_design_sweep_persistent(
+        designs, cli.sweep_config(sargs), spawn_iters=sargs.spawn_iters,
+        spawn_mode=sargs.spawn_mode, slots=sargs.slots,
+        evaluate_metrics=True, device=shard.mesh_device(mesh), mesh=mesh,
+        keep_histograms=[3])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(sweep_summary(r), wall_s=wall,
+                launches=tp.launch_counts["persistent_trace"],
+                timings={k: v for k, v in r.timings.items()
+                         if isinstance(v, (int, float))})
+
+
+def _nccl_shared_card_rank(rank: int, world: int) -> list:
+    """One rank of phase 16e: an NCCL group of every rank on the one card
+    and one all_reduce in it; returns what happened."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    try:
+        group = dist.new_group(list(range(world)), backend="nccl",
+                               timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize()
+        return ["accepted", x.tolist()]
+    except Exception as e:   # the finding to record, whatever NCCL raises
+        return ["refused", f"{type(e).__name__}: {e}"[:400]]
+
+
+def _same_as_main(ctx, got: dict, what: str) -> list:
+    """The faults of a mesh run against phase 3's run."""
+    want = ctx.get("main_run")
+    if want is None:
+        return []
+    faults = [f"{what}: {k} {got[k]} != phase 3's {want[k]}"
+              for k in ("digest", "bounces", "efficiencies", "metrics")
+              if got[k] != want[k]]
+    return faults
+
+
+def phase16(ctx) -> None:
+    """The mesh: NCCL world 1, two gloo ranks on the card, the sample and
+    2 x 2 traces on four ranks, the mesh sweep, and NCCL's answer to two
+    ranks on one card."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel import (
+        shard,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel.spawn import (
+        run_ranks,
+    )
+
+    record = ctx["record"].setdefault("phase16", {})
+    faults = []
+    card = nvidia_smi()
+
+    # ---- (a) NCCL, world size 1, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+            world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = shard.make_mesh((1,), ("cells",), "cuda")
+            torch.cuda.synchronize()
+            tp.reset_launch_counts()
+            t0 = time.perf_counter()
+            sim = pipeline.Simulator(cfg=TraceConfig(), device=ctx["dev"],
+                                     mesh=mesh)
+            res = sim.run(histogram_device=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = tp.launch_counts["persistent_trace"]
+            desc = shard.describe_mesh(mesh)
+        finally:
+            dist.destroy_process_group()
+    met, tm = res.metrics, res.timings
+    a = {"mesh": desc, "digest": digest(res.histogram),
+         "bounces": res.total_bounces, "efficiencies": dict(res.efficiencies),
+         "metrics": [met.delta_e, met.u_fov, met.u_eyebox], "wall_s": wall,
+         "trace_s": res.trace_seconds, "kernel_ms": tm["kernel_ms"],
+         "gather_ms": tm["gather_ms"], "launches": launches}
+    del res, sim
+    record["a_nccl_world_1"] = a
+    print(f"phase 16a: {desc}: wall {wall:.3f} s, trace "
+          f"{a['trace_s']:.3f} s, kernel {a['kernel_ms']:.1f} ms, gather "
+          f"{a['gather_ms']:.2f} ms in {launches} launches; {card}")
+    faults += _same_as_main(ctx, a, "16a")
+    mesh_launches = launches
+
+    # ---- (b) two ranks on the one card over gloo
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_simulate_rank, 2, timeout_s=600, threads=None)
+    wall_b = time.perf_counter() - t0
+    record["b_gloo_2_ranks"] = {"ranks": ranks, "spawn_wall_s": wall_b}
+    for r, out in enumerate(ranks):
+        print(f"phase 16b rank {r}: {out['mesh']}: K1 {out['kernel_ms']:.1f} "
+              f"ms in {out['launches']} launches, gather of "
+              f"{out['sent_bytes'] / 1e6:.1f} MB sent "
+              f"{out['gather_ms']:.1f} ms device / {out['gather_s']:.3f} s "
+              f"host, seeding {out['seed_ms']:.1f} ms, trace "
+              f"{out['trace_s']:.3f} s, run {out['run_s']:.3f} s, wall "
+              f"{out['wall_s']:.3f} s (setup {out['setup_s']:.3f} s); {card}")
+        faults += _same_as_main(ctx, out, f"16b rank {r}")
+        mesh_launches += out["launches"]
+    print(f"phase 16b: two ranks spawned, run and joined in {wall_b:.1f} s "
+          "(one card: the ranks share it; no multi-GPU scaling is measured)")
+
+    # ---- (c) four ranks: sample, 2 x 2 and shared-tile forms
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mesh_k1_rank, 4, timeout_s=600, threads=None)
+    record["c_k1_4_ranks"] = {"ranks": ranks,
+                              "wall_s": time.perf_counter() - t0}
+    for r, out in enumerate(ranks):
+        bad = [k for k in ("samples", "2x2", "shared_tile") if not out[k]]
+        if bad:
+            faults.append(f"16c rank {r}: {bad} differ from the one-rank runs")
+    print(f"phase 16c: {ranks[0]['mesh']}: the sample-sharded trace and the "
+          "2 x 2 trace equal the sums of the one-rank runs, the shared tile "
+          f"equals per-cell copies, on every rank ({ranks[0]['deposits']:.0f} "
+          f"deposits); {record['c_k1_4_ranks']['wall_s']:.1f} s")
+
+    # ---- (d) phase 6a's sweep over two ranks
+    ranks = run_ranks(_mesh_sweep_rank, 2, timeout_s=600, threads=None)
+    record["d_sweep_2_ranks"] = ranks
+    want = ctx.get("sweep6a")
+    for r, out in enumerate(ranks):
+        tm = out["timings"]
+        print(f"phase 16d rank {r}: 8 designs, 4 on this rank: wall "
+              f"{out['wall_s']:.3f} s (prep {tm['prep_s']:.3f} s, gathers "
+              f"{tm['gather_s']:.3f} s), kernel {tm['kernel_ms']:.1f} ms in "
+              f"{out['launches']} launch(es); {card}")
+        if want is not None:
+            faults += [f"16d rank {r}: {k} differ from phase 6a's"
+                       for k in want if out[k] != want[k]]
+        mesh_launches += out["launches"]
+
+    # ---- (e) NCCL with two ranks on one card
+    nccl = run_ranks(_nccl_shared_card_rank, 2, timeout_s=180, threads=None)
+    record["e_nccl_2_ranks_1_card"] = nccl
+    print(f"phase 16e: NCCL, two ranks on one card: {nccl[0][0]} "
+          f"({nccl[0][1]})")
+    save_record(ctx)
+    if faults:
+        fail("phase 16: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_mesh_launches"] = mesh_launches
+
+
+def phase17(ctx) -> None:
+    """``simulate --profile-dir`` on the card: the trace names K1."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", PORT, "simulate", "--fov-x", "20",
+               "--fov-y", "15", "--image", "", "--profile-dir", tmp]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"phase 17: {' '.join(cmd)} exited {out.returncode}:\n"
+                 f"{out.stderr[-3000:]}")
+        traces = sorted(Path(tmp).glob("*.pt.trace.json"))
+        if len(traces) != 1:
+            fail(f"phase 17: {len(traces)} trace files in the profile dir")
+        events = json.loads(traces[0].read_text())["traceEvents"]
+        size = traces[0].stat().st_size
+    k1 = [e for e in events if e.get("cat") == "kernel"
+          and "persistent_trace_kernel" in e.get("name", "")]
+    k1_ms = sum(e.get("dur", 0) for e in k1) / 1e3
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    entry = {"wall_s": wall, "trace_bytes": size, "events": len(events),
+             "k1_events": len(k1), "k1_device_ms": k1_ms,
+             "kernel_names": len(kernels)}
+    ctx["record"]["phase17"] = entry
+    save_record(ctx)
+    print(f"phase 17: simulate --profile-dir at 20 x 15 FoV: {wall:.1f} s, "
+          f"trace {size / 2**20:.1f} MiB, {len(events)} events, K1 "
+          f"{len(k1)} kernel event(s), {k1_ms:.2f} ms on the device")
+    if not k1:
+        fail("phase 17: the profiler trace names no persistent_trace_kernel "
+             "device event")
+
+
+def phase18(ctx) -> None:
+    """The reference workload with the native pupil sampler."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        native, pipeline, trace_persistent as tp,
+    )
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = pipeline.Simulator(cfg=TraceConfig(pupil_sampler="native"),
+                             device=ctx["dev"])
+    res = sim.run(histogram_device=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tp.launch_counts["persistent_trace"]
+    eff = res.efficiencies
+    ref = ctx.get("persistent_efficiencies")
+    rel = ({k: eff[k] / ref[k] - 1 for k in eff} if ref else None)
+    ctx["record"]["phase18"] = {
+        "library": lib.name, "build_s": build_s, "wall_s": wall,
+        "trace_s": res.trace_seconds, "efficiencies": eff,
+        "relative_to_phase3": rel, "launches": launches,
+        "bounces": res.total_bounces}
+    save_record(ctx)
+    print(f"phase 18: native pupil sampler ({lib.name}, g++ {build_s:.2f} "
+          f"s): wall {wall:.3f} s, trace {res.trace_seconds:.3f} s, "
+          f"{launches} launches; efficiencies {eff}; relative to phase 3's "
+          f"{rel}")
+    if not all(math.isfinite(v) and v > 0 for v in eff.values()):
+        fail(f"phase 18: efficiencies {eff}")
+    if rel is not None and max(abs(v) for v in rel.values()) > 0.02:
+        fail(f"phase 18: efficiencies {rel} beyond 2 % of phase 3's")
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_native_launches"] = launches
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
           "6c": phase6c, "11": phase11, "12": phase12, "13": phase13,
-          "14": phase14, "14b": phase14b, "15": phase15}
+          "14": phase14, "14b": phase14b, "15": phase15, "16": phase16,
+          "17": phase17, "18": phase18}
 
 
 def kernel_line(ctx) -> dict:
@@ -2489,7 +2909,8 @@ def kernel_line(ctx) -> dict:
              ctx["k1_main_launches"] + ctx["k1_sweep_launches"]
              + ctx["k1_packed_main_launches"]
              + ctx["k1_packed_sweep_launches"] + ctx["k1_tail_launches"]
-             + ctx["k1_hybrid_launches"]),
+             + ctx["k1_hybrid_launches"] + ctx["k1_mesh_launches"]
+             + ctx["k1_native_launches"]),
             ("cell_trace", k2, k2[2],
              ctx["k2_main_launches"] + ctx["k2_tail_launches"])):
         source, replaces = KERNELS[name]

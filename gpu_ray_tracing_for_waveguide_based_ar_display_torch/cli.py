@@ -42,6 +42,14 @@ into the perception stack.  ``optimize`` runs Adam on the per-strip grating
 apodization (``--params apodization``, the default) or on grating periods
 and orientations (``--params lambda_ic,phi_ic``, ``lambda_tied,phi_tied``)
 through the differentiable splitting tracer (:mod:`.opt`).
+``simulate --mesh N`` shards the persistent engine's cell axis over the N
+ranks of a torchrun world (:mod:`.parallel.shard`)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m gpu_ray_tracing_for_waveguide_based_ar_display_torch simulate --mesh N
+
+rank 0 prints the report and writes the files.  ``simulate --profile-dir
+DIR`` writes a ``torch.profiler`` trace of the run into DIR.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import os
 import sys
 import time
 
@@ -268,11 +277,37 @@ def _check_tail_flags(args) -> None:
     for flag, name in ((args.error_bars, "--error-bars"),
                        (args.dense_eyebox, "--dense-eyebox"),
                        (args.checkpoint, "--checkpoint"),
-                       (args.wavelengths, "--wavelengths")):
+                       (args.wavelengths, "--wavelengths"),
+                       (args.mesh, "--mesh")):
         if flag:
             raise SystemExit(
                 f"{which} does not compose with {name} (the tail splice "
                 "patches the single-run perception stack)")
+
+
+def _check_mesh_flags(args) -> None:
+    """``--mesh N``: the persistent engine, under a torchrun world of N
+    ranks; refused before anything is built."""
+    if not args.mesh:
+        return
+    if args.engine != "persistent":
+        # the Simulator shards only the persistent engine's cells; running
+        # one device silently would defeat the flag
+        raise SystemExit(
+            "--mesh requires --engine persistent (the other engines run on "
+            "one device; the vector engine's mesh path is the "
+            "parallel.shard API)")
+    launch = (f"python -m torch.distributed.run --standalone "
+              f"--nproc-per-node {args.mesh} -m "
+              "gpu_ray_tracing_for_waveguide_based_ar_display_torch "
+              f"simulate --mesh {args.mesh} ...")
+    world = os.environ.get("WORLD_SIZE")
+    if world is None:
+        raise SystemExit(f"--mesh {args.mesh} runs one process per rank "
+                         f"under torchrun: {launch}")
+    if int(world) != args.mesh:
+        raise SystemExit(f"--mesh {args.mesh}: the torchrun world has "
+                         f"{world} ranks; launch {args.mesh}: {launch}")
 
 
 def _tail_hybrid(args, sim):
@@ -320,24 +355,47 @@ def _tail_report(diags) -> str:
 
 
 def cmd_simulate(args) -> int:
-    from .engine.pipeline import Simulator, format_report
-
     _check_tail_flags(args)
+    _check_mesh_flags(args)
     if args.image:
         _check_image_writer()   # fail before the trace, not after it
     _check_matplotlib(args)
+    if not args.mesh:
+        return _simulate(args, None)
+    import torch
+    import torch.distributed as dist
+
+    from .parallel.shard import make_mesh
+
+    mesh = make_mesh((args.mesh,), ("cells",),
+                     device_type=torch.device(args.device).type)
+    try:
+        return _simulate(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _simulate(args, mesh) -> int:
+    """``simulate``'s run, on one device or (``mesh``) on every rank of
+    the mesh; with a mesh rank 0 alone reports and writes files."""
+    from .engine.pipeline import Simulator, format_report
+    from .parallel.shard import describe_mesh, mesh_device
+    from .utils import torch_trace
+
     cfg = TraceConfig(num_fov_x=args.fov_x, num_fov_y=args.fov_y,
                       rays_per_fov=args.rays_per_fov, num_iter=args.num_iter,
                       max_bounces=args.max_bounces, seed=args.seed,
                       pupil_sampling=args.pupil_sampling)
     sim = Simulator(design=_design(args), cfg=cfg, luts_dir=args.luts_dir,
                     geometry_simplify_tol=args.simplify_tol,
-                    device=args.device, persistent_slots=args.slots,
+                    device=mesh_device(mesh) if mesh else args.device,
+                    persistent_slots=args.slots,
                     engine=args.engine, spawn_mode=args.spawn_mode,
                     spawn_iters=args.spawn_iters,
                     fold_iterations=args.fold_iterations,
                     pers_accum_mode=args.accum_mode,
-                    segmented=args.engine == "vector")
+                    segmented=args.engine == "vector", mesh=mesh)
+    lead = mesh is None or mesh.get_rank() == 0
     wl = (tuple(int(w) for w in args.wavelengths.split(","))
           if args.wavelengths else None)
     # the persistent engine keeps the histogram on the device and pulls the
@@ -346,18 +404,26 @@ def cmd_simulate(args) -> int:
     persistent = args.engine == "persistent"
     hy = _tail_hybrid(args, sim)
     diags = None
-    if hy is not None:
-        res, diags = hy.run(cells_per_batch=args.cells_per_batch,
-                            verbose=args.verbose)
-    else:
-        res = sim.run(cells_per_batch=args.cells_per_batch,
-                      verbose=args.verbose, wavelengths=wl,
-                      checkpoint_path=args.checkpoint,
-                      histogram_device=persistent,
-                      metrics_device=persistent and not args.image,
-                      error_groups=args.error_bars,
-                      dense_metrics=bool(args.dense_eyebox))
+    with torch_trace(args.profile_dir if lead else None,
+                     cuda=sim.device.type == "cuda"):
+        if hy is not None:
+            res, diags = hy.run(cells_per_batch=args.cells_per_batch,
+                                verbose=args.verbose)
+        else:
+            res = sim.run(cells_per_batch=args.cells_per_batch,
+                          verbose=args.verbose and lead, wavelengths=wl,
+                          checkpoint_path=args.checkpoint,
+                          histogram_device=persistent,
+                          metrics_device=persistent and not args.image,
+                          error_groups=args.error_bars,
+                          dense_metrics=bool(args.dense_eyebox))
+    if not lead:
+        return 0
+    if mesh is not None:
+        print(describe_mesh(mesh))
     print(format_report(res))
+    if args.profile_dir:
+        print(f"profiler trace written into {args.profile_dir}")
     if diags is not None:
         print(_tail_report(diags))
     if res.metric_stderr:
@@ -580,6 +646,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tail-max-boost", type=float, default=1024.0,
                    metavar="X", help="boost tier cap (bounds the tail's cost "
                                      "for windows dark by the physics)")
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="shard the persistent engine's cell axis over the N "
+                        "ranks of a torchrun world (python -m "
+                        "torch.distributed.run --nproc-per-node N ...); N "
+                        "must divide each batch's cell count")
+    p.add_argument("--profile-dir", default="", metavar="DIR",
+                   help="write a torch.profiler trace of the run into DIR")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_simulate)
 

@@ -28,7 +28,9 @@ engines:
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device
 metrics (persistent engine), jackknife error bars over the iterations
-(persistent engine) and the dense eye-position metrics.  The design
+(persistent engine) and the dense eye-position metrics.  ``mesh=`` (a
+``torch.distributed`` device mesh, :mod:`..parallel.shard`) shards the
+persistent engine's cell axis over the mesh's ranks.  The design
 geometry, LUTs, cell tables, trace geometry and host metrics are the port's
 own copies of the JAX package's numpy modules; the trace, seed hashing and
 device tail run on ``device``: the CUDA kernels on a GPU, their plain
@@ -54,6 +56,7 @@ from ..eval.metrics import (
 from ..luts.io import load_or_synthesize
 from ..luts.packing import build_cell_tables
 from ..luts.schema import RcwaLuts
+from ..parallel import shard
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from . import seeding, splitting, trace_cell, trace_persistent, trace_rows
 from . import trace_vector
@@ -124,7 +127,7 @@ class Simulator:
                  splitting_capacity: Optional[int] = None,
                  splitting_threshold: float = 1e-6,
                  splitting_max_steps: int = 1024,
-                 splitting_percell: bool = True):
+                 splitting_percell: bool = True, mesh=None):
         """Persistent engine: ``spawn_mode="count"`` respawns a cell's slots
         until the cell has spawned its target of rays (the histogram is then
         renormalised by target / spawned); ``"gens"`` gives every slot a
@@ -162,7 +165,14 @@ class Simulator:
         wavefront).  ``split_truncated``, ``split_pruned``,
         ``split_out_coupled`` and ``split_peak_live`` keep the weight lost to
         a full wavefront, the weight below the threshold, the weight
-        deposited and the widest wavefront seen."""
+        deposited and the widest wavefront seen.
+
+        ``mesh`` (persistent engine, one cell per block): every batch's
+        cells split over the mesh's first axis; each rank hashes the seeds
+        of its own cells, launches the trace on them and gathers the tiles
+        and counters of the batch, so every later step sees the whole
+        histogram and every rank returns the same result, bit for bit the
+        one-rank run's.  A batch's cell count must divide over the axis."""
         t0 = time.perf_counter()
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
@@ -185,8 +195,22 @@ class Simulator:
                 "pers_cells_per_block > 1 requires shared_pupil_samples and "
                 f"rng_mode='fast' (got {cfg.shared_pupil_samples}, "
                 f"{cfg.rng_mode!r})")
+        if mesh is not None:
+            if engine != "persistent":
+                raise ValueError(
+                    "mesh shards the persistent engine's cell axis; engine="
+                    f"{engine!r} runs on one device (its ray-axis form is "
+                    "parallel.shard.make_sharded_trace_fn)")
+            if self._pers_cpb > 1:
+                raise ValueError(
+                    "pers_cells_per_block > 1 does not compose with a mesh "
+                    "(cell-axis shards would split blocks)")
+        self._mesh = mesh
         self.engine = engine
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot drive "
+                             f"device {self.device}")
         self.design = design
         self.cfg = cfg
         self.geom = geom if geom is not None else generate_geometry(
@@ -309,6 +333,24 @@ class Simulator:
         rays_in, rng_in = trace_rows.pack_ray_blocks(batch, C, slots, rt)
         return trace_rows.blocks_to_device(rays_in, rng_in, self.device)
 
+    def _my_cells(self, cell_ids: np.ndarray) -> np.ndarray:
+        """The cells of a batch this rank traces: all of them, or with a
+        mesh its contiguous chunk along the mesh's first axis."""
+        if self._mesh is None:
+            return cell_ids
+        axis = self._mesh.mesh_dim_names[0]
+        n, idx, _ = shard._axis(self._mesh, axis)
+        shard._check_cells(len(cell_ids), n, axis)
+        return shard._chunk(cell_ids, n, idx)
+
+    def _gather(self, tiles: torch.Tensor, nb: torch.Tensor):
+        """A batch's tiles and ``nb`` from every rank of the mesh's first
+        axis (as they are without a mesh)."""
+        if self._mesh is None:
+            return tiles, nb
+        return shard.gather_cells(
+            tiles, nb, self._mesh.get_group(self._mesh.mesh_dim_names[0]))
+
     def _pers_ctrl(self, rays_per_cell: int, gens: int = 1) -> torch.Tensor:
         """``[per-cell spawn target, spawn_iters]`` in count spawn,
         ``[generations per slot, spawn_iters]`` in gens spawn."""
@@ -361,10 +403,11 @@ class Simulator:
                 f"{rays_per_cell} rays per cell over {slots} slots and "
                 f"{self.cfg.max_bounces} iterations could pass the kernel's "
                 "int32 counters; lower the boost tier or max_bounces")
-        rays_in, rng_in = self._device_ray_blocks(cell_ids, slots, iteration)
-        tiles, nb = self.tracer(cell_ids, rays_in, rng_in,
-                                self._pers_ctrl(rays_per_cell, gens),
-                                spawn_mode=self._spawn_mode)
+        mine = self._my_cells(cell_ids)
+        rays_in, rng_in = self._device_ray_blocks(mine, slots, iteration)
+        tiles, nb = self._gather(*self.tracer(
+            mine, rays_in, rng_in, self._pers_ctrl(rays_per_cell, gens),
+            spawn_mode=self._spawn_mode))
         if most_spawned >= 1 << 24 and float(tiles.max()) >= 1 << 24:
             raise RuntimeError(
                 "a histogram bin reached 2^24 counts, where float32 counts "
@@ -517,15 +560,22 @@ class Simulator:
                 # a batch that does not split evenly into blocks runs one
                 # cell per block
                 cpb = self._pers_cpb if len(chunk) % self._pers_cpb == 0 else 1
+                mine = self._my_cells(chunk)
                 ts = time.perf_counter()
                 with timer.span("seed"):
-                    rays_in, rng_in = self._device_ray_blocks(chunk, slots, it,
+                    rays_in, rng_in = self._device_ray_blocks(mine, slots, it,
                                                               cpb=cpb)
                 timings["seed_s"] += time.perf_counter() - ts
                 with timer.span("kernel"):
-                    tile, nb = self.tracer(chunk, rays_in, rng_in, ctrl,
+                    tile, nb = self.tracer(mine, rays_in, rng_in, ctrl,
                                            cells_per_block=cpb,
                                            spawn_mode=self._spawn_mode)
+                if self._mesh is not None:
+                    tg = time.perf_counter()
+                    with timer.span("gather"):
+                        tile, nb = self._gather(tile, nb)
+                    timings["gather_s"] = (timings.get("gather_s", 0.0)
+                                           + time.perf_counter() - tg)
                 acc[start:start + len(chunk)] += self._renorm_tiles(
                     tile, nb, nominal)
                 pending.append((start, nb, nominal * len(chunk)))
@@ -539,7 +589,10 @@ class Simulator:
                                   snap.sum(dim=(1, 2, 3, 4),
                                            dtype=torch.float64)))
                     del snap
-            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+            # with a mesh every rank holds the same histogram; rank 0
+            # writes it
+            if (checkpoint_path and (it + 1) % checkpoint_every == 0
+                    and (self._mesh is None or self._mesh.get_rank() == 0)):
                 drain()
                 save_checkpoint(checkpoint_path, assemble().cpu().numpy(),
                                 it + 1, self.design, self.cfg, total_bounces,

@@ -5,6 +5,11 @@ Every (FoV, wavelength) cell launches ``rays_per_cell`` rays from points in the
 in-coupler pupil, the first half pure TE and the second half pure TM on the
 same points.  With ``shared_pupil_samples`` one point set, drawn from
 ``numpy.random.default_rng(cfg.seed + 7919 * iteration)``, serves every cell.
+``TraceConfig(pupil_sampler="native")`` draws the points with the native
+host sampler (:mod:`.native`) seeded by the same value, as the JAX package
+does (per cell: the first word of the cell's ``SeedSequence``); where the
+JAX package falls back to numpy when that library is missing, the port
+raises.
 """
 
 from __future__ import annotations
@@ -71,10 +76,15 @@ def sample_points_r2_disk(poly: np.ndarray, num: int,
 
 
 def sample_pupil(geom: DesignGeometry, cfg: TraceConfig, num: int,
-                 rng: np.random.Generator) -> np.ndarray:
-    """``num`` pupil points by the configured sampling."""
+                 rng: np.random.Generator, native_seed: int) -> np.ndarray:
+    """``num`` pupil points by the configured sampling: ``rng`` feeds the
+    numpy samplers, ``native_seed`` the native one."""
     if cfg.pupil_sampling == "r2":
         return sample_points_r2_disk(geom.ic, num, rng)
+    if cfg.pupil_sampler == "native":
+        from . import native
+
+        return native.sample_points_in_polygon(geom.ic, num, seed=native_seed)
     return sample_points_in_polygon(geom.ic, num, rng)
 
 
@@ -86,9 +96,9 @@ def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
 
     ``cell_ids`` are flat cell indices ``(l * M + m) * N + n`` (default: all).
     """
-    if cfg.pupil_sampler != "numpy":
-        raise ValueError("the port samples the pupil with numpy only "
-                         f"(pupil_sampler={cfg.pupil_sampler!r})")
+    if cfg.pupil_sampler not in ("numpy", "native"):
+        raise ValueError("pupil_sampler must be 'numpy' or 'native', got "
+                         f"{cfg.pupil_sampler!r}")
     L, M, N = geom.th_out_ic.shape
     if cell_ids is None:
         cell_ids = np.arange(L * M * N)
@@ -100,8 +110,8 @@ def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
     total = n_cells * rpc
 
     if cfg.shared_pupil_samples:
-        pts = sample_pupil(geom, cfg, half,
-                           np.random.default_rng(cfg.seed + 7919 * iteration))
+        seed = cfg.seed + 7919 * iteration
+        pts = sample_pupil(geom, cfg, half, np.random.default_rng(seed), seed)
         x = np.tile(np.concatenate([pts[:, 0], pts[:, 0]]), n_cells)
         y = np.tile(np.concatenate([pts[:, 1], pts[:, 1]]), n_cells)
     else:
@@ -110,7 +120,8 @@ def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
         ys = np.empty((n_cells, half))
         for i, c in enumerate(np.asarray(cell_ids)):
             ss = np.random.SeedSequence((cfg.seed, 7919 * iteration, int(c)))
-            pts = sample_pupil(geom, cfg, half, np.random.default_rng(ss))
+            pts = sample_pupil(geom, cfg, half, np.random.default_rng(ss),
+                               int(ss.generate_state(1)[0]))
             xs[i], ys[i] = pts[:, 0], pts[:, 1]
         x = np.concatenate([xs, xs], axis=1).reshape(-1)
         y = np.concatenate([ys, ys], axis=1).reshape(-1)

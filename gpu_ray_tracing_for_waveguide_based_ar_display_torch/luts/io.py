@@ -2,9 +2,10 @@
 
 File naming follows download_lut.py:13-19 and the loads at
 gpu_ray_tracing_pro_fullColor.py:28-34.  Falls back to synthetic LUTs
-when files are absent (see :mod:`.synthetic`).  Copied from the JAX
-package's ``luts/io.py`` without its ``fetch_luts`` download and its
-``save_luts`` writer, which the port does not use.
+when files are absent (see :mod:`.synthetic`).  :func:`save_luts` writes
+them.  Copied from the JAX package's ``luts/io.py`` without its
+``fetch_luts`` download (the port fetches nothing: LUT files go into
+``--luts-dir`` by hand).
 """
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ _FILES = {
     "oc1": "lut_oc1_fullColor.npy",
     "oc2": "lut_oc2_fullColor.npy",
 }
+
+
+def save_luts(luts: RcwaLuts, directory: str) -> None:
+    """Write the seven LUTs to ``directory`` in the reference's exact on-disk
+    layout: one ``lut_*_fullColor.npy`` per table (names of download_lut.py:
+    13-19), complex dtype, axis order (L, M, N, C) / (S, L, M, N, C) — the
+    layout ``np.load``-ed verbatim by the reference's main script
+    (gpu_ray_tracing_pro_fullColor.py:28-34).  Round-trips bitwise with
+    :func:`load_luts`."""
+    os.makedirs(directory, exist_ok=True)
+    for key, fname in _FILES.items():
+        arr = np.asarray(getattr(luts, key))
+        if not np.iscomplexobj(arr):
+            raise ValueError(f"lut_{key} must be complex valued")
+        np.save(os.path.join(directory, fname), arr, allow_pickle=False)
+
 
 def load_luts(directory: str, validate: bool = True) -> RcwaLuts:
     """Load the seven full-color LUT files from ``directory``.

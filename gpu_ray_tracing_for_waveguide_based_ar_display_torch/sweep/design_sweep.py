@@ -10,7 +10,10 @@ L*M*N cells, one geometry row per design), and ONE launch of
 :func:`..engine.trace_persistent.persistent_trace` traces the whole chunk on
 the device: the CUDA kernel on a GPU, its plain PyTorch version on the CPU.
 Efficiencies, bounces and (optionally) the display metrics reduce on the
-device; nothing is pulled to the host until the end.
+device; nothing is pulled to the host until the end.  With a
+``torch.distributed`` device mesh (:mod:`..parallel.shard`) each rank preps
+and traces whole designs of every chunk and the per-design results are
+gathered to every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ..engine.trace_geometry import build_trace_geometry
 from ..eval.metrics import evaluate_batch, pupil_conv, pupil_mask
 from ..luts.packing import build_cell_tables, build_cell_tables_synthetic_batch
 from ..luts.synthetic import make_synthetic_luts
+from ..parallel import shard
 
 
 @dataclasses.dataclass
@@ -226,11 +230,17 @@ def _chunk_reduce(tiles, nb, nd: int, n_cells: int, L: int, MN: int, nx: int,
     """(tiles, nb) -> (eff (nd, L), bounces (nd,), factor (C,)) on the device.
 
     ``factor`` is the per-cell Wald renormalisation nominal / actual spawns,
-    applied to the histogram sums (the JAX package's ``_chunk_reducer``)."""
+    applied to the histogram sums (the JAX package's ``_chunk_reducer``).
+    The sums run one design at a time: a float32 reduction's order can
+    depend on how many designs share it, and a design's efficiencies must
+    not depend on which designs share its launch (a chunk, a mesh rank's
+    share of one, or a solo sweep)."""
     spawned = torch.clamp(nb[:, 2], min=1).to(torch.float32)
     factor = (nominal / spawned) if renorm else torch.ones_like(spawned)
-    cell_sums = tiles[:, :, :nx].sum(dim=(1, 2)) * factor
-    per_design_l = cell_sums.reshape(nd, L, MN).sum(dim=2)
+    per_design_l = torch.stack([
+        (tiles[sl, :, :nx].sum(dim=(1, 2)) * factor[sl]).reshape(L, MN)
+        .sum(dim=1)
+        for sl in (slice(d * n_cells, (d + 1) * n_cells) for d in range(nd))])
     eff = per_design_l / (nominal * MN * L) * L
     bounces = nb[:, 0].to(torch.int64).reshape(nd, n_cells).sum(dim=1)
     return eff, bounces, factor
@@ -270,6 +280,7 @@ def run_design_sweep_persistent(
     accum_mode: str = "fma",
     cells_per_block: int = 1,
     transit_jump: bool = False,
+    mesh=None,
 ) -> SweepResult:
     """Trace every design with identical workloads on ``device``.
 
@@ -321,6 +332,15 @@ def run_design_sweep_persistent(
     milliseconds from CUDA events: ``kernel_ms`` (the launches) and
     ``reduce_ms`` (Wald factors, efficiency sums and pupil integration);
     and ``launches``.
+
+    ``mesh``: the designs of every chunk split over the mesh's first axis,
+    whole designs to a rank (a chunk whose design count does not divide
+    repeats its last design, as the JAX package's mesh sweep pads it; a
+    sweep of several chunks needs ``designs_per_batch`` to divide).  Each
+    rank preps and traces only its designs; efficiencies, bounces, the
+    metrics' perception stacks and kept histograms are gathered, so every
+    rank returns the one-rank sweep's result, bit for bit; ``gather_s``
+    times the collectives.
     """
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
@@ -355,6 +375,32 @@ def run_design_sweep_persistent(
             f"cells, cells_per_block={cpb})")
     timings = {"prep_s": 0.0, "seed_s": 0.0, "upload_s": 0.0, "keep_s": 0.0}
     events = []
+    db = max(1, min(designs_per_batch, D))
+    n_dev, rank, group = 1, 0, None
+    if mesh is not None:
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot drive "
+                             f"device {dev}")
+        n_dev, rank, group = shard._axis(mesh, mesh.mesh_dim_names[0])
+        if D > db and db % n_dev:
+            raise ValueError(
+                f"designs_per_batch ({db}) must divide over the {n_dev}-"
+                f"device mesh axis for mesh-parallel sweeps")
+        timings["gather_s"] = 0.0
+
+    def mine(idx):
+        """This rank's designs of a chunk (padded with its last design to
+        a multiple of the mesh axis)."""
+        padded = list(idx) + [idx[-1]] * (-len(idx) % n_dev)
+        return shard._chunk(padded, n_dev, rank)
+
+    def gathered(t):
+        if group is None:
+            return t
+        t0 = time.perf_counter()
+        out = shard.all_gather_rows(t, group)
+        timings["gather_s"] += time.perf_counter() - t0
+        return out
 
     def prep(idx):
         t0 = time.perf_counter()
@@ -374,7 +420,6 @@ def run_design_sweep_persistent(
                            dtype=torch.float32, device=dev)
     ctrl = torch.tensor([cfg.rays_per_fov if count_spawn else gens,
                          spawn_iters], dtype=torch.int32, device=dev)
-    db = max(1, min(designs_per_batch, D))
     chunks = [list(range(s, min(s + db, D))) for s in range(0, D, db)]
     eff_parts, bounce_parts, nb_parts, perc_parts = [], [], [], []
     hist_parts = []
@@ -384,10 +429,10 @@ def run_design_sweep_persistent(
         keep = set(keep_histograms or ())
     num_fc = num_oc = None
     launches0 = trace_persistent.launch_counts["persistent_trace"]
-    prepped = prep(chunks[0])
+    prepped = prep(mine(chunks[0]))
     for ci, idx in enumerate(chunks):
         rows = prepped
-        nd = len(idx)
+        nd = len(mine(idx))
         if num_fc is None:
             num_fc, num_oc = rows.tgeoms[0].num_fc, rows.tgeoms[0].num_oc
         if any(g.num_fc != num_fc or g.num_oc != num_oc for g in rows.tgeoms):
@@ -419,29 +464,41 @@ def run_design_sweep_persistent(
         nb_parts.append(nb)
         eff_d, bounce_d, factor = _chunk_reduce(
             tiles, nb, nd, n_cells, L, M * N, nx, renorm, nominal)
-        eff_parts.append(eff_d)
-        bounce_parts.append(bounce_d)
+        eff_parts.append(gathered(eff_d)[:len(idx)])
+        bounce_parts.append(gathered(bounce_d)[:len(idx)])
         if evaluate_metrics:
-            perc_parts.append(_chunk_perceive(
+            perc_parts.append(gathered(_chunk_perceive(
                 tiles, factor, nd, L, M, N, ny, nx, mask,
-                (eval_cfg.eye_step_y, eval_cfg.eye_step_x)))
+                (eval_cfg.eye_step_y, eval_cfg.eye_step_x)))[:len(idx)])
         if on_gpu:
             ev[2].record()
             events.append(ev)
         t0 = time.perf_counter()
-        hist_parts.extend(
-            trace_persistent.hist_tiles_to_histogram(
-                tiles[i * n_cells:(i + 1) * n_cells]
-                * factor[i * n_cells:(i + 1) * n_cells, None, None],
-                np.arange(n_cells), L, M, N, ny, nx).cpu().numpy()
-            for i in range(nd) if idx[i] in keep)
+        for j, d in enumerate(idx):
+            if d not in keep:
+                continue
+            # design j of the chunk is design j % nd of rank j // nd
+            i = j % nd
+            if j // nd == rank:
+                h = trace_persistent.hist_tiles_to_histogram(
+                    tiles[i * n_cells:(i + 1) * n_cells]
+                    * factor[i * n_cells:(i + 1) * n_cells, None, None],
+                    np.arange(n_cells), L, M, N, ny, nx).cpu()
+            else:
+                h = torch.empty((L, N, M, ny, nx), dtype=torch.float32)
+            if group is not None:
+                h = shard.broadcast_from(h, j // nd, group)
+            hist_parts.append(h.numpy())
         del tiles
         timings["keep_s"] += time.perf_counter() - t0
         if ci + 1 < len(chunks):
-            prepped = prep(chunks[ci + 1])
+            prepped = prep(mine(chunks[ci + 1]))
 
     t0 = time.perf_counter()
-    overflowed = int(torch.cat([nb[:, 3] for nb in nb_parts]).sum())
+    overflowed = torch.cat([nb[:, 3] for nb in nb_parts]).sum()
+    if group is not None:
+        overflowed = shard.all_reduce_sum(overflowed, group)
+    overflowed = int(overflowed)
     if overflowed:
         raise RuntimeError(
             f"{overflowed} deposits overflowed (nb[:, 3] != 0): the "

@@ -222,9 +222,10 @@ def test_plotting_copy_is_the_jax_original():
 
 def test_new_engines_load_no_jax(tmp_path):
     """A process that runs the vector and splitting engines, the vector
-    sweep, the design plots, the boost-tail hybrid and a joint grating
-    optimisation step of the port on the CPU loads neither jax, ml_dtypes,
-    optax nor any module of the JAX package."""
+    sweep, the design plots, the boost-tail hybrid, a joint grating
+    optimisation step, and a profiled run with the native pupil sampler
+    beside the sharding module of the port on the CPU loads neither jax,
+    ml_dtypes, optax nor any module of the JAX package."""
     import os
     import subprocess
     import sys
@@ -263,6 +264,18 @@ def test_new_engines_load_no_jax(tmp_path):
         "rays_per_fov=2, capacity=256, fixed_steps=4, apodize=True, "
         "device='cpu')\n"
         "assert len(o.loss_history) == 2\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.parallel "
+        "import shard\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.utils "
+        "import profiling\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine "
+        "import native\n"
+        "with profiling.torch_trace('prof'):\n"
+        "    n = pipeline.Simulator(cfg=TraceConfig(num_fov_x=2, num_fov_y=2, "
+        "rays_per_fov=32, num_iter=1, max_bounces=200, "
+        "pupil_sampler='native'), device='cpu', persistent_slots=128).run()\n"
+        "assert native.available() and n.rays_traced > 0\n"
+        "assert len(shard.pad_rays_to({'x': [0.0] * 5}, 4)['x']) == 8\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', "
         "'optax') "
         "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
