@@ -19,18 +19,26 @@ Run from the repository root.  Phases:
    128 and 64 threads per block (it fails if that kernel spills);
 2. each kernel against its plain PyTorch version on the card, at the main
    path's per-cell width (paper design, 8 x 6 FoV x 3 wavelengths = 144
-   cells, 2,048 slots, spawn target 20,000, 100,000-iteration bound); the
-   histogram and the bounce and spawn counts must be identical; both are
-   timed with CUDA events after a warm-up;
+   cells, 2,048 slots, 100,000-iteration bound), in gens spawn with the
+   main path's three generations per slot (one iteration of 5,000 rays a
+   cell) and in count spawn with a target of 20,000; the histogram and the
+   bounce and spawn counts must be identical; both are timed with CUDA
+   events after a warm-up;
 3. the main path at full width through the port's ``Simulator``, as
-   ``simulate`` runs it: the paper design at the reference workload (100 x
-   75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations folded into
-   one count-spawn target of 20,000 per cell, 80 x 120 eyebox bins), seeds
-   hashed on the card, the histogram kept on the card and only the
-   pupil-integrated stack pulled for the host colorimetry, with launch
-   counts reset just before it and read just after it; its layers: seeding
-   (host and CUDA events), kernel, assembly, perception (CUDA events), the
-   stack's pull and the host colorimetry;
+   ``simulate`` runs it with no flags: the paper design at the reference
+   workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4
+   iterations, each a relaunch in gens spawn, 3 generations of 2,048 slots
+   a cell, 80 x 120 eyebox bins), seeds hashed on the card, the histogram
+   kept on the card and only the pupil-integrated stack pulled for the host
+   colorimetry, with launch counts reset just before it and read just after
+   it; its layers: seeding (host and CUDA events), kernel, assembly,
+   perception (CUDA events), the stack's pull and the host colorimetry;
+   then the same run at seeds 1 and 2 with seed 0's LUTs (efficiencies
+   only);
+3b. the same for the count-spawn folded path
+   (``spawn_mode="count", fold_iterations=True``: the 4 iterations folded
+   into one spawn target of 20,000 per cell), seeds 0, 1 and 2: the
+   reference of phases 10, 14, 16 and 18;
 4. only with ``--profile PATH``: one more run of the same ``Simulator``,
    as phase 3 runs it, under ``torch.profiler``, giving the device's busy
    time, the kernel's and the device-to-host copies' device time and the
@@ -74,8 +82,8 @@ Run from the repository root.  Phases:
    run that must trace the same bounces in as many launches).  The two histograms and bounce
    totals must be identical and the histogram's sum equal to the number of
    deposits.  Every colour's efficiency must lie within 10 % of phase 3's
-   (count spawn weighs launch points by their rays' inverse lifetime, this
-   engine equally).  One more run at 2,048 rays per cell holds the two
+   (the efficiency bar below holds phase 3 to 1.5 %).  One more run at
+   2,048 rays per cell holds the two
    kernels to each other: it must equal a one-design gens-spawn sweep of
    the persistent kernel with one generation per slot bit for bit (the
    same launch tile and seeds), and agree within 2 % with the efficiencies
@@ -101,13 +109,13 @@ Run from the repository root.  Phases:
    within 1 %, deposits per spawned ray within 5 %, strictly fewer
    iterations;
 10. the count-spawn, folded stack with packed selection and transit jumps at
-   full width through ``Simulator(pers_accum_mode="packed",
-   pers_transit_jump=True)``: the reference workload, uncut, the tail and
-   every layer as in phase 3, then the same with packed selection alone; launch
-   counts reset just before each run and read just after it.  Each colour's
-   efficiency must lie within 5 % of the exact mode's (phase 3: the same
-   seeds), bounces per traced ray within 1 %, and the jump run's summed
-   iterations below the packed run's;
+   full width through ``Simulator(spawn_mode="count", fold_iterations=True,
+   pers_accum_mode="packed", pers_transit_jump=True)``: the reference
+   workload, uncut, the tail and every layer as in phase 3b, then the same
+   with packed selection alone; launch counts reset just before each run
+   and read just after it.  Each colour's efficiency must lie within 5 % of
+   the exact mode's (phase 3b: the same seeds), bounces per traced ray
+   within 1 %, and the jump run's summed iterations below the packed run's;
 6c. phase 6's default sweep (8 periods, 180,000 cells, 256 slots, gens spawn
    saturated to iteration 256) with packed selection and transit jumps, with
    packed selection alone, and with packed selection and four cells per
@@ -117,7 +125,8 @@ Run from the repository root.  Phases:
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
    at a time) and at the first and last batch of phase 6b's (360,000 cells);
-   one ``Simulator`` run three times, with the host tail, with the stack
+   one count-spawn folded ``Simulator`` run three times, with the host
+   tail, with the stack
    pulled and with device metrics and the dense scan (51 x 91 eye
    positions; its time and the run's peak device memory): histograms
    identical, efficiencies within 1e-6 relative, delta E, FoV and eyebox
@@ -125,9 +134,10 @@ Run from the repository root.  Phases:
    to the full run's, row 1 empty; unfolded count spawn with 4 jackknife
    groups: standard errors finite, those of the efficiencies and of delta E
    positive, each efficiency's below the efficiency; gens spawn unfolded
-   (the JAX ``Simulator``'s default), 4 relaunches: each efficiency within 1
-   % of phase 8's cell engine (both weigh launch points equally); and
-   checkpoint and resume at 20 x 15 FoV on each engine, 2 iterations
+   (the default, phase 3's run), 4 relaunches: each efficiency within 1 %
+   of phase 8's cell engine (both weigh launch points equally); and
+   checkpoint and resume (count spawn, unfolded) at 20 x 15 FoV on each
+   engine, 2 iterations
    checkpointed and resumed to 3 equal to 3 uninterrupted.  Launch counts
    are reset at its start and read at its end.
 12. the vector engine at full width through ``Simulator(engine="vector",
@@ -164,7 +174,7 @@ Run from the repository root.  Phases:
    chunk); the selected cells, tiers, tail rays and launches per tier, the
    tail's largest ``nb[:, 1]`` against the 100,000-iteration cap and the
    cells it stopped (ROADMAP F5), pilot, tail and bulk seconds, starved
-   eye positions before (phase 3's run) and after; it fails unless the
+   eye positions before (phase 3b's run) and after; it fails unless the
    starved positions fall and every patched metric is finite.  Then four
    cells of the top tier with their seeds (the tail's iteration tag) and
    spawn target: the kernel once to the end (each cell reaches its target
@@ -175,7 +185,8 @@ Run from the repository root.  Phases:
    the reference budget per cell) through ``ExactTailHybrid`` with the
    CLI's knobs: selected cells, pruned weight, pilot (timed twice: its first
    run holds the process's first uses of the splitting operations), tail
-   and bulk seconds, starved positions; one bulk launch;
+   and bulk seconds, starved positions; the bulk as ``simulate`` runs it
+   (gens spawn, one launch per iteration);
 15. ``optimize``: the README's apodization case (16 x 12 FoV, 16 rays per
    FoV, 4,096 slots, 64 trace steps, 40 Adam steps) and its joint case
    (24 x 18, 8 rays, tied pitch and orientation with the apodization,
@@ -188,11 +199,12 @@ Run from the repository root.  Phases:
    in every case.
 16. the mesh (``parallel/shard.py``; one H100, so no multi-GPU scaling is
    measured): (a) an NCCL process group of world size 1 in this process and
-   ``Simulator(mesh=)`` at the reference workload: histogram (SHA-256 of its
-   bytes), bounces, efficiencies and metrics bit for bit phase 3's; (b) two
+   ``Simulator(mesh=)`` at the reference workload in count spawn, folded:
+   histogram (SHA-256 of its bytes), bounces, efficiencies and metrics bit
+   for bit phase 3b's; (b) two
    spawned ranks on the one card over gloo run the same through
    ``Simulator(mesh=)``, each rank its half of every batch, the tiles
-   gathered through host memory: every rank's result equal to phase 3's;
+   gathered through host memory: every rank's result equal to phase 3b's;
    each rank's K1 time, gather time and wall; (c) four ranks on a 2 x 2
    ``(cells, samples)`` mesh at phase 2's size (144 cells, 2,048 slots,
    count target 10,000 per seed block): the sample-sharded trace and the
@@ -207,18 +219,25 @@ Run from the repository root.  Phases:
 17. ``simulate --profile-dir`` through the CLI on the card at 20 x 15 FoV
    (the grid cut 25x): the ``torch.profiler`` trace must exist and name K1's
    CUDA kernel among its device events;
-18. the reference workload with ``TraceConfig(pupil_sampler="native")``: the
-   native pupil sampler built by ``g++`` from the port's copy of
-   ``host_sampler.cpp`` (its build time), launch counts reset just before
-   the run and read just after; every colour's efficiency finite, positive
-   and within 2 % of phase 3's (the same count spawn and cell seeds, other
-   pupil points).
+18. the reference workload in count spawn, folded, with
+   ``TraceConfig(pupil_sampler="native")``: the native pupil sampler built
+   by ``g++`` from the port's copy of ``host_sampler.cpp`` (its build
+   time), launch counts reset just before the run and read just after;
+   every colour's efficiency finite, positive and within 2 % of phase 3b's
+   (the same count spawn and cell seeds, other pupil points).
 
-Phases 2, 3, 5, 6, 9, 10 and 6c also record the persistent kernel's live
-fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the share
-of slot-iterations that made a bounce (with transit jumps a skipped hop
-counts as a bounce, so it may pass 1).  Phases 3 and 10 also record the
-kernel's bound over the whole run (:func:`simulate_bound_ms`).
+Phases 2, 3, 3b, 5, 6, 9, 10 and 6c also record the persistent kernel's
+live fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the
+share of slot-iterations that made a bounce (with transit jumps a skipped
+hop counts as a bounce, so it may pass 1).  Phases 3, 3b and 10 also record
+the kernel's bound over the whole run (:func:`simulate_bound_ms`).
+
+After the phases, the efficiency bar: each colour's efficiency of phase 3,
+phase 3b and the cell engine (phase 8) with the relative gaps, and over the
+three seeds of phases 3 and 3b each colour's mean gap and spread; it fails
+if a colour of phase 3 lies more than 1.5 % from the cell engine's (both
+weigh launch points equally; count spawn weighs them by their rays' inverse
+lifetime).  Without phase 3 or 8 it says that it was skipped and why.
 
 Any failure exits non-zero without the result line.  On success the line
 before the last is the kernels' JSON summary and the last line is
@@ -357,24 +376,37 @@ def bound_ms(inputs, outputs, nb, n_r1: int, ops_per_edge: int = 4,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def simulate_bound_ms(sim, res, target: int) -> tuple:
-    """:func:`bound_ms` of a whole ``Simulator.run``: the bytes every launch
-    must move (cell rows, packed words, the shared launch tile and geometry
-    row once per launch, the seeds, the histograms and ``nb``) and the r1
-    test of every bounce, with the selection's operations per edge and a
-    jump's hops per test."""
+def run_shape(sim) -> tuple:
+    """``(rays per cell and launch, launches per batch, slots, generations)``
+    of a persistent ``Simulator.run()`` at its configuration's workload:
+    folded, one launch per batch of ``num_iter * rays_per_fov`` rays per
+    cell; otherwise one launch per batch and iteration."""
+    cfg = sim.cfg
+    if sim._fold_iterations and cfg.num_iter > 1:
+        rpf, iters = cfg.rays_per_fov * cfg.num_iter, 1
+    else:
+        rpf, iters = cfg.rays_per_fov, cfg.num_iter
+    return (rpf, iters) + tuple(sim._slots_gens(rpf))
+
+
+def simulate_bound_ms(sim, res) -> tuple:
+    """:func:`bound_ms` of a whole ``Simulator.run`` at its configuration's
+    workload: the bytes every launch must move (cell rows, packed words,
+    the shared launch tile and geometry row once per launch, the seeds, the
+    histograms and ``nb``) and the r1 test of every bounce, with the
+    selection's operations per edge and a jump's hops per test."""
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
         trace_rows,
     )
 
     tr = sim.tracer
     n = sim.L * sim.M * sim.N
-    slots = sim._slots_gens(target)[0]
+    _, iters, slots, _ = run_shape(sim)
     ny, nx = tr.eyebox_bins
     packed = tr.accum_mode == "packed"
     words = tr.cell_params_packed.shape[1] if packed else 0
-    launches = math.ceil(n / 2048)
-    nbytes = (n * (trace_rows.PC + words + slots + ny * nx + 4) * 4
+    launches = math.ceil(n / 2048) * iters
+    nbytes = (iters * n * (trace_rows.PC + words + slots + ny * nx + 4) * 4
               + launches * (trace_rows.PG + 6 * slots + 2) * 4)
     hops = (15 if tr.jump_phase == "pow2" else 4095) if tr.transit_jump else 1
     ops = (res.total_bounces / hops * (3 if packed else 4)
@@ -580,7 +612,7 @@ def occupancy(ctx, log: str) -> None:
 
 def phase2(ctx) -> None:
     """The persistent kernel against its plain version at the main path's
-    per-cell width."""
+    per-cell width, in gens spawn (the default) and in count spawn."""
     import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
@@ -592,61 +624,90 @@ def phase2(ctx) -> None:
 
     cfg2 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000, num_iter=4)
     sim2 = pipeline.Simulator(cfg=cfg2, device=ctx["dev"], persistent_slots=2048)
-    target = cfg2.rays_per_fov * cfg2.num_iter
     n2 = sim2.L * sim2.M * sim2.N
-    slots, _ = sim2._slots_gens(target)
+    target = cfg2.rays_per_fov * cfg2.num_iter
+    # the main path's launch: one iteration of 5,000 rays a cell as gens of
+    # 2,048 slots; the count-spawn folded path's: a target of 20,000 rays
+    slots, gens = sim2._slots_gens(cfg2.rays_per_fov)
     rays_in, rng_in = sim2._device_ray_blocks(np.arange(n2), slots)
-    ctrl = sim2._pers_ctrl(target)
     tr = sim2.tracer
-    args = (tr.cell_params, tr.geom_row, rays_in, rng_in, ctrl)
     kw = dict(num_fc=tr.num_fc, num_oc=tr.num_oc, edge_counts=tr.edge_counts,
               eyebox_bins=tr.eyebox_bins, max_iters=tr.max_iters)
-    hk, nbk = tp.persistent_trace(*args, **kw)            # warm-up + result
-    torch.cuda.synchronize()
-    hp, nbp = tp.persistent_trace_reference(*args, **kw)  # warm-up + result
-    torch.cuda.synchronize()
-    ms_kernel = cuda_ms(lambda: tp.persistent_trace(*args, **kw), 5)
-    ms_plain = cuda_ms(lambda: tp.persistent_trace_reference(*args, **kw), 1)
-    max_abs = float((hk - hp).abs().max())
-    bound2, bound_by2 = bound_ms(args, (hk, nbk), nbk, tr.edge_counts[1])
-    same_hist = bool(torch.equal(hk, hp))
-    same_nb = bool(torch.equal(nbk[:, [0, 2]], nbp[:, [0, 2]]))
-    nbk_h = nbk.cpu().numpy()
-    live2 = live_fraction(nbk_h, slots)
-    print(f"phase 2: {n2} cells x {slots} slots, target {target}: kernel "
-          f"{ms_kernel:.3f} ms, plain {ms_plain:.3f} ms, live fraction "
-          f"{live2:.4f}; deposits "
-          f"{float(hk.sum()):.0f} vs {float(hp.sum()):.0f}, bounces "
-          f"{int(nbk_h[:, 0].sum())} vs {int(nbp[:, 0].sum())}, spawned "
-          f"{int(nbk_h[:, 2].sum())} vs {int(nbp[:, 2].sum())}, iterations "
-          f"max {int(nbk_h[:, 1].max())}; max |hist diff| {max_abs}")
-    ctx["record"]["phase2"] = {
-        "cells": n2, "slots": slots, "target": target,
-        "kernel_ms": ms_kernel, "plain_ms": ms_plain,
-        "bound_ms": bound2, "bound_by": bound_by2,
-        "deposits": float(hk.sum()), "bounces": int(nbk_h[:, 0].sum()),
-        "spawned": int(nbk_h[:, 2].sum()),
-        "max_iterations": int(nbk_h[:, 1].max()),
-        "max_abs_err": max_abs, "hist_identical": same_hist,
-        "nb_identical": same_nb,
-        "bounces_per_s_kernel": int(nbk_h[:, 0].sum()) / (ms_kernel / 1e3),
-        "live_fraction": live2,
-    }
-    if not (same_hist and same_nb):
-        fail(f"kernel disagrees with its plain version (hist identical "
-             f"{same_hist}, bounces/spawned identical {same_nb}, max |diff| "
-             f"{max_abs})")
-    if float(hk.sum()) <= 0:
-        fail("phase 2 made no deposits")
-    ctx["k1_modes"] = [{"mode": "count", "ctrl": [target, 0], "designs": 1,
-                        "cells": n2, "slots": slots, "ms": ms_kernel,
-                        "plain_ms": ms_plain, "bound_ms": bound2,
-                        "bound_by": bound_by2, "max_abs_err": max_abs,
-                        "live_fraction": live2}]
+    record = ctx["record"]["phase2"] = {}
+    modes = []
+    for mode, first in (("gens", gens), ("count", target)):
+        ctrl = torch.tensor([first, 0], dtype=torch.int32, device=ctx["dev"])
+        args = (tr.cell_params, tr.geom_row, rays_in, rng_in, ctrl)
+        mkw = dict(kw, spawn_mode=mode)
+        hk, nbk = tp.persistent_trace(*args, **mkw)            # warm-up
+        torch.cuda.synchronize()
+        hp, nbp = tp.persistent_trace_reference(*args, **mkw)  # warm-up
+        torch.cuda.synchronize()
+        ms_kernel = cuda_ms(lambda: tp.persistent_trace(*args, **mkw), 5)
+        ms_plain = cuda_ms(
+            lambda: tp.persistent_trace_reference(*args, **mkw), 1)
+        max_abs = float((hk - hp).abs().max())
+        bound2, bound_by2 = bound_ms(args, (hk, nbk), nbk, tr.edge_counts[1])
+        same_hist = bool(torch.equal(hk, hp))
+        same_nb = bool(torch.equal(nbk[:, [0, 2]], nbp[:, [0, 2]]))
+        nbk_h = nbk.cpu().numpy()
+        live2 = live_fraction(nbk_h, slots)
+        print(f"phase 2 {mode}: {n2} cells x {slots} slots, ctrl "
+              f"[{first}, 0]: kernel {ms_kernel:.3f} ms, plain "
+              f"{ms_plain:.3f} ms, live fraction {live2:.4f}; deposits "
+              f"{float(hk.sum()):.0f} vs {float(hp.sum()):.0f}, bounces "
+              f"{int(nbk_h[:, 0].sum())} vs {int(nbp[:, 0].sum())}, spawned "
+              f"{int(nbk_h[:, 2].sum())} vs {int(nbp[:, 2].sum())}, "
+              f"iterations max {int(nbk_h[:, 1].max())}; max |hist diff| "
+              f"{max_abs}")
+        record[mode] = {
+            "cells": n2, "slots": slots, "ctrl": [first, 0],
+            "kernel_ms": ms_kernel, "plain_ms": ms_plain,
+            "bound_ms": bound2, "bound_by": bound_by2,
+            "deposits": float(hk.sum()), "bounces": int(nbk_h[:, 0].sum()),
+            "spawned": int(nbk_h[:, 2].sum()),
+            "max_iterations": int(nbk_h[:, 1].max()),
+            "max_abs_err": max_abs, "hist_identical": same_hist,
+            "nb_identical": same_nb,
+            "bounces_per_s_kernel": int(nbk_h[:, 0].sum()) / (ms_kernel / 1e3),
+            "live_fraction": live2,
+        }
+        save_record(ctx)
+        if not (same_hist and same_nb):
+            fail(f"phase 2 {mode}: kernel disagrees with its plain version "
+                 f"(hist identical {same_hist}, bounces/spawned identical "
+                 f"{same_nb}, max |diff| {max_abs})")
+        if float(hk.sum()) <= 0:
+            fail(f"phase 2 {mode} made no deposits")
+        if mode == "gens" and int(nbk_h[:, 2].sum()) != n2 * slots * gens:
+            fail(f"phase 2 gens: {int(nbk_h[:, 2].sum())} rays spawned, not "
+                 f"{n2} x {slots} x {gens}")
+        modes.append({"mode": mode, "ctrl": [first, 0], "designs": 1,
+                      "cells": n2, "slots": slots, "ms": ms_kernel,
+                      "plain_ms": ms_plain, "bound_ms": bound2,
+                      "bound_by": bound_by2, "max_abs_err": max_abs,
+                      "live_fraction": live2})
+    # the first mode is the main path's: the kernel line's headline
+    ctx["k1_modes"] = modes
 
 
-def phase3(ctx) -> None:
-    """The main path at full width (and phase 4, the optional profile)."""
+# the count-spawn folded path: the faster option, which weighs launch
+# points by their rays' inverse lifetime; the phases about it pin it
+COUNT_FOLDED = {"spawn_mode": "count", "fold_iterations": True}
+# phases 3 and 3b run these seeds beside --seed 0, each with seed 0's LUTs
+# (the synthetic LUTs take their seed from --seed too): the Monte-Carlo
+# spread of the efficiencies (ROADMAP F7)
+EXTRA_SEEDS = (1, 2)
+# the largest relative gap allowed between each colour's efficiency of
+# phase 3 and the cell engine's (phase 8): both weigh launch points equally
+EFFICIENCY_BAR = 0.015
+
+
+def main_path(ctx, phase: str, **sim_kw):
+    """The reference workload through the port's ``Simulator`` as
+    ``simulate`` runs it (with ``sim_kw``), its layers, checks and record;
+    launch counts reset just before it and read just after it.  Returns the
+    Simulator, the result and its launches."""
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
@@ -655,12 +716,11 @@ def phase3(ctx) -> None:
         pipeline, trace_persistent as tp,
     )
 
-    record = ctx["record"]
     cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
     torch.cuda.reset_peak_memory_stats()
     tp.reset_launch_counts()
     t0 = time.perf_counter()
-    sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"])
+    sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **sim_kw)
     # as simulate runs it: the histogram stays on the card, the stack is
     # pulled for the host colorimetry (and the eye-view image)
     res = sim.run(histogram_device=True)
@@ -669,14 +729,20 @@ def phase3(ctx) -> None:
     launches = dict(tp.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     n_cells = sim.L * sim.M * sim.N
-    target = cfg.rays_per_fov * cfg.num_iter
+    rpf, iters, slots, gens = run_shape(sim)
+    count = sim._spawn_mode == "count"
+    # rays a cell is normalised to: the count target, or every generation
+    nominal = sim._pers_nominal(slots, gens, rpf) * iters
     batches = math.ceil(n_cells / 2048)
     met = res.metrics
     tm = res.timings
-    live3 = live_fraction(res.cell_stats, sim._slots_gens(target)[0])
-    bound3, bound_by3 = simulate_bound_ms(sim, res, target)
+    live = live_fraction(res.cell_stats, slots)
+    bound, bound_by = simulate_bound_ms(sim, res)
+    mode = (f"{sim._spawn_mode} spawn, "
+            f"{'folded' if sim._fold_iterations else 'unfolded'}")
     print(pipeline.format_report(res))
-    print(f"phase 3: {n_cells} cells, target {target} rays/cell: wall "
+    print(f"phase {phase}: {mode}, {n_cells} cells, {nominal} rays/cell in "
+          f"{iters} launch(es) per batch: wall "
           f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
           f"{res.trace_seconds:.3f} s, kernel "
           f"{tm['kernel_ms']:.1f} ms, seeding (device hash) "
@@ -685,13 +751,15 @@ def phase3(ctx) -> None:
           f"{tm['metrics_s']:.3f} s (perception {tm['perceive_ms']:.2f} ms "
           f"device, stack pull {tm['pull_s']:.4f} s, host colorimetry "
           f"{tm['metrics_s'] - tm['pull_s']:.3f} s); kernel "
-          f"bound {bound3:.4f} ms ({bound_by3}); live fraction {live3:.4f}; "
+          f"bound {bound:.4f} ms ({bound_by}); live fraction {live:.4f}; "
           "bounces "
           f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), rays "
           f"{res.rays_traced:,}; launches {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB; jax loaded: {'jax' in sys.modules}")
-    record["phase3"] = {
-        "cells": n_cells, "target": target, "wall_s": wall,
+    ctx["record"][f"phase{phase}"] = {
+        "spawn_mode": sim._spawn_mode,
+        "fold_iterations": sim._fold_iterations,
+        "cells": n_cells, "nominal_rays_per_cell": nominal, "wall_s": wall,
         "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
         "timings": res.timings, "total_bounces": res.total_bounces,
         "bounces_per_s": res.bounces_per_second,
@@ -700,47 +768,149 @@ def phase3(ctx) -> None:
         "starved_eye_positions": met.starved_eye_positions,
         "launches": launches, "batches": batches, "peak_bytes": peak,
         "max_iterations": int(res.cell_stats[:, 1].max()),
-        "live_fraction": live3, "bound_ms": bound3, "bound_by": bound_by3,
+        "live_fraction": live, "bound_ms": bound, "bound_by": bound_by,
     }
     save_record(ctx)
 
     vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
                                               met.u_eyebox]
     if not all(math.isfinite(v) for v in vals):
-        fail(f"non-finite metric in {vals}")
+        fail(f"phase {phase}: non-finite metric in {vals}")
     if not (isinstance(res.histogram, torch.Tensor) and res.histogram.is_cuda):
-        fail("phase 3: the histogram left the card")
+        fail(f"phase {phase}: the histogram left the card")
     # sums on the card, in float64
     per_colour = res.histogram.sum(dim=(1, 2, 3, 4),
                                    dtype=torch.float64).cpu().numpy()
     if (per_colour <= 0).any():
-        fail(f"a colour has no deposits: {per_colour}")
-    if (res.cell_stats[:, 2] < target).any():
-        fail(f"{int((res.cell_stats[:, 2] < target).sum())} cells spawned "
-             f"fewer than {target} rays")
-    want = sum(res.efficiencies.values()) / sim.L * target * n_cells
+        fail(f"phase {phase}: a colour has no deposits: {per_colour}")
+    spawned = res.cell_stats[:, 2]
+    off = (spawned < nominal) if count else (spawned != nominal)
+    if off.any():
+        fail(f"phase {phase}: {int(off.sum())} cells spawned other than "
+             f"{'at least ' if count else ''}{nominal} rays")
+    want = sum(res.efficiencies.values()) / sim.L * nominal * n_cells
     got = float(per_colour.sum())
     if abs(got - want) > 1e-6 * want:
-        fail(f"histogram sum {got} vs efficiencies x rays {want}")
-    if launches != {"persistent_trace": batches, "cell_trace": 0}:
-        fail(f"launches {launches}, expected one persistent_trace per batch "
-             f"({batches}) and no other kernel")
+        fail(f"phase {phase}: histogram sum {got} vs efficiencies x rays "
+             f"{want}")
+    if launches != {"persistent_trace": batches * iters, "cell_trace": 0}:
+        fail(f"phase {phase}: launches {launches}, expected one "
+             f"persistent_trace per batch and iteration ({batches * iters}) "
+             "and no other kernel")
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
+    return sim, res, launches["persistent_trace"]
 
+
+def seed_efficiencies(ctx, phase: str, sim, res, **sim_kw) -> dict:
+    """Each colour's efficiency of ``res`` (seed 0) and of the same run
+    under :data:`EXTRA_SEEDS` with seed 0's geometry and LUTs, by seed."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_persistent as tp,
+    )
+
+    out = {sim.cfg.seed: dict(res.efficiencies)}
+    tp.reset_launch_counts()
+    for seed in EXTRA_SEEDS:
+        other = pipeline.Simulator(
+            cfg=dataclasses.replace(sim.cfg, seed=seed), geom=sim.geom,
+            luts=sim.luts, device=ctx["dev"], **sim_kw)
+        out[seed] = dict(other.run(histogram_device=True,
+                                   evaluate_metrics=False).efficiencies)
+        del other
+    torch.cuda.synchronize()
+    ctx["k1_seed_launches"] = (ctx.get("k1_seed_launches", 0)
+                               + tp.launch_counts["persistent_trace"])
+    ctx["record"][f"phase{phase}"]["seeds"] = {str(k): v
+                                               for k, v in out.items()}
+    save_record(ctx)
+    print(f"phase {phase} seeds (seed 0's LUTs): {json.dumps(out)}")
+    return out
+
+
+def phase3(ctx) -> None:
+    """The main path at full width: the default, gens spawn without
+    folding (and phase 4, the optional profile)."""
+    sim, res, launches = main_path(ctx, "3")
     # ---- phase 4 (optional): where the device time of one run goes
     if ctx["profile_path"]:
+        record = ctx["record"]
         record["profile"] = profile_run(sim, ctx["profile_path"])
         print(f"phase 4: {json.dumps(record['profile'])}")
         save_record(ctx)
-    ctx["k1_main_launches"] = launches["persistent_trace"]
-    ctx["main_run"] = {"digest": digest(res.histogram),
-                       "bounces": res.total_bounces,
-                       "efficiencies": dict(res.efficiencies),
-                       "metrics": [met.delta_e, met.u_fov, met.u_eyebox]}
-    ctx["persistent_efficiencies"] = dict(res.efficiencies)
-    ctx["main_starved"] = met.starved_eye_positions
-    ctx["exact_run"] = stack_stats(res, sim._slots_gens(target)[0])
+    ctx["k1_main_launches"] = launches
+    ctx["default_efficiencies"] = dict(res.efficiencies)
+    ctx["default_seeds"] = seed_efficiencies(ctx, "3", sim, res)
+
+
+def phase3b(ctx) -> None:
+    """The count-spawn folded path at full width, as phase 3 runs the
+    default: what phases 10, 14, 16 and 18 are held to."""
+    sim, res, launches = main_path(ctx, "3b", **COUNT_FOLDED)
+    met = res.metrics
+    ctx["k1_count_main_launches"] = launches
+    ctx["count_run"] = {"digest": digest(res.histogram),
+                        "bounces": res.total_bounces,
+                        "efficiencies": dict(res.efficiencies),
+                        "metrics": [met.delta_e, met.u_fov, met.u_eyebox]}
+    ctx["count_efficiencies"] = dict(res.efficiencies)
+    ctx["count_starved"] = met.starved_eye_positions
+    ctx["exact_run"] = stack_stats(res, run_shape(sim)[2])
+    ctx["count_seeds"] = seed_efficiencies(ctx, "3b", sim, res,
+                                           **COUNT_FOLDED)
+
+
+def efficiency_bar(ctx) -> None:
+    """Each colour's efficiency of phase 3 (the default), phase 3b (count
+    spawn, folded) and the cell engine (phase 8), the relative gaps, and
+    over phase 3's and 3b's seeds the mean gap and the spread; fails if a
+    colour of phase 3 lies more than :data:`EFFICIENCY_BAR` from the cell
+    engine's."""
+    cell = ctx.get("cell_efficiencies")
+    runs = {n: ctx.get(k) for n, k in (("3", "default_seeds"),
+                                       ("3b", "count_seeds"))}
+    if cell is None or runs["3"] is None:
+        why = " and ".join(f"phase {n}" for n, v in (("3", runs["3"]),
+                                                     ("8", cell)) if v is None)
+        print(f"efficiency bar: skipped, {why} not in this run (the bar "
+              "holds phase 3's efficiencies to the cell engine's)")
+        return
+    table = {}
+    for name, seeds in runs.items():
+        if seeds is None:
+            continue
+        rows = {}
+        for k, ref in cell.items():
+            vals = [e[k] for e in seeds.values()]
+            mean = sum(vals) / len(vals)
+            sd = math.sqrt(sum((v - mean) ** 2 for v in vals)
+                           / (len(vals) - 1))
+            rows[k] = {"efficiency": vals[0], "gap": vals[0] / ref - 1,
+                       "seed_gaps": [v / ref - 1 for v in vals],
+                       "mean_gap": mean / ref - 1, "spread_sd": sd / mean,
+                       "spread_range": (max(vals) - min(vals)) / mean}
+        table[name] = rows
+    for k, ref in cell.items():
+        parts = [f"cell engine {ref:.6f}"]
+        for name, rows in table.items():
+            r = rows[k]
+            parts.append(
+                f"phase {name} {r['efficiency']:.6f} ({r['gap']:+.4f}; seeds "
+                + ", ".join(f"{g:+.4f}" for g in r["seed_gaps"])
+                + f", mean {r['mean_gap']:+.4f}, spread sd "
+                f"{r['spread_sd']:.4f}, range {r['spread_range']:.4f})")
+        print(f"efficiency {k}: " + "; ".join(parts))
+    worst = max(abs(r["gap"]) for r in table["3"].values())
+    ctx["record"]["efficiency_bar"] = {"cell": cell, "runs": table,
+                                       "bar": EFFICIENCY_BAR,
+                                       "worst_gap": worst}
+    save_record(ctx)
+    if worst > EFFICIENCY_BAR:
+        fail(f"phase 3's efficiencies lie up to {worst:.4f} from the cell "
+             f"engine's, beyond the bar {EFFICIENCY_BAR}")
+    print(f"efficiency bar: phase 3 within {worst:.4f} of the cell engine "
+          f"in every colour (bar {EFFICIENCY_BAR})")
 
 
 def stack_stats(res, slots: int) -> dict:
@@ -1223,13 +1393,11 @@ def phase8(ctx) -> None:
                         else n_launch == batches)
         if launches["persistent_trace"] or not as_scheduled:
             fail(f"phase 8 {name}: launches {launches} for {batches} batches")
-        ref = ctx.get("persistent_efficiencies")
+        ref = ctx.get("default_efficiencies")
         if ref is not None:
-            # phase 3 is count spawn: a slot whose rays die early respawns
-            # more often, so launch points weigh by their rays' inverse
-            # lifetime and the estimate differs from this engine's equal
-            # weights; reported, and held to 10 % (the cross-check below
-            # holds the two kernels to each other exactly)
+            # reported, and held to 10 % (the efficiency bar holds phase 3
+            # to 1.5 % of the monolithic run; the cross-check below holds
+            # the two kernels to each other exactly)
             rel = {k: v / ref[k] - 1 for k, v in res.efficiencies.items()}
             entry["efficiency_vs_persistent"] = rel
             print(f"phase 8 {name}: efficiencies relative to phase 3's: "
@@ -1288,7 +1456,7 @@ def phase8(ctx) -> None:
                  np.array_equal(one.histograms[0], res.histogram)
                  and int(one.bounces[0]) == res.total_bounces),
              "gens10_sweep_vs_cell": dict(zip(names, rel_ten))}
-    ref = ctx.get("persistent_efficiencies")
+    ref = ctx.get("count_efficiencies")
     if ref is not None:
         cross["cell_vs_count_spawn"] = {
             k: res.efficiencies[k] / ref[k] - 1 for k in names}
@@ -1443,8 +1611,9 @@ def phase10(ctx) -> None:
     target = cfg.rays_per_fov * cfg.num_iter
     exact = ctx.get("exact_run")
     if exact is None:
-        # a partial run without phase 3: the exact mode, same seeds, no metrics
-        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"])
+        # a partial run without phase 3b: the exact mode, same seeds, no
+        # metrics
+        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **COUNT_FOLDED)
         exact = stack_stats(sim.run(evaluate_metrics=False),
                             sim._slots_gens(target)[0])
     runs = {"exact": exact}
@@ -1456,7 +1625,8 @@ def phase10(ctx) -> None:
         torch.cuda.reset_peak_memory_stats()
         tp.reset_launch_counts()
         t0 = time.perf_counter()
-        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **kw)
+        sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **COUNT_FOLDED,
+                                 **kw)
         res = sim.run(histogram_device=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1465,7 +1635,7 @@ def phase10(ctx) -> None:
         n_cells = sim.L * sim.M * sim.N
         batches = math.ceil(n_cells / 2048)
         tm, met = res.timings, res.metrics
-        bound10, bound_by10 = simulate_bound_ms(sim, res, target)
+        bound10, bound_by10 = simulate_bound_ms(sim, res)
         entry = dict(stack_stats(res, sim._slots_gens(target)[0]),
                      bound_ms=bound10, bound_by=bound_by10,
                      cells=n_cells, target=target,
@@ -1594,9 +1764,9 @@ def phase11(ctx) -> None:
           f"first and last batch; hash of one iteration's {n_cells:,} x "
           f"{slots} seeds {hash_ms:.2f} ms")
 
-    # ---- one Simulator, three tails
+    # ---- one Simulator, three tails (count spawn, folded)
     tp.reset_launch_counts()
-    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    sim = pipeline.Simulator(cfg=cfg, device=dev, **COUNT_FOLDED)
     host = sim.run()
     stack = sim.run(histogram_device=True)
     torch.cuda.synchronize()
@@ -1697,7 +1867,7 @@ def phase11(ctx) -> None:
         faults.append(f"delta_e standard error {se['delta_e']}")
     del eg, sim
 
-    # ---- gens spawn unfolded (the JAX Simulator's default), 4 relaunches
+    # ---- gens spawn unfolded (the default, phase 3's path), 4 relaunches
     gsim = pipeline.Simulator(cfg=cfg, device=dev, spawn_mode="gens",
                               fold_iterations=False)
     g = gsim.run(histogram_device=True, metrics_device=True)
@@ -1724,7 +1894,7 @@ def phase11(ctx) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         for engine in ("persistent", "cell"):
             s = pipeline.Simulator(cfg=cfg_s, device=dev, engine=engine,
-                                   fold_iterations=False)
+                                   spawn_mode="count", fold_iterations=False)
             path = str(Path(tmp) / f"{engine}.npz")
             kw = dict(evaluate_metrics=False)
             full = s.run(num_iter=3, **kw)
@@ -2148,9 +2318,9 @@ def phase14(ctx) -> None:
     dev = ctx["dev"]
     rec = ctx["record"].setdefault("phase14", {})
     cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
-    sim = pipeline.Simulator(cfg=cfg, device=dev)
-    before = ctx.get("main_starved")
-    if before is None:   # phase 3 not run: the same run, its metrics
+    sim = pipeline.Simulator(cfg=cfg, device=dev, **COUNT_FOLDED)
+    before = ctx.get("count_starved")
+    if before is None:   # phase 3b not run: the same run, its metrics
         before = sim.run(histogram_device=True).metrics.starved_eye_positions
     # the CLI's hybrid: tau_select 30, tau_target 20, max boost 1024
     hy = hybrid.TailBoostHybrid(sim)
@@ -2337,8 +2507,10 @@ def phase14b(ctx) -> None:
           f"{met.starved_eye_positions}; u_eyebox {met.u_eyebox:.5f}; "
           f"launches {launches}")
     faults = []
-    if launches != {"persistent_trace": 1, "cell_trace": 0}:
-        faults.append(f"launches {launches}")
+    # the bulk run, as simulate runs it: one launch per batch and iteration
+    bulk = math.ceil(n_cells / 2048) * run_shape(sim)[1]
+    if launches != {"persistent_trace": bulk, "cell_trace": 0}:
+        faults.append(f"launches {launches}, expected {bulk}")
     if not (d.selected_cells and met.starved_eye_positions <= before):
         faults.append(f"starved {before} -> {met.starved_eye_positions} "
                       f"with {d.selected_cells} cells selected")
@@ -2543,7 +2715,8 @@ def _mesh_simulate_rank(rank: int, world: int) -> dict:
     mesh = shard.make_mesh((world,), ("cells",), "cuda")
     dev = shard.mesh_device(mesh)
     t0 = time.perf_counter()
-    sim = pipeline.Simulator(cfg=TraceConfig(), device=dev, mesh=mesh)
+    sim = pipeline.Simulator(cfg=TraceConfig(), device=dev, mesh=mesh,
+                             **COUNT_FOLDED)
     torch.cuda.synchronize()
     tp.reset_launch_counts()
     t1 = time.perf_counter()
@@ -2592,7 +2765,8 @@ def _mesh_k1_rank(rank: int, world: int) -> dict:
     dev = shard.mesh_device(mesh)
     cfg2 = TraceConfig(num_fov_x=8, num_fov_y=6, rays_per_fov=5000,
                        num_iter=4)
-    sim = pipeline.Simulator(cfg=cfg2, device=dev, persistent_slots=2048)
+    sim = pipeline.Simulator(cfg=cfg2, device=dev, persistent_slots=2048,
+                             **COUNT_FOLDED)
     n2 = sim.L * sim.M * sim.N
     target = cfg2.rays_per_fov * cfg2.num_iter // 2   # a half per seed block
     slots, _ = sim._slots_gens(target)
@@ -2683,11 +2857,11 @@ def _nccl_shared_card_rank(rank: int, world: int) -> list:
 
 
 def _same_as_main(ctx, got: dict, what: str) -> list:
-    """The faults of a mesh run against phase 3's run."""
-    want = ctx.get("main_run")
+    """The faults of a mesh run against phase 3b's run."""
+    want = ctx.get("count_run")
     if want is None:
         return []
-    faults = [f"{what}: {k} {got[k]} != phase 3's {want[k]}"
+    faults = [f"{what}: {k} {got[k]} != phase 3b's {want[k]}"
               for k in ("digest", "bounces", "efficiencies", "metrics")
               if got[k] != want[k]]
     return faults
@@ -2730,7 +2904,7 @@ def phase16(ctx) -> None:
             tp.reset_launch_counts()
             t0 = time.perf_counter()
             sim = pipeline.Simulator(cfg=TraceConfig(), device=ctx["dev"],
-                                     mesh=mesh)
+                                     mesh=mesh, **COUNT_FOLDED)
             res = sim.run(histogram_device=True)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -2865,34 +3039,35 @@ def phase18(ctx) -> None:
     tp.reset_launch_counts()
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=TraceConfig(pupil_sampler="native"),
-                             device=ctx["dev"])
+                             device=ctx["dev"], **COUNT_FOLDED)
     res = sim.run(histogram_device=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tp.launch_counts["persistent_trace"]
     eff = res.efficiencies
-    ref = ctx.get("persistent_efficiencies")
+    ref = ctx.get("count_efficiencies")
     rel = ({k: eff[k] / ref[k] - 1 for k in eff} if ref else None)
     ctx["record"]["phase18"] = {
         "library": lib.name, "build_s": build_s, "wall_s": wall,
         "trace_s": res.trace_seconds, "efficiencies": eff,
-        "relative_to_phase3": rel, "launches": launches,
+        "relative_to_phase3b": rel, "launches": launches,
         "bounces": res.total_bounces}
     save_record(ctx)
     print(f"phase 18: native pupil sampler ({lib.name}, g++ {build_s:.2f} "
           f"s): wall {wall:.3f} s, trace {res.trace_seconds:.3f} s, "
-          f"{launches} launches; efficiencies {eff}; relative to phase 3's "
+          f"{launches} launches; efficiencies {eff}; relative to phase 3b's "
           f"{rel}")
     if not all(math.isfinite(v) and v > 0 for v in eff.values()):
         fail(f"phase 18: efficiencies {eff}")
     if rel is not None and max(abs(v) for v in rel.values()) > 0.02:
-        fail(f"phase 18: efficiencies {rel} beyond 2 % of phase 3's")
+        fail(f"phase 18: efficiencies {rel} beyond 2 % of phase 3b's")
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_native_launches"] = launches
 
 # in running order; "6c" follows the phases whose results it needs none of
-PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
+PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
+          "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
           "6c": phase6c, "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14b": phase14b, "15": phase15, "16": phase16,
@@ -2901,12 +3076,14 @@ PHASES = {"1": phase1, "2": phase2, "3": phase3, "5": phase5, "6": phase6,
 
 def kernel_line(ctx) -> dict:
     """The kernels' summary; a kernel's headline numbers are those of the
-    main path's mode: count spawn, and full mode with the whole budget."""
+    main path's mode: gens spawn (phase 2's first mode), and full mode with
+    the whole budget."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
             ("persistent_trace", k1, k1[0],
-             ctx["k1_main_launches"] + ctx["k1_sweep_launches"]
+             ctx["k1_main_launches"] + ctx["k1_count_main_launches"]
+             + ctx["k1_seed_launches"] + ctx["k1_sweep_launches"]
              + ctx["k1_packed_main_launches"]
              + ctx["k1_packed_sweep_launches"] + ctx["k1_tail_launches"]
              + ctx["k1_hybrid_launches"] + ctx["k1_mesh_launches"]
@@ -2954,6 +3131,7 @@ def main() -> int:
     for n in wanted:
         PHASES[n](ctx)
         torch.cuda.empty_cache()
+    efficiency_bar(ctx)
     save_record(ctx)
     if wanted != list(PHASES):
         print(f"chip_smoke: phases {wanted} passed (a partial run: no "

@@ -7,16 +7,20 @@
     python -m gpu_ray_tracing_for_waveguide_based_ar_display_torch optimize [...]
 
 ``simulate``'s defaults run the main path: the paper design at the reference
-workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations
-folded into one count-spawn target, a 100,000-bounce bound, 80 x 120 eyebox
-bins), keep the histogram on the device, pull the pupil-integrated stack for
-the host metrics and write the eye-view PNG ``Eyebox Center View.png`` into
-the working directory, as the JAX CLI does; ``--image ''`` writes none and
-evaluates the metrics on the device.  ``--spawn-mode``, ``--spawn-iters``,
-``--no-fold-iterations``, ``--error-bars``, ``--wavelengths``,
-``--checkpoint`` and ``--dense-eyebox`` mean what they mean in the JAX CLI;
-the port's defaults are count spawn with folded iterations, the JAX CLI's
-gens spawn without folding.
+workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations,
+each iteration a relaunch in gens spawn, a 100,000-bounce bound, 80 x 120
+eyebox bins) through the persistent kernel, keep the histogram on the
+device, pull the pupil-integrated stack for the host metrics and write the
+eye-view PNG ``Eyebox Center View.png`` into the working directory, as the
+JAX CLI's ``simulate --engine pallas_persistent`` does; ``--image ''``
+writes none and evaluates the metrics on the device.  ``--spawn-mode``,
+``--spawn-iters``, ``--fold-iterations``, ``--error-bars``,
+``--wavelengths``, ``--checkpoint`` and ``--dense-eyebox`` mean what they
+mean in the JAX CLI and default as there; ``--spawn-mode count
+--fold-iterations`` is the faster path that weighs launch points by their
+rays' inverse lifetime.  Only ``--engine`` defaults otherwise: to the
+kernel (``persistent``), where the JAX CLI defaults to ``jnp`` (here
+``vector``) because its Pallas kernels compile only on a TPU.
 ``simulate --engine cell`` runs the same workload through the per-cell
 kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
 ``--engine pallas``); ``--engine vector`` the same relaunches through the
@@ -574,21 +578,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "the exact branch expectation, --rays-per-fov "
                         "becomes the launch positions per cell (small grids)")
     p.add_argument("--num-iter", type=int, default=4,
-                   help="iterations: folded into one spawn target per cell "
-                        "(persistent, --fold-iterations) or relaunched")
-    p.add_argument("--spawn-mode", default="count", choices=("gens", "count"),
-                   help="persistent engine's respawn: count = a per-cell "
-                        "spawn target (the default); gens = a quota of "
-                        "generations per slot (the JAX CLI's default)")
+                   help="iterations: relaunched, each seeded anew, or folded "
+                        "into one spawn target per cell (persistent, "
+                        "--fold-iterations)")
+    p.add_argument("--spawn-mode", default="gens", choices=("gens", "count"),
+                   help="persistent engine's respawn: gens = a quota of "
+                        "generations per slot, every launch point weighed "
+                        "equally (the default, as in the JAX CLI); count = "
+                        "a per-cell spawn target, faster, but it weighs "
+                        "launch points by their rays' inverse lifetime")
     p.add_argument("--spawn-iters", type=int, default=0,
                    help="saturating-spawn iteration budget (persistent; 0 = "
                         "off)")
-    p.add_argument("--fold-iterations", default=True,
+    p.add_argument("--fold-iterations", default=False,
                    action=argparse.BooleanOptionalAction,
                    help="trace num_iter x rays_per_fov in one pass per cell "
-                        "(continued RNG streams; the persistent engine's "
-                        "default); --no-fold-iterations relaunches per "
-                        "iteration")
+                        "(persistent; continued RNG streams, the drain tail "
+                        "paid once); off by default, as in the JAX CLI: "
+                        "one relaunch per iteration.  --spawn-mode count "
+                        "--fold-iterations is the fast, biased path")
     p.add_argument("--error-bars", action="store_true",
                    help="jackknife Monte-Carlo standard errors over the "
                         "num_iter groups (persistent; needs num_iter >= 2, "

@@ -5,11 +5,11 @@ engines:
 
 - ``engine="persistent"`` (the default): its persistent path
   (``engine="pallas_persistent"``) through
-  :func:`.trace_persistent.persistent_trace`, in count spawn (the port's
-  default) or gens spawn, optionally saturated to ``spawn_iters``, with
-  folded iterations (the port's default) or the relaunch loop, and its
-  ``pers_accum_mode``, ``pers_cells_per_block``, ``pers_transit_jump`` and
-  ``pers_jump_phase`` options;
+  :func:`.trace_persistent.persistent_trace`, in gens spawn (the default,
+  as in the JAX package) or count spawn, optionally saturated to
+  ``spawn_iters``, with the relaunch loop (the default) or folded
+  iterations, and its ``pers_accum_mode``, ``pers_cells_per_block``,
+  ``pers_transit_jump`` and ``pers_jump_phase`` options;
 - ``engine="cell"``: its per-cell path (``engine="pallas"``) with the general
   ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
   histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
@@ -118,8 +118,8 @@ class Simulator:
                  geometry_simplify_tol: float = 0.0,
                  device="cuda", persistent_slots: int = 2048,
                  engine: str = "persistent", segmented: bool = False,
-                 segment_bounces: int = 24, spawn_mode: str = "count",
-                 spawn_iters: int = 0, fold_iterations: bool = True,
+                 segment_bounces: int = 24, spawn_mode: str = "gens",
+                 spawn_iters: int = 0, fold_iterations: bool = False,
                  pers_accum_mode: str = "fma",
                  pers_cells_per_block: int = 1,
                  pers_transit_jump: bool = False,
@@ -128,17 +128,27 @@ class Simulator:
                  splitting_threshold: float = 1e-6,
                  splitting_max_steps: int = 1024,
                  splitting_percell: bool = True, mesh=None):
-        """Persistent engine: ``spawn_mode="count"`` respawns a cell's slots
-        until the cell has spawned its target of rays (the histogram is then
-        renormalised by target / spawned); ``"gens"`` gives every slot a
-        quota of generations.  ``spawn_iters > 0`` keeps every slot
-        respawning until that iteration (saturating spawn; renormalised like
-        count spawn).  ``fold_iterations`` traces ``num_iter`` iterations as
-        one spawn target per cell with continued per-slot RNG streams, paying
-        the drain tail once; otherwise ``run()`` relaunches once per
-        iteration, each iteration seeded anew.  The port's defaults, count
-        spawn with folding, are its main path; the JAX package's
-        ``Simulator`` defaults to gens spawn without folding.
+        """Persistent engine: ``spawn_mode="gens"`` (the default) gives
+        every slot a quota of generations, so every launch point of the tile
+        traces as many rays and weighs equally; ``"count"`` respawns a
+        cell's slots until the cell has spawned its target of rays (the
+        histogram is then renormalised by target / spawned).  Count spawn
+        is the fast option, not an equal-weight estimator: a slot whose
+        rays die early respawns more often, so it weighs launch points by
+        their rays' inverse lifetime and its efficiencies differ from the
+        equal-weight engines' (on the paper design they sit lower).
+        ``spawn_iters > 0`` keeps every slot
+        respawning until that iteration (saturating spawn; renormalised
+        like count spawn).  ``fold_iterations`` traces ``num_iter``
+        iterations as one spawn target per cell with continued per-slot RNG
+        streams, paying the drain tail once; otherwise (the default)
+        ``run()`` relaunches once per iteration, each iteration seeded
+        anew.  Both defaults are the JAX package's; ``spawn_mode="count",
+        fold_iterations=True`` is the faster, biased path.  The engine's
+        default is the one that differs: ``"persistent"`` runs the CUDA
+        kernel that stands for the JAX ``"pallas_persistent"`` (whose Pallas
+        kernel compiles only on a TPU, hence the JAX default ``"jnp"``; its
+        counterpart here is ``"vector"``).
 
         ``pers_*``: ``pers_accum_mode="packed"`` reads bfloat16-rounded
         selection records; ``pers_cells_per_block = k`` (packed, shared pupil

@@ -53,7 +53,8 @@ def test_kernel_equals_plain_version_on_card(small, cuda_device, slots):
     """Same float32 operations, no fused multiply-add: identical results."""
     geom, cfg = small
     sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
-                             persistent_slots=slots)
+                             persistent_slots=slots, spawn_mode="count",
+                             fold_iterations=True)
     assert tp._LIB is not None   # built and bound by Simulator.__init__
     cells = np.arange(3 * M * N)
     rays_in, rng_in = sim._device_ray_blocks(cells, slots)
@@ -77,10 +78,13 @@ def test_simulator_on_card_equals_cpu(small, cuda_device):
     """The kernel on the card and the plain version on the CPU give the same
     histogram (IEEE float32 without contraction on both)."""
     geom, cfg = small
+    pin = dict(spawn_mode="count", fold_iterations=True)
     rg = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
-                            persistent_slots=128).run(cells_per_batch=16)
+                            persistent_slots=128, **pin).run(
+        cells_per_batch=16)
     rc = pipeline.Simulator(cfg=cfg, geom=geom, device="cpu",
-                            persistent_slots=128).run(cells_per_batch=16)
+                            persistent_slots=128, **pin).run(
+        cells_per_batch=16)
     np.testing.assert_array_equal(rg.histogram, rc.histogram)
     assert rg.total_bounces == rc.total_bounces
     assert rg.rays_traced == rc.rays_traced
@@ -442,14 +446,16 @@ def test_device_tail_equals_host_tail_on_card(small, cuda_device):
     card: histograms identical, efficiencies within 1e-6 relative, metrics
     within 1e-4; the card's run equals the CPU's."""
     geom, cfg = small
+    pin = dict(spawn_mode="count", fold_iterations=True)
     sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
-                             persistent_slots=128)
+                             persistent_slots=128, **pin)
     host = sim.run()
     stack = sim.run(histogram_device=True)
     dev = sim.run(histogram_device=True, metrics_device=True,
                   dense_metrics=True)
     cpu = pipeline.Simulator(cfg=cfg, geom=geom, device="cpu",
-                             persistent_slots=128).run(evaluate_metrics=False)
+                             persistent_slots=128, **pin).run(
+        evaluate_metrics=False)
     np.testing.assert_array_equal(host.histogram, cpu.histogram)
     for r in (stack, dev):
         assert r.histogram.is_cuda
@@ -473,7 +479,7 @@ def test_wavelengths_and_checkpoint_on_card(small, cuda_device, tmp_path,
     geom, cfg = small
     sim = pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
                              persistent_slots=128, engine=engine,
-                             fold_iterations=False)
+                             spawn_mode="count", fold_iterations=False)
     kw = dict(rays_per_fov=128, evaluate_metrics=False, cells_per_batch=16)
     full = sim.run(num_iter=3, **kw)
     sub = sim.run(num_iter=3, wavelengths=(0, 2), **kw)
@@ -589,7 +595,8 @@ def boosted_tail():
     )
 
     sim = pipeline.Simulator(cfg=HYBRID_CFG, device="cuda",
-                             persistent_slots=256)
+                             persistent_slots=256, spawn_mode="count",
+                             fold_iterations=True)
     hy = hybrid.TailBoostHybrid(sim, tau_select=35.0, tau_target=25.0,
                                 max_boost=64.0)
     n0 = tp.launch_counts["persistent_trace"]

@@ -82,7 +82,8 @@ def _one_torch_thread():
 
 @pytest.fixture(scope="module")
 def sim():
-    return pipeline.Simulator(cfg=CFG, device="cpu", persistent_slots=128)
+    return pipeline.Simulator(cfg=CFG, device="cpu", persistent_slots=128,
+                              spawn_mode="count", fold_iterations=True)
 
 
 def test_cell_lnm_roundtrip():

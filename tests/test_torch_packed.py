@@ -367,8 +367,9 @@ def stacks():
     run = dict(num_iter=2, cells_per_batch=36, evaluate_metrics=False)
     port = {jump: pipeline.Simulator(
         cfg=cfg, device="cpu", geometry_simplify_tol=0.05,
-        persistent_slots=256, pers_accum_mode="packed",
-        pers_transit_jump=jump).run(**run) for jump in (False, True)}
+        persistent_slots=256, spawn_mode="count", fold_iterations=True,
+        pers_accum_mode="packed", pers_transit_jump=jump).run(**run)
+        for jump in (False, True)}
     ref = jpipeline.Simulator(
         cfg=cfg, engine="pallas_persistent", interpret=True,
         geometry_simplify_tol=0.05, persistent_slots=256, spawn_mode="count",
@@ -414,7 +415,8 @@ def test_simulator_cells_per_block_equals_one(stacks):
     cfg = TraceConfig(num_fov_x=4, num_fov_y=3, rays_per_fov=256,
                       max_bounces=512, seed=0, rng_mode="fast")
     sim = pipeline.Simulator(cfg=cfg, device="cpu", geometry_simplify_tol=0.05,
-                             persistent_slots=256, pers_accum_mode="packed",
+                             persistent_slots=256, spawn_mode="count",
+                             fold_iterations=True, pers_accum_mode="packed",
                              pers_cells_per_block=2)
     for cells_per_batch in (36, 7):
         res = sim.run(num_iter=2, cells_per_batch=cells_per_batch,

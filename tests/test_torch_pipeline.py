@@ -40,7 +40,8 @@ def sims():
     cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=256, num_iter=2,
                       max_bounces=600, seed=6)
     port = pipeline.Simulator(cfg=cfg, geom=geom, device="cpu",
-                              persistent_slots=128)
+                              persistent_slots=128, spawn_mode="count",
+                              fold_iterations=True)
     ref = jpipeline.Simulator(cfg=cfg, geom=geom, engine="pallas_persistent",
                               interpret=True, spawn_mode="count",
                               fold_iterations=True, persistent_slots=128)

@@ -408,8 +408,8 @@ def test_sweep_mesh_equals_one_rank(world, which, designs):
 
 
 def test_mesh_checkpoint_is_the_run(world, world_dir):
-    """With a mesh, rank 0 writes the checkpoint: the run's histogram and
-    bounces."""
+    """With a mesh, rank 0 writes the checkpoint: the run's histogram,
+    bounces and its two iterations (relaunched, the default)."""
     hist, bounces = world[0]["sharded"]["checkpoint"]
     cfg = TraceConfig(num_fov_x=4, num_fov_y=2, rays_per_fov=128,
                       max_bounces=500, rng_mode="fast", ic_test="circle",
@@ -417,7 +417,7 @@ def test_mesh_checkpoint_is_the_run(world, world_dir):
     h, done, b = load_checkpoint(str(world_dir / "mesh.npz"),
                                  WaveguideDesign(), cfg)
     np.testing.assert_array_equal(h, hist)
-    assert (done, b) == (1, bounces) and h.sum() > 0
+    assert (done, b) == (2, bounces) and h.sum() > 0
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["2_ranks", "2x2"])

@@ -101,7 +101,9 @@ def test_evaluate_dense_matches_jax(chunk_rows):
 
 @pytest.fixture(scope="module")
 def sim():
-    return pipeline.Simulator(cfg=CFG, device="cpu", persistent_slots=128)
+    """Count spawn with folding: the path these tests were written for."""
+    return pipeline.Simulator(cfg=CFG, device="cpu", persistent_slots=128,
+                              spawn_mode="count", fold_iterations=True)
 
 
 @pytest.fixture(scope="module")
@@ -158,13 +160,30 @@ def test_gens_spawn_equals_plain_trace(sim):
     assert (res.cell_stats[:, 2] == 512).all()
 
 
+def test_default_simulator_is_gens_spawn_unfolded():
+    """With no spawn arguments the Simulator runs the path above (gens
+    spawn, one relaunch per iteration), bit for bit."""
+    cfg = dataclasses.replace(CFG, max_bounces=160)
+    runs = [pipeline.Simulator(cfg=cfg, device="cpu", persistent_slots=128,
+                               **kw).run(rays_per_fov=256,
+                                         evaluate_metrics=False)
+            for kw in ({}, dict(spawn_mode="gens", fold_iterations=False))]
+    default, gens = runs
+    np.testing.assert_array_equal(default.histogram, gens.histogram)
+    np.testing.assert_array_equal(default.cell_stats, gens.cell_stats)
+    assert default.rays_traced == gens.rays_traced == 36 * 256 * 2
+    assert default.total_bounces == gens.total_bounces
+    assert default.efficiencies == gens.efficiencies
+
+
 @pytest.mark.parametrize("engine", ["persistent", "cell"])
 def test_wavelength_subset_rows_equal_full_rows(engine, host_run):
     """Rows 0 and 2 of a ``wavelengths=(0, 2)`` run are the full run's; row
     1 is zero and so is its efficiency."""
     if engine == "persistent":
         s, full = pipeline.Simulator(cfg=CFG, device="cpu",
-                                     persistent_slots=128), host_run
+                                     persistent_slots=128, spawn_mode="count",
+                                     fold_iterations=True), host_run
     else:
         s = pipeline.Simulator(cfg=CFG, device="cpu", engine="cell")
         full = s.run(rays_per_fov=128, num_iter=1, evaluate_metrics=False)
@@ -211,6 +230,7 @@ def test_error_groups_jackknife(sim):
     unfolded run's."""
     res = sim.run(error_groups=True, histogram_device=True)
     unfolded = pipeline.Simulator(cfg=CFG, device="cpu", persistent_slots=128,
+                                  spawn_mode="count",
                                   fold_iterations=False).run(
         evaluate_metrics=False)
     np.testing.assert_array_equal(res.histogram.numpy(), unfolded.histogram)
@@ -256,7 +276,7 @@ def test_dense_metrics_on_both_engines(sim):
     (["--error-bars", "--image", ""], ("metric_stderr",)),
     (["--dense-eyebox", "-", "--image", ""], ("dense",)),
     (["--wavelengths", "0,2"], ()),
-    (["--spawn-mode", "gens", "--no-fold-iterations", "--image", ""], ()),
+    (["--spawn-mode", "count", "--fold-iterations", "--image", ""], ()),
     (["--engine", "cell", "--dense-eyebox", "--wavelengths", "1"],
      ("dense",)),
 ])
