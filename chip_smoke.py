@@ -71,8 +71,9 @@ Run from the repository root.  Phases:
    the warp's longest ray, from the plain version's per-ray iteration
    counts);
 8. the cell engine at full width through ``Simulator(engine="cell")``: the
-   paper design, 100 x 75 FoV x 3 wavelengths = 22,500 cells, 5,000
-   host-seeded rays per cell in 11 batches of <= 2,048 cells, 80 x 120 bins,
+   paper design, 100 x 75 FoV x 3 wavelengths = 22,500 cells, 5,000 rays
+   per cell (the blocks built on the card from the shared pupil points and
+   the hashed ray index) in 11 batches of <= 2,048 cells, 80 x 120 bins,
    a 100,000-bounce bound, metrics on; one of the reference workload's four
    relaunches (``num_iter=1``: depth is cut, the per-cell width is not); once
    to the end in one launch per batch and once under the segment-and-compact
@@ -81,7 +82,10 @@ Run from the repository root.  Phases:
    launches (:class:`CellLaunchBounds`, read in an untimed replay of the
    run that must trace the same bounces in as many launches).  The two histograms and bounce
    totals must be identical and the histogram's sum equal to the number of
-   deposits.  Every colour's efficiency must lie within 10 % of phase 3's
+   deposits.  Seeding's host and device time; two full batches (cells
+   0-2,047 at iteration 0, 18,432-20,479 at iteration 3) built by the
+   engine and seeded on the host, each timed, must be equal
+   (``torch.equal``).  Every colour's efficiency must lie within 10 % of phase 3's
    (the efficiency bar below holds phase 3 to 1.5 %).  One more run at
    2,048 rays per cell holds the two
    kernels to each other: it must equal a one-design gens-spawn sweep of
@@ -141,24 +145,29 @@ Run from the repository root.  Phases:
    checkpointed and resumed to 3 equal to 3 uninterrupted.  Launch counts
    are reset at its start and read at its end.
 12. the vector engine at full width through ``Simulator(engine="vector",
-   segmented=True)``: phase 8's workload (22,500 cells, 5,000 host-seeded
-   rays per cell in 11 batches, 80 x 120 bins, a 100,000-bounce bound,
-   metrics on, ``num_iter=1``), with its layers (setup, host seeding, the
+   segmented=True)``: phase 8's workload (22,500 cells, 5,000 rays per cell,
+   the ray state built on the card, in 11 batches, 80 x 120 bins, a
+   100,000-bounce bound, metrics on, ``num_iter=1``), with its layers
+   (setup, seeding on the host and the card, the
    bounce loop, compaction, scatter, the tail), the steps of each batch, the
    reads from the device, the wall and the peak device memory; every
    colour's efficiency within 2 % of phase 8's cell engine (both weigh
-   launch points equally).  The first batch again, to the end in one loop:
+   launch points equally); phase 8's two batches built by the engine and
+   seeded on the host, each timed, equal (``torch.equal``).  The first
+   batch again, to the end in one loop:
    it must equal the compacted run bit for bit, and its per-ray deposits
-   must agree with K2's (the cell engine, the same host seeds) for at least
+   must agree with K2's (the cell engine, the same seeds) for at least
    99.5 % of the rays (the two geometries are simplified at different
    tolerances).  Then the CLI's default sweep (8 periods, 180,000 cells, 256
-   rays per cell) through ``run_design_sweep``, its wall and peak memory
-   beside phase 6a's; design 3 must equal its solo sweep bit for bit;
+   rays per cell) through ``run_design_sweep``, its wall (host prep and
+   seeding apart) and peak memory beside phase 6a's; design 3 must equal
+   its solo sweep bit for bit;
 13. the exact splitting engine: (a) the README's case, 16 x 12 FoV x 3
    wavelengths = 576 cells, 64 launch positions per cell in 32 passes of 2,
    threshold 1e-6, 8,192-slot wavefronts per cell: nothing truncated, the
    histogram's sum equal to the deposited weight within 1e-5, and batches of
-   256 and of 100 cells identical (4 passes); (b) 4 of its cells on the card
+   256 and of 100 cells identical (4 passes), and its seeding's host time;
+   (b) 4 of its cells on the card
    against the CPU: histograms within rtol 2e-4 / atol 1e-10, equal steps,
    peak widths and truncation, pruned and deposited weight within 1e-4 and
    1e-5; (c) 256 cells of the 100 x 75 grid at 16 positions (8 passes of
@@ -181,6 +190,16 @@ Run from the repository root.  Phases:
    or the cap), and kernel and plain version over the first 1,024
    iterations, bit for bit (the plain version takes about 8.5 ms an
    iteration; the whole ~75,000-iteration chain would take it minutes);
+14g. ``simulate --tail-boost`` with no other flag: the hybrid around the
+   default ``Simulator`` (gens spawn, unfolded) at the reference workload,
+   launch counts reset just before its run and read just after it (the
+   pilot's and the bulk's 44 launches each and one launch per tier and
+   chunk): tiers and their launches, the tail's largest ``nb[:, 1]`` and
+   the cells stopped at the 100,000-iteration cap short of their rays
+   (ROADMAP F5; reported, not held), pilot, tail and bulk seconds, starved
+   eye positions before (phase 3's run) and after; it fails if a metric is
+   not finite, an efficiency is not positive or the starved positions
+   rise;
 14b. ``simulate --tail-exact`` at 20 x 15 FoV (the grid cut from 100 x 75;
    the reference budget per cell) through ``ExactTailHybrid`` with the
    CLI's knobs: selected cells, pruned weight, pilot (timed twice: its first
@@ -841,6 +860,7 @@ def phase3(ctx) -> None:
         save_record(ctx)
     ctx["k1_main_launches"] = launches
     ctx["default_efficiencies"] = dict(res.efficiencies)
+    ctx["default_starved"] = res.metrics.starved_eye_positions
     ctx["default_seeds"] = seed_efficiencies(ctx, "3", sim, res)
 
 
@@ -1318,6 +1338,60 @@ class CellLaunchBounds:
         return total
 
 
+# the batches phases 8 and 12 build on the card and on the host: (batch of
+# 2,048 cells, iteration); the second is a full batch at a later iteration
+SEED_CHECK = ((0, 0), (9, 3))
+
+
+def seeding_check(ctx, phase: str, device_build, host_build) -> dict:
+    """:data:`SEED_CHECK`'s batches built by ``device_build(cells,
+    iteration)`` (the engine's own build: on the card under the default
+    config) and by ``host_build`` (every ray seeded on the host, as
+    ``build_ray_batch`` seeds it), each timed; the two must be equal
+    (``torch.equal``, field for field)."""
+    import numpy as np
+    import torch
+
+    out = []
+    for batch, it in SEED_CHECK:
+        cells = np.arange(batch * 2048, (batch + 1) * 2048)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = host_build(cells, it)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        got = device_build(cells, it)
+        end.record()
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        if isinstance(want, dict):
+            same = list(got) == list(want) and all(
+                got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+                for k in want)
+        else:
+            same = all(g.dtype == w.dtype and torch.equal(g, w)
+                       for g, w in zip(got, want, strict=True))
+        out.append({"cells": [int(cells[0]), int(cells[-1]) + 1],
+                    "iteration": it, "equal": bool(same),
+                    "host_build_s": host_s, "engine_build_s": dev_s,
+                    "engine_build_ms": start.elapsed_time(end)})
+        del want, got
+        print(f"phase {phase} seeding: cells {cells[0]}-{cells[-1] + 1} at "
+              f"iteration {it}: the engine's build {dev_s:.4f} s host, "
+              f"{out[-1]['engine_build_ms']:.2f} ms device; the host build "
+              f"{host_s:.3f} s; {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"phase {phase}: the engine's batch of cells {cells[0]}-"
+                 f"{cells[-1] + 1} at iteration {it} differs from the host "
+                 "build")
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase8(ctx) -> None:
     """The cell engine at full width, monolithic and segmented."""
     import numpy as np
@@ -1326,7 +1400,7 @@ def phase8(ctx) -> None:
         TraceConfig,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        pipeline, trace_persistent as tp,
+        pipeline, seeding, trace_persistent as tp, trace_rows,
     )
 
     cfg = TraceConfig()   # 100 x 75 x 3 cells, 5,000 rays per cell and launch
@@ -1358,6 +1432,7 @@ def phase8(ctx) -> None:
             "rays_traced": res.rays_traced, "deposits": res.deposits,
             "efficiencies": res.efficiencies, "delta_e": met.delta_e,
             "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+            "histogram_digest": digest(res.histogram),
             "launches": launches, "batches": batches, "peak_bytes": peak}
         ctx["record"].setdefault("phase8", {})[name] = entry
         save_record(ctx)
@@ -1365,7 +1440,8 @@ def phase8(ctx) -> None:
         print(f"phase 8 {name}: {n_cells} cells x {cfg.rays_per_fov} rays, "
               f"num_iter {iters} of the workload's {cfg.num_iter}: wall "
               f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
-              f"{res.trace_seconds:.3f} s, host seeding {tm['seed_s']:.3f} s, "
+              f"{res.trace_seconds:.3f} s, seeding {tm['seed_s']:.3f} s host, "
+              f"{tm.get('seed_ms', float('nan')):.1f} ms device, "
               f"kernel {tm['kernel_ms']:.1f} ms, compaction "
               f"{tm.get('compact_ms', 0.0):.1f} ms, deposit scatter "
               f"{tm['scatter_ms']:.1f} ms, histogram to the host "
@@ -1411,6 +1487,21 @@ def phase8(ctx) -> None:
             and runs["monolithic"][1] == runs["segmented"][1]):
         fail("phase 8: the segmented run differs from the monolithic run")
     print("phase 8: segmented and monolithic histograms and bounces identical")
+    mono = runs["monolithic"][3]
+    rpc = cfg.rays_per_fov
+    rt = -(-rpc // trace_rows.LANES)
+
+    def host_blocks(cells, it):
+        batch = seeding.build_ray_batch(mono.geom, cfg, cell_ids=cells,
+                                        rays_per_cell=rpc, iteration=it)
+        return trace_rows.blocks_to_device(
+            *trace_rows.pack_ray_blocks(batch, len(cells), rpc, rt),
+            ctx["dev"])
+
+    ctx["record"]["phase8"]["seeding"] = seeding_check(
+        ctx, "8", lambda cells, it: mono._cell_blocks(cells, rpc, it),
+        host_blocks)
+    save_record(ctx)
     for name, (_, bounces, n_launch, sim) in runs.items():
         with CellLaunchBounds(sim.tracer.kw["edge_counts"][1]) as rec:
             again = sim.run(num_iter=iters, evaluate_metrics=False)
@@ -1938,7 +2029,7 @@ def phase12(ctx) -> None:
         TraceConfig,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        pipeline, trace_persistent as tp, trace_vector as tv,
+        pipeline, seeding, trace_persistent as tp, trace_vector as tv,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
         design_sweep,
@@ -1965,7 +2056,8 @@ def phase12(ctx) -> None:
         "cells": n_cells, "rays_per_cell": cfg.rays_per_fov, "num_iter": 1,
         "segment_bounces": sim._segment_bounces, "wall_s": wall,
         "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
-        "seed_s": tm["seed_s"], "init_ms": tm.get("init_ms"),
+        "seed_s": tm["seed_s"], "seed_ms": tm.get("seed_ms"),
+        "init_ms": tm.get("init_ms"),
         "bounce_ms": tm.get("bounce_ms", 0.0), "compact_ms": tm.get("compact_ms"),
         "scatter_ms": tm.get("scatter_ms", 0.0), "assemble_s": tm["assemble_s"],
         "tail_s": tm["metrics_s"], "batch_steps": tm["batch_steps"],
@@ -1975,6 +2067,7 @@ def phase12(ctx) -> None:
         "rays_traced": res.rays_traced, "deposits": res.deposits,
         "efficiencies": res.efficiencies, "delta_e": met.delta_e,
         "u_fov": met.u_fov, "u_eyebox": met.u_eyebox,
+        "histogram_digest": digest(res.histogram),
         "launches": launches, "peak_bytes": peak}
     rec["run"] = entry
     save_record(ctx)
@@ -1982,7 +2075,8 @@ def phase12(ctx) -> None:
     print(f"phase 12: {n_cells} cells x {cfg.rays_per_fov} rays, vector "
           f"engine, segments of {sim._segment_bounces}: wall {wall:.3f} s "
           f"(setup {sim.setup_seconds:.3f} s), trace {res.trace_seconds:.3f} "
-          f"s, host seeding {tm['seed_s']:.3f} s, bounce loop "
+          f"s, seeding {tm['seed_s']:.3f} s host, "
+          f"{tm.get('seed_ms', float('nan')):.1f} ms device, bounce loop "
           f"{tm.get('bounce_ms', 0.0):.1f} ms (init {tm.get('init_ms', 0.0):.1f} "
           f"ms), compaction {tm.get('compact_ms', 0.0):.1f} ms, scatter "
           f"{tm.get('scatter_ms', 0.0):.1f} ms, histogram to the host "
@@ -2011,6 +2105,19 @@ def phase12(ctx) -> None:
         if max(abs(r) for r in rel.values()) > 0.02:
             faults.append(f"efficiencies {res.efficiencies} not within 2 % "
                           f"of phase 8's {ref}")
+
+    def host_state(cells, it):
+        b = seeding.build_ray_batch(sim.geom, cfg, cell_ids=cells,
+                                    rays_per_cell=cfg.rays_per_fov,
+                                    iteration=it)
+        return {k: v[None] for k, v in tv.make_ray_state(
+            b["x"], b["y"], b["te"], b["tm"], b["cid"], b["idx"], b["rng"],
+            device=dev).items()}
+
+    rec["seeding"] = seeding_check(
+        ctx, "12", lambda cells, it: sim._vector_rays(cells, cfg.rays_per_fov,
+                                                      it), host_state)
+    save_record(ctx)
 
     # ---- the first batch: monolithic against compacted (the same seeded
     # rays, seeding not timed), and against K2
@@ -2057,7 +2164,7 @@ def phase12(ctx) -> None:
     print(f"phase 12 first batch (2,048 cells x 5,000 rays): monolithic "
           f"{t_mono:.3f} s, compacted {t_comp:.3f} s, "
           f"{'identical' if same else 'DIFFERENT'}; per-ray deposits equal "
-          f"to K2's (the cell engine, the same host seeds) for {agree:.5f} "
+          f"to K2's (the cell engine, the same seeds) for {agree:.5f} "
           f"of the rays (deposit rates {dep_rate[0]:.5f}, {dep_rate[1]:.5f})")
     if not same:
         faults.append("compacted first batch differs from monolithic")
@@ -2090,6 +2197,7 @@ def phase12(ctx) -> None:
         "peak_bytes": peak6, "timings": stm,
         "bounces": sw.bounces.tolist(),
         "efficiencies": sw.efficiencies.tolist(),
+        "design3_digest": digest(sw.histograms[0]),
         "design3_equals_solo": solo_same,
         "phase6a_wall_s": p6.get("wall_s"),
         "phase6a_peak_bytes": p6.get("peak_bytes")}
@@ -2097,7 +2205,10 @@ def phase12(ctx) -> None:
     print(f"phase 12 sweep: {len(designs)} designs, "
           f"{len(designs) * n_cells:,} cells x {cfg6.rays_per_fov} rays "
           f"through the vector sweep: wall {wall6:.3f} s (host prep "
-          f"{stm['prep_s']:.3f} s, upload {stm['upload_s']:.3f} s, bounce "
+          f"{stm['prep_s']:.3f} s, seeding "
+          f"{stm.get('seed_s', float('nan')):.3f} s host, "
+          f"{stm.get('seed_ms', float('nan')):.1f} ms device, upload "
+          f"{stm['upload_s']:.3f} s, bounce "
           f"loop {stm.get('bounce_ms', 0.0):.1f} ms, compaction "
           f"{stm.get('compact_ms', 0.0):.1f} ms, {stm['steps']} steps, "
           f"{stm['syncs']} reads from the device), peak device memory "
@@ -2162,6 +2273,9 @@ def phase13(ctx) -> None:
     met = res.metrics
     a = {"cells": 576, "positions": 64, "wall_s": wall,
          "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+         "seed_s": res.timings["seed_s"],
+         "seed_ms": res.timings.get("seed_ms"),
+         "histogram_digest": digest(res.histogram),
          "steps": res.total_bounces, "truncated": sim.split_truncated,
          "pruned": sim.split_pruned, "out_coupled": out_w,
          "histogram_sum": total, "peak_live": sim.split_peak_live,
@@ -2180,7 +2294,8 @@ def phase13(ctx) -> None:
     rec["readme"] = a
     save_record(ctx)
     print(f"phase 13a: 576 cells x 64 positions (32 passes of 2): wall "
-          f"{wall:.3f} s, {res.total_bounces} steps; truncated "
+          f"{wall:.3f} s, seeding {a['seed_s']:.4f} s host, "
+          f"{res.total_bounces} steps; truncated "
           f"{ledgers[0]}, pruned {ledgers[1]:.6g}, out-coupled "
           f"{out_w:.8g}, histogram sum {total:.8g}, peak wavefront "
           f"{sim.split_peak_live} of 8,192; efficiencies "
@@ -2450,6 +2565,80 @@ def phase14(ctx) -> None:
         "max_abs_err": chunk["max_abs_err"], "ms": cut_ms,
         "plain_ms": plain_s * 1e3, "bound_ms": bound_cut,
         "bound_by": bound_by_cut}]
+
+
+def phase14g(ctx) -> None:
+    """``simulate --tail-boost`` with no other flag at full width: the
+    hybrid around the default ``Simulator`` (gens spawn, unfolded), so the
+    pilot, the boost tiers and the bulk all run in gens spawn."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid, pipeline, trace_persistent as tp,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase14g", {})
+    cfg = TraceConfig()   # reference workload: 100 x 75 x 3, 5,000 x 4 rays
+    sim = pipeline.Simulator(cfg=cfg, device=dev)
+    before = ctx.get("default_starved")
+    if before is None:   # phase 3 not run: the same run, its metrics
+        before = sim.run(histogram_device=True).metrics.starved_eye_positions
+    hy = hybrid.TailBoostHybrid(sim)   # the CLI's knobs
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tp.reset_launch_counts()
+    t0 = time.perf_counter()
+    res, d = hy.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tp.launch_counts)
+    batches = math.ceil(sim.L * sim.M * sim.N / 2048) * cfg.num_iter
+    met = res.metrics
+    rec.update(
+        spawn_mode=sim._spawn_mode, fold_iterations=sim._fold_iterations,
+        selected_cells=d.selected_cells,
+        tiers={str(k): v for k, v in d.tiers.items()},
+        tier_launches={str(k): v for k, v in d.tier_launches.items()},
+        tail_rays=d.tail_rays, max_tail_iterations=d.max_tail_iterations,
+        tail_cells_at_cap=d.tail_cells_at_cap, iteration_cap=cfg.max_bounces,
+        pilot_s=d.pilot_seconds, tail_s=d.tail_seconds, bulk_s=d.mc_seconds,
+        wall_s=wall, setup_s=sim.setup_seconds, launches=launches,
+        starved_before=before, starved_after=met.starved_eye_positions,
+        efficiencies=res.efficiencies, delta_e=met.delta_e, u_fov=met.u_fov,
+        u_eyebox=met.u_eyebox, peak_bytes=torch.cuda.max_memory_allocated())
+    save_record(ctx)
+    tiers = ", ".join(f"{k}x: {v} groups in {d.tier_launches[k]} launch(es)"
+                      for k, v in sorted(d.tiers.items()))
+    print(f"phase 14g: --tail-boost with the defaults ({sim._spawn_mode} "
+          f"spawn, {'folded' if sim._fold_iterations else 'unfolded'}): "
+          f"{d.selected_cells:,} cells selected, tiers [{tiers}], "
+          f"{d.tail_rays:,} tail rays; largest nb[:, 1] of the tail "
+          f"{d.max_tail_iterations:,} of the {cfg.max_bounces:,}-iteration "
+          f"cap, {d.tail_cells_at_cap} tail cell(s) stopped there short of "
+          f"their rays (ROADMAP F5); pilot {d.pilot_seconds:.3f} s, tail "
+          f"{d.tail_seconds:.3f} s, bulk {d.mc_seconds:.3f} s, wall "
+          f"{wall:.3f} s; starved eye positions {before} -> "
+          f"{met.starved_eye_positions}; u_eyebox {met.u_eyebox:.5f}, "
+          f"delta E {met.delta_e:.4f}; launches {launches}")
+    faults = []
+    want = 2 * batches + sum(d.tier_launches.values())
+    if launches != {"persistent_trace": want, "cell_trace": 0}:
+        faults.append(f"launches {launches}, expected {want} persistent")
+    if met.starved_eye_positions > before:
+        faults.append(f"starved eye positions {before} -> "
+                      f"{met.starved_eye_positions}")
+    if not _finite_metrics(res) or min(res.efficiencies.values()) <= 0:
+        faults.append(f"metrics not finite or efficiencies not positive: "
+                      f"{res.efficiencies}")
+    if faults:
+        fail("phase 14g: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["k1_hybrid_launches"] = (ctx.get("k1_hybrid_launches", 0)
+                                 + launches["persistent_trace"])
 
 
 def phase14b(ctx) -> None:
@@ -3070,7 +3259,7 @@ PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
           "6c": phase6c, "11": phase11, "12": phase12, "13": phase13,
-          "14": phase14, "14b": phase14b, "15": phase15, "16": phase16,
+          "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
 
 

@@ -22,8 +22,8 @@ rays' inverse lifetime.  Only ``--engine`` defaults otherwise: to the
 kernel (``persistent``), where the JAX CLI defaults to ``jnp`` (here
 ``vector``) because its Pallas kernels compile only on a TPU.
 ``simulate --engine cell`` runs the same workload through the per-cell
-kernel: 4 relaunches of 5,000 host-seeded rays per cell (the JAX package's
-``--engine pallas``); ``--engine vector`` the same relaunches through the
+kernel: 4 relaunches of 5,000 rays per cell, each batch seeded anew (the
+JAX package's ``--engine pallas``); ``--engine vector`` the same relaunches through the
 vector tracer in plain PyTorch, in bounce segments with the survivors
 compacted between them (the JAX package's ``--engine jnp``);
 ``--engine splitting`` the zero-variance branch expectation, with
@@ -571,7 +571,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", default="persistent",
                    choices=("persistent", "cell", "vector", "splitting"),
                    help="persistent = slot-persistent kernel; "
-                        "cell = per-cell kernel, every ray seeded on the host; "
+                        "cell = per-cell kernel, every ray seeded anew; "
                         "vector = the vector tracer in plain PyTorch (the "
                         "JAX engine jnp), compacted between bounce segments; "
                         "splitting = deterministic zero-variance transport: "

@@ -207,6 +207,7 @@ class TailBoostHybrid:
         pilot = copy.copy(sim)
         pilot.cfg = dataclasses.replace(sim.cfg, seed=seed)
         pilot._tile = None
+        pilot._points = None
         pilot.stats = {}
         pilot._spawn_iters = 0
         pilot._pers_cpb = 1
@@ -391,15 +392,8 @@ class ExactTailHybrid:
         seeder's TE-then-TM layout, float32 on the device."""
         rng = np.random.default_rng(seed)
         pts = seeding.sample_points_r2_disk(self.sim.geom.ic, num_points, rng)
-        x = np.concatenate([pts[:, 0], pts[:, 0]])
-        y = np.concatenate([pts[:, 1], pts[:, 1]])
-        te = np.concatenate([np.ones(num_points), np.zeros(num_points)])
-        tm = np.concatenate([np.zeros(num_points), np.ones(num_points)])
-        z = np.zeros(2 * num_points)
-        return {k: torch.from_numpy(np.asarray(v, np.float32)).to(
-                    self.sim.device)
-                for k, v in (("x", x), ("y", y), ("ter", te), ("tei", z),
-                             ("tmr", tm), ("tmi", z))}
+        fields = seeding.launch_fields(seeding.to_device(pts, self.sim.device))
+        return dict(zip(seeding.FIELDS, fields))
 
     def _exact_perceive(self, cells: np.ndarray, points: int, seed: int):
         """(C, epy, epx) per-ray window probabilities, (C,) tile sums and

@@ -11,7 +11,7 @@ engines:
   iterations, and its ``pers_accum_mode``, ``pers_cells_per_block``,
   ``pers_transit_jump`` and ``pers_jump_phase`` options;
 - ``engine="cell"``: its per-cell path (``engine="pallas"``) with the general
-  ``run()`` loop: ``num_iter`` relaunches, every ray seeded on the host, the
+  ``run()`` loop: ``num_iter`` relaunches, every ray seeded anew, the
   histogram a sum of per-ray deposits; through :func:`.trace_cell.cell_trace`,
   to the end in one launch per batch or, with ``segmented=True``, under the
   segment-and-compact scheduler of :mod:`.cell_segments`;
@@ -199,8 +199,7 @@ class Simulator:
         self._pers_cpb = int(pers_cells_per_block)
         trace_persistent.check_modes(pers_accum_mode, self._pers_cpb,
                                      pers_transit_jump, pers_jump_phase)
-        if self._pers_cpb > 1 and not (cfg.shared_pupil_samples
-                                       and cfg.rng_mode == "fast"):
+        if self._pers_cpb > 1 and not seeding.device_seeded(cfg):
             raise ValueError(
                 "pers_cells_per_block > 1 requires shared_pupil_samples and "
                 f"rng_mode='fast' (got {cfg.shared_pupil_samples}, "
@@ -239,6 +238,7 @@ class Simulator:
         self._segment_bounces = int(segment_bounces)
         self._seg_tracer = None
         self._tile = None   # (key, shared launch tile on device)
+        self._points = None  # (key, shared pupil points on device)
         self.stats = {}     # vector engine: steps, syncs, segments
         if engine == "vector":
             self.tracer = trace_vector.VectorTracer(
@@ -300,10 +300,17 @@ class Simulator:
         slots = max(lanes, (slots // lanes) * lanes)
         return slots, -(-rays_per_cell // slots)
 
-    def _shared_blocks(self) -> bool:
-        """One launch tile serves every cell and the seeds hash the ray
-        index (the only path that takes several cells per block)."""
-        return self.cfg.shared_pupil_samples and self.cfg.rng_mode == "fast"
+    def _shared_points(self, rays_per_cell: int,
+                       iteration: int) -> torch.Tensor:
+        """The pupil points every cell shares at ``rays_per_cell`` and
+        ``iteration`` (:func:`.seeding.shared_points`), drawn on the host
+        once and kept on the device."""
+        key = (rays_per_cell, iteration)
+        if self._points is None or self._points[0] != key:
+            pts = seeding.shared_points(self.geom, self.cfg, rays_per_cell,
+                                        iteration)
+            self._points = (key, seeding.to_device(pts, self.device))
+        return self._points[1]
 
     def _device_ray_blocks(self, cell_ids: np.ndarray, slots: int,
                            iteration: int = 0, cpb: int = 1):
@@ -322,15 +329,11 @@ class Simulator:
         """
         rt = slots // trace_rows.LANES
         C = len(cell_ids)
-        if self._shared_blocks():
+        if seeding.device_seeded(self.cfg):
             key = (slots, iteration, cpb)
             if self._tile is None or self._tile[0] != key:
-                one = seeding.build_ray_batch(
-                    self.geom, self.cfg, cell_ids=np.array([0]),
-                    rays_per_cell=slots, iteration=iteration)
-                tile, _ = trace_rows.pack_ray_blocks(one, 1, slots, rt)
-                tile = np.concatenate([tile] * cpb, axis=2)
-                self._tile = (key, torch.from_numpy(tile).to(self.device))
+                tile = seeding.ray_tile(self._shared_points(slots, iteration))
+                self._tile = (key, tile.repeat(1, cpb, 1)[None])
             seeds = seeding.cell_seeds_device(
                 cell_ids, slots, iteration, self.L * self.M * self.N,
                 self.cfg.seed, self.device)
@@ -489,8 +492,9 @@ class Simulator:
           (:func:`evaluate_dense`, on the device), in ``result.dense``.
 
         The cell, vector and splitting engines run the general loop: every
-        ray seeded on the host, the histogram a sum of per-batch deposits on
-        the device, pulled once; they keep the host tail
+        ray seeded anew (on the device under the default config, else on the
+        host), the histogram a sum of per-batch deposits on the device,
+        pulled once; they keep the host tail
         (``histogram_device``, ``metrics_device`` and ``error_groups`` raise
         there).  The splitting engine's batches hold at most
         ``SPLIT_SLOT_BUDGET`` wavefront slots.
@@ -732,9 +736,15 @@ class Simulator:
 
     def _cell_blocks(self, cell_ids: np.ndarray, rays_per_cell: int,
                      iteration: int):
-        """Every ray of one batch seeded on the host, as kernel blocks on the
-        device: rays_in (C, 6, RT, 128), rng_in (C, RT, 128), RT =
-        ceil(rays_per_cell / 128); padding rays die at init."""
+        """One batch's kernel blocks on the device: rays_in (C, 6, RT, 128),
+        rng_in (C, RT, 128), RT = ceil(rays_per_cell / 128); padding rays
+        die at init.  Built on the device from the shared points under a
+        :func:`.seeding.device_seeded` config, else every ray seeded on the
+        host (the same blocks, bit for bit)."""
+        if seeding.device_seeded(self.cfg):
+            return seeding.ray_blocks_device(
+                self._shared_points(rays_per_cell, iteration), cell_ids,
+                iteration, self.L * self.M * self.N, self.cfg.seed)
         batch = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=cell_ids,
                                         rays_per_cell=rays_per_cell,
                                         iteration=iteration)
@@ -747,8 +757,8 @@ class Simulator:
         """Trace one batch's blocks and add its deposits to ``out``; returns
         the batch's bounce count (a device scalar, or an int when segmented)
         and its number of deposits."""
-        base = torch.from_numpy(trace_cell.cell_hist_base(
-            cell_ids, self.M, self.N, *self.cfg.eyebox_bins)).to(self.device)
+        base = seeding.to_device(trace_cell.cell_hist_base(
+            cell_ids, self.M, self.N, *self.cfg.eyebox_bins), self.device)
         if self._seg_tracer is not None:
             _, bounces = self._seg_tracer.trace(
                 self.tracer.rows(cell_ids), self.tracer.geom_row, rays_in,
@@ -760,17 +770,26 @@ class Simulator:
             deposits = trace_cell.scatter_deposits(out.view(-1), dep, base)
         return nb[:, 0].sum(), deposits
 
-    def _vector_rays(self, cell_ids: np.ndarray, rays_per_cell: int,
-                     iteration: int) -> dict:
-        """One batch seeded on the host, as a (1, R) vector ray state on the
-        device."""
+    def _ray_state(self, cell_ids: np.ndarray, rays_per_cell: int,
+                   iteration: int) -> dict:
+        """One batch as an (R,) vector ray state on the device, built as
+        :meth:`_cell_blocks` builds its blocks."""
+        if seeding.device_seeded(self.cfg):
+            return seeding.ray_state_device(
+                self._shared_points(rays_per_cell, iteration), cell_ids,
+                iteration, self.L * self.M * self.N, self.cfg.seed)
         b = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=cell_ids,
                                     rays_per_cell=rays_per_cell,
                                     iteration=iteration)
-        rays = trace_vector.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
+        return trace_vector.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
                                            b["cid"], b["idx"], b["rng"],
                                            device=self.device)
-        return {k: v[None] for k, v in rays.items()}
+
+    def _vector_rays(self, cell_ids: np.ndarray, rays_per_cell: int,
+                     iteration: int) -> dict:
+        """One batch as a (1, R) vector ray state on the device."""
+        return {k: v[None] for k, v in
+                self._ray_state(cell_ids, rays_per_cell, iteration).items()}
 
     def _trace_vector(self, rays: dict, out: torch.Tensor, timer,
                       segment_bounces: Optional[int]):
@@ -795,12 +814,38 @@ class Simulator:
                 add(rays)
         return bounces.sum(), sum(deposits)
 
-    def _trace_splitting(self, batch: dict, cell_ids: np.ndarray,
+    def _split_seeds(self, cell_ids: np.ndarray, rays_per_cell: int,
+                     iteration: int) -> dict:
+        """The splitting engine's launch rays of one batch on the device:
+        the global wavefront's (R,) ray state, or the per-cell engine's
+        float32 :data:`.seeding.FIELDS`, (rays_per_cell,) shared by every
+        cell or (C, rays_per_cell) without shared pupil samples."""
+        if not self._split_percell:
+            return self._ray_state(cell_ids, rays_per_cell, iteration)
+        if self.cfg.shared_pupil_samples:
+            fields = seeding.launch_fields(
+                self._shared_points(rays_per_cell, iteration))
+            return dict(zip(seeding.FIELDS, fields))
+        batch = seeding.build_ray_batch(self.geom, self.cfg,
+                                        cell_ids=cell_ids,
+                                        rays_per_cell=rays_per_cell,
+                                        iteration=iteration)
+        shape = (len(cell_ids), rays_per_cell)
+        te = np.asarray(batch["te"], np.complex128).reshape(shape)
+        tm = np.asarray(batch["tm"], np.complex128).reshape(shape)
+        x = np.asarray(batch["x"], np.float64).reshape(shape)
+        y = np.asarray(batch["y"], np.float64).reshape(shape)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+                    self.device, torch.float32)
+                for k, v in zip(seeding.FIELDS, (x, y, te.real, te.imag,
+                                                 tm.real, tm.imag))}
+
+    def _trace_splitting(self, seeds: dict, cell_ids: np.ndarray,
                          rays_per_cell: int):
-        """One batch of the splitting engine: (histogram (L, N, M, ny, nx)
-        on the device, steps).  The weight ledgers accumulate on the
-        Simulator; a truncated wavefront warns (its expectation is biased
-        low)."""
+        """One batch of the splitting engine from its :meth:`_split_seeds`:
+        (histogram (L, N, M, ny, nx) on the device, steps).  The weight
+        ledgers accumulate on the Simulator; a truncated wavefront warns
+        (its expectation is biased low)."""
         ny, nx = self.cfg.eyebox_bins
         C, P = len(cell_ids), rays_per_cell
         if not self._split_percell:
@@ -810,10 +855,7 @@ class Simulator:
                     f"{self._split_capacity}-slot wavefront buffer; lower "
                     "cells_per_batch / rays_per_fov or raise "
                     "splitting_capacity")
-            rays = trace_vector.make_ray_state(
-                batch["x"], batch["y"], batch["te"], batch["tm"],
-                batch["cid"], batch["idx"], batch["rng"], device=self.device)
-            hist, out_w, trunc, pruned, steps = self._split_trace(rays)
+            hist, out_w, trunc, pruned, steps = self._split_trace(seeds)
             self.split_pruned += float(pruned)
             self.split_out_coupled += float(out_w)
             tr = float(trunc)
@@ -826,17 +868,6 @@ class Simulator:
                     "or raise splitting_capacity")
             return hist.reshape(self.L, self.N, self.M, ny, nx), steps
         shared = bool(self.cfg.shared_pupil_samples)
-        te = np.asarray(batch["te"], np.complex128).reshape(C, P)
-        tm = np.asarray(batch["tm"], np.complex128).reshape(C, P)
-        x = np.asarray(batch["x"], np.float64).reshape(C, P)
-        y = np.asarray(batch["y"], np.float64).reshape(C, P)
-        if shared:
-            x, y, te, tm = x[0], y[0], te[0], tm[0]
-        seeds = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
-                     self.device, torch.float32)
-                 for k, v in (("x", x), ("y", y), ("ter", te.real),
-                              ("tei", te.imag), ("tmr", tm.real),
-                              ("tmi", tm.imag))}
         if shared not in self._split_fns:
             self._split_fns[shared] = splitting.make_splitting_cells_fn(
                 self.tables, self.tgeom, self.cfg, per_cell_seeds=not shared,
@@ -865,11 +896,9 @@ class Simulator:
         steps."""
         n = len(cell_ids) * rays_per_cell
         if self.engine == "splitting":
-            batch = seeding.build_ray_batch(
-                self.geom, self.cfg, cell_ids=cell_ids,
-                rays_per_cell=rays_per_cell, iteration=iteration)
-            hist, steps = self._trace_splitting(batch, cell_ids,
-                                                rays_per_cell)
+            hist, steps = self._trace_splitting(
+                self._split_seeds(cell_ids, rays_per_cell, iteration),
+                cell_ids, rays_per_cell)
             return hist, steps, n
         hist = torch.zeros((self.L, self.N, self.M, *self.cfg.eyebox_bins),
                            dtype=torch.float32, device=self.device)
@@ -909,15 +938,17 @@ class Simulator:
                      timings: dict):
         """Seed and trace one batch of the general loop into ``hist_dev``;
         returns (bounces, deposits); the splitting engine's bounces are its
-        steps and its deposits None."""
+        steps and its deposits None.  The seeding's host time goes to
+        ``timings["seed_s"]``, its device time to the span ``seed``."""
+        seed = {"cell": self._cell_blocks, "vector": self._vector_rays,
+                "splitting": self._split_seeds}[self.engine]
         ts = time.perf_counter()
+        with timer.span("seed"):
+            rays = seed(chunk, rpf, it)
+        timings["seed_s"] += time.perf_counter() - ts
         if self.engine == "cell":
-            rays_in, rng_in = self._cell_blocks(chunk, rpf, it)
-            timings["seed_s"] += time.perf_counter() - ts
-            return self._trace_blocks(chunk, rays_in, rng_in, hist_dev, timer)
+            return self._trace_blocks(chunk, *rays, hist_dev, timer)
         if self.engine == "vector":
-            rays = self._vector_rays(chunk, rpf, it)
-            timings["seed_s"] += time.perf_counter() - ts
             steps0 = self.stats.get("steps", 0)
             out = self._trace_vector(
                 rays, hist_dev, timer,
@@ -925,11 +956,8 @@ class Simulator:
             timings.setdefault("batch_steps", []).append(
                 self.stats["steps"] - steps0)
             return out
-        batch = seeding.build_ray_batch(self.geom, self.cfg, cell_ids=chunk,
-                                        rays_per_cell=rpf, iteration=it)
-        timings["seed_s"] += time.perf_counter() - ts
         with timer.span("trace"):
-            hist, steps = self._trace_splitting(batch, chunk, rpf)
+            hist, steps = self._trace_splitting(rays, chunk, rpf)
             hist_dev += hist
         return steps, None
 

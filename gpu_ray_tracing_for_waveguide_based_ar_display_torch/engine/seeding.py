@@ -10,6 +10,13 @@ host sampler (:mod:`.native`) seeded by the same value, as the JAX package
 does (per cell: the first word of the cell's ``SeedSequence``); where the
 JAX package falls back to numpy when that library is missing, the port
 raises.
+
+:func:`build_ray_batch` seeds every ray of a batch on the host, as the JAX
+package does.  Under :func:`device_seeded` configs (shared pupil samples
+and fast seeding, the defaults) a batch holds nothing beyond the shared
+points, the TE / TM pattern and the hash of the ray index, so
+:func:`ray_blocks_device` and :func:`ray_state_device` build the same
+batch on the device, bit for bit, from the points alone.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ..config import TraceConfig
 from ..design.convex import point_in_polygon
 from ..design.geometry import DesignGeometry
 from ..ops import rng as rng_ops
+from .trace_rows import LANES
 
 _PLASTIC = 1.32471795724474602596  # plastic number, root of x^3 = x + 1
 
@@ -88,6 +96,25 @@ def sample_pupil(geom: DesignGeometry, cfg: TraceConfig, num: int,
     return sample_points_in_polygon(geom.ic, num, rng)
 
 
+def _check_batch(cfg: TraceConfig, rays_per_cell: int) -> None:
+    if cfg.pupil_sampler not in ("numpy", "native"):
+        raise ValueError("pupil_sampler must be 'numpy' or 'native', got "
+                         f"{cfg.pupil_sampler!r}")
+    if rays_per_cell % 2:
+        raise ValueError(f"rays_per_fov must be even, got {rays_per_cell}")
+
+
+def shared_points(geom: DesignGeometry, cfg: TraceConfig,
+                  rays_per_cell: int, iteration: int) -> np.ndarray:
+    """(rays_per_cell / 2, 2) float64: the pupil points every cell of
+    iteration ``iteration`` launches from with ``shared_pupil_samples``,
+    each traced as TE and as TM."""
+    _check_batch(cfg, rays_per_cell)
+    seed = cfg.seed + 7919 * iteration
+    return sample_pupil(geom, cfg, rays_per_cell // 2,
+                        np.random.default_rng(seed), seed)
+
+
 def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
                     cell_ids: Optional[np.ndarray] = None,
                     rays_per_cell: Optional[int] = None,
@@ -96,22 +123,17 @@ def build_ray_batch(geom: DesignGeometry, cfg: TraceConfig,
 
     ``cell_ids`` are flat cell indices ``(l * M + m) * N + n`` (default: all).
     """
-    if cfg.pupil_sampler not in ("numpy", "native"):
-        raise ValueError("pupil_sampler must be 'numpy' or 'native', got "
-                         f"{cfg.pupil_sampler!r}")
     L, M, N = geom.th_out_ic.shape
     if cell_ids is None:
         cell_ids = np.arange(L * M * N)
     rpc = rays_per_cell if rays_per_cell is not None else cfg.rays_per_fov
-    if rpc % 2:
-        raise ValueError(f"rays_per_fov must be even, got {rpc}")
+    _check_batch(cfg, rpc)
     half = rpc // 2
     n_cells = len(cell_ids)
     total = n_cells * rpc
 
     if cfg.shared_pupil_samples:
-        seed = cfg.seed + 7919 * iteration
-        pts = sample_pupil(geom, cfg, half, np.random.default_rng(seed), seed)
+        pts = shared_points(geom, cfg, rpc, iteration)
         x = np.tile(np.concatenate([pts[:, 0], pts[:, 0]]), n_cells)
         y = np.tile(np.concatenate([pts[:, 1], pts[:, 1]]), n_cells)
     else:
@@ -167,25 +189,131 @@ def cell_seeds(cell_ids: np.ndarray, slots: int, iteration: int,
     return rng_ops.seed_fast(idx, seed)
 
 
-def cell_seeds_device(cell_ids: np.ndarray, slots: int, iteration: int,
-                      total_cells: int, seed: int, device,
-                      cells_per_hash: int = 2048) -> torch.Tensor:
-    """:func:`cell_seeds` hashed on ``device`` (the same seed contract, the
-    same bits): (C, slots) int32 holding the uint32 seeds, as the kernels
-    take them.  The hash runs ``cells_per_hash`` cells at a time, which bounds
-    its int64 temporaries."""
+def device_seeded(cfg: TraceConfig) -> bool:
+    """Whether a batch is built on the device: one point set serves every
+    cell and the seeds hash the ray index (the default config).  Otherwise
+    :func:`build_ray_batch` seeds it on the host, cell by cell."""
+    return cfg.shared_pupil_samples and cfg.rng_mode == "fast"
+
+
+def to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``, values unchanged.  To a GPU the copy
+    leaves from pinned memory without waiting: a copy from pageable memory
+    would first wait for the work already queued (the previous batch's
+    trace)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _cells_on(cell_ids: np.ndarray, device) -> torch.Tensor:
+    """Cell ids as an int64 tensor on ``device``; a contiguous run is made
+    there."""
     ids = np.asarray(cell_ids, np.int64)
     if len(ids) and np.array_equal(ids, np.arange(ids[0], ids[0] + len(ids))):
-        # made on the device: a copy from pageable host memory would first
-        # wait for the work already queued (the previous batch's launch)
-        cid = torch.arange(int(ids[0]), int(ids[0]) + len(ids), device=device)
-    else:
-        cid = torch.from_numpy(ids).to(device)
-    slot = torch.arange(slots, dtype=torch.int64, device=device)
+        return torch.arange(int(ids[0]), int(ids[0]) + len(ids), device=device)
+    return to_device(ids, device)
+
+
+def _ray_index(cid: torch.Tensor, rays: int, iteration: int,
+               total_cells: int) -> torch.Tensor:
+    """(len(cid), rays) int64 global ray indices ``(iteration * cells +
+    cid) * rays + ray``: the seed contract of every engine."""
+    return ((iteration * total_cells + cid[:, None]) * rays
+            + torch.arange(rays, dtype=torch.int64, device=cid.device))
+
+
+def cell_seeds_device(cell_ids: np.ndarray, slots: int, iteration: int,
+                      total_cells: int, seed: int, device,
+                      cells_per_hash: Optional[int] = None) -> torch.Tensor:
+    """:func:`cell_seeds` hashed on ``device`` (the same seed contract, the
+    same bits): (C, slots) int32 holding the uint32 seeds, as the kernels
+    take them.  The hash runs ``cells_per_hash`` cells at a time (default:
+    about 2^22 seeds), which bounds its int64 temporaries."""
+    cid = _cells_on(cell_ids, device)
+    step = cells_per_hash or max(1, (1 << 22) // slots)
     out = torch.empty((len(cid), slots), dtype=torch.int32, device=device)
-    for s in range(0, len(cid), cells_per_hash):
-        idx = ((iteration * total_cells + cid[s:s + cells_per_hash, None])
-               * slots + slot)
-        out[s:s + cells_per_hash] = rng_ops.as_int32_bits(
-            rng_ops.seed_fast_device(idx, seed))
+    for s in range(0, len(cid), step):
+        out[s:s + step] = rng_ops.as_int32_bits(rng_ops.seed_fast_device(
+            _ray_index(cid[s:s + step], slots, iteration, total_cells), seed))
     return out
+
+
+# the launch fields of a ray, in the kernels' tile order
+FIELDS = ("x", "y", "ter", "tei", "tmr", "tmi")
+
+
+def launch_fields(points: torch.Tensor) -> torch.Tensor:
+    """(6, rays_per_cell) float32 launch fields of one cell (:data:`FIELDS`)
+    from its (rays_per_cell / 2, 2) float64 points on the device: every
+    point traced as TE (unit ``te``), then as TM (unit ``tm``); each
+    coordinate rounded to float32 once, as the host batch rounds it."""
+    half = points.shape[0]
+    f = torch.zeros((6, 2 * half), dtype=torch.float32, device=points.device)
+    xy = points.to(torch.float32).T
+    f[0:2, :half] = xy
+    f[0:2, half:] = xy
+    f[2, :half] = 1.0
+    f[4, half:] = 1.0
+    return f
+
+
+def ray_tile(points: torch.Tensor) -> torch.Tensor:
+    """(6, RT, 128) float32 launch tile of one cell, RT = ceil(rays_per_cell
+    / 128): :func:`launch_fields` padded with rays whose six fields are
+    zero (they die at init), as :func:`.trace_rows.pack_ray_blocks` packs
+    a cell."""
+    f = launch_fields(points)
+    rt = -(-f.shape[1] // LANES)
+    tile = f.new_zeros((6, rt * LANES))
+    tile[:, :f.shape[1]] = f
+    return tile.reshape(6, rt, LANES)
+
+
+def ray_blocks_device(points: torch.Tensor, cell_ids: np.ndarray,
+                      iteration: int, total_cells: int, seed: int):
+    """The cell kernel's launch blocks of one batch, built on the points'
+    device from the shared ``points`` (:func:`shared_points` of the batch's
+    rays per cell and iteration, on the device): rays_in (C, 6, RT, 128)
+    float32 and rng_in (C, RT, 128) int32 holding the uint32 seeds (padding
+    rays seed 1), equal to ``trace_rows.blocks_to_device(*pack_ray_blocks(
+    build_ray_batch(...), C, rays_per_cell, RT))`` for any cells and
+    iteration of a :func:`device_seeded` config."""
+    tile = ray_tile(points)
+    rpc, (_, rt, _) = 2 * points.shape[0], tile.shape
+    C = len(cell_ids)
+    rng_in = torch.ones((C, rt * LANES), dtype=torch.int32,
+                        device=points.device)
+    rng_in[:, :rpc] = cell_seeds_device(cell_ids, rpc, iteration, total_cells,
+                                        seed, points.device)
+    return (tile.expand(C, -1, -1, -1).contiguous(),
+            rng_in.reshape(C, rt, LANES))
+
+
+def ray_state_device(points: torch.Tensor, cell_ids: np.ndarray,
+                     iteration: int, total_cells: int, seed: int) -> dict:
+    """The vector engine's (R,) ray state of one batch, built on the points'
+    device as :func:`ray_blocks_device` builds the blocks: field for field
+    ``trace_vector.make_ray_state`` of :func:`build_ray_batch` (``rng`` the
+    uint32 seeds and ``idx`` the low 32 bits of the global index, both as
+    int64 values; ``cid`` int64)."""
+    f = launch_fields(points)
+    rpc = f.shape[1]
+    dev = points.device
+    cid = _cells_on(cell_ids, dev)
+    R = len(cid) * rpc
+    seeds = cell_seeds_device(cell_ids, rpc, iteration, total_cells, seed,
+                              dev)
+    state = {k: f[i].repeat(len(cid)) for i, k in enumerate(FIELDS)}
+    state.update(
+        cos_th=torch.ones(R, dtype=torch.float32, device=dev),
+        gap_x=torch.zeros(R, dtype=torch.float32, device=dev),
+        gap_y=torch.zeros(R, dtype=torch.float32, device=dev),
+        state=torch.zeros(R, dtype=torch.int32, device=dev),
+        rng=seeds.reshape(-1).to(torch.int64) & 0xFFFFFFFF,
+        dep=torch.full((R,), -1, dtype=torch.int32, device=dev),
+        cid=cid.repeat_interleave(rpc),
+        idx=_ray_index(cid, rpc, iteration, total_cells).reshape(-1)
+        & 0xFFFFFFFF)
+    return state

@@ -51,6 +51,22 @@ class SweepResult:
     timings: dict = dataclasses.field(default_factory=dict)
 
 
+def _ray_state(geom, cfg: TraceConfig, device) -> dict:
+    """A design's (R,) ray state over all its cells at iteration 0: built on
+    the device from its shared pupil points under a
+    :func:`..engine.seeding.device_seeded` config, else seeded on the host
+    (the same state, bit for bit)."""
+    if seeding.device_seeded(cfg):
+        n = geom.th_out_ic.size
+        pts = seeding.shared_points(geom, cfg, cfg.rays_per_fov, 0)
+        return seeding.ray_state_device(seeding.to_device(pts, device),
+                                        np.arange(n), 0, n, cfg.seed)
+    b = seeding.build_ray_batch(geom, cfg)
+    return trace_vector.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
+                                       b["cid"], b["idx"], b["rng"],
+                                       device=device)
+
+
 def run_design_sweep(
     designs: Sequence[WaveguideDesign],
     cfg: TraceConfig = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=256,
@@ -63,9 +79,11 @@ def run_design_sweep(
     vector trace over a leading design axis; returns per-design results.
 
     Each design gets its geometry, synthetic LUTs, cell tables, trace
-    geometry (simplified at 1e-3) and host-seeded ray batch, as the JAX
-    package's sweep builds them; a batch depends on the design only through
-    its in-coupler polygon, so designs that share it share one batch.  All designs must share strip counts
+    geometry (simplified at 1e-3) and ray batch, as the JAX package's sweep
+    builds them (the batch built on the device from its shared pupil
+    points under a :func:`..engine.seeding.device_seeded` config, bitwise
+    the host's); a batch depends on the design only through its in-coupler
+    polygon, so designs that share it share one batch.  All designs must share strip counts
     (num_fc / num_oc).  ``segment_bounces`` traces in bounce segments with
     each design's survivors compacted between them (``None``: one loop to
     the end); the results are the same bit for bit, and each design's equal
@@ -73,37 +91,39 @@ def run_design_sweep(
     histogram in ``SweepResult.histograms`` (the default, as the JAX sweep),
     those of a sequence of design indices (in design order), or none.
 
-    ``SweepResult.timings``: host seconds ``prep_s`` (geometry, tables,
-    seeds), ``upload_s`` and ``pull_s``; device milliseconds from CUDA events
-    on a GPU (``init_ms``, ``bounce_ms``, ``compact_ms``, ``scatter_ms``);
+    ``SweepResult.timings``: host seconds ``prep_s`` (geometry, tables),
+    ``seed_s`` (the ray batches), ``upload_s`` (the tracer's tables and
+    grids) and ``pull_s``; device milliseconds from CUDA events on a GPU
+    (``seed_ms``, ``init_ms``, ``bounce_ms``, ``compact_ms``,
+    ``scatter_ms``);
     ``steps``, ``syncs`` (reads from the device that end a step loop or size
     a compaction) and ``segments``."""
     dev = resolve_device(device)
     timings = {}
+    timer = EventTimer(dev)
     t0 = time.perf_counter()
-    tables, tgeoms, batches = [], [], []
-    prev_ic = None
+    # ics: per design, the geometry of the first design of its run of
+    # designs with one in-coupler polygon
+    tables, tgeoms, ics = [], [], []
     for d in designs:
         geom = generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y)
         tables.append(build_cell_tables(
             geom, make_synthetic_luts(geom, seed=lut_seed)))
         tgeoms.append(build_trace_geometry(geom, simplify_tol=1e-3))
-        if prev_ic is None or not np.array_equal(prev_ic, geom.ic):
-            batches.append(seeding.build_ray_batch(geom, cfg))
-            prev_ic = geom.ic
-        else:
-            batches.append(batches[-1])
+        ics.append(geom if not ics or not np.array_equal(ics[-1].ic, geom.ic)
+                   else ics[-1])
     timings["prep_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    with timer.span("seed"):
+        states = {}
+        for g in ics:
+            if id(g) not in states:
+                states[id(g)] = _ray_state(g, cfg, dev)
+        rays = trace_vector.stack_ray_states([states[id(g)] for g in ics])
+        del states
+    timings["seed_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tracer = trace_vector.VectorTracer(tables, tgeoms, cfg, device=dev)
-    states = {}
-    for b in batches:
-        if id(b) not in states:
-            states[id(b)] = trace_vector.make_ray_state(
-                b["x"], b["y"], b["te"], b["tm"], b["cid"], b["idx"],
-                b["rng"], device=dev)
-    rays = trace_vector.stack_ray_states([states[id(b)] for b in batches])
-    del batches, states
     timings["upload_s"] = time.perf_counter() - t0
 
     D = len(designs)
@@ -112,7 +132,6 @@ def run_design_sweep(
     size = L * N * M * ny * nx
     hists = torch.zeros(D * size, dtype=torch.float32, device=dev)
     base = (torch.arange(D, device=dev) * size)[:, None]
-    timer = EventTimer(dev)
     stats = {}
 
     def add(r):

@@ -441,6 +441,39 @@ def test_device_seeds_equal_host_seeds_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cells", [np.arange(5, 29), np.array([0, 7, 3, 35])])
+def test_device_built_batches_equal_host_batches_on_card(small, cuda_device,
+                                                         cells):
+    """The cell engine's blocks and the vector engine's ray state built on
+    the card (contiguous cells made there, scattered ones copied from pinned
+    memory) equal the host-seeded batch, field for field, at 200 rays per
+    cell (padding) and at iteration 3."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding,
+        trace_rows,
+        trace_vector,
+    )
+
+    geom, cfg = small
+    for rpc, it in ((200, 0), (256, 3)):
+        b = seeding.build_ray_batch(geom, cfg, cell_ids=cells,
+                                    rays_per_cell=rpc, iteration=it)
+        want = trace_rows.blocks_to_device(*trace_rows.pack_ray_blocks(
+            b, len(cells), rpc, -(-rpc // 128)), cuda_device)
+        pts = seeding.to_device(seeding.shared_points(geom, cfg, rpc, it),
+                                cuda_device)
+        got = seeding.ray_blocks_device(pts, cells, it, 3 * M * N, cfg.seed)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        want = trace_vector.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
+                                           b["cid"], b["idx"], b["rng"],
+                                           device=cuda_device)
+        got = seeding.ray_state_device(pts, cells, it, 3 * M * N, cfg.seed)
+        assert list(got) == list(want)
+        assert all(got[k].dtype == want[k].dtype
+                   and torch.equal(got[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
 def test_device_tail_equals_host_tail_on_card(small, cuda_device):
     """Host tail, pulled stack and device metrics of one Simulator on the
     card: histograms identical, efficiencies within 1e-6 relative, metrics
