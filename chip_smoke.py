@@ -29,12 +29,16 @@ Run from the repository root.  Phases:
    workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4
    iterations, each a relaunch in gens spawn, 3 generations of 2,048 slots
    a cell, 80 x 120 eyebox bins), seeds hashed on the card, the histogram
-   kept on the card and only the pupil-integrated stack pulled for the host
-   colorimetry, with launch counts reset just before it and read just after
-   it; its layers: seeding (host and CUDA events), kernel, assembly,
-   perception (CUDA events), the stack's pull and the host colorimetry;
-   then the same run at seeds 1 and 2 with seed 0's LUTs (efficiencies
-   only);
+   kept on the card and the perception and the float32 colorimetry with
+   the eye-view image run there (``simulate``'s ``cli.run_options``, as
+   every phase that runs what ``simulate`` runs), with launch counts reset
+   just before it and read just after it; its layers: seeding (host and
+   CUDA events), kernel, assembly, perception and colorimetry (CUDA
+   events), the pull of the metrics and the image; the run's own stack
+   through the host float64 colorimetry: delta E, FoV and eyebox uniformity
+   within 1e-4 relative, the image within rtol 2e-3 / atol 1e-5 and the
+   starved eye positions equal; then the same run at seeds 1 and 2 with
+   seed 0's LUTs (efficiencies only);
 3b. the same for the count-spawn folded path
    (``spawn_mode="count", fold_iterations=True``: the 4 iterations folded
    into one spawn target of 20,000 per cell), seeds 0, 1 and 2: the
@@ -80,8 +84,11 @@ Run from the repository root.  Phases:
    scheduler, with launch counts reset just before each run and read just
    after it; beside each run's kernel time, the summed bound of its
    launches (:class:`CellLaunchBounds`, read in an untimed replay of the
-   run that must trace the same bounces in as many launches).  The two histograms and bounce
-   totals must be identical and the histogram's sum equal to the number of
+   run that must trace the same bounces in as many launches).  The tail on
+   the card, as ``simulate`` runs it; the monolithic run's histogram once
+   more through the host tail (pulled, float64 colorimetry): phase 3's
+   comparison.  The two histograms and bounce totals must be identical and
+   the histogram's float64 sum on the card equal to the number of
    deposits.  Seeding's host and device time; two full batches (cells
    0-2,047 at iteration 0, 18,432-20,479 at iteration 3) built by the
    engine and seeded on the host, each timed, must be equal
@@ -147,9 +154,10 @@ Run from the repository root.  Phases:
 12. the vector engine at full width through ``Simulator(engine="vector",
    segmented=True)``: phase 8's workload (22,500 cells, 5,000 rays per cell,
    the ray state built on the card, in 11 batches, 80 x 120 bins, a
-   100,000-bounce bound, metrics on, ``num_iter=1``), with its layers
-   (setup, seeding on the host and the card, the
-   bounce loop, compaction, scatter, the tail), the steps of each batch, the
+   100,000-bounce bound, metrics on, ``num_iter=1``, the tail on the card
+   as ``simulate`` runs it), with its layers (setup, seeding on the host
+   and the card, the bounce loop, compaction, scatter, the tail's
+   perception, colorimetry and pull), the steps of each batch, the
    reads from the device, the wall and the peak device memory; every
    colour's efficiency within 2 % of phase 8's cell engine (both weigh
    launch points equally); phase 8's two batches built by the engine and
@@ -196,7 +204,8 @@ Run from the repository root.  Phases:
    pilot's and the bulk's 44 launches each and one launch per tier and
    chunk): tiers and their launches, the tail's largest ``nb[:, 1]`` and
    the cells stopped at the 100,000-iteration cap short of their rays
-   (ROADMAP F5; reported, not held), pilot, tail and bulk seconds, starved
+   (ROADMAP F5; reported, not held), pilot, tail and bulk seconds, the
+   splice on the card (perception, colorimetry, pull), starved
    eye positions before (phase 3's run) and after; it fails if a metric is
    not finite, an efficiency is not positive or the starved positions
    rise;
@@ -443,10 +452,9 @@ def jax_modules() -> list:
 
 def profile_run(sim, path: str) -> dict:
     """One more ``sim.run()`` under ``torch.profiler``, as ``simulate`` runs
-    it (the histogram on the card, the stack pulled for the host
-    colorimetry): device busy time (sum of the device's self times), the
-    kernel's and the device-to-host copies' share of it, and the idle share
-    of the host-clock window."""
+    it (:func:`simulate_options`): device busy time (sum of the device's
+    self times), the kernel's and the device-to-host copies' share of it,
+    and the idle share of the host-clock window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -455,7 +463,7 @@ def profile_run(sim, path: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = sim.run(histogram_device=True)
+        res = sim.run(**simulate_options())
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
     ka = prof.key_averages()
@@ -481,6 +489,55 @@ def digest(t) -> str:
     """SHA-256 of a tensor's or an array's bytes, on the host."""
     a = t.cpu().numpy() if hasattr(t, "cpu") else t
     return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def simulate_options(*flags) -> dict:
+    """``Simulator.run``'s keyword arguments as ``simulate`` passes them
+    with these flags (``cli.run_options``), so that a phase runs what the
+    CLI runs: the histogram kept on the card, perception and colorimetry
+    with the eye-view image on the card."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+
+    return cli.run_options(cli.build_parser().parse_args(["simulate",
+                                                          *flags]))
+
+
+def tail_text(tm: dict) -> str:
+    """A run's device tail from its timings, for a phase's line."""
+    return (f"tail {tm['metrics_s']:.3f} s (perception "
+            f"{tm['perceive_ms']:.2f} ms, colorimetry "
+            f"{tm['colorimetry_ms']:.2f} ms device, metrics and image pull "
+            f"{tm['pull_s'] * 1e3:.2f} ms)")
+
+
+def tail_check(phase: str, met, host) -> dict:
+    """A run's device tail (``met``: float32 colorimetry on the card)
+    against ``host``, the float64 host colorimetry of the same histogram:
+    fails unless delta E, FoV and eyebox uniformity lie within 1e-4
+    relative, the eye-view image within rtol 2e-3 / atol 1e-5 (the JAX
+    package's own bar) and the starved eye positions are equal."""
+    import numpy as np
+
+    rel = {k: abs(getattr(met, k) - getattr(host, k))
+           / max(abs(getattr(host, k)), 1e-30)
+           for k in ("delta_e", "u_fov", "u_eyebox")}
+    img_ok = bool(np.allclose(met.output_image, host.output_image,
+                              rtol=2e-3, atol=1e-5))
+    out = {"metrics_rel": rel, "image_within_bar": img_ok,
+           "image_max_abs": float(np.abs(met.output_image
+                                         - host.output_image).max()),
+           "starved": [met.starved_eye_positions,
+                       host.starved_eye_positions]}
+    print(f"phase {phase}: the device tail against the host float64 tail: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" relative; image max abs {out['image_max_abs']:.3g} "
+          f"({'within' if img_ok else 'BEYOND'} rtol 2e-3, atol 1e-5); "
+          f"starved eye positions {out['starved']}")
+    if (max(rel.values()) > 1e-4 or not img_ok
+            or out["starved"][0] != out["starved"][1]):
+        fail(f"phase {phase}: the device tail differs from the host tail: "
+             f"{out}")
+    return out
 
 
 def save_record(ctx) -> None:
@@ -726,7 +783,8 @@ def main_path(ctx, phase: str, **sim_kw):
     """The reference workload through the port's ``Simulator`` as
     ``simulate`` runs it (with ``sim_kw``), its layers, checks and record;
     launch counts reset just before it and read just after it.  Returns the
-    Simulator, the result and its launches."""
+    Simulator, the result, its launches and the rays a cell is normalised
+    to."""
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
@@ -740,9 +798,7 @@ def main_path(ctx, phase: str, **sim_kw):
     tp.reset_launch_counts()
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **sim_kw)
-    # as simulate runs it: the histogram stays on the card, the stack is
-    # pulled for the host colorimetry (and the eye-view image)
-    res = sim.run(histogram_device=True)
+    res = sim.run(**simulate_options())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -766,10 +822,7 @@ def main_path(ctx, phase: str, **sim_kw):
           f"{res.trace_seconds:.3f} s, kernel "
           f"{tm['kernel_ms']:.1f} ms, seeding (device hash) "
           f"{tm['seed_s']:.3f} s host, {tm['seed_ms']:.1f} ms device, "
-          f"assembly {tm['assemble_s']:.3f} s, tail "
-          f"{tm['metrics_s']:.3f} s (perception {tm['perceive_ms']:.2f} ms "
-          f"device, stack pull {tm['pull_s']:.4f} s, host colorimetry "
-          f"{tm['metrics_s'] - tm['pull_s']:.3f} s); kernel "
+          f"assembly {tm['assemble_s']:.3f} s, {tail_text(tm)}; kernel "
           f"bound {bound:.4f} ms ({bound_by}); live fraction {live:.4f}; "
           "bounces "
           f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), rays "
@@ -818,7 +871,7 @@ def main_path(ctx, phase: str, **sim_kw):
              "and no other kernel")
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
-    return sim, res, launches["persistent_trace"]
+    return sim, res, launches["persistent_trace"], nominal
 
 
 def seed_efficiencies(ctx, phase: str, sim, res, **sim_kw) -> dict:
@@ -851,7 +904,18 @@ def seed_efficiencies(ctx, phase: str, sim, res, **sim_kw) -> dict:
 def phase3(ctx) -> None:
     """The main path at full width: the default, gens spawn without
     folding (and phase 4, the optional profile)."""
-    sim, res, launches = main_path(ctx, "3")
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    sim, res, launches, nominal = main_path(ctx, "3")
+    ctx["record"]["phase3"]["histogram_digest"] = digest(res.histogram)
+    # the run's own stack through the host float64 colorimetry
+    perc = metrics.eye_perceived_torch(res.histogram).cpu().numpy()
+    ctx["record"]["phase3"]["host_tail"] = tail_check(
+        "3", res.metrics,
+        metrics.evaluate(None, perceive=perc.astype("float64") / nominal))
+    del perc
     # ---- phase 4 (optional): where the device time of one run goes
     if ctx["profile_path"]:
         record = ctx["record"]
@@ -867,7 +931,7 @@ def phase3(ctx) -> None:
 def phase3b(ctx) -> None:
     """The count-spawn folded path at full width, as phase 3 runs the
     default: what phases 10, 14, 16 and 18 are held to."""
-    sim, res, launches = main_path(ctx, "3b", **COUNT_FOLDED)
+    sim, res, launches, _ = main_path(ctx, "3b", **COUNT_FOLDED)
     met = res.metrics
     ctx["k1_count_main_launches"] = launches
     ctx["count_run"] = {"digest": digest(res.histogram),
@@ -1402,6 +1466,9 @@ def phase8(ctx) -> None:
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
         pipeline, seeding, trace_persistent as tp, trace_rows,
     )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
 
     cfg = TraceConfig()   # 100 x 75 x 3 cells, 5,000 rays per cell and launch
     iters = 1             # one of the reference workload's four relaunches
@@ -1413,7 +1480,7 @@ def phase8(ctx) -> None:
         t0 = time.perf_counter()
         sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], engine="cell",
                                  segmented=segmented)
-        res = sim.run(num_iter=iters)
+        res = sim.run(num_iter=iters, **simulate_options())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(tp.launch_counts)
@@ -1444,8 +1511,8 @@ def phase8(ctx) -> None:
               f"{tm.get('seed_ms', float('nan')):.1f} ms device, "
               f"kernel {tm['kernel_ms']:.1f} ms, compaction "
               f"{tm.get('compact_ms', 0.0):.1f} ms, deposit scatter "
-              f"{tm['scatter_ms']:.1f} ms, histogram to the host "
-              f"{tm['assemble_s']:.3f} s, metrics {tm['metrics_s']:.3f} s; "
+              f"{tm['scatter_ms']:.1f} ms, assembly (a synchronize) "
+              f"{tm['assemble_s']:.3f} s, {tail_text(tm)}; "
               f"bounces {res.total_bounces:,} "
               f"({res.bounces_per_second:.4g}/s end to end, "
               f"{entry['kernel_bounces_per_s']:.4g}/s kernel), deposits "
@@ -1457,10 +1524,19 @@ def phase8(ctx) -> None:
                 res.efficiencies.values()) <= 0:
             fail(f"phase 8 {name}: metric not finite or efficiency not "
                  f"positive in {vals}")
-        got = float(res.histogram.sum(dtype=np.float64))
+        # the float64 sum on the card
+        got = float(res.histogram.sum(dtype=torch.float64))
         if got != res.deposits or res.deposits <= 0:
             fail(f"phase 8 {name}: histogram sum {got} vs {res.deposits} "
                  "deposits")
+        if not segmented:
+            # the host tail of the same histogram (pulled), as run() gives
+            # it with histogram_device=False
+            host = res.histogram.cpu().numpy() / (cfg.rays_per_fov * iters)
+            th = time.perf_counter()
+            entry["host_tail"] = tail_check("8", met, metrics.evaluate(host))
+            entry["host_tail"]["host_tail_s"] = time.perf_counter() - th
+            del host
         if res.rays_traced != n_cells * cfg.rays_per_fov * iters:
             fail(f"phase 8 {name}: {res.rays_traced} rays traced")
         n_launch = launches["cell_trace"]
@@ -1483,7 +1559,7 @@ def phase8(ctx) -> None:
                      f"not within 10 % of the persistent engine's {ref}")
         runs[name] = (res.histogram, res.total_bounces, n_launch, sim)
         ctx.setdefault("cell_efficiencies", dict(res.efficiencies))
-    if not (np.array_equal(runs["monolithic"][0], runs["segmented"][0])
+    if not (torch.equal(runs["monolithic"][0], runs["segmented"][0])
             and runs["monolithic"][1] == runs["segmented"][1]):
         fail("phase 8: the segmented run differs from the monolithic run")
     print("phase 8: segmented and monolithic histograms and bounces identical")
@@ -1718,7 +1794,7 @@ def phase10(ctx) -> None:
         t0 = time.perf_counter()
         sim = pipeline.Simulator(cfg=cfg, device=ctx["dev"], **COUNT_FOLDED,
                                  **kw)
-        res = sim.run(histogram_device=True)
+        res = sim.run(**simulate_options())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(tp.launch_counts)
@@ -1749,9 +1825,7 @@ def phase10(ctx) -> None:
               f"(bound {bound10:.4f} ms, {bound_by10}), "
               f"seeding (device hash) {tm['seed_s']:.3f} s host, "
               f"{tm['seed_ms']:.1f} ms device, assembly "
-              f"{tm['assemble_s']:.3f} s, tail {tm['metrics_s']:.3f} s "
-              f"(perception {tm['perceive_ms']:.2f} ms device, stack pull "
-              f"{tm['pull_s']:.4f} s); "
+              f"{tm['assemble_s']:.3f} s, {tail_text(tm)}; "
               f"bounces {res.total_bounces:,}, rays {res.rays_traced:,}; "
               f"launches {launches}; peak device memory "
               f"{peak / 2**20:.1f} MiB; efficiencies relative to the exact "
@@ -2045,7 +2119,7 @@ def phase12(ctx) -> None:
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=cfg, device=dev, engine="vector",
                              segmented=True)
-    res = sim.run(num_iter=1)
+    res = sim.run(num_iter=1, **simulate_options())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -2060,7 +2134,9 @@ def phase12(ctx) -> None:
         "init_ms": tm.get("init_ms"),
         "bounce_ms": tm.get("bounce_ms", 0.0), "compact_ms": tm.get("compact_ms"),
         "scatter_ms": tm.get("scatter_ms", 0.0), "assemble_s": tm["assemble_s"],
-        "tail_s": tm["metrics_s"], "batch_steps": tm["batch_steps"],
+        "tail_s": tm["metrics_s"], "perceive_ms": tm["perceive_ms"],
+        "colorimetry_ms": tm["colorimetry_ms"], "pull_s": tm["pull_s"],
+        "batch_steps": tm["batch_steps"],
         "syncs": tm["syncs"], "segments": tm.get("segments"),
         "total_bounces": res.total_bounces,
         "bounces_per_s": res.bounces_per_second,
@@ -2079,8 +2155,8 @@ def phase12(ctx) -> None:
           f"{tm.get('seed_ms', float('nan')):.1f} ms device, bounce loop "
           f"{tm.get('bounce_ms', 0.0):.1f} ms (init {tm.get('init_ms', 0.0):.1f} "
           f"ms), compaction {tm.get('compact_ms', 0.0):.1f} ms, scatter "
-          f"{tm.get('scatter_ms', 0.0):.1f} ms, histogram to the host "
-          f"{tm['assemble_s']:.3f} s, tail {tm['metrics_s']:.3f} s; steps "
+          f"{tm.get('scatter_ms', 0.0):.1f} ms, assembly (a synchronize) "
+          f"{tm['assemble_s']:.3f} s, {tail_text(tm)}; steps "
           f"per batch {tm['batch_steps']}, {tm['syncs']} reads from the "
           f"device, {tm.get('segments', 0)} compactions; bounces "
           f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), deposits "
@@ -2090,7 +2166,7 @@ def phase12(ctx) -> None:
     if not all(math.isfinite(v) for v in vals) or min(
             res.efficiencies.values()) <= 0:
         faults.append(f"metric not finite or efficiency not positive: {vals}")
-    if float(res.histogram.sum(dtype=np.float64)) != res.deposits:
+    if float(res.histogram.sum(dtype=torch.float64)) != res.deposits:
         faults.append("histogram sum is not the deposit count")
     if res.rays_traced != n_cells * cfg.rays_per_fov:
         faults.append(f"{res.rays_traced} rays traced")
@@ -2265,16 +2341,18 @@ def phase13(ctx) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = sim.run(rays_per_fov=2, num_iter=32)
+    res = sim.run(rays_per_fov=2, num_iter=32, **simulate_options())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    total = float(res.histogram.sum(dtype=np.float64))
+    total = float(res.histogram.sum(dtype=torch.float64))
     out_w = sim.split_out_coupled
     met = res.metrics
     a = {"cells": 576, "positions": 64, "wall_s": wall,
          "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
          "seed_s": res.timings["seed_s"],
          "seed_ms": res.timings.get("seed_ms"),
+         "tail": {k: res.timings[k] for k in ("metrics_s", "perceive_ms",
+                                              "colorimetry_ms", "pull_s")},
          "histogram_digest": digest(res.histogram),
          "steps": res.total_bounces, "truncated": sim.split_truncated,
          "pruned": sim.split_pruned, "out_coupled": out_w,
@@ -2295,6 +2373,8 @@ def phase13(ctx) -> None:
     save_record(ctx)
     print(f"phase 13a: 576 cells x 64 positions (32 passes of 2): wall "
           f"{wall:.3f} s, seeding {a['seed_s']:.4f} s host, "
+          f"{tail_text(res.timings)}, peak device memory "
+          f"{a['peak_bytes'] / 2**20:.1f} MiB, "
           f"{res.total_bounces} steps; truncated "
           f"{ledgers[0]}, pruned {ledgers[1]:.6g}, out-coupled "
           f"{out_w:.8g}, histogram sum {total:.8g}, peak wavefront "
@@ -2436,14 +2516,15 @@ def phase14(ctx) -> None:
     sim = pipeline.Simulator(cfg=cfg, device=dev, **COUNT_FOLDED)
     before = ctx.get("count_starved")
     if before is None:   # phase 3b not run: the same run, its metrics
-        before = sim.run(histogram_device=True).metrics.starved_eye_positions
+        before = sim.run(
+            **simulate_options()).metrics.starved_eye_positions
     # the CLI's hybrid: tau_select 30, tau_target 20, max boost 1024
     hy = hybrid.TailBoostHybrid(sim)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tp.reset_launch_counts()
     t0 = time.perf_counter()
-    res, d = hy.run()
+    res, d = hy.run(**simulate_options("--tail-boost"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -2585,13 +2666,14 @@ def phase14g(ctx) -> None:
     sim = pipeline.Simulator(cfg=cfg, device=dev)
     before = ctx.get("default_starved")
     if before is None:   # phase 3 not run: the same run, its metrics
-        before = sim.run(histogram_device=True).metrics.starved_eye_positions
+        before = sim.run(
+            **simulate_options()).metrics.starved_eye_positions
     hy = hybrid.TailBoostHybrid(sim)   # the CLI's knobs
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tp.reset_launch_counts()
     t0 = time.perf_counter()
-    res, d = hy.run()
+    res, d = hy.run(**simulate_options("--tail-boost"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -2608,7 +2690,9 @@ def phase14g(ctx) -> None:
         wall_s=wall, setup_s=sim.setup_seconds, launches=launches,
         starved_before=before, starved_after=met.starved_eye_positions,
         efficiencies=res.efficiencies, delta_e=met.delta_e, u_fov=met.u_fov,
-        u_eyebox=met.u_eyebox, peak_bytes=torch.cuda.max_memory_allocated())
+        u_eyebox=met.u_eyebox, peak_bytes=torch.cuda.max_memory_allocated(),
+        splice={k: res.timings[k] for k in ("metrics_s", "perceive_ms",
+                                            "colorimetry_ms", "pull_s")})
     save_record(ctx)
     tiers = ", ".join(f"{k}x: {v} groups in {d.tier_launches[k]} launch(es)"
                       for k, v in sorted(d.tiers.items()))
@@ -2619,10 +2703,11 @@ def phase14g(ctx) -> None:
           f"{d.max_tail_iterations:,} of the {cfg.max_bounces:,}-iteration "
           f"cap, {d.tail_cells_at_cap} tail cell(s) stopped there short of "
           f"their rays (ROADMAP F5); pilot {d.pilot_seconds:.3f} s, tail "
-          f"{d.tail_seconds:.3f} s, bulk {d.mc_seconds:.3f} s, wall "
-          f"{wall:.3f} s; starved eye positions {before} -> "
-          f"{met.starved_eye_positions}; u_eyebox {met.u_eyebox:.5f}, "
-          f"delta E {met.delta_e:.4f}; launches {launches}")
+          f"{d.tail_seconds:.3f} s, bulk {d.mc_seconds:.3f} s, splice "
+          f"{tail_text(res.timings)}, wall {wall:.3f} s; starved eye "
+          f"positions {before} -> {met.starved_eye_positions}; u_eyebox "
+          f"{met.u_eyebox:.5f}, delta E {met.delta_e:.4f}; launches "
+          f"{launches}")
     faults = []
     want = 2 * batches + sum(d.tier_launches.values())
     if launches != {"persistent_trace": want, "cell_trace": 0}:
@@ -2655,14 +2740,14 @@ def phase14b(ctx) -> None:
     dev = ctx["dev"]
     cfg = TraceConfig(num_fov_x=20, num_fov_y=15)
     sim = pipeline.Simulator(cfg=cfg, device=dev)
-    before = sim.run(histogram_device=True).metrics.starved_eye_positions
+    before = sim.run(**simulate_options()).metrics.starved_eye_positions
     # the CLI's exact tail: tau 30, one launch point per pass, 8,192 slots
     hy = hybrid.ExactTailHybrid(sim, tau=30.0, points_per_pass=1,
                                 capacity=8192, max_steps=1024)
     torch.cuda.synchronize()
     tp.reset_launch_counts()
     t0 = time.perf_counter()
-    res, d = hy.run()
+    res, d = hy.run(**simulate_options("--tail-exact"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(tp.launch_counts)
@@ -2909,7 +2994,7 @@ def _mesh_simulate_rank(rank: int, world: int) -> dict:
     torch.cuda.synchronize()
     tp.reset_launch_counts()
     t1 = time.perf_counter()
-    res = sim.run(histogram_device=True)
+    res = sim.run(**simulate_options("--mesh", str(world)))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = tp.launch_counts["persistent_trace"]
@@ -3094,7 +3179,7 @@ def phase16(ctx) -> None:
             t0 = time.perf_counter()
             sim = pipeline.Simulator(cfg=TraceConfig(), device=ctx["dev"],
                                      mesh=mesh, **COUNT_FOLDED)
-            res = sim.run(histogram_device=True)
+            res = sim.run(**simulate_options("--mesh", "1"))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = tp.launch_counts["persistent_trace"]
@@ -3229,7 +3314,7 @@ def phase18(ctx) -> None:
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=TraceConfig(pupil_sampler="native"),
                              device=ctx["dev"], **COUNT_FOLDED)
-    res = sim.run(histogram_device=True)
+    res = sim.run(**simulate_options())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tp.launch_counts["persistent_trace"]

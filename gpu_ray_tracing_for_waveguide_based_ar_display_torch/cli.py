@@ -9,12 +9,16 @@
 ``simulate``'s defaults run the main path: the paper design at the reference
 workload (100 x 75 FoV x 3 wavelengths, 5,000 rays per FoV x 4 iterations,
 each iteration a relaunch in gens spawn, a 100,000-bounce bound, 80 x 120
-eyebox bins) through the persistent kernel, keep the histogram on the
-device, pull the pupil-integrated stack for the host metrics and write the
-eye-view PNG ``Eyebox Center View.png`` into the working directory, as the
-JAX CLI's ``simulate --engine pallas_persistent`` does; ``--image ''``
-writes none and evaluates the metrics on the device.  ``--spawn-mode``,
-``--spawn-iters``, ``--fold-iterations``, ``--error-bars``,
+eyebox bins) through the persistent kernel and write the eye-view PNG
+``Eyebox Center View.png`` into the working directory, as the JAX CLI's
+``simulate --engine pallas_persistent`` does; ``--image ''`` writes none.
+Every engine keeps the histogram on the device and runs the perception and
+the float32 colorimetry there, the eye-view image included
+(:func:`run_options`); only the metrics and the image leave the device,
+unless ``--heatmaps`` or ``--save-histogram`` asks for the histogram.  The
+JAX CLI evaluates on the host in float64 whenever it writes the image, so
+the printed metrics differ from the JAX CLI's in their last digits.
+``--spawn-mode``, ``--spawn-iters``, ``--fold-iterations``, ``--error-bars``,
 ``--wavelengths``, ``--checkpoint`` and ``--dense-eyebox`` mean what they
 mean in the JAX CLI and default as there; ``--spawn-mode count
 --fold-iterations`` is the faster path that weighs launch points by their
@@ -314,6 +318,21 @@ def _check_mesh_flags(args) -> None:
                          f"{world} ranks; launch {args.mesh}: {launch}")
 
 
+def run_options(args) -> dict:
+    """The keyword arguments ``simulate`` passes to ``Simulator.run`` (and
+    to a hybrid's ``run``) for its parsed flags: on every engine the
+    histogram stays on the device, and the perception and the colorimetry
+    with the eye-view image run there (``histogram_device``,
+    ``metrics_device``)."""
+    return dict(
+        cells_per_batch=args.cells_per_batch,
+        wavelengths=(tuple(int(w) for w in args.wavelengths.split(","))
+                     if args.wavelengths else None),
+        checkpoint_path=args.checkpoint, error_groups=args.error_bars,
+        dense_metrics=bool(args.dense_eyebox), histogram_device=True,
+        metrics_device=True)
+
+
 def _tail_hybrid(args, sim):
     """The tail-patched hybrid of ``--tail-boost`` / ``--tail-exact``, or
     None."""
@@ -400,27 +419,15 @@ def _simulate(args, mesh) -> int:
                     pers_accum_mode=args.accum_mode,
                     segmented=args.engine == "vector", mesh=mesh)
     lead = mesh is None or mesh.get_rank() == 0
-    wl = (tuple(int(w) for w in args.wavelengths.split(","))
-          if args.wavelengths else None)
-    # the persistent engine keeps the histogram on the device and pulls the
-    # pupil-integrated stack; the colorimetry runs on the device too unless
-    # the eye-view image (the host colorimetry's) is asked for
-    persistent = args.engine == "persistent"
     hy = _tail_hybrid(args, sim)
     diags = None
     with torch_trace(args.profile_dir if lead else None,
                      cuda=sim.device.type == "cuda"):
         if hy is not None:
-            res, diags = hy.run(cells_per_batch=args.cells_per_batch,
-                                verbose=args.verbose)
+            res, diags = hy.run(verbose=args.verbose, **run_options(args))
         else:
-            res = sim.run(cells_per_batch=args.cells_per_batch,
-                          verbose=args.verbose and lead, wavelengths=wl,
-                          checkpoint_path=args.checkpoint,
-                          histogram_device=persistent,
-                          metrics_device=persistent and not args.image,
-                          error_groups=args.error_bars,
-                          dense_metrics=bool(args.dense_eyebox))
+            res = sim.run(verbose=args.verbose and lead,
+                          **run_options(args))
     if not lead:
         return 0
     if mesh is not None:
@@ -626,8 +633,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pupil-sampling", default="uniform",
                    choices=("uniform", "r2"))
     p.add_argument("--image", default="Eyebox Center View.png",
-                   help="write the eye-view PNG here (needs cv2 or PIL; "
-                        "'' writes none)")
+                   help="write the eye-view PNG here, from the device "
+                        "colorimetry's image (needs cv2 or PIL; '' writes "
+                        "none)")
     p.add_argument("--heatmaps", default="", metavar="PNG",
                    help="write the 3-panel per-FoV efficiency heatmaps here "
                         "(needs matplotlib)")

@@ -49,6 +49,8 @@ from ..eval.metrics import (
     evaluate, eye_perceived_torch, wavelength_channel_names,
 )
 from . import seeding, splitting
+from .pipeline import evaluate_on_device
+from .timing import EventTimer
 
 # seeding iteration tag of the boost passes: displaced far beyond any main
 # run's iteration index, one octave of the per-cell target per tag
@@ -90,31 +92,58 @@ def _cell_lnm(cells: np.ndarray, M: int, N: int):
 
 
 def _device_hist(sim, hist) -> torch.Tensor:
-    """A run's histogram on the Simulator's device."""
+    """A run's histogram on the Simulator's device (uploaded only when a
+    caller ran the bulk with ``histogram_device=False``)."""
     if isinstance(hist, np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(hist, np.float32)).to(
             sim.device)
     return hist
 
 
-def _patched_result(sim, res, norm, selected, rows, sums, eval_cfg):
+def _patched_result(sim, res, norm, selected, rows, sums, eval_cfg,
+                    metrics_device=False):
     """Splice tail rows into the perception stack; re-evaluate the metrics
-    and the per-colour efficiencies.  ``rows`` / ``sums`` are per-ray
-    units.  Returns the patched result and the Monte-Carlo rows replaced."""
+    (with the eye-view image) and the per-colour efficiencies.  ``rows`` /
+    ``sums`` are per-ray units.  On the host (float64 colorimetry of the
+    pulled stack), or with ``metrics_device`` on the device: the rows and
+    sums uploaded once, spliced into the device stack, the colorimetry
+    :func:`.pipeline.evaluate_on_device`'s, its spans and the splice's
+    seconds (``metrics_s``) added to the result's timings.  Returns the
+    patched result and the Monte-Carlo rows replaced."""
     hist = _device_hist(sim, res.histogram)
-    perc = eye_perceived_torch(hist, eval_cfg).cpu().numpy() / norm
-    per_cell = hist.sum(dim=(3, 4)).cpu().numpy() / norm    # (L, N, M)
     l, n, m = _cell_lnm(selected, sim.M, sim.N)
-    mc_rows = perc[l, n, m].copy()
-    perc[l, n, m] = rows
-    per_cell[l, n, m] = sums
-    met = evaluate(None, eval_cfg, perceive=perc)
+    timings = dict(res.timings)
+    if metrics_device:
+        timer = EventTimer(sim.device)
+        t0 = time.perf_counter()
+        idx = tuple(torch.from_numpy(i).to(sim.device) for i in (l, n, m))
+        with timer.span("perceive"):
+            perc = eye_perceived_torch(hist, eval_cfg) / norm
+        mc_rows = perc[idx].cpu().numpy()
+        perc[idx] = torch.from_numpy(np.asarray(rows, np.float32)).to(
+            sim.device)
+        per_cell = hist.sum(dim=(3, 4), dtype=torch.float64) / norm
+        per_cell[idx] = torch.from_numpy(np.asarray(sums, np.float64)).to(
+            sim.device)
+        met = evaluate_on_device(perc, 1.0, timer, timings)
+        per_colour = per_cell.sum(dim=(1, 2)).cpu().numpy()
+        timings["metrics_s"] = time.perf_counter() - t0
+        timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
+    else:
+        perc = eye_perceived_torch(hist, eval_cfg).cpu().numpy() / norm
+        per_cell = hist.sum(dim=(3, 4)).cpu().numpy() / norm    # (L, N, M)
+        mc_rows = perc[l, n, m].copy()
+        perc[l, n, m] = rows
+        per_cell[l, n, m] = sums
+        met = evaluate(None, eval_cfg, perceive=perc)
+        per_colour = [per_cell[i].sum() for i in range(sim.L)]
     names = wavelength_channel_names(sim.L)
     # x L undoes the 1/L wavelength split of the launch budget
     # (eval.metrics.efficiencies semantics)
-    eff = {names[i]: float(per_cell[i].sum() / (sim.M * sim.N))
+    eff = {names[i]: float(per_colour[i] / (sim.M * sim.N))
            for i in range(sim.L)}
-    return dataclasses.replace(res, metrics=met, efficiencies=eff), mc_rows
+    return dataclasses.replace(res, metrics=met, efficiencies=eff,
+                               timings=timings), mc_rows
 
 
 def _run_norm(sim, res, rays_per_fov, num_iter) -> float:
@@ -133,9 +162,9 @@ def _run_norm(sim, res, rays_per_fov, num_iter) -> float:
 
 
 def _bulk_run(sim, rays_per_fov, num_iter, run_kw):
-    """The Monte-Carlo bulk run, its histogram kept on the device where the
-    engine can (persistent), metrics left to the splice."""
-    run_kw.setdefault("histogram_device", sim.engine == "persistent")
+    """The Monte-Carlo bulk run, its histogram kept on the device (unless
+    ``run_kw`` says otherwise), metrics left to the splice."""
+    run_kw.setdefault("histogram_device", True)
     run_kw["evaluate_metrics"] = False
     t0 = time.perf_counter()
     res = sim.run(rays_per_fov=rays_per_fov, num_iter=num_iter, **run_kw)
@@ -328,17 +357,21 @@ class TailBoostHybrid:
 
     # -- full hybrid run ----------------------------------------------------
     def run(self, rays_per_fov: Optional[int] = None,
-            num_iter: Optional[int] = None, **run_kw):
+            num_iter: Optional[int] = None, metrics_device: bool = False,
+            **run_kw):
         """Main Monte-Carlo run + tail splice -> (SimulationResult,
         HybridDiagnostics).  The tail (pilot + boost passes) is built once
         per design and reused across runs: it depends only on (design,
-        pilot seed)."""
+        pilot seed).  ``metrics_device``: splice and evaluate on the device
+        (:func:`_patched_result`); otherwise on the host, as the JAX
+        package does."""
         if self._tail is None:
             self.build_tail(rays_per_fov, num_iter, **dict(run_kw))
         selected, rows, sums, frag = self._tail
         res, norm, mc_s = _bulk_run(self.sim, rays_per_fov, num_iter, run_kw)
         res, mc_rows = _patched_result(
-            self.sim, res, norm, selected, rows, sums, self.eval_cfg)
+            self.sim, res, norm, selected, rows, sums, self.eval_cfg,
+            metrics_device)
         self.last_mc_rows = mc_rows
         self.last_selected = selected
         diags = HybridDiagnostics(
@@ -464,9 +497,10 @@ class ExactTailHybrid:
 
     def run(self, rays_per_fov: Optional[int] = None,
             num_iter: Optional[int] = None, exact_seed: int = 1_000_003,
-            **run_kw):
+            metrics_device: bool = False, **run_kw):
         """Monte-Carlo run + exact-tail splice -> (SimulationResult,
-        HybridDiagnostics)."""
+        HybridDiagnostics); ``metrics_device`` as in
+        :meth:`TailBoostHybrid.run`."""
         if self._exact is None:
             selected = self.select()
             t0 = time.perf_counter()
@@ -479,7 +513,8 @@ class ExactTailHybrid:
         selected, rows, sums, pruned, exact_s = self._exact
         res, norm, mc_s = _bulk_run(self.sim, rays_per_fov, num_iter, run_kw)
         res, mc_rows = _patched_result(
-            self.sim, res, norm, selected, rows, sums, self.eval_cfg)
+            self.sim, res, norm, selected, rows, sums, self.eval_cfg,
+            metrics_device)
         self.last_mc_rows = mc_rows
         self.last_selected = selected
         diags = HybridDiagnostics(

@@ -27,7 +27,7 @@ engines:
 
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device
-metrics (persistent engine), jackknife error bars over the iterations
+metrics (every engine), jackknife error bars over the iterations
 (persistent engine) and the dense eye-position metrics.  ``mesh=`` (a
 ``torch.distributed`` device mesh, :mod:`..parallel.shard`) shards the
 persistent engine's cell axis over the mesh's ranks.  The design
@@ -50,8 +50,8 @@ import torch
 from ..config import EvalConfig, TraceConfig, WaveguideDesign
 from ..design.geometry import DesignGeometry, generate_geometry
 from ..eval.metrics import (
-    EvalResult, efficiencies, evaluate, evaluate_dense, evaluate_torch,
-    eye_perceived_torch, wavelength_channel_names,
+    EvalResult, colorimetry_torch, efficiencies, evaluate, evaluate_dense,
+    eye_perceived_torch, result_to_host, wavelength_channel_names,
 )
 from ..luts.io import load_or_synthesize
 from ..luts.packing import build_cell_tables
@@ -477,14 +477,17 @@ class Simulator:
           same design and configuration; a resumed run is bit for bit an
           uninterrupted one.  A folded run is one iteration, saved at its
           end.
-        - ``histogram_device`` (persistent engine): keep the histogram on
-          the device.  Efficiencies come from per-colour device sums and
-          the metrics from the pupil-integrated stack
+        - ``histogram_device``: keep the histogram on the device.
+          Efficiencies come from per-colour float64 device sums and the
+          metrics from the pupil-integrated stack
           (:func:`eye_perceived_torch`), of which only (L, fy, fx, 7, 8) is
           pulled for the host colorimetry;
           ``metrics_device`` runs that colorimetry on the device too
-          (:func:`evaluate_torch`: float32, within ~1e-4 relative of the
-          host's; no eye-view image).
+          (:func:`evaluate_torch`: float32, the metrics within 1e-4
+          relative of the host's) and pulls two scalars, the (7, 8)
+          luminance grid and the (fy, fx, 3, 7, 8) eye-view image.  The JAX
+          package's device metrics return no image; these do, for the
+          5 MB pull.
         - ``error_groups`` (persistent engine, ``num_iter >= 2``; suspends
           folding): Monte-Carlo standard errors by a delete-one jackknife
           over the iterations, from one device perception per iteration.
@@ -494,21 +497,16 @@ class Simulator:
         The cell, vector and splitting engines run the general loop: every
         ray seeded anew (on the device under the default config, else on the
         host), the histogram a sum of per-batch deposits on the device,
-        pulled once; they keep the host tail
-        (``histogram_device``, ``metrics_device`` and ``error_groups`` raise
-        there).  The splitting engine's batches hold at most
-        ``SPLIT_SLOT_BUDGET`` wavefront slots.
+        pulled once unless ``histogram_device`` keeps it there
+        (``error_groups`` raises there).  The splitting engine's batches hold
+        at most ``SPLIT_SLOT_BUDGET`` wavefront slots.
         """
         rpf = rays_per_fov if rays_per_fov is not None else self.cfg.rays_per_fov
         iters = num_iter if num_iter is not None else self.cfg.num_iter
-        if self.engine != "persistent":
-            for flag, name in ((histogram_device, "histogram_device"),
-                               (metrics_device, "metrics_device"),
-                               (error_groups, "error_groups")):
-                if flag:
-                    raise ValueError(f"{name} belongs to the persistent "
-                                     f"engine; engine={self.engine!r} keeps "
-                                     "the host tail")
+        if self.engine != "persistent" and error_groups:
+            raise ValueError("error_groups belongs to the persistent engine "
+                             f"(engine={self.engine!r} traces each "
+                             "iteration's rays in batches, not as groups)")
         if metrics_device and not histogram_device:
             raise ValueError("metrics_device evaluates the device histogram: "
                              "pass histogram_device=True with it")
@@ -523,6 +521,7 @@ class Simulator:
             return self._run_general(rpf, iters, all_cells, cells_per_batch,
                                      evaluate_metrics, eval_cfg, verbose,
                                      checkpoint_path, checkpoint_every,
+                                     histogram_device, metrics_device,
                                      dense_metrics)
         if not error_groups and self._fold_iterations and iters > 1:
             rpf, iters = rpf * iters, 1
@@ -653,8 +652,12 @@ class Simulator:
               dense_metrics: bool, timings: dict, timer: EventTimer):
         """Efficiencies, metrics and dense metrics of a run's histogram:
         on the host for a numpy histogram, from device sums and the device
-        perception stack for a device one.  ``hist_dev`` is the histogram on
-        the device (the dense scan's input)."""
+        perception stack for a device one, with the colorimetry and the
+        eye-view image on the device too under ``metrics_device``.
+        ``hist_dev`` is the histogram on the device (the dense scan's
+        input).  Device spans ``perceive`` and ``colorimetry``; ``pull_s``
+        is the host clock around the pull of the stack (host colorimetry)
+        or of the metrics and image (device colorimetry)."""
         norm = actual_rpf * iters
         if isinstance(histogram, np.ndarray):
             eff = efficiencies(histogram, actual_rpf, iters)
@@ -675,7 +678,7 @@ class Simulator:
                 with timer.span("perceive"):
                     perc = eye_perceived_torch(histogram, eval_cfg)
                 if metrics_device:
-                    met = evaluate_torch(perc, eval_cfg, norm=norm)
+                    met = evaluate_on_device(perc, norm, timer, timings)
                 else:
                     tp = time.perf_counter()
                     perc = perc.cpu().numpy()
@@ -965,6 +968,7 @@ class Simulator:
                      cells_per_batch: int, evaluate_metrics: bool,
                      eval_cfg: EvalConfig, verbose: bool,
                      checkpoint_path: Optional[str], checkpoint_every: int,
+                     histogram_device: bool, metrics_device: bool,
                      dense_metrics: bool) -> SimulationResult:
         timings = {"seed_s": 0.0}
         timer = EventTimer(self.device)
@@ -976,7 +980,8 @@ class Simulator:
                    if checkpoint_path else None)
 
         t0 = time.perf_counter()
-        # the histogram accumulates on the device and is pulled once
+        # the histogram accumulates on the device and is pulled once, unless
+        # histogram_device keeps it there
         if resumed is not None:
             h0, start_iter, total_bounces, extras = resumed
             total_rays = extras.get("total_rays", 0)
@@ -1005,20 +1010,26 @@ class Simulator:
                                 it + 1, self.design, self.cfg, total_bounces,
                                 extras={"total_rays": total_rays})
         ta = time.perf_counter()
-        histogram = hist_dev.cpu().numpy()
+        if histogram_device:
+            histogram = hist_dev
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        else:
+            histogram = hist_dev.cpu().numpy()
+            if not dense_metrics:
+                del hist_dev
+                hist_dev = None
         total_bounces = int(total_bounces)
         deposits = None if deposits is None else int(deposits)
         trace_seconds = time.perf_counter() - t0
         timings["assemble_s"] = time.perf_counter() - ta
-        if not dense_metrics:
-            del hist_dev
-            hist_dev = None
 
         cells_traced = len(all_cells) * iters
         actual_rpf = total_rays / cells_traced if cells_traced else rpf
         eff, met, dense = self._tail(histogram, hist_dev, actual_rpf, iters,
-                                     evaluate_metrics, eval_cfg, False,
-                                     dense_metrics, timings, timer)
+                                     evaluate_metrics, eval_cfg,
+                                     metrics_device, dense_metrics, timings,
+                                     timer)
         timings.update((f"{k}_ms", v) for k, v in timer.ms().items())
         timings.update(self.stats)
         return SimulationResult(
@@ -1026,6 +1037,22 @@ class Simulator:
             rays_traced=total_rays, total_bounces=total_bounces,
             trace_seconds=trace_seconds, timings=timings, deposits=deposits,
             dense=dense)
+
+
+def evaluate_on_device(perc: torch.Tensor, norm: float, timer: EventTimer,
+                       timings: dict) -> EvalResult:
+    """:func:`evaluate_torch` with the eye-view image, in two timed steps:
+    the colorimetry of the (L, fy, fx, epy, epx) stack (device span
+    ``colorimetry``), then, after a synchronize, the pull of the metrics and
+    the image (host clock ``timings["pull_s"]``)."""
+    with timer.span("colorimetry"):
+        out = colorimetry_torch(perc, norm=norm, with_image=True)
+    if perc.is_cuda:   # pull_s times the copy alone
+        torch.cuda.synchronize(perc.device)
+    tp = time.perf_counter()
+    met = result_to_host(out, *perc.shape[3:])
+    timings["pull_s"] = time.perf_counter() - tp
+    return met
 
 
 def format_report(result: SimulationResult) -> str:

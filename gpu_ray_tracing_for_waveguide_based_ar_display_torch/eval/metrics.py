@@ -16,6 +16,7 @@ jnp functions: pupil integration (:func:`eye_perceived_torch`,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -94,6 +95,23 @@ def eye_perceived(matrix_eb: np.ndarray, cfg: EvalConfig) -> np.ndarray:
 # device metrics (plain PyTorch on the perception stack's device, float32)
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off for cuDNN convolutions and cuBLAS products inside the block,
+    each restored after it: on the card a float32 pupil sum or (3, 3) colour
+    product then rounds as in float32, as on the CPU (TF32 keeps 10 mantissa
+    bits and would move the eye-view image past its rtol 2e-3 bar)."""
+    keep = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = keep
+
+
 def pupil_conv(m: torch.Tensor, mask: torch.Tensor,
                stride: Tuple[int, int]) -> torch.Tensor:
     """Pupil-window integration over the trailing two (eyebox) axes.
@@ -101,17 +119,14 @@ def pupil_conv(m: torch.Tensor, mask: torch.Tensor,
     One VALID ``conv2d`` with the pupil disc as kernel; leading axes are
     flattened into the conv batch.  The counterpart of the JAX package's
     ``pupil_conv`` (one ``lax.conv_general_dilated``).  TF32 is off for the
-    call, so a float32 stack is summed in float32 on the card as well.
+    call (:func:`_no_tf32`), so a float32 stack is summed in float32 on the
+    card as well.
     """
     lead = tuple(m.shape[:-2])
     flat = m.reshape((-1, 1) + tuple(m.shape[-2:]))        # (B, 1, eby, ebx)
     kernel = mask.to(device=m.device, dtype=m.dtype)[None, None]
-    keep = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with _no_tf32():
         out = F.conv2d(flat, kernel, stride=tuple(stride))
-    finally:
-        torch.backends.cudnn.allow_tf32 = keep
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 
@@ -147,7 +162,8 @@ def _make_eval_core(with_image: bool):
     :func:`evaluate_batch`: (B, L, fy, fx, epy, epx) perception stacks ->
     dict of per-design tensors, in the stacks' dtype.  The same operations as
     the host :func:`evaluate` (and the JAX package's ``_make_eval_core``),
-    with a leading design axis in place of ``vmap``."""
+    with a leading design axis in place of ``vmap``; TF32 off
+    (:func:`_no_tf32`)."""
     white_linear = color.linearize_srgb(np.ones(3))
     drive = np.linalg.solve(DISPLAY_M, white_linear)
     lab_white = color.xyz_to_lab(color.D65_XYZ_100)
@@ -162,7 +178,8 @@ def _make_eval_core(with_image: bool):
         response = torch.flip(perc.permute(0, 2, 3, 1, 4, 5), dims=(3,))
         adjusted = const(drive)[None, None, None, :, None, None] * response
         ep = adjusted.permute(0, 4, 5, 1, 2, 3)      # (B, epy, epx, fy, fx, 3)
-        xyz = ep @ const(DISPLAY_M_XYZ.T)
+        with _no_tf32():   # cuBLAS
+            xyz = ep @ const(DISPLAY_M_XYZ.T)
         y_chan = xyz[..., 1]                          # (B, epy, epx, fy, fx)
         y_safe = torch.clamp(y_chan, min=1e-10)
         xyz_norm = xyz / y_safe[..., None] * 100.0
@@ -178,7 +195,8 @@ def _make_eval_core(with_image: bool):
         outs = {"delta_e": de.mean(dim=(1, 2, 3, 4)),
                 "ratio_sum": ratio.sum(dim=(1, 2)), "u_eb": u_eb}
         if with_image:
-            rgb_linear = torch.clamp(ep @ const(DISPLAY_M.T), 0.0, 1.0)
+            with _no_tf32():
+                rgb_linear = torch.clamp(ep @ const(DISPLAY_M.T), 0.0, 1.0)
             srgb = color.apply_srgb_gamma(rgb_linear, xp=torch)
             peak = srgb.amax(dim=(3, 4, 5), keepdim=True)
             normed = torch.where(peak > 0,
@@ -208,19 +226,36 @@ def _eval_result_from_out(out: dict, d: int, n_epy: int, n_epx: int,
     )
 
 
+def colorimetry_torch(perceive: torch.Tensor, norm: float = 1.0,
+                      with_image: bool = False) -> dict:
+    """The device half of :func:`evaluate_torch`: the colorimetry of a (L,
+    fy, fx, epy, epx) perception stack queued on its device, with no host
+    sync.  Returns the (1, ...) tensors ``delta_e``, ``ratio_sum``, ``u_eb``
+    and, with ``with_image``, the (1, fy, fx, 3, epy, epx) eye views
+    ``image``."""
+    return _make_eval_core(with_image)(perceive[None], _inv_norm(norm))
+
+
+def result_to_host(out: dict, n_epy: int, n_epx: int) -> "EvalResult":
+    """The host half of :func:`evaluate_torch`: pull the tensors of
+    :func:`colorimetry_torch` (two scalars, the (epy, epx) luminance grid and
+    the eye views when it made them) into an :class:`EvalResult`."""
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    return _eval_result_from_out(out, 0, n_epy, n_epx, "image" in out)
+
+
 def evaluate_torch(perceive: torch.Tensor, cfg: EvalConfig = EvalConfig(),
                    norm: float = 1.0, with_image: bool = False) -> "EvalResult":
     """Device-side :func:`evaluate` on a (L, fy, fx, epy, epx) perception
     stack, in the stack's dtype (float32 on the card): one host pull of two
     scalars and the (epy, epx) luminance grid (plus the eye views with
-    ``with_image``).  ``norm`` divides the stack as the host path's
-    ``perceive / rays``.  The counterpart of the JAX package's
-    ``evaluate_jnp``; values agree with the float64 host :func:`evaluate` to
-    float32 rounding."""
-    out = _make_eval_core(with_image)(perceive[None], _inv_norm(norm))
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    return _eval_result_from_out(out, 0, perceive.shape[3], perceive.shape[4],
-                                 with_image)
+    ``with_image``: 5 MB at the reference workload).  ``norm`` divides the
+    stack as the host path's ``perceive / rays``.  The counterpart of the
+    JAX package's ``evaluate_jnp``; values agree with the float64 host
+    :func:`evaluate` to float32 rounding (metrics within 1e-4 relative, the
+    image within rtol 2e-3, atol 1e-5)."""
+    return result_to_host(colorimetry_torch(perceive, norm, with_image),
+                          perceive.shape[3], perceive.shape[4])
 
 
 def evaluate_batch(perc_stack: torch.Tensor, norm: float = 1.0) -> list:
