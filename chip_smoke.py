@@ -132,6 +132,17 @@ Run from the repository root.  Phases:
    packed selection alone, and with packed selection and four cells per
    block, whose kept design must equal the one-cell-per-block run's bit for
    bit;
+19. the rows' kernel (``csrc/cell_rows.cu``, which builds the kernel
+   engines' cell rows of synthetic LUTs on the card) against its plain
+   PyTorch version on the card and the host pipeline (synthetic LUTs ->
+   cell tables -> rows), compared bitwise as int32 views: the reference
+   workload (22,500 cells, LUT seed 1234, the host route ``Simulator``
+   took), phase 6b's 16-design chunk (360,000 cells, 1.01 GB of rows) and
+   6c's 8-design chunk (180,000 cells) with its packed selection words;
+   the kernel's time (CUDA events, inputs on the card), the plain
+   version's, the bound (rows written and inputs read once at 3.35 TB/s,
+   or the float64 and float32 operations at 34 and 67 TFLOP/s), and the
+   seconds of the host inputs and of the host pipeline;
 11. the device tail and the run options at the reference workload's full
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
@@ -254,6 +265,13 @@ Run from the repository root.  Phases:
    every colour's efficiency finite, positive and within 2 % of phase 3b's
    (the same count spawn and cell seeds, other pupil points).
 
+Phases 3, 3b, 8, 10 and 14g print and record the ``Simulator``'s setup
+split (geometry, the rows' host inputs, their upload and launch with the
+kernel's CUDA-event time, trace geometry, the kernels' build), phases 6 and
+6c the sweep's prep split (``prep_geometry_s``, ``prep_host_rows_s``,
+``prep_rows_s`` with ``prep_rows_ms``, ``prep_tiles_s``); each run they
+count must have launched the rows' kernel once per ``Simulator`` or chunk.
+
 Phases 2, 3, 3b, 5, 6, 9, 10 and 6c also record the persistent kernel's
 live fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the
 share of slot-iterations that made a bounce (with transit jumps a skipped
@@ -298,10 +316,16 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                          f"{JAX_PACKAGE}/engine/trace_pallas_persistent.py:233"),
     "cell_trace": (f"{PORT}/csrc/cell_trace.cu",
                    f"{JAX_PACKAGE}/engine/trace_pallas.py:397"),
+    # port-side: the host numpy row pipeline it replaces has no TPU kernel
+    "cell_rows": (f"{PORT}/csrc/cell_rows.cu",
+                  f"{PORT}/luts/packing.py:127 build_cell_tables + "
+                  f"{PORT}/engine/trace_rows.py:79 build_kernel_cell_params "
+                  "(host numpy, no TPU counterpart)"),
 }
-# one NVIDIA H100 SXM (data sheet, 700 W): FP32 rate outside the tensor
-# cores and HBM rate, for the bounds of the kernel line
+# one NVIDIA H100 SXM (data sheet, 700 W): FP32 and FP64 rates outside the
+# tensor cores and HBM rate, for the bounds of the kernel line
 PEAK_FP32_OPS = 67e12
+PEAK_FP64_OPS = 34e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -545,6 +569,36 @@ def save_record(ctx) -> None:
         path = Path(ctx["record_path"])
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(ctx["record"], indent=2))
+
+
+def trace_launches(launches: dict) -> dict:
+    """The trace kernels' launch counts of ``launches`` (without the rows'
+    kernel, which a phase checks apart)."""
+    return {k: v for k, v in launches.items() if k != "cell_rows"}
+
+
+def rows_built(ctx, phase: str, launches: dict, want: int) -> None:
+    """Fails unless the rows' kernel launched ``want`` times in the counted
+    run of ``phase``; adds its launches to the kernel line's count."""
+    got = launches["cell_rows"]
+    if got != want:
+        fail(f"phase {phase}: {got} cell_rows launches, expected {want} "
+             "(the kernel engines' synthetic rows are built on the card)")
+    ctx["rows_launches"] = ctx.get("rows_launches", 0) + got
+
+
+def setup_text(sim) -> str:
+    """A Simulator's setup split: geometry, the rows' host inputs, their
+    upload and kernel (host seconds; the kernel's CUDA-event time), the
+    trace geometry and the kernels' build and bind."""
+    st = sim.setup_timings
+    return (f"setup {sim.setup_seconds:.3f} s [geometry "
+            f"{st.get('geometry_s', 0.0):.3f} s, host row inputs "
+            f"{st.get('host_rows_s', 0.0):.3f} s, rows upload + launch "
+            f"{st.get('rows_s', 0.0):.4f} s (kernel "
+            f"{st.get('rows_ms', float('nan')):.3f} ms), trace geometry "
+            f"{st.get('trace_geometry_s', 0.0):.3f} s, kernel build and bind "
+            f"{st.get('kernel_build_s', 0.0):.3f} s]")
 
 
 def phase1(ctx) -> None:
@@ -818,7 +872,7 @@ def main_path(ctx, phase: str, **sim_kw):
     print(pipeline.format_report(res))
     print(f"phase {phase}: {mode}, {n_cells} cells, {nominal} rays/cell in "
           f"{iters} launch(es) per batch: wall "
-          f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
+          f"{wall:.3f} s ({setup_text(sim)}), trace "
           f"{res.trace_seconds:.3f} s, kernel "
           f"{tm['kernel_ms']:.1f} ms, seeding (device hash) "
           f"{tm['seed_s']:.3f} s host, {tm['seed_ms']:.1f} ms device, "
@@ -832,7 +886,8 @@ def main_path(ctx, phase: str, **sim_kw):
         "spawn_mode": sim._spawn_mode,
         "fold_iterations": sim._fold_iterations,
         "cells": n_cells, "nominal_rays_per_cell": nominal, "wall_s": wall,
-        "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+        "setup_s": sim.setup_seconds, "setup_timings": sim.setup_timings,
+        "trace_s": res.trace_seconds,
         "timings": res.timings, "total_bounces": res.total_bounces,
         "bounces_per_s": res.bounces_per_second,
         "rays_traced": res.rays_traced, "efficiencies": res.efficiencies,
@@ -865,10 +920,12 @@ def main_path(ctx, phase: str, **sim_kw):
     if abs(got - want) > 1e-6 * want:
         fail(f"phase {phase}: histogram sum {got} vs efficiencies x rays "
              f"{want}")
-    if launches != {"persistent_trace": batches * iters, "cell_trace": 0}:
+    if trace_launches(launches) != {"persistent_trace": batches * iters,
+                                    "cell_trace": 0}:
         fail(f"phase {phase}: launches {launches}, expected one "
              f"persistent_trace per batch and iteration ({batches * iters}) "
-             "and no other kernel")
+             "and no other trace kernel")
+    rows_built(ctx, phase, launches, 1)
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
     return sim, res, launches["persistent_trace"], nominal
@@ -1029,8 +1086,8 @@ def phase5(ctx) -> None:
                        max_bounces=2048)
     designs5 = [dataclasses.replace(WaveguideDesign(), lambda_ic=p, lambda_oc=p)
                 for p in (370.0, 387.5, 405.0)]
-    rows5 = design_sweep.prepare_chunk(designs5, cfg5, 256)
-    inputs5 = (torch.from_numpy(rows5.cell_params).to(dev),
+    rows5 = design_sweep.prepare_chunk(designs5, cfg5, 256, device=dev)
+    inputs5 = (rows5.cell_params,
                torch.from_numpy(rows5.geom_rows).to(dev),
                torch.from_numpy(rows5.rays).to(dev),
                design_sweep.shared_seed_block(cfg5, 256, device=dev))
@@ -1121,6 +1178,7 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
     finally:
         tp.persistent_trace = trace
     n_launch = tp.launch_counts["persistent_trace"]
+    n_rows = tp.launch_counts["cell_rows"]
     peak6 = torch.cuda.max_memory_allocated()
     n_cells6 = len(designs) * 3 * cfg6.num_fov_x * cfg6.num_fov_y
     bounces6 = int(r6.bounces.sum())
@@ -1149,6 +1207,10 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
         "rays_per_fov": cfg6.rays_per_fov, "slots": slots6,
         "modes": {k: v for k, v in modes.items()},
         "wall_s": wall6, "host_prep_s": tm["prep_s"],
+        "prep": {k: tm[k] for k in ("prep_geometry_s", "prep_host_rows_s",
+                                    "prep_rows_s", "prep_rows_ms",
+                                    "prep_tiles_s")},
+        "rows_launches": n_rows,
         "seed_s": tm["seed_s"], "upload_s": tm["upload_s"],
         "keep_s": tm["keep_s"], "pull_s": tm["pull_s"],
         "metrics_s": tm.get("metrics_s"), "kernel_ms": tm["kernel_ms"],
@@ -1167,8 +1229,12 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
     ctx["record"].setdefault(phase, {})[name] = entry
     save_record(ctx)
     print(f"phase {phase[5:]} {name}: {len(designs)} designs, {n_cells6:,} "
-          f"cells in {n_launch} launch(es): wall {wall6:.3f} s (host prep "
-          f"{tm['prep_s']:.3f} s, seeds {tm['seed_s']:.3f} s, upload "
+          f"cells in {n_launch} launch(es): wall {wall6:.3f} s (prep "
+          f"{tm['prep_s']:.3f} s [geometry {tm['prep_geometry_s']:.3f} s, "
+          f"host row inputs {tm['prep_host_rows_s']:.3f} s, rows upload + "
+          f"launch {tm['prep_rows_s']:.4f} s (kernel "
+          f"{tm['prep_rows_ms']:.3f} ms), tiles {tm['prep_tiles_s']:.3f} s],"
+          f" seeds {tm['seed_s']:.3f} s, upload "
           f"{tm['upload_s']:.3f} s, kept histograms to the host "
           f"{tm['keep_s']:.3f} s, metrics "
           f"{tm.get('metrics_s', 0.0):.3f} s), kernel "
@@ -1192,6 +1258,7 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
         fail(f"phase {phase[5:]} {name}: non-finite metrics {mvals}")
     if n_launch != 1:
         fail(f"phase {phase[5:]} {name}: {n_launch} launches for one chunk")
+    rows_built(ctx, f"{phase[5:]} {name}", {"cell_rows": n_rows}, 1)
     return r6, entry, designs, cfg6, kw6
 
 
@@ -1492,7 +1559,8 @@ def phase8(ctx) -> None:
         entry = {
             "cells": n_cells, "rays_per_cell": cfg.rays_per_fov,
             "num_iter": iters, "segmented": segmented, "wall_s": wall,
-            "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+            "setup_s": sim.setup_seconds, "setup_timings": sim.setup_timings,
+            "trace_s": res.trace_seconds,
             "timings": tm, "total_bounces": res.total_bounces,
             "bounces_per_s": res.bounces_per_second,
             "kernel_bounces_per_s": res.total_bounces / kernel_s,
@@ -1506,7 +1574,7 @@ def phase8(ctx) -> None:
         print(pipeline.format_report(res))
         print(f"phase 8 {name}: {n_cells} cells x {cfg.rays_per_fov} rays, "
               f"num_iter {iters} of the workload's {cfg.num_iter}: wall "
-              f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s), trace "
+              f"{wall:.3f} s ({setup_text(sim)}), trace "
               f"{res.trace_seconds:.3f} s, seeding {tm['seed_s']:.3f} s host, "
               f"{tm.get('seed_ms', float('nan')):.1f} ms device, "
               f"kernel {tm['kernel_ms']:.1f} ms, compaction "
@@ -1545,6 +1613,7 @@ def phase8(ctx) -> None:
                         else n_launch == batches)
         if launches["persistent_trace"] or not as_scheduled:
             fail(f"phase 8 {name}: launches {launches} for {batches} batches")
+        rows_built(ctx, f"8 {name}", launches, 1)
         ref = ctx.get("default_efficiencies")
         if ref is not None:
             # reported, and held to 10 % (the efficiency bar holds phase 3
@@ -1842,9 +1911,12 @@ def phase10(ctx) -> None:
         if abs(got - want) > 1e-6 * want:
             fail(f"phase 10 {name}: histogram sum {got} vs efficiencies x "
                  f"rays {want}")
-        if launches != {"persistent_trace": batches, "cell_trace": 0}:
+        if trace_launches(launches) != {"persistent_trace": batches,
+                                        "cell_trace": 0}:
             fail(f"phase 10 {name}: launches {launches}, expected one "
-                 f"persistent_trace per batch ({batches}) and no other kernel")
+                 f"persistent_trace per batch ({batches}) and no other "
+                 "trace kernel")
+        rows_built(ctx, f"10 {name}", launches, 1)
         if max(abs(r) for r in rel.values()) > 0.05:
             fail(f"phase 10 {name}: efficiencies {res.efficiencies} are not "
                  f"within 5 % of the exact mode's {exact['efficiencies']}")
@@ -2563,7 +2635,8 @@ def phase14(ctx) -> None:
           f"{launches}")
     faults = []
     want = 2 * batches + sum(d.tier_launches.values())
-    if launches != {"persistent_trace": want, "cell_trace": 0}:
+    if trace_launches(launches) != {"persistent_trace": want,
+                                    "cell_trace": 0}:
         faults.append(f"launches {launches}, expected {want} persistent")
     if not met.starved_eye_positions < before:
         faults.append(f"starved eye positions {before} -> "
@@ -2687,7 +2760,8 @@ def phase14g(ctx) -> None:
         tail_rays=d.tail_rays, max_tail_iterations=d.max_tail_iterations,
         tail_cells_at_cap=d.tail_cells_at_cap, iteration_cap=cfg.max_bounces,
         pilot_s=d.pilot_seconds, tail_s=d.tail_seconds, bulk_s=d.mc_seconds,
-        wall_s=wall, setup_s=sim.setup_seconds, launches=launches,
+        wall_s=wall, setup_s=sim.setup_seconds,
+        setup_timings=sim.setup_timings, launches=launches,
         starved_before=before, starved_after=met.starved_eye_positions,
         efficiencies=res.efficiencies, delta_e=met.delta_e, u_fov=met.u_fov,
         u_eyebox=met.u_eyebox, peak_bytes=torch.cuda.max_memory_allocated(),
@@ -2707,10 +2781,11 @@ def phase14g(ctx) -> None:
           f"{tail_text(res.timings)}, wall {wall:.3f} s; starved eye "
           f"positions {before} -> {met.starved_eye_positions}; u_eyebox "
           f"{met.u_eyebox:.5f}, delta E {met.delta_e:.4f}; launches "
-          f"{launches}")
+          f"{launches}; the bulk Simulator's {setup_text(sim)}")
     faults = []
     want = 2 * batches + sum(d.tier_launches.values())
-    if launches != {"persistent_trace": want, "cell_trace": 0}:
+    if trace_launches(launches) != {"persistent_trace": want,
+                                    "cell_trace": 0}:
         faults.append(f"launches {launches}, expected {want} persistent")
     if met.starved_eye_positions > before:
         faults.append(f"starved eye positions {before} -> "
@@ -2783,7 +2858,8 @@ def phase14b(ctx) -> None:
     faults = []
     # the bulk run, as simulate runs it: one launch per batch and iteration
     bulk = math.ceil(n_cells / 2048) * run_shape(sim)[1]
-    if launches != {"persistent_trace": bulk, "cell_trace": 0}:
+    if trace_launches(launches) != {"persistent_trace": bulk,
+                                    "cell_trace": 0}:
         faults.append(f"launches {launches}, expected {bulk}")
     if not (d.selected_cells and met.starved_eye_positions <= before):
         faults.append(f"starved {before} -> {met.starved_eye_positions} "
@@ -3339,19 +3415,141 @@ def phase18(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_native_launches"] = launches
 
+# float64 operations of one (branch, cell) item of the rows' kernel: the
+# scale (2 multiplies, a division, a square root) and eight real-times-
+# complex products of 6 operations; float32 operations of a cell's scalar
+# columns
+ROWS_F64_OPS = 4 + 8 * 6
+ROWS_F32_OPS = 14
+
+
+def phase19(ctx) -> None:
+    """The rows' kernel against its plain version and the host pipeline."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        WaveguideDesign,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        cell_rows as cr, trace_rows,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables, build_cell_tables_synthetic_batch,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.synthetic import (
+        make_synthetic_luts,
+    )
+
+    dev = ctx["dev"]
+    bins = (80, 120)
+    seed = 1234   # simulate's (--seed 0) and the sweeps' LUT seed
+    g = generate_geometry(WaveguideDesign(), 100, 75)
+    cases = [("reference", [g], g.eyebox_range, lambda: (
+        trace_rows.build_kernel_cell_params(
+            build_cell_tables(g, make_synthetic_luts(g, seed=seed)),
+            g.eyebox_range, bins)), False)]
+    for name, argv, packed in (
+            ("6b", ["sweep", "--num-designs", "16", "--spawn-mode", "count",
+                    "--spawn-iters", "0", "--rays-per-fov", "2048"], False),
+            ("6c", ["sweep"], True)):
+        sargs = cli.build_parser().parse_args(argv)
+        designs, _ = cli.sweep_designs(sargs)
+        cfg = cli.sweep_config(sargs)
+        geoms = [generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y)
+                 for d in designs]
+        eb = np.stack([x.eyebox_range for x in geoms])
+        cases.append((name, geoms, eb, lambda geoms=geoms, eb=eb: (
+            trace_rows.build_kernel_cell_params(
+                build_cell_tables_synthetic_batch(geoms, seed=seed), eb,
+                bins)), packed))
+    modes = []
+    rec = ctx["record"].setdefault("phase19", {})
+    for name, geoms, eb, host_build, packed in cases:
+        t0 = time.perf_counter()
+        host = host_build()
+        host_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inputs = cr.synthetic_row_inputs(geoms, seed=seed, pinned=True)
+        inputs_s = time.perf_counter() - t0
+        args = cr.upload_inputs(inputs, eb, dev)
+        rows = cr.launch_rows(args, inputs, bins)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: cr.launch_rows(args, inputs, bins), 10)
+        plain = cr.cell_rows_reference(inputs, eb, bins, dev)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(
+            lambda: cr.cell_rows_reference(inputs, eb, bins, dev), 1)
+        same_plain = bool(torch.equal(rows.view(torch.int32),
+                                      plain.view(torch.int32)))
+        diff = (rows - plain).abs()
+        max_abs = float(torch.where(torch.isnan(diff), 0.0, diff).max())
+        del plain, diff
+        rows_h = rows.cpu().numpy()
+        same_host = bool(np.array_equal(rows_h.view(np.int32),
+                                        host.view(np.int32)))
+        max_abs = max(max_abs, float(np.nanmax(np.abs(rows_h - host))))
+        n = rows.shape[0]
+        nbytes = rows.numel() * 4 + sum(a.numel() * a.element_size()
+                                        for a in args)
+        t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+        t_ops = (len(inputs.table) * n * ROWS_F64_OPS / PEAK_FP64_OPS
+                 + n * ROWS_F32_OPS / PEAK_FP32_OPS) * 1e3
+        entry = {"name": name, "designs": inputs.D, "cells": n,
+                 "rows_bytes": rows.numel() * 4, "input_bytes":
+                 nbytes - rows.numel() * 4, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                 "max_abs_err": max_abs, "identical_plain": same_plain,
+                 "identical_host": same_host, "host_pipeline_s": host_s,
+                 "host_inputs_s": inputs_s}
+        words = ""
+        if packed:
+            nf, no = inputs.num_fc, inputs.num_oc
+            got = trace_rows.pack_selection_params(rows, nf, no).cpu().numpy()
+            entry["identical_packed"] = bool(np.array_equal(
+                got, trace_rows.pack_selection_params(host, nf, no)))
+            words = (f"; packed words {got.shape} "
+                     f"{'identical' if entry['identical_packed'] else 'DIFFER'}")
+        rec[name] = entry
+        modes.append(entry)
+        save_record(ctx)
+        print(f"phase 19 {name}: {inputs.D} design(s), {n:,} cell rows "
+              f"({rows.numel() * 4 / 1e6:.1f} MB, inputs "
+              f"{entry['input_bytes'] / 1e6:.1f} MB): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+              f"({entry['bound_by']}); host inputs {inputs_s:.3f} s, host "
+              f"pipeline {host_s:.3f} s; kernel = plain "
+              f"{same_plain}, kernel = host {same_host}, max |diff| "
+              f"{max_abs}{words}")
+        if not (same_plain and same_host and entry.get("identical_packed",
+                                                       True)):
+            fail(f"phase 19 {name}: the rows' kernel disagrees (plain "
+                 f"{same_plain}, host {same_host}, packed "
+                 f"{entry.get('identical_packed')}, max |diff| {max_abs})")
+        del rows, rows_h, host, args, inputs
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+    ctx["rows_modes"] = modes
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c, "11": phase11, "12": phase12, "13": phase13,
+          "6c": phase6c, "19": phase19, "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
 
 
 def kernel_line(ctx) -> dict:
     """The kernels' summary; a kernel's headline numbers are those of the
-    main path's mode: gens spawn (phase 2's first mode), and full mode with
-    the whole budget."""
+    main path's mode: gens spawn (phase 2's first mode), full mode with
+    the whole budget, and the rows of the reference workload (phase 19's
+    first case)."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
@@ -3372,6 +3570,15 @@ def kernel_line(ctx) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "modes": modes})
+    rows = ctx["rows_modes"]
+    source, replaces = KERNELS["cell_rows"]
+    out.append({
+        "name": "cell_rows", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": ctx["rows_launches"],
+        "max_abs_err": max(m["max_abs_err"] for m in rows),
+        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
+        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
+        "library_ms": None, "modes": rows})
     return {"kernels": out}
 
 

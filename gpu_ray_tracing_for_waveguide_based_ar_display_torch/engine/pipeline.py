@@ -32,9 +32,10 @@ metrics (every engine), jackknife error bars over the iterations
 ``torch.distributed`` device mesh, :mod:`..parallel.shard`) shards the
 persistent engine's cell axis over the mesh's ranks.  The design
 geometry, LUTs, cell tables, trace geometry and host metrics are the port's
-own copies of the JAX package's numpy modules; the trace, seed hashing and
-device tail run on ``device``: the CUDA kernels on a GPU, their plain
-PyTorch versions on the CPU.
+own copies of the JAX package's numpy modules; the kernel engines' rows of
+synthetic LUTs (:mod:`.cell_rows`), the trace, seed hashing and device tail
+run on ``device``: the CUDA kernels on a GPU, their plain PyTorch versions
+on the CPU.
 """
 
 from __future__ import annotations
@@ -53,12 +54,15 @@ from ..eval.metrics import (
     EvalResult, colorimetry_torch, efficiencies, evaluate, evaluate_dense,
     eye_perceived_torch, result_to_host, wavelength_channel_names,
 )
-from ..luts.io import load_or_synthesize
+from ..luts.io import load_or_synthesize, luts_available
 from ..luts.packing import build_cell_tables
 from ..luts.schema import RcwaLuts
 from ..parallel import shard
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
-from . import seeding, splitting, trace_cell, trace_persistent, trace_rows
+from . import (
+    build, cell_rows, seeding, splitting, trace_cell, trace_persistent,
+    trace_rows,
+)
 from . import trace_vector
 from .device import resolve_device
 from .cell_segments import SegmentedCellTracer
@@ -66,6 +70,29 @@ from .timing import EventTimer
 from .trace_cell import CellTracer
 from .trace_geometry import build_trace_geometry
 from .trace_persistent import PersistentTracer, hist_tiles_to_histogram
+
+
+class _HostTables:
+    """A Simulator's host LUTs and cell tables, each built at first read and
+    kept; shared by shallow copies of the Simulator (the hybrids' pilot), so
+    they build once."""
+
+    def __init__(self, geom: DesignGeometry, luts: Optional[RcwaLuts],
+                 luts_dir: Optional[str], seed: int):
+        self.geom, self.luts_dir, self.seed = geom, luts_dir, seed
+        self._luts, self._tables = luts, None
+
+    def luts(self) -> RcwaLuts:
+        if self._luts is None:
+            self._luts = load_or_synthesize(self.geom, directory=self.luts_dir,
+                                            seed=self.seed)
+        return self._luts
+
+    def tables(self):
+        if self._tables is None:
+            self._tables = build_cell_tables(self.geom, self.luts())
+        return self._tables
+
 
 ENGINES = ("persistent", "cell", "vector", "splitting")
 KERNEL_ENGINES = ("persistent", "cell")   # the engines that run a CUDA kernel
@@ -222,16 +249,29 @@ class Simulator:
                              f"device {self.device}")
         self.design = design
         self.cfg = cfg
+        st = self.setup_timings = {}
+        t1 = time.perf_counter()
         self.geom = geom if geom is not None else generate_geometry(
             design, cfg.num_fov_x, cfg.num_fov_y)
-        self.luts = luts if luts is not None else load_or_synthesize(
-            self.geom, directory=luts_dir, seed=cfg.seed + 1234)
-        self.tables = build_cell_tables(self.geom, self.luts)
+        st["geometry_s"] = time.perf_counter() - t1
+        synthetic = luts is None and not (luts_dir is not None
+                                          and luts_available(luts_dir))
+        self._host = _HostTables(self.geom, luts, luts_dir, cfg.seed + 1234)
+        # the kernel engines build synthetic rows from host inputs
+        # (engine/cell_rows.py: the CUDA kernel on a GPU); every other route
+        # reads host LUTs and tables, built (and real LUTs validated) here
+        device_rows = synthetic and engine in KERNEL_ENGINES
+        if not device_rows:
+            t1 = time.perf_counter()
+            self._host.tables()
+            st["host_tables_s"] = time.perf_counter() - t1
         if geometry_simplify_tol == 0.0 and engine in KERNEL_ENGINES:
             # the kernels hold regions as <= MAX_EDGES half-planes
             geometry_simplify_tol = 0.05
+        t1 = time.perf_counter()
         self.tgeom = build_trace_geometry(self.geom,
                                           simplify_tol=geometry_simplify_tol)
+        st["trace_geometry_s"] = time.perf_counter() - t1
         self.L, self.M, self.N = self.geom.th_out_ic.shape
         self._persistent_slots = int(persistent_slots)
         self._segmented = bool(segmented)
@@ -262,14 +302,62 @@ class Simulator:
             self.split_out_coupled = 0.0
             self.split_peak_live = 0
         else:
-            self._build_kernel_tracer(engine, cfg, pers_accum_mode,
-                                      pers_transit_jump, pers_jump_phase)
+            timer = self._build_kernel_tracer(
+                engine, cfg, pers_accum_mode, pers_transit_jump,
+                pers_jump_phase, device_rows)
+            if self.device.type == "cuda":
+                # the rows' upload and kernel end inside setup, never in run()
+                torch.cuda.synchronize(self.device)
+                st.update((f"{k}_ms", v) for k, v in timer.ms().items())
         self.setup_seconds = time.perf_counter() - t0
 
+    @property
+    def luts(self) -> RcwaLuts:
+        """The design's LUTs (host, complex128): as given, loaded from
+        ``luts_dir``, or synthesized at first read."""
+        return self._host.luts()
+
+    @property
+    def tables(self):
+        """The design's host cell tables (:class:`..luts.packing.CellTables`),
+        built at first read; the kernel engines on synthetic LUTs never read
+        them."""
+        return self._host.tables()
+
     def _build_kernel_tracer(self, engine, cfg, pers_accum_mode,
-                             pers_transit_jump, pers_jump_phase) -> None:
-        cp = trace_rows.build_kernel_cell_params(
-            self.tables, self.geom.eyebox_range, eyebox_bins=cfg.eyebox_bins)
+                             pers_transit_jump, pers_jump_phase,
+                             device_rows: bool) -> EventTimer:
+        """Bind the kernel engine's tracer to this design's rows; returns
+        the timer of the rows' kernel (span ``"rows"``)."""
+        st = self.setup_timings
+        timer = EventTimer(self.device)
+        on_gpu = self.device.type == "cuda"
+        if on_gpu:
+            # build and bind the engine's kernel (and the rows' kernel) here,
+            # so nvcc counts as setup and never falls inside a timed run();
+            # one nvcc process per source, side by side
+            t1 = time.perf_counter()
+            kernel = "persistent_trace" if engine == "persistent" else "cell_trace"
+            build.build_all([kernel] + (["cell_rows"] if device_rows else []))
+            (trace_persistent if engine == "persistent"
+             else trace_cell).load_kernel()
+            if device_rows:
+                cell_rows.load_kernel()
+            st["kernel_build_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        if device_rows:
+            inputs = cell_rows.synthetic_row_inputs(
+                [self.geom], seed=self._host.seed, pinned=on_gpu)
+            st["host_rows_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            cp = cell_rows.cell_rows(inputs, self.geom.eyebox_range,
+                                     cfg.eyebox_bins, self.device, timer)
+            st["rows_s"] = time.perf_counter() - t1
+        else:
+            cp = trace_rows.build_kernel_cell_params(
+                self.tables, self.geom.eyebox_range,
+                eyebox_bins=cfg.eyebox_bins)
+            st["host_rows_s"] = time.perf_counter() - t1
         gr = trace_rows.build_kernel_geom(self.tgeom)
         kw = dict(num_fc=self.tgeom.num_fc, num_oc=self.tgeom.num_oc,
                   edge_counts=trace_rows.edge_counts(self.tgeom),
@@ -287,11 +375,7 @@ class Simulator:
                     max_bounces=cfg.max_bounces,
                     segment_bounces=self._segment_bounces,
                     hist_dims=(self.L, self.M, self.N), **kw)
-        if self.device.type == "cuda":
-            # build and bind the engine's kernel here, so nvcc counts as
-            # setup and never falls inside a timed run()
-            (trace_persistent if engine == "persistent"
-             else trace_cell).load_kernel()
+        return timer
 
     # ------------------------------------------------------------------
     def _slots_gens(self, rays_per_cell: int):

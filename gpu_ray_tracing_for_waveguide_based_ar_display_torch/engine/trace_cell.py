@@ -372,9 +372,10 @@ def deposits_to_histogram_cells(dep: torch.Tensor, cell_ids, L: int, M: int,
 
 class CellTracer(nn.Module):
     """The per-cell trace bound to one design: cell rows and the geometry
-    row held as buffers on the module's device."""
+    row held as buffers on the module's device.  ``cell_params`` is an array
+    or a tensor (rows built on the card stay there)."""
 
-    def __init__(self, cell_params: np.ndarray, geom_row: np.ndarray, *,
+    def __init__(self, cell_params, geom_row: np.ndarray, *,
                  num_fc: int, num_oc: int, edge_counts: Sequence[int],
                  eyebox_bins: Sequence[int], max_bounces: int):
         super().__init__()

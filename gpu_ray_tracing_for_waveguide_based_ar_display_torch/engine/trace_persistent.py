@@ -109,7 +109,7 @@ _STATIC_SMEM = -(-(8 * 4 * MAX_CPB + 8) // 16) * 16
 
 # kernel launches by wrapper name; the wrapper adds one per launch and
 # nothing else touches it except reset_launch_counts
-launch_counts = {"persistent_trace": 0, "cell_trace": 0}
+launch_counts = {"persistent_trace": 0, "cell_trace": 0, "cell_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -883,9 +883,10 @@ def persistent_trace_reference(cell_params, geom_row, rays_in, rng_in, ctrl, *,
 class PersistentTracer(nn.Module):
     """The persistent trace bound to one design: cell rows, the geometry row
     and, in packed selection, the packed words, held as buffers on the
-    module's device."""
+    module's device.  ``cell_params`` is an array or a tensor (rows built on
+    the card stay there)."""
 
-    def __init__(self, cell_params: np.ndarray, geom_row: np.ndarray, *,
+    def __init__(self, cell_params, geom_row: np.ndarray, *,
                  num_fc: int, num_oc: int, edge_counts: Sequence[int],
                  eyebox_bins: Sequence[int], max_iters: int,
                  accum_mode: str = "fma", transit_jump: bool = False,
@@ -894,10 +895,9 @@ class PersistentTracer(nn.Module):
         cp, gr = rows_to_device(cell_params, geom_row, "cpu")
         self.register_buffer("cell_params", cp)
         self.register_buffer("geom_row", gr)
-        # the packed words are built once, here
-        self.register_buffer("cell_params_packed", torch.from_numpy(
-            pack_selection_params(cell_params, num_fc, num_oc))
-            if accum_mode == "packed" else None)
+        # the packed words are built once, here, where the rows are
+        self.register_buffer("cell_params_packed", pack_selection_params(
+            cp, num_fc, num_oc) if accum_mode == "packed" else None)
         self.num_fc, self.num_oc = int(num_fc), int(num_oc)
         self.edge_counts = tuple(int(e) for e in edge_counts)
         self.eyebox_bins = tuple(int(b) for b in eyebox_bins)

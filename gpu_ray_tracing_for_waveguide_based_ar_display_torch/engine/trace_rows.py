@@ -159,8 +159,7 @@ def selection_row_offsets(num_fc: int, num_oc: int):
     return rows
 
 
-def pack_selection_params(cell_params: np.ndarray, num_fc: int,
-                          num_oc: int) -> np.ndarray:
+def pack_selection_params(cell_params, num_fc: int, num_oc: int):
     """The selection records rounded to bfloat16 (to nearest, ties to even)
     and packed two per word: ``(C, (1 + num_fc + num_oc) * 25)`` int32, what
     ``accum_mode="packed"`` reads in place of the float32 records.
@@ -169,16 +168,22 @@ def pack_selection_params(cell_params: np.ndarray, num_fc: int,
     in bits 16-31: words 0-3 branch A | bit 0, 4-7 B | bit 0, 8-11 A | bit 1,
     12-15 B | bit 1, 16 ``(s_a, s_b)``, 17-20 branch C | bit 0, 21-24 C |
     bit 1 (zero on IC and FC records).  Widening a half back by a 16-bit
-    shift gives the float32 value of the rounded parameter."""
+    shift gives the float32 value of the rounded parameter.  Rows given as
+    a tensor give a tensor on their device (torch rounds to bfloat16 to
+    nearest, ties to even, on the CPU and on the card alike); rows given as
+    an array give an array."""
     rows = selection_row_offsets(num_fc, num_oc)
     # one gather over the rows and one zero column (the IC / FC records'
     # branch C), then neighbouring bfloat16 pairs are the little-endian words
     offs = torch.tensor([o + (q if q is not None else [PC] * (SEL_W - 34))
                          for _, o, q in rows]).reshape(-1)
-    cp = torch.from_numpy(np.ascontiguousarray(cell_params, np.float32))
+    as_tensor = isinstance(cell_params, torch.Tensor)
+    cp = (cell_params.float().contiguous() if as_tensor else
+          torch.from_numpy(np.ascontiguousarray(cell_params, np.float32)))
     vals = torch.cat([cp, cp.new_zeros((cp.shape[0], 1))], dim=1)
-    halves = vals.index_select(1, offs).to(torch.bfloat16).view(torch.int16)
-    return halves.numpy().view("<u4").view(np.int32)
+    halves = vals.index_select(1, offs.to(cp.device)).to(torch.bfloat16)
+    words = halves.view(torch.int16).view(torch.int32)
+    return words if as_tensor else words.numpy()
 
 
 def _hp_from_existing(hp: np.ndarray) -> np.ndarray:
@@ -252,16 +257,20 @@ def pack_ray_blocks(batch: dict, n_cells: int, rays_per_cell: int,
     return rays_in.reshape(C, 6, rt, LANES), rng_in.reshape(C, rt, LANES)
 
 
-def rows_to_device(cell_params: np.ndarray, geom_row: np.ndarray,
+def rows_to_device(cell_params, geom_row,
                    device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cell rows (C, PC) and geometry row ((PG,) or (1, PG)) as float32
     tensors on ``device``, values unchanged (the JAX package's rows carry
-    across as they are)."""
-    cp = np.ascontiguousarray(cell_params, np.float32)
+    across as they are); rows already a tensor stay where they are."""
+    if isinstance(cell_params, torch.Tensor):
+        cp = cell_params.float().contiguous()
+    else:
+        cp = torch.from_numpy(np.ascontiguousarray(cell_params,
+                                                   np.float32)).to(device)
     gr = np.ascontiguousarray(geom_row, np.float32).reshape(1, PG)
     if cp.ndim != 2 or cp.shape[1] != PC:
-        raise ValueError(f"cell rows must be (C, {PC}), got {cp.shape}")
-    return (torch.from_numpy(cp).to(device), torch.from_numpy(gr).to(device))
+        raise ValueError(f"cell rows must be (C, {PC}), got {tuple(cp.shape)}")
+    return cp, torch.from_numpy(gr).to(device)
 
 
 def blocks_to_device(rays_in: np.ndarray, rng_in: np.ndarray,

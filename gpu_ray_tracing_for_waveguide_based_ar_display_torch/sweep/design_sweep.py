@@ -4,9 +4,10 @@ Port of ``sweep/design_sweep.py`` of the JAX package.
 :func:`run_design_sweep` (its ``run_design_sweep``) traces every design's
 rays in one vector trace whose leading axis is the design
 (:mod:`..engine.trace_vector`).  :func:`run_design_sweep_persistent`:
-each candidate design's geometry and tables are built on the host,
+each candidate design's geometry is built on the host,
 the designs of a chunk are stacked along the cell axis (D contiguous runs of
-L*M*N cells, one geometry row per design), and ONE launch of
+L*M*N cells, one geometry row per design; their rows built on the device by
+:mod:`..engine.cell_rows`), and ONE launch of
 :func:`..engine.trace_persistent.persistent_trace` traces the whole chunk on
 the device: the CUDA kernel on a GPU, its plain PyTorch version on the CPU.
 Efficiencies, bounces and (optionally) the display metrics reduce on the
@@ -27,12 +28,14 @@ import torch
 
 from ..config import EvalConfig, TraceConfig, WaveguideDesign
 from ..design.geometry import generate_geometry
-from ..engine import seeding, trace_persistent, trace_rows, trace_vector
+from ..engine import (
+    build, cell_rows, seeding, trace_persistent, trace_rows, trace_vector,
+)
 from ..engine.device import resolve_device
 from ..engine.timing import EventTimer
 from ..engine.trace_geometry import build_trace_geometry
 from ..eval.metrics import evaluate_batch, pupil_conv, pupil_mask
-from ..luts.packing import build_cell_tables, build_cell_tables_synthetic_batch
+from ..luts.packing import build_cell_tables
 from ..luts.synthetic import make_synthetic_luts
 from ..parallel import shard
 
@@ -165,42 +168,66 @@ def run_design_sweep(
 
 @dataclasses.dataclass
 class ChunkRows:
-    """Host inputs of one launch over a chunk of ``nd`` designs."""
+    """Inputs of one launch over a chunk of ``nd`` designs."""
     tgeoms: list                 # TraceGeometry per design
-    cell_params: np.ndarray      # (nd * n_cells, PC) float32
+    cell_params: torch.Tensor    # (nd * n_cells, PC) float32, on the device
     geom_rows: np.ndarray        # (nd, PG) float32
     rays: np.ndarray             # (nd or nd * n_cells, 6, RT, 128) float32
     rng: Optional[np.ndarray]    # (nd * n_cells, RT, 128) uint32; None: shared
     edge_counts: tuple           # the chunk's largest (hull, r1, r2) counts
-    # (nd * n_cells, records * 25) int32 packed selection words, or None
-    cell_params_packed: Optional[np.ndarray] = None
+    # (nd * n_cells, records * 25) int32 packed selection words on the
+    # device, or None
+    cell_params_packed: Optional[torch.Tensor] = None
+    # host seconds of the prep's parts: geometry_s (geometry and trace
+    # geometry), host_rows_s (the rows' host inputs), rows_s (their upload
+    # and launch, or the plain version on the CPU), tiles_s (launch tiles)
+    timings: dict = dataclasses.field(default_factory=dict)
+    # on a GPU, the device time of the rows' kernel (span "rows")
+    timer: Optional[EventTimer] = None
 
 
 def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
                   slots: int, lut_seed: int = 1234,
                   shared: bool = True, packed: bool = False,
-                  cells_per_block: int = 1) -> ChunkRows:
-    """Host rows and launch tiles of one design chunk.
+                  cells_per_block: int = 1, device="cuda") -> ChunkRows:
+    """Rows and launch tiles of one design chunk.
 
-    Geometry and trace geometry per design; the synthetic LUT -> cell table
-    -> kernel row pipeline once over the chunk's design axis.  ``shared``:
-    one (6, RT, 128) launch tile per design (reused while the in-coupler
-    polygon is unchanged) and no seeds (the launch takes
-    :func:`shared_seed_block`); else every cell's tile and seeds, built on
-    the host.  Edge counts are the chunk's largest: a design's padding
-    half-planes are always true, so its cells see the same regions as in a
-    solo run.  ``packed`` adds the packed selection words;
-    ``cells_per_block = k`` (shared only) repeats each design's tile k times
-    along its rows, one run of ``slots`` slots per cell of a block."""
+    Geometry and trace geometry per design; the kernel rows of the chunk's
+    synthetic LUTs on ``device`` (the card unless the caller asks for the
+    CPU) from host inputs computed once over the chunk's design axis
+    (:mod:`..engine.cell_rows`: the CUDA kernel on a GPU, its plain version
+    on the CPU; bitwise the host synthetic-LUT -> cell table -> row
+    pipeline).  ``shared``: one (6, RT, 128) launch tile per design (reused
+    while the in-coupler polygon is unchanged) and no seeds (the launch
+    takes :func:`shared_seed_block`); else every cell's tile and seeds,
+    built on the host.  Edge counts are the chunk's largest: a design's
+    padding half-planes are always true, so its cells see the same regions
+    as in a solo run.  ``packed`` adds the packed selection words, on the
+    device; ``cells_per_block = k`` (shared only) repeats each design's tile
+    k times along its rows, one run of ``slots`` slots per cell of a
+    block."""
+    dev = resolve_device(device)
+    timings = {}
+    t0 = time.perf_counter()
     rt = slots // trace_rows.LANES
     n_cells = 3 * cfg.num_fov_x * cfg.num_fov_y
     geoms = [generate_geometry(d, cfg.num_fov_x, cfg.num_fov_y) for d in designs]
     tgs = [build_trace_geometry(g, simplify_tol=0.05) for g in geoms]
-    tables = build_cell_tables_synthetic_batch(geoms, seed=lut_seed)
-    cp = trace_rows.build_kernel_cell_params(
-        tables, np.stack([g.eyebox_range for g in geoms]),
-        eyebox_bins=cfg.eyebox_bins)
     grs = np.stack([trace_rows.build_kernel_geom(tg) for tg in tgs])
+    timings["geometry_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inputs = cell_rows.synthetic_row_inputs(geoms, seed=lut_seed,
+                                            pinned=dev.type == "cuda")
+    timings["host_rows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timer = EventTimer(dev)
+    cp = cell_rows.cell_rows(inputs, np.stack([g.eyebox_range for g in geoms]),
+                             cfg.eyebox_bins, dev, timer)
+    del inputs
+    cpk = (trace_rows.pack_selection_params(cp, tgs[0].num_fc, tgs[0].num_oc)
+           if packed else None)
+    timings["rows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     tiles, rngs = [], []
     prev_ic, prev = None, None
     cfg_s = dataclasses.replace(cfg, rays_per_fov=slots)
@@ -219,13 +246,13 @@ def prepare_chunk(designs: Sequence[WaveguideDesign], cfg: TraceConfig,
             tiles.append(r_in)
             rngs.append(rng_in)
     ec = tuple(max(c) for c in zip(*(trace_rows.edge_counts(g) for g in tgs)))
-    cpk = (trace_rows.pack_selection_params(cp, tgs[0].num_fc, tgs[0].num_oc)
-           if packed else None)
+    timings["tiles_s"] = time.perf_counter() - t0
     return ChunkRows(
         tgeoms=tgs, cell_params=cp, geom_rows=grs,
         rays=np.stack(tiles) if shared else np.concatenate(tiles),
         rng=None if shared else np.concatenate(rngs), edge_counts=ec,
-        cell_params_packed=cpk)
+        cell_params_packed=cpk, timings=timings,
+        timer=timer if timer.on else None)
 
 
 def shared_seed_block(cfg: TraceConfig, slots: int, cells_per_block: int = 1,
@@ -305,9 +332,10 @@ def run_design_sweep_persistent(
 
     The launch grid is ``nd x (L*M*N)`` cells laid out as nd contiguous
     per-design runs; each cell reads its design's geometry row.  Sweeps
-    larger than ``designs_per_batch`` launch in chunks; chunk k+1's host prep
-    (geometry, trace geometry, the chunk-batched synthetic LUT -> cell table
-    -> kernel row pipeline) runs while chunk k traces on the device.  A tail
+    larger than ``designs_per_batch`` launch in chunks; chunk k+1's prep
+    (geometry, trace geometry, the rows' host inputs and launch tiles; its
+    rows' kernel queues behind chunk k's trace) runs while chunk k traces on
+    the device.  A tail
     chunk launches its real design count: chunked and single-launch sweeps
     give the same results bit for bit.
 
@@ -342,15 +370,19 @@ def run_design_sweep_persistent(
     ``SweepResult.histograms``; a sequence of design indices pulls only
     those designs' (in design order).
 
-    ``SweepResult.timings``, host seconds: ``prep_s`` (geometry, tables and
-    rows), ``seed_s`` (dispatching the shared seed block's hash on the
-    device), ``upload_s`` (rows and tiles to the device), ``keep_s`` (kept
+    ``SweepResult.timings``, host seconds: ``prep_s`` (geometry, rows and
+    tiles) and its parts ``prep_geometry_s`` (geometry and trace geometry),
+    ``prep_host_rows_s`` (the rows' host inputs), ``prep_rows_s`` (their
+    upload and the rows' kernel launch, or the plain version on the CPU)
+    and ``prep_tiles_s`` (launch tiles), ``seed_s`` (dispatching the shared
+    seed block's hash on the device), ``upload_s`` (geometry rows and tiles
+    to the device), ``keep_s`` (kept
     histograms to the host) and ``pull_s``
     (efficiencies and bounces to the host), both waiting for the device,
     ``metrics_s`` (batched colorimetry and its pull); on a GPU, device
-    milliseconds from CUDA events: ``kernel_ms`` (the launches) and
-    ``reduce_ms`` (Wald factors, efficiency sums and pupil integration);
-    and ``launches``.
+    milliseconds from CUDA events: ``kernel_ms`` (the launches),
+    ``reduce_ms`` (Wald factors, efficiency sums and pupil integration) and
+    ``prep_rows_ms`` (the rows' kernel); and ``launches``.
 
     ``mesh``: the designs of every chunk split over the mesh's first axis,
     whole designs to a rank (a chunk whose design count does not divide
@@ -364,7 +396,10 @@ def run_design_sweep_persistent(
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
     if on_gpu:
-        trace_persistent.load_kernel()   # the nvcc build is not sweep time
+        # the nvcc builds are not sweep time
+        build.build_all(["persistent_trace", "cell_rows"])
+        trace_persistent.load_kernel()
+        cell_rows.load_kernel()
     D = len(designs)
     L, M, N = 3, cfg.num_fov_x, cfg.num_fov_y
     n_cells = L * M * N
@@ -392,8 +427,10 @@ def run_design_sweep_persistent(
             "cells_per_block > 1 requires the shared-seed path and a cell "
             f"count divisible by it (got shared={broadcast}, {n_cells} "
             f"cells, cells_per_block={cpb})")
-    timings = {"prep_s": 0.0, "seed_s": 0.0, "upload_s": 0.0, "keep_s": 0.0}
-    events = []
+    parts = ("geometry_s", "host_rows_s", "rows_s", "tiles_s")
+    timings = {"prep_s": 0.0, **{f"prep_{k}": 0.0 for k in parts},
+               "seed_s": 0.0, "upload_s": 0.0, "keep_s": 0.0}
+    events, row_timers = [], []
     db = max(1, min(designs_per_batch, D))
     n_dev, rank, group = 1, 0, None
     if mesh is not None:
@@ -425,8 +462,12 @@ def run_design_sweep_persistent(
         t0 = time.perf_counter()
         rows = prepare_chunk([designs[i] for i in idx], cfg, slots,
                              lut_seed=lut_seed, shared=broadcast,
-                             packed=packed, cells_per_block=cpb)
+                             packed=packed, cells_per_block=cpb, device=dev)
         timings["prep_s"] += time.perf_counter() - t0
+        for k in parts:
+            timings[f"prep_{k}"] += rows.timings[k]
+        if rows.timer is not None:
+            row_timers.append(rows.timer)
         return rows
 
     rng_cell = None
@@ -450,17 +491,15 @@ def run_design_sweep_persistent(
     launches0 = trace_persistent.launch_counts["persistent_trace"]
     prepped = prep(mine(chunks[0]))
     for ci, idx in enumerate(chunks):
-        rows = prepped
+        rows, prepped = prepped, None
         nd = len(mine(idx))
         if num_fc is None:
             num_fc, num_oc = rows.tgeoms[0].num_fc, rows.tgeoms[0].num_oc
         if any(g.num_fc != num_fc or g.num_oc != num_oc for g in rows.tgeoms):
             raise ValueError("designs in one sweep batch must share strip counts")
         t0 = time.perf_counter()
-        cp_t = torch.from_numpy(rows.cell_params).to(dev)
+        cp_t, cpk_t = rows.cell_params, rows.cell_params_packed
         gr_t = torch.from_numpy(rows.geom_rows).to(dev)
-        cpk_t = (torch.from_numpy(rows.cell_params_packed).to(dev)
-                 if packed else None)
         if broadcast:
             rays_in = torch.from_numpy(rows.rays).to(dev)   # (nd, 6, RT, 128)
             rng_in = rng_cell
@@ -479,7 +518,7 @@ def run_design_sweep_persistent(
             transit_jump=transit_jump, cell_params_packed=cpk_t)
         if on_gpu:
             ev[1].record()
-        del cp_t, cpk_t, rays_in
+        del cp_t, cpk_t, rays_in, rows
         nb_parts.append(nb)
         eff_d, bounce_d, factor = _chunk_reduce(
             tiles, nb, nd, n_cells, L, M * N, nx, renorm, nominal)
@@ -534,6 +573,7 @@ def run_design_sweep_persistent(
         torch.cuda.synchronize(dev)
         timings["kernel_ms"] = sum(a.elapsed_time(b) for a, b, _ in events)
         timings["reduce_ms"] = sum(b.elapsed_time(c) for _, b, c in events)
+        timings["prep_rows_ms"] = sum(t.ms()["rows"] for t in row_timers)
     timings["launches"] = (trace_persistent.launch_counts["persistent_trace"]
                            - launches0)
     return SweepResult(

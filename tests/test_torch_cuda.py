@@ -743,3 +743,117 @@ def test_apodization_gradients_on_card_equal_cpu(cuda_device):
                                    err_msg=k)
         np.testing.assert_array_equal(gg[k], gg2[k])
     assert vg == vg2
+
+
+def _host_rows(geoms, seed, bins):
+    """The host route's rows: synthetic LUTs -> cell tables -> rows."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_rows,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        packing,
+    )
+
+    return trace_rows.build_kernel_cell_params(
+        packing.build_cell_tables_synthetic_batch(geoms, seed=seed),
+        np.stack([g.eyebox_range for g in geoms]), bins)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_glass", [(1.9,), (1.9, 2.0), (1.9, 1.8)])
+def test_cell_rows_kernel_equals_plain_and_host_on_card(cuda_device, n_glass):
+    """The rows' kernel, its plain version on the card and the host route
+    give the same rows, as int32; one launch counted.  n_glass 1.8 leaves
+    an order evanescent at a corner of the 7 x 5 FoV: its NaN rows are NaN
+    on the card and on the host alike, but the card's arithmetic does not
+    keep x86's NaN sign and payload bits (ROADMAP F8), so there the host
+    comparison holds every other entry bitwise and the NaNs in place."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        cell_rows,
+    )
+
+    geoms = [generate_geometry(dataclasses.replace(WaveguideDesign(),
+                                                   n_glass=n), 7, 5)
+             for n in n_glass]
+    eb = np.stack([g.eyebox_range for g in geoms])
+    inputs = cell_rows.synthetic_row_inputs(geoms, 21, pinned=True)
+    n0 = tp.launch_counts["cell_rows"]
+    got = cell_rows.cell_rows(inputs, eb, (80, 120), cuda_device)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["cell_rows"] == n0 + 1
+    assert got.is_cuda and got.shape == (len(geoms) * 105, 704)
+    plain = cell_rows.cell_rows_reference(inputs, eb, (80, 120), cuda_device)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    host = _host_rows(geoms, 21, (80, 120))
+    rows = got.cpu().numpy()
+    nan = np.isnan(host)
+    assert nan.any() == (1.8 in n_glass)
+    np.testing.assert_array_equal(np.isnan(rows), nan)
+    np.testing.assert_array_equal(rows.view(np.int32)[~nan],
+                                  host.view(np.int32)[~nan])
+
+
+@pytest.mark.cuda
+def test_synthetic_rows_built_only_by_the_kernel_on_card(small, cuda_device,
+                                                         monkeypatch):
+    """On the card, the kernel engines' Simulators and the sweep's chunks
+    build synthetic rows through the rows' kernel alone: the host tables,
+    the host row function and the plain version refuse to run, and the rows
+    (and packed words) are the host route's."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        cell_rows, trace_rows,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        packing,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
+    geom, cfg = small
+    host_rows_fn = trace_rows.build_kernel_cell_params
+
+    def refuse(*a, **k):
+        raise AssertionError("synthetic rows built off the kernel on cuda")
+
+    for mod, name in ((pipeline, "build_cell_tables"),
+                      (packing, "build_cell_tables"),
+                      (packing, "build_cell_tables_synthetic_batch"),
+                      (trace_rows, "build_kernel_cell_params"),
+                      (cell_rows, "cell_rows_reference")):
+        monkeypatch.setattr(mod, name, refuse)
+    n0 = tp.launch_counts["cell_rows"]
+    sims = [pipeline.Simulator(cfg=cfg, geom=geom, device=cuda_device,
+                               engine=engine, **kw)
+            for engine, kw in (("persistent", {}),
+                               ("persistent", {"pers_accum_mode": "packed"}),
+                               ("cell", {}))]
+    designs = [WaveguideDesign(), dataclasses.replace(WaveguideDesign(),
+                                                      lambda_ic=380.0)]
+    chunk = design_sweep.prepare_chunk(designs, cfg, 128, lut_seed=4,
+                                       packed=True, device=cuda_device)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["cell_rows"] == n0 + 4
+    assert sims[0].setup_timings["rows_ms"] > 0
+    monkeypatch.undo()
+    want = host_rows_fn(
+        packing.build_cell_tables(geom, sims[0].luts), geom.eyebox_range,
+        cfg.eyebox_bins)
+    for sim in sims:
+        assert sim.tracer.cell_params.is_cuda
+        np.testing.assert_array_equal(
+            sim.tracer.cell_params.view(torch.int32).cpu().numpy(),
+            want.view(np.int32))
+    words = trace_rows.pack_selection_params(want, sims[1].tgeom.num_fc,
+                                             sims[1].tgeom.num_oc)
+    np.testing.assert_array_equal(
+        sims[1].tracer.cell_params_packed.cpu().numpy(), words)
+    geoms = [generate_geometry(d, M, N) for d in designs]
+    want = _host_rows(geoms, 4, cfg.eyebox_bins)
+    assert chunk.cell_params.is_cuda and chunk.cell_params_packed.is_cuda
+    np.testing.assert_array_equal(
+        chunk.cell_params.view(torch.int32).cpu().numpy(), want.view(np.int32))
+    np.testing.assert_array_equal(
+        chunk.cell_params_packed.cpu().numpy(),
+        trace_rows.pack_selection_params(want, chunk.tgeoms[0].num_fc,
+                                         chunk.tgeoms[0].num_oc))

@@ -223,9 +223,10 @@ def test_plotting_copy_is_the_jax_original():
 def test_new_engines_load_no_jax(tmp_path):
     """A process that runs the vector and splitting engines, the vector
     sweep, the design plots, the boost-tail hybrid, a joint grating
-    optimisation step, and a profiled run with the native pupil sampler
-    beside the sharding module of the port on the CPU loads neither jax,
-    ml_dtypes, optax nor any module of the JAX package."""
+    optimisation step, a profiled run with the native pupil sampler
+    beside the sharding module, and the kernel rows' plain version of the
+    port on the CPU loads neither jax, ml_dtypes, optax nor any module of
+    the JAX package."""
     import os
     import subprocess
     import sys
@@ -276,6 +277,12 @@ def test_new_engines_load_no_jax(tmp_path):
         "pupil_sampler='native'), device='cpu', persistent_slots=128).run()\n"
         "assert native.available() and n.rays_traced > 0\n"
         "assert len(shard.pad_rays_to({'x': [0.0] * 5}, 4)['x']) == 8\n"
+        "from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine "
+        "import cell_rows\n"
+        "g = generate_geometry(num_fov_x=2, num_fov_y=2)\n"
+        "rows = cell_rows.cell_rows(cell_rows.synthetic_row_inputs([g], 3), "
+        "g.eyebox_range, device='cpu')\n"
+        "assert tuple(rows.shape) == (12, 704)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'ml_dtypes', "
         "'optax') "
         "or m.startswith(('jax.', 'gpu_ray_tracing_for_waveguide_based_ar_"
