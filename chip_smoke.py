@@ -143,6 +143,23 @@ Run from the repository root.  Phases:
    version's, the bound (rows written and inputs read once at 3.35 TB/s,
    or the float64 and float32 operations at 34 and 67 TFLOP/s), and the
    seconds of the host inputs and of the host pipeline;
+20. the tail's kernels (``csrc/eye_tail.cu``) against their plain PyTorch
+   versions on the card, on a seeded (3, 75, 100, 80, 120) histogram (the
+   reference workload's; 20 % empty bins and an empty FoV corner): the
+   perception (``pupil_window_sum``) bit for bit
+   ``eye_perceived_reference`` at the sampled grid's stride (8, 12) and at
+   the dense scan's (1, 1), with ``F.conv2d``'s time at the same shape
+   (the library call, TF32 off; its first call timed apart, the process's
+   first cuDNN call when the script runs whole); the colorimetry against
+   ``_make_eval_core`` on the card for ``simulate``'s stack with the
+   eye-view image (and phase 3's bars against the host float64 colorimetry),
+   an 8-design ``evaluate_batch`` stack and the dense scan's 51 x 91
+   positions: metrics within 1e-5 relative, the image within rtol 1e-5 /
+   atol 1e-6, ``u_eb``'s zeros and the starved counts equal; each kernel's
+   device time (CUDA events around calls queued behind device spin, so the
+   host's launch cost is not counted), its plain version's and its bound
+   (bytes read and written once at 3.35 TB/s, or the operations at 67
+   TFLOP/s);
 11. the device tail and the run options at the reference workload's full
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
@@ -271,6 +288,12 @@ kernel's CUDA-event time, trace geometry, the kernels' build), phases 6 and
 6c the sweep's prep split (``prep_geometry_s``, ``prep_host_rows_s``,
 ``prep_rows_s`` with ``prep_rows_ms``, ``prep_tiles_s``); each run they
 count must have launched the rows' kernel once per ``Simulator`` or chunk.
+Phases 3, 3b, 6, 6c, 8 and 14g also hold each counted run to the tail's
+kernels: one perception and one colorimetry per ``simulate`` run; in a
+sweep one perception per design and one colorimetry of its stack; in
+``--tail-boost`` one perception for the pilot, each tier chunk and the
+bulk, and the splice's colorimetry.  Phase 6 also holds design 3's metrics
+to its solo sweep's, bit for bit.
 
 Phases 2, 3, 3b, 5, 6, 9, 10 and 6c also record the persistent kernel's
 live fraction, ``sum(nb[:, 0]) / (slots per cell * sum(nb[:, 1]))``: the
@@ -321,7 +344,16 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                   f"{PORT}/luts/packing.py:127 build_cell_tables + "
                   f"{PORT}/engine/trace_rows.py:79 build_kernel_cell_params "
                   "(host numpy, no TPU counterpart)"),
+    # port-side: the JAX package's tail is jnp, with no Pallas counterpart
+    "eye_perceive": (f"{PORT}/csrc/eye_tail.cu",
+                     f"{JAX_PACKAGE}/eval/metrics.py:88 eye_perceived_jnp "
+                     "(jnp, no Pallas counterpart)"),
+    "colorimetry": (f"{PORT}/csrc/eye_tail.cu",
+                    f"{JAX_PACKAGE}/eval/metrics.py:266 _make_eval_core "
+                    "(jnp, no Pallas counterpart)"),
 }
+# the libraries of csrc/ the kernels live in, one nvcc process each
+LIBRARIES = list(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
 # one NVIDIA H100 SXM (data sheet, 700 W): FP32 and FP64 rates outside the
 # tensor cores and HBM rate, for the bounds of the kernel line
 PEAK_FP32_OPS = 67e12
@@ -396,6 +428,24 @@ def cuda_ms(fn, reps: int) -> float:
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """CUDA-event milliseconds per call of ``fn`` on the device alone: the
+    calls are queued behind about 0.1 s of device spin, so the host's cost
+    of launching them (more than a short kernel takes) is not counted."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(170_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -573,8 +623,23 @@ def save_record(ctx) -> None:
 
 def trace_launches(launches: dict) -> dict:
     """The trace kernels' launch counts of ``launches`` (without the rows'
-    kernel, which a phase checks apart)."""
-    return {k: v for k, v in launches.items() if k != "cell_rows"}
+    and the tail's kernels, which a phase checks apart)."""
+    return {k: launches[k] for k in ("persistent_trace", "cell_trace")}
+
+
+def tail_launches(ctx, phase: str, launches: dict, perceive: int,
+                  colorimetry: int) -> None:
+    """Fails unless the tail's kernels launched ``perceive`` and
+    ``colorimetry`` times in the counted run of ``phase``; adds them to the
+    kernel line's counts."""
+    got = (launches["eye_perceive"], launches["colorimetry"])
+    if got != (perceive, colorimetry):
+        fail(f"phase {phase}: {got[0]} eye_perceive and {got[1]} colorimetry "
+             f"launches, expected {perceive} and {colorimetry} (the tail "
+             "runs through csrc/eye_tail.cu on the card)")
+    for k, n in zip(("eye_perceive", "colorimetry"), got):
+        ctx.setdefault("tail_launches", {}).setdefault(k, 0)
+        ctx["tail_launches"][k] += n
 
 
 def rows_built(ctx, phase: str, launches: dict, want: int) -> None:
@@ -613,11 +678,11 @@ def phase1(ctx) -> None:
           f"python {sys.version.split()[0]}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    paths = build.build_all(KERNELS)
+    paths = build.build_all(LIBRARIES)
     both = time.perf_counter() - t0
     record.update(card=smi, torch=torch.__version__, cuda=torch.version.cuda,
                   build_wall_seconds=both, build_seconds={}, ptxas={})
-    for name, lib_path in zip(KERNELS, paths):
+    for name, lib_path in zip(LIBRARIES, paths):
         info = build.build_info[name]
         if info["log"]:
             print(f"nvcc build {name}: {info['seconds']:.2f} s -> "
@@ -926,6 +991,7 @@ def main_path(ctx, phase: str, **sim_kw):
              f"persistent_trace per batch and iteration ({batches * iters}) "
              "and no other trace kernel")
     rows_built(ctx, phase, launches, 1)
+    tail_launches(ctx, phase, launches, 1, 1)
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
     return sim, res, launches["persistent_trace"], nominal
@@ -1179,6 +1245,7 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
         tp.persistent_trace = trace
     n_launch = tp.launch_counts["persistent_trace"]
     n_rows = tp.launch_counts["cell_rows"]
+    n_tail = {k: tp.launch_counts[k] for k in ("eye_perceive", "colorimetry")}
     peak6 = torch.cuda.max_memory_allocated()
     n_cells6 = len(designs) * 3 * cfg6.num_fov_x * cfg6.num_fov_y
     bounces6 = int(r6.bounces.sum())
@@ -1210,7 +1277,7 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
         "prep": {k: tm[k] for k in ("prep_geometry_s", "prep_host_rows_s",
                                     "prep_rows_s", "prep_rows_ms",
                                     "prep_tiles_s")},
-        "rows_launches": n_rows,
+        "rows_launches": n_rows, "tail_launches": n_tail,
         "seed_s": tm["seed_s"], "upload_s": tm["upload_s"],
         "keep_s": tm["keep_s"], "pull_s": tm["pull_s"],
         "metrics_s": tm.get("metrics_s"), "kernel_ms": tm["kernel_ms"],
@@ -1259,6 +1326,8 @@ def run_sweep(ctx, phase: str, name: str, argv, keep=(3,), **modes):
     if n_launch != 1:
         fail(f"phase {phase[5:]} {name}: {n_launch} launches for one chunk")
     rows_built(ctx, f"{phase[5:]} {name}", {"cell_rows": n_rows}, 1)
+    # one perception per design and one colorimetry of the sweep's stack
+    tail_launches(ctx, f"{phase[5:]} {name}", n_tail, len(designs), 1)
     return r6, entry, designs, cfg6, kw6
 
 
@@ -1290,10 +1359,14 @@ def phase6(ctx) -> None:
             ctx["sweep6a"] = sweep_summary(r6)
         solo = design_sweep.run_design_sweep_persistent(
             designs[3:4], cfg6, keep_histograms=True, **kw6)
+        mets = [[m.delta_e, m.u_fov, m.u_eyebox, m.starved_eye_positions]
+                for m in (r6.metrics[3], solo.metrics[0])]
         if not (np.array_equal(r6.histograms[0], solo.histograms[0])
                 and r6.bounces[3] == solo.bounces[0]
-                and np.array_equal(r6.efficiencies[3], solo.efficiencies[0])):
-            fail(f"phase 6 {name}: design 3 differs from its solo sweep")
+                and np.array_equal(r6.efficiencies[3], solo.efficiencies[0])
+                and mets[0] == mets[1]):
+            fail(f"phase 6 {name}: design 3 differs from its solo sweep "
+                 f"(metrics {mets})")
         del r6, solo
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
@@ -1614,6 +1687,7 @@ def phase8(ctx) -> None:
         if launches["persistent_trace"] or not as_scheduled:
             fail(f"phase 8 {name}: launches {launches} for {batches} batches")
         rows_built(ctx, f"8 {name}", launches, 1)
+        tail_launches(ctx, f"8 {name}", launches, 1, 1)
         ref = ctx.get("default_efficiencies")
         if ref is not None:
             # reported, and held to 10 % (the efficiency bar holds phase 3
@@ -2795,6 +2869,9 @@ def phase14g(ctx) -> None:
                       f"{res.efficiencies}")
     if faults:
         fail("phase 14g: " + "; ".join(faults))
+    # perception: the pilot's histogram, each tier chunk's tiles and the
+    # bulk's histogram before the splice; colorimetry: the splice
+    tail_launches(ctx, "14g", launches, 2 + sum(d.tier_launches.values()), 1)
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_hybrid_launches"] = (ctx.get("k1_hybrid_launches", 0)
@@ -3536,11 +3613,193 @@ def phase19(ctx) -> None:
     ctx["rows_modes"] = modes
 
 
+# float32 operations of the colorimetry per (pixel, position), counted from
+# csrc/eye_tail.cu with each library call (powf, atan2f, sinf ...) as one
+# operation, so the bound is a floor: scaling 6, the XYZ product 15, Y's
+# sums and tests 4, Lab 22, CIEDE2000 111, its sum 1; the eye views add the
+# RGB product, clamp, gamma and peak (36) and the normalisation (4)
+COLOR_OPS = 159
+IMAGE_OPS = 40
+# phase 20's histogram: the reference workload's (L, FoVy, FoVx, eby, ebx)
+TAIL_HISTOGRAM = (3, 75, 100, 80, 120)
+
+
+def _perception_case(h, mask, stride, reps: int) -> dict:
+    """The perception kernel against its plain version on ``h`` at
+    ``stride``: bit for bit, times, bound and ``F.conv2d``'s time (the
+    library call; its first call timed apart when it is the process's
+    first)."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    out = metrics.pupil_window_sum(h, mask, stride)
+    torch.cuda.synchronize()
+    plain = metrics.eye_perceived_reference(h, mask, stride)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out.view(torch.int32), plain.view(torch.int32)))
+    max_abs = float((out - plain).abs().max())
+    del plain
+    ms = device_ms(lambda: metrics.pupil_window_sum(h, mask, stride), reps)
+    plain_ms = device_ms(lambda: metrics.eye_perceived_reference(h, mask,
+                                                               stride), 1)
+    kernel = torch.as_tensor(mask, dtype=torch.float32, device=h.device)
+    t0 = time.perf_counter()
+    conv = metrics.pupil_conv(h, kernel, stride)
+    torch.cuda.synchronize()
+    conv_first_ms = (time.perf_counter() - t0) * 1e3
+    # cuDNN's algorithms leave rounding noise where a window is empty, so
+    # its gap is taken against the largest window sum
+    conv_rel = float((conv - out).abs().max() / out.abs().max())
+    del conv
+    library_ms = device_ms(lambda: metrics.pupil_conv(h, kernel, stride),
+                           reps)
+    nbytes = (h.numel() + out.numel()) * 4
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = out.numel() * float(np.sum(mask)) / PEAK_FP32_OPS * 1e3
+    return {"stride": list(stride), "shape": list(out.shape),
+            "identical_plain": same, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_first_ms": conv_first_ms,
+            "library_max_rel": conv_rel,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _colorimetry_case(name: str, stack, inv_norm: float,
+                      with_image: bool, reps: int, host=None) -> dict:
+    """The colorimetry kernel against its plain version (``_make_eval_core``
+    on the card) on a (D, 3, fy, fx, epy, epx) stack: metrics within 1e-5
+    relative, the image within rtol 1e-5 / atol 1e-6, ``u_eb``'s zeros and
+    the starved counts equal; with ``host`` (the float64 host colorimetry
+    of design 0) also :func:`tail_check`'s bars against it.  Times and
+    bound."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    core = metrics._make_eval_core(with_image)
+    got = metrics.colorimetry_stack(stack, inv_norm, with_image)
+    torch.cuda.synchronize()
+    want = core(stack, inv_norm)
+    torch.cuda.synchronize()
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    rel = {}
+    for k in ("delta_e", "ratio_sum", "u_eb"):
+        rel[k] = float((np.abs(got[k] - want[k])
+                        / np.maximum(np.abs(want[k]), 1e-30)).max())
+    zeros_equal = bool(np.array_equal(got["u_eb"] == 0, want["u_eb"] == 0))
+    starved = [int((got["u_eb"] == 0).sum()), int((want["u_eb"] == 0).sum())]
+    max_abs = max(float(np.abs(got[k] - want[k]).max()) for k in got)
+    img_ok = True
+    if with_image:
+        img_ok = bool(np.allclose(got["image"], want["image"], rtol=1e-5,
+                                  atol=1e-6))
+    entry = {"name": name, "shape": list(stack.shape), "image": with_image,
+             "metrics_rel": rel, "image_within_bar": img_ok,
+             "u_eb_zeros_equal": zeros_equal, "starved": starved,
+             "max_abs_err": max_abs}
+    if host is not None:
+        n_epy, n_epx = stack.shape[4], stack.shape[5]
+        met = metrics._eval_result_from_out(got, 0, n_epy, n_epx, with_image)
+        entry["host_tail"] = tail_check(f"20 {name}", met, host)
+    ms = device_ms(lambda: metrics.colorimetry_stack(stack, inv_norm,
+                                                   with_image), reps)
+    plain_ms = device_ms(lambda: core(stack, inv_norm), 1)
+    D, _, fy, fx, epy, epx = stack.shape
+    items = D * fy * fx * epy * epx
+    nbytes = (stack.numel() + D * (2 + epy * epx)
+              + (stack.numel() if with_image else 0)) * 4
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = (items * (COLOR_OPS + (IMAGE_OPS if with_image else 0))
+             / PEAK_FP32_OPS * 1e3)
+    entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"phase 20 colorimetry {name}: stack {tuple(stack.shape)}"
+          f"{' with the image' if with_image else ''}: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bound_by']}); against the plain version: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+          + f" relative, image {'within' if img_ok else 'BEYOND'} rtol 1e-5 "
+          f"/ atol 1e-6, u_eb zeros equal {zeros_equal}, starved {starved}")
+    if (max(rel.values()) > 1e-5 or not img_ok or not zeros_equal
+            or starved[0] != starved[1]):
+        fail(f"phase 20 colorimetry {name}: the kernel disagrees with its "
+             f"plain version: {entry}")
+    return entry
+
+
+def phase20(ctx) -> None:
+    """The tail's kernels against their plain versions, with the library
+    call's time beside the perception's."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase20", {})
+    gen = torch.Generator(device=dev).manual_seed(20)
+    # the reference workload's histogram shape, 20 % empty bins and a
+    # starved FoV corner (eye position (0, 0) of FoV (0, 0) sees nothing)
+    h = torch.rand(TAIL_HISTOGRAM, generator=gen, device=dev)
+    h = torch.where(h < 0.2, 0.0, h)
+    h[:, 0, 0, :40, :40] = 0.0
+    mask = metrics.pupil_mask(30)
+    perc_modes = []
+    for stride, reps in (((8, 12), 20), ((1, 1), 3)):
+        e = _perception_case(h, mask, stride, reps)
+        perc_modes.append(e)
+        print(f"phase 20 perception at stride {stride}: {tuple(e['shape'])}: "
+              f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
+              f"F.conv2d {e['library_ms']:.4f} ms loaded "
+              f"({e['library_first_ms']:.1f} ms its first call here, within "
+              f"{e['library_max_rel']:.3g} of the largest sum), bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); kernel = plain "
+              f"{e['identical_plain']}, max |diff| {e['max_abs_err']}")
+        if not e["identical_plain"]:
+            fail(f"phase 20: the perception kernel differs from its plain "
+                 f"version at stride {stride}")
+    rec["perception"] = perc_modes
+    inv_norm = metrics._inv_norm(20000.0)
+    perc = metrics.eye_perceived_torch(h)
+    dense = metrics.eye_perceived_conv(h, stride=(1, 1))
+    del h
+    host = metrics.evaluate(None, perceive=perc.cpu().numpy().astype(
+        "float64") * inv_norm)
+    color_modes = [_colorimetry_case("simulate", perc[None], inv_norm,
+                                     True, 20, host)]
+    # an 8-design sweep stack: each design's cells scaled apart, design 5's
+    # FoV (3, 7) empty at every eye position
+    stack = perc[None] * torch.rand((8,) + TAIL_HISTOGRAM[:3] + (1, 1),
+                                    generator=gen, device=dev)
+    stack[5, :, 3, 7] = 0.0
+    color_modes.append(_colorimetry_case("sweep", stack.contiguous(),
+                                         inv_norm, False, 20))
+    del stack
+    color_modes.append(_colorimetry_case("dense", dense[None],
+                                         inv_norm, False, 3))
+    del dense
+    rec["colorimetry"] = color_modes
+    save_record(ctx)
+    ctx["tail_modes"] = {"eye_perceive": perc_modes,
+                         "colorimetry": color_modes}
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c, "19": phase19, "11": phase11, "12": phase12, "13": phase13,
+          "6c": phase6c, "19": phase19, "20": phase20,
+          "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
 
@@ -3548,8 +3807,9 @@ PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
 def kernel_line(ctx) -> dict:
     """The kernels' summary; a kernel's headline numbers are those of the
     main path's mode: gens spawn (phase 2's first mode), full mode with
-    the whole budget, and the rows of the reference workload (phase 19's
-    first case)."""
+    the whole budget, the rows of the reference workload (phase 19's
+    first case), and the sampled perception and the colorimetry with the
+    image of ``simulate`` (phase 20's first cases)."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
@@ -3570,15 +3830,23 @@ def kernel_line(ctx) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None, "modes": modes})
-    rows = ctx["rows_modes"]
-    source, replaces = KERNELS["cell_rows"]
-    out.append({
-        "name": "cell_rows", "route": "cuda", "source": source,
-        "replaces": replaces, "launches": ctx["rows_launches"],
-        "max_abs_err": max(m["max_abs_err"] for m in rows),
-        "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
-        "bound_ms": rows[0]["bound_ms"], "bound_by": rows[0]["bound_by"],
-        "library_ms": None, "modes": rows})
+    for name, modes, launches in (
+            ("cell_rows", ctx["rows_modes"], ctx["rows_launches"]),
+            ("eye_perceive", ctx["tail_modes"]["eye_perceive"],
+             ctx["tail_launches"]["eye_perceive"]),
+            ("colorimetry", ctx["tail_modes"]["colorimetry"],
+             ctx["tail_launches"]["colorimetry"])):
+        # the headline: the main path's shape (the reference workload's rows,
+        # simulate's sampled perception and its colorimetry with the image)
+        head = modes[0]
+        source, replaces = KERNELS[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(m["max_abs_err"] for m in modes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head.get("library_ms"), "modes": modes})
     return {"kernels": out}
 
 

@@ -1,0 +1,192 @@
+"""``simulate``'s tail on the card: the binding of ``csrc/eye_tail.cu``.
+
+Two kernels (three ``__global__`` functions) in one library, built by
+``engine/build.py`` and loaded by ctypes; :func:`load_kernel` also loads
+the library's module, so a process pays for it at bind and not at its
+first tail:
+
+- :func:`launch_window_sum`: the pupil-window perception, (B, eby, ebx)
+  images -> (B, epy, epx) window sums of the disc at a stride, bit for bit
+  :func:`.metrics.eye_perceived_reference`;
+- :func:`launch_colorimetry`: the colorimetry of (D, 3, fy, fx, epy, epx)
+  perception stacks, :func:`.metrics._make_eval_core`'s outputs in its
+  operation order (within float32 association of it: its sums run in
+  another fixed order, and the card's ``powf``, ``atan2f``, ``sinf`` ...
+  are not the host's).
+
+Both replace no TPU kernel: the JAX package's tail is jnp
+(``eval/metrics.py::eye_perceived_jnp``, ``_make_eval_core``).  Each launch
+adds one to its count in :data:`..engine.trace_persistent.launch_counts`
+(``eye_perceive``, ``colorimetry``).  Callers route by device through
+:func:`.metrics.pupil_window_sum` and :func:`.metrics.colorimetry_stack`:
+the kernels for a CUDA tensor, the plain versions for a CPU one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..engine import build
+from ..engine.trace_persistent import launch_counts
+
+# colorimetry blocks: 32 positions (lanes) x 8 pixel groups
+LANES = 32
+GROUPS = 8
+# blocks a launch aims at whatever its stack: two on each of an H100's 132
+# SMs.  The split depends on the stack's shape alone, so a design's results
+# do not depend on the designs that share its launch.
+TARGET_BLOCKS = 264
+PARTIALS = 6   # per (design, split, position): delta E, Y, min Y, max Y,
+               # any Y = 0, peak
+NCONST = 51    # the float32 constants of metrics.colorimetry_constants
+
+WINDOW_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+COLOR_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_float]
+                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+
+
+def _check(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the eye_tail kernels run on cuda, not {t.device} "
+                         f"({what})")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32, got {t.dtype}")
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.eye_tail_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def launch_window_sum(images: torch.Tensor, segments: np.ndarray, cols: int,
+                      stride: Sequence[int],
+                      scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., eby, ebx) float32 images on the card -> (..., epy, epx) sums
+    of the disc's window at ``stride``: ``segments`` (rows, 2) are each
+    window row's ``[start, end)`` columns of a ``rows x cols`` mask.
+    ``scale`` (the leading shape, float32) multiplies each image before it
+    is summed.  The images may be a strided view whose last axis is
+    contiguous (the sweep's 128-lane tiles cut to ``nx``)."""
+    _check(images, "images")
+    lib = load_kernel()
+    eby, ebx = images.shape[-2:]
+    lead = tuple(images.shape[:-2])
+    flat = images.reshape((-1, eby, ebx))
+    if flat.stride(2) != 1 or flat.stride(1) < ebx:
+        flat = flat.contiguous()
+    B = flat.shape[0]
+    rows = len(segments)
+    sy, sx = (int(v) for v in stride)
+    epy, epx = (eby - rows) // sy + 1, (ebx - cols) // sx + 1
+    if epy < 1 or epx < 1:
+        raise ValueError(f"a {rows} x {cols} window does not fit "
+                         f"{eby} x {ebx} images")
+    if scale is not None:
+        _check(scale, "scale")
+        if tuple(scale.shape) != lead:
+            raise ValueError(f"scale has shape {tuple(scale.shape)}, the "
+                             f"images' leading shape is {lead}")
+        scale = scale.reshape(-1).contiguous()
+    out = torch.empty((B, epy, epx), dtype=torch.float32, device=flat.device)
+    if B:
+        seg = np.ascontiguousarray(segments, dtype=np.int32)
+        with torch.cuda.device(flat.device):
+            stream = torch.cuda.current_stream(flat.device).cuda_stream
+            err = lib.pupil_window_sum_launch(
+                flat.data_ptr(), None if scale is None else scale.data_ptr(),
+                out.data_ptr(), flat.stride(0), flat.stride(1), B, eby, ebx,
+                sy, sx, seg.ctypes.data, rows, int(cols), stream)
+        _raise(lib, err, "pupil_window_sum")
+        launch_counts["eye_perceive"] += 1
+    return out.reshape(lead + (epy, epx))
+
+
+def colorimetry_splits(P: int, npix: int) -> tuple:
+    """``(S, chunk, chunk2)``: the colorimetry's split of a position's
+    ``npix`` pixels over S blocks of ``chunk`` pixels, and of its ``3 *
+    npix`` image entries in blocks of ``chunk2``, so that ``P`` positions
+    make about :data:`TARGET_BLOCKS` blocks a design."""
+    tiles = -(-P // LANES)
+    want = -(-TARGET_BLOCKS // tiles)
+    S = max(1, min(want, -(-npix // GROUPS)))
+    chunk = -(-npix // S)
+    S = -(-npix // chunk)
+    chunk2 = -(-3 * npix // max(1, min(want, -(-3 * npix // GROUPS))))
+    return S, chunk, chunk2
+
+
+def launch_colorimetry(stack: torch.Tensor, consts: np.ndarray,
+                       inv_norm: float, with_image: bool) -> dict:
+    """The colorimetry of a contiguous (D, 3, fy, fx, epy, epx) float32
+    stack on the card: the (D,) tensors ``delta_e`` and ``ratio_sum``, the
+    (D, epy, epx) ``u_eb`` and, with ``with_image``, the contiguous (D, fy,
+    fx, 3, epy, epx) eye views ``image``; queued, with no host sync."""
+    _check(stack, "the perception stack")
+    if stack.dim() != 6 or stack.shape[1] != 3:
+        raise ValueError("the colorimetry takes (D, 3, fy, fx, epy, epx) "
+                         f"stacks, got {tuple(stack.shape)}")
+    if not stack.is_contiguous():
+        raise ValueError("the colorimetry takes a contiguous stack")
+    consts = np.ascontiguousarray(consts, dtype=np.float32)
+    if consts.shape != (NCONST,):
+        raise ValueError(f"{NCONST} constants expected, got {consts.shape}")
+    lib = load_kernel()
+    D, _, fy, fx, epy, epx = stack.shape
+    npix, P = fy * fx, epy * epx
+    dev = stack.device
+    out = {"delta_e": torch.empty(D, dtype=torch.float32, device=dev),
+           "ratio_sum": torch.empty(D, dtype=torch.float32, device=dev),
+           "u_eb": torch.empty((D, epy, epx), dtype=torch.float32,
+                               device=dev)}
+    if with_image:
+        out["image"] = torch.empty((D, fy, fx, 3, epy, epx),
+                                   dtype=torch.float32, device=dev)
+    if D == 0 or npix == 0 or P == 0:
+        return out
+    S, chunk, chunk2 = colorimetry_splits(P, npix)
+    part = torch.empty(D * S * PARTIALS * P, dtype=torch.float32, device=dev)
+    pos = torch.empty(D * 2 * P, dtype=torch.float32, device=dev)
+    done = torch.empty(D, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.colorimetry_launch(
+            stack.data_ptr(),
+            out["image"].data_ptr() if with_image else None,
+            part.data_ptr(), pos.data_ptr(), done.data_ptr(),
+            out["delta_e"].data_ptr(), out["ratio_sum"].data_ptr(),
+            out["u_eb"].data_ptr(), consts.ctypes.data, NCONST,
+            float(inv_norm), D, npix, P, S, chunk, chunk2, stream)
+    _raise(lib, err, "colorimetry")
+    launch_counts["colorimetry"] += 1
+    return out
+
+
+_LIB = None
+
+
+def load_kernel():
+    """Build (at first use) and bind ``csrc/eye_tail.cu``, and load its
+    module now (``eye_tail_prepare`` reads each kernel's attributes), so
+    that neither falls in the first tail; raises with the compiler's output
+    if the build fails, or with the CUDA error if the load does."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library("eye_tail")
+        lib.pupil_window_sum_launch.argtypes = WINDOW_ARGTYPES
+        lib.pupil_window_sum_launch.restype = ctypes.c_int
+        lib.colorimetry_launch.argtypes = COLOR_ARGTYPES
+        lib.colorimetry_launch.restype = ctypes.c_int
+        lib.eye_tail_prepare.argtypes = []
+        lib.eye_tail_prepare.restype = ctypes.c_int
+        lib.eye_tail_error_string.argtypes = [ctypes.c_int]
+        lib.eye_tail_error_string.restype = ctypes.c_char_p
+        _raise(lib, lib.eye_tail_prepare(), "eye_tail module load")
+        _LIB = lib
+    return _LIB

@@ -5,13 +5,15 @@ pupil-masked eye-position sampling of the eyebox, pure-white drive through the d
 primary matrix, per-eye-position reconstruction, and the four headline metrics
 (CIE-2000 color dispersion vs D65, FoV uniformity, eyebox uniformity, plus the
 simulated eye-view image stack).  The host part is numpy float64, copied from
-the JAX package's ``eval/metrics.py``; the device part (:func:`pupil_conv`,
-:func:`evaluate_torch`, :func:`evaluate_batch`) is plain PyTorch in the
-stack's dtype (float32 on the card), the counterpart of the JAX package's
-jnp functions: pupil integration (:func:`eye_perceived_torch`,
-:func:`eye_perceived_conv`), colorimetry (:func:`evaluate_torch`,
-:func:`evaluate_batch`) and the dense eye-position scan
-(:func:`evaluate_dense`).
+the JAX package's ``eval/metrics.py``; the device part is float32 on the
+card, the counterpart of the JAX package's jnp functions: pupil integration
+(:func:`eye_perceived_torch`, :func:`eye_perceived_conv`), colorimetry
+(:func:`evaluate_torch`, :func:`evaluate_batch`) and the dense eye-position
+scan (:func:`evaluate_dense`).  On a CUDA tensor they run the hand-written
+kernels of ``csrc/eye_tail.cu`` (:mod:`.eye_tail`); on a CPU tensor their
+plain PyTorch versions, :func:`eye_perceived_reference` and
+:func:`_make_eval_core`.  :func:`pupil_conv` (one ``conv2d``, with autograd)
+stays for the optimiser.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import EvalConfig
-from . import color
+from . import color, eye_tail
 
 # Display primary response matrix (sensor RGB <- per-wavelength intensity) and its
 # XYZ counterpart; numeric constants from AR_system_evaluation_functions.py:47-57.
@@ -130,21 +132,80 @@ def pupil_conv(m: torch.Tensor, mask: torch.Tensor,
     return out.reshape(lead + tuple(out.shape[-2:]))
 
 
+def pupil_segments(mask) -> np.ndarray:
+    """(rows, 2) int32 ``[start, end)`` columns of each row of a 0/1 pupil
+    mask, the form the perception kernel takes the disc in (a row without
+    ones is ``[0, 0)``); refuses any other mask: values other than 0 and 1,
+    or a row whose ones are not one run."""
+    m = np.asarray(mask)
+    if m.ndim != 2 or not np.isin(m, (0, 1)).all():
+        raise ValueError("the pupil mask must be a 2-D array of 0s and 1s")
+    segs = np.zeros((m.shape[0], 2), np.int32)
+    for r, row in enumerate(m):
+        cols = np.flatnonzero(row)
+        if cols.size and cols[-1] - cols[0] + 1 != cols.size:
+            raise ValueError(f"row {r} of the pupil mask is not one run of "
+                             "ones: the window sum takes a disc")
+        if cols.size:
+            segs[r] = cols[0], cols[-1] + 1
+    return segs
+
+
+def eye_perceived_reference(matrix_eb: torch.Tensor, mask,
+                            stride: Tuple[int, int],
+                            scale: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The perception kernel's plain version, on any device: (..., eby,
+    ebx) -> (..., epy, epx) sums of the 0/1 ``mask``'s window at
+    ``stride`` (VALID windows, as :func:`pupil_conv`), each image first
+    multiplied by ``scale`` (the leading shape) when given.  The bins are
+    added in the kernel's order, row-major over the mask's ones, into one
+    accumulator: one strided slice view of the images per bin, never the
+    windows themselves (94 G elements at stride 1 and reference size)."""
+    segs = pupil_segments(mask)
+    my, mx = np.shape(mask)
+    sy, sx = stride
+    eby, ebx = matrix_eb.shape[-2:]
+    epy, epx = (eby - my) // sy + 1, (ebx - mx) // sx + 1
+    if scale is not None:
+        matrix_eb = matrix_eb * scale[..., None, None]
+    out = matrix_eb.new_zeros(tuple(matrix_eb.shape[:-2]) + (epy, epx))
+    for dy, (x0, x1) in enumerate(segs.tolist()):
+        for dx in range(x0, x1):
+            out += matrix_eb[..., dy:dy + sy * (epy - 1) + 1:sy,
+                             dx:dx + sx * (epx - 1) + 1:sx]
+    return out
+
+
+def pupil_window_sum(matrix_eb: torch.Tensor, mask, stride: Tuple[int, int],
+                     scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`eye_perceived_reference` on the tensor's device: the kernel
+    ``pupil_window_sum`` for a CUDA tensor (bit for bit the plain version),
+    the plain version for a CPU one."""
+    dev = matrix_eb.device
+    if dev.type == "cpu":
+        return eye_perceived_reference(matrix_eb, mask, stride, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"the perception runs on cpu or cuda, not {dev}")
+    return eye_tail.launch_window_sum(matrix_eb, pupil_segments(mask),
+                                      np.shape(mask)[1], stride, scale)
+
+
 def eye_perceived_conv(matrix_eb: torch.Tensor, cfg: EvalConfig = EvalConfig(),
                        stride: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Pupil integration of a (L, fy, fx, eb_y, eb_x) histogram on its
-    device: one :func:`pupil_conv` with the pupil disc as kernel.
-    ``stride=(1, 1)`` gives every valid eye position (51 x 91 at reference
-    resolution); the default ``(eye_step_y, eye_step_x)`` gives the sampled
-    grid of :func:`eye_perceived`: VALID windows at those steps start at the
-    same ``y0``s and ``x0``s.  The counterpart of the JAX package's
-    ``eye_perceived_conv_jnp``; the sums inside a window may associate
-    differently from :func:`eye_perceived`'s."""
+    device: :func:`pupil_window_sum` with the pupil disc, every VALID
+    window at ``stride``.  ``stride=(1, 1)`` gives every valid eye position
+    (51 x 91 at reference resolution); the default ``(eye_step_y,
+    eye_step_x)`` gives the sampled grid of :func:`eye_perceived`: VALID
+    windows at those steps start at the same ``y0``s and ``x0``s.  The
+    counterpart of the JAX package's ``eye_perceived_conv_jnp``; the sums
+    inside a window may associate differently from :func:`eye_perceived`'s
+    and the JAX package's."""
     if stride is None:
         stride = (cfg.eye_step_y, cfg.eye_step_x)
-    mask = torch.as_tensor(pupil_mask(cfg.pupil_mask_bins),
-                           dtype=matrix_eb.dtype, device=matrix_eb.device)
-    return pupil_conv(matrix_eb, mask, stride)
+    return pupil_window_sum(matrix_eb, pupil_mask(cfg.pupil_mask_bins),
+                            stride)
 
 
 def eye_perceived_torch(matrix_eb: torch.Tensor,
@@ -208,6 +269,43 @@ def _make_eval_core(with_image: bool):
     return _ev
 
 
+def colorimetry_constants() -> np.ndarray:
+    """The colorimetry kernel's float32 constants, in ``csrc/eye_tail.cu``'s
+    order, each rounded as :func:`_make_eval_core` rounds it: the drive,
+    ``DISPLAY_M_XYZ``, ``DISPLAY_M`` and the D65 Lab white as its
+    ``const()`` does, the whitepoint as :func:`.color.xyz_to_lab` does, and
+    every Python scalar of the formulas as a float32 tensor operation takes
+    it (``np.float32`` of the double; ``rad2deg`` and ``deg2rad`` multiply by
+    180 / pi and pi / 180)."""
+    delta = 6.0 / 29.0
+    scalars = [1e-10, 100.0, delta**3, 3 * delta**2, 4.0 / 29.0, 1.0 / 3.0,
+               116.0, 16.0, 500.0, 200.0, 25.0**7, 180.0 / np.pi,
+               np.pi / 180.0, 0.17, 0.24, 0.32, 0.20, 0.015, 0.045,
+               0.0031308, 12.92, 1.055, 1 / 2.4, 0.055]
+    drive = np.linalg.solve(DISPLAY_M, color.linearize_srgb(np.ones(3)))
+    parts = [drive, DISPLAY_M_XYZ.ravel(), DISPLAY_M.ravel(),
+             color.xyz_to_lab(color.D65_XYZ_100), color.D65_WHITE_Y1,
+             np.asarray(scalars)]
+    return np.concatenate([np.asarray(x, np.float64).ravel()
+                           for x in parts]).astype(np.float32)
+
+
+def colorimetry_stack(stack: torch.Tensor, inv_norm: float,
+                      with_image: bool) -> dict:
+    """The colorimetry of (D, L, fy, fx, epy, epx) perception stacks on
+    their device, queued with no host sync: the kernels of
+    ``csrc/eye_tail.cu`` for a CUDA tensor (a contiguous float32 stack,
+    L = 3; the image contiguous), :func:`_make_eval_core` for a CPU one.
+    The same dict of per-design tensors either way."""
+    dev = stack.device
+    if dev.type == "cpu":
+        return _make_eval_core(with_image)(stack, inv_norm)
+    if dev.type != "cuda":
+        raise ValueError(f"the colorimetry runs on cpu or cuda, not {dev}")
+    return eye_tail.launch_colorimetry(stack, colorimetry_constants(),
+                                       inv_norm, with_image)
+
+
 def _inv_norm(norm: float) -> float:
     """``1 / norm`` rounded to float32, as the JAX package passes it."""
     return float(np.float32(1.0 / norm))
@@ -233,7 +331,7 @@ def colorimetry_torch(perceive: torch.Tensor, norm: float = 1.0,
     sync.  Returns the (1, ...) tensors ``delta_e``, ``ratio_sum``, ``u_eb``
     and, with ``with_image``, the (1, fy, fx, 3, epy, epx) eye views
     ``image``."""
-    return _make_eval_core(with_image)(perceive[None], _inv_norm(norm))
+    return colorimetry_stack(perceive[None], _inv_norm(norm), with_image)
 
 
 def result_to_host(out: dict, n_epy: int, n_epx: int) -> "EvalResult":
@@ -263,7 +361,7 @@ def evaluate_batch(perc_stack: torch.Tensor, norm: float = 1.0) -> list:
     stacks -> list of D :class:`EvalResult`, in one pass over the design axis
     and one host pull.  The counterpart of the JAX package's
     ``evaluate_jnp_batch`` (used by full-metric design sweeps)."""
-    out = _make_eval_core(with_image=False)(perc_stack, _inv_norm(norm))
+    out = colorimetry_stack(perc_stack, _inv_norm(norm), with_image=False)
     out = {k: v.cpu().numpy() for k, v in out.items()}
     n_epy, n_epx = perc_stack.shape[4], perc_stack.shape[5]
     return [_eval_result_from_out(out, d, n_epy, n_epx, with_image=False)
@@ -276,13 +374,14 @@ def evaluate_dense(matrix_eb: torch.Tensor, cfg: EvalConfig = EvalConfig(),
     AR_system_evaluation_functions.py:77-89), on the histogram's device: the
     stride-1 stack of :func:`eye_perceived_conv` through the colorimetry of
     :func:`evaluate_torch`; ``eye_luminance`` is the full-resolution (epy,
-    epx) map.  ``chunk_rows > 0`` evaluates that many eye-position rows at a
-    time, which bounds the colorimetry's temporaries; chunked and unchunked
-    results agree to float association.  The counterpart of the JAX
-    package's ``evaluate_dense``."""
+    epx) map.  On the card the kernels evaluate every position in one pass;
+    on the CPU ``chunk_rows > 0`` evaluates that many eye-position rows at a
+    time, which bounds the plain colorimetry's temporaries (chunked and
+    unchunked results agree to float association).  The counterpart of the
+    JAX package's ``evaluate_dense``."""
     perc = eye_perceived_conv(matrix_eb, cfg, stride=(1, 1))
     n_epy, n_epx = perc.shape[3], perc.shape[4]
-    if chunk_rows <= 0 or chunk_rows >= n_epy:
+    if perc.is_cuda or chunk_rows <= 0 or chunk_rows >= n_epy:
         return evaluate_torch(perc, cfg, norm=norm)
     core = _make_eval_core(with_image=False)
     de_sum = ratio_sum = 0.0

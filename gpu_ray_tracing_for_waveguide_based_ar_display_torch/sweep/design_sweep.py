@@ -34,7 +34,8 @@ from ..engine import (
 from ..engine.device import resolve_device
 from ..engine.timing import EventTimer
 from ..engine.trace_geometry import build_trace_geometry
-from ..eval.metrics import evaluate_batch, pupil_conv, pupil_mask
+from ..eval import eye_tail
+from ..eval.metrics import evaluate_batch, pupil_mask, pupil_window_sum
 from ..luts.packing import build_cell_tables
 from ..luts.synthetic import make_synthetic_luts
 from ..parallel import shard
@@ -292,20 +293,23 @@ def _chunk_reduce(tiles, nb, nd: int, n_cells: int, L: int, MN: int, nx: int,
     return eff, bounces, factor
 
 
-def _chunk_perceive(tiles, factor, nd: int, L: int, M: int, N: int, ny: int,
-                    nx: int, mask: torch.Tensor, stride) -> torch.Tensor:
+def _chunk_perceive(tiles, factor, nd: int, L: int, M: int, N: int, nx: int,
+                    mask: np.ndarray, stride) -> torch.Tensor:
     """(tiles, factor) -> (nd, L, N, M, epy, epx) pupil-integrated perception
-    stacks: each design's (L, N, M, ny, nx) histogram from its
-    Wald-renormalised tiles (the cell grid is (L, M, N)-major), through
-    :func:`..eval.metrics.pupil_conv`; one design at a time, so the scaled
-    copy never exceeds one design's tiles."""
+    stacks: each cell's tile cut to ``nx`` and multiplied by its Wald factor,
+    then summed over the pupil window, by one
+    :func:`..eval.metrics.pupil_window_sum` per design (on the card the
+    kernel scales each tile as it stages it, so no scaled copy is made; on
+    the CPU the copy never exceeds one design's tiles).  The cell grid is
+    (L, M, N)-major."""
     n_cells = L * M * N
     out = []
     for d in range(nd):
         sl = slice(d * n_cells, (d + 1) * n_cells)
-        h = (tiles[sl] * factor[sl, None, None])[:, :, :nx]
-        h = h.reshape(L, M, N, ny, nx).permute(0, 2, 1, 3, 4)
-        out.append(pupil_conv(h, mask, stride))
+        perc = pupil_window_sum(tiles[sl, :, :nx], mask, stride,
+                                scale=factor[sl])
+        out.append(perc.reshape((L, M, N) + tuple(perc.shape[-2:]))
+                   .permute(0, 2, 1, 3, 4))
     return torch.stack(out)
 
 
@@ -396,10 +400,11 @@ def run_design_sweep_persistent(
     dev = resolve_device(device)
     on_gpu = dev.type == "cuda"
     if on_gpu:
-        # the nvcc builds are not sweep time
-        build.build_all(["persistent_trace", "cell_rows"])
+        # the nvcc builds and the modules' loads are not sweep time
+        build.build_all(["persistent_trace", "cell_rows", "eye_tail"])
         trace_persistent.load_kernel()
         cell_rows.load_kernel()
+        eye_tail.load_kernel()
     D = len(designs)
     L, M, N = 3, cfg.num_fov_x, cfg.num_fov_y
     n_cells = L * M * N
@@ -476,8 +481,7 @@ def run_design_sweep_persistent(
         rng_cell = shared_seed_block(cfg, slots, cpb, dev)
         timings["seed_s"] = time.perf_counter() - t0
 
-    mask = torch.as_tensor(pupil_mask(eval_cfg.pupil_mask_bins),
-                           dtype=torch.float32, device=dev)
+    mask = pupil_mask(eval_cfg.pupil_mask_bins)
     ctrl = torch.tensor([cfg.rays_per_fov if count_spawn else gens,
                          spawn_iters], dtype=torch.int32, device=dev)
     chunks = [list(range(s, min(s + db, D))) for s in range(0, D, db)]
@@ -526,7 +530,7 @@ def run_design_sweep_persistent(
         bounce_parts.append(gathered(bounce_d)[:len(idx)])
         if evaluate_metrics:
             perc_parts.append(gathered(_chunk_perceive(
-                tiles, factor, nd, L, M, N, ny, nx, mask,
+                tiles, factor, nd, L, M, N, nx, mask,
                 (eval_cfg.eye_step_y, eval_cfg.eye_step_x)))[:len(idx)])
         if on_gpu:
             ev[2].record()

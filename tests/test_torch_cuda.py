@@ -857,3 +857,84 @@ def test_synthetic_rows_built_only_by_the_kernel_on_card(small, cuda_device,
         chunk.cell_params_packed.cpu().numpy(),
         trace_rows.pack_selection_params(want, chunk.tgeoms[0].num_fc,
                                          chunk.tgeoms[0].num_oc))
+
+
+def _tail_histogram(device, shape=(3, 12, 16, 80, 120), seed=15):
+    """A seeded float32 histogram with 20 % empty bins and an empty corner
+    (eye position (0, 0) of FoV (0, 0) sees nothing)."""
+    rng = np.random.default_rng(seed)
+    h = rng.random(shape).astype(np.float32)
+    h[h < 0.2] = 0.0
+    h[:, 0, 0, :40, :40] = 0.0
+    return torch.from_numpy(h).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [(8, 12), (1, 1)])
+def test_eye_perceive_kernel_equals_plain_version_on_card(cuda_device,
+                                                          stride):
+    """The perception kernel equals its plain version on the card bit for
+    bit, with and without per-image scales (the sweep's Wald factors) and
+    on a strided view (the sweep's 128-lane tiles cut to 120); one launch
+    counted per call."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    h = _tail_histogram(cuda_device)
+    mask = metrics.pupil_mask(30)
+    n0 = tp.launch_counts["eye_perceive"]
+    got = metrics.pupil_window_sum(h, mask, stride)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["eye_perceive"] == n0 + 1
+    want = metrics.eye_perceived_reference(h, mask, stride)
+    assert got.shape == want.shape and got.sum() > 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    tiles = torch.zeros((48, 80, 128), device=cuda_device)
+    tiles[:, :, :120] = h[0, :3].reshape(48, 80, 120)
+    scale = torch.from_numpy(np.random.default_rng(3).random(48).astype(
+        np.float32)).to(cuda_device)
+    got = metrics.pupil_window_sum(tiles[:, :, :120], mask, stride, scale)
+    want = metrics.eye_perceived_reference(tiles[:, :, :120], mask, stride,
+                                           scale)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("designs,with_image", [(1, True), (3, False)])
+def test_colorimetry_kernel_within_bars_on_card(cuda_device, designs,
+                                                with_image):
+    """The colorimetry kernel against its plain version on the card: the
+    metrics within 1e-5 relative, the image within rtol 1e-5 / atol 1e-6,
+    ``u_eb``'s zeros equal; the design results independent of the other
+    designs of the launch; one launch counted."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        metrics,
+    )
+
+    perc = metrics.eye_perceived_torch(_tail_histogram(cuda_device))
+    scales = torch.from_numpy(np.random.default_rng(4).random(
+        (designs, 3, 12, 16, 1, 1)).astype(np.float32)).to(cuda_device)
+    stack = (perc[None] * scales).contiguous()
+    stack[-1, :, 2, 5] = 0.0
+    inv_norm = metrics._inv_norm(5000.0)
+    n0 = tp.launch_counts["colorimetry"]
+    got = metrics.colorimetry_stack(stack, inv_norm, with_image)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["colorimetry"] == n0 + 1
+    want = metrics._make_eval_core(with_image)(stack, inv_norm)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    assert set(got) == set(want)
+    for k in ("delta_e", "ratio_sum", "u_eb"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(got["u_eb"] == 0, want["u_eb"] == 0)
+    assert (got["u_eb"] == 0).any()
+    if with_image:
+        assert got["image"].shape == want["image"].shape
+        np.testing.assert_allclose(got["image"], want["image"], rtol=1e-5,
+                                   atol=1e-6)
+    last = metrics.colorimetry_stack(stack[-1:].contiguous(), inv_norm,
+                                     with_image)
+    for k, v in last.items():
+        np.testing.assert_array_equal(v.cpu().numpy()[0], got[k][-1])

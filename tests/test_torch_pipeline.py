@@ -30,6 +30,15 @@ M, N = 4, 3
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def sims():
     """The port's Simulator and the JAX persistent Simulator (count spawn,

@@ -47,6 +47,15 @@ CFG = dict(num_fov_x=4, num_fov_y=3, rays_per_fov=128, max_bounces=256, seed=5)
 MODES = {"gens": 64, "count": 0}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _designs(cls):
     return [dataclasses.replace(cls(), lambda_ic=p, lambda_oc=p) for p in PERIODS]
 

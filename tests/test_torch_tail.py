@@ -39,6 +39,15 @@ CFG = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=128, num_iter=2,
                   max_bounces=400, seed=4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _hist(seed=5, shape=(3, N, M, 80, 120)):
     rng = np.random.default_rng(seed)
     h = rng.poisson(0.8, size=shape).astype(np.float32)

@@ -46,6 +46,15 @@ C = 3 * M * N
 BINS = (80, 120)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread: the suite runs several workers on the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def rows():
     geom = generate_geometry(num_fov_x=M, num_fov_y=N)
