@@ -160,6 +160,24 @@ Run from the repository root.  Phases:
    host's launch cost is not counted), its plain version's and its bound
    (bytes read and written once at 3.35 TB/s, or the operations at 67
    TFLOP/s);
+21. the per-cell splitting kernel (``csrc/split_cells.cu``: one launch per
+   chunk runs every cell's wavefront loop) against its plain PyTorch
+   version (``splitting.split_cells_reference``) on the same packed
+   arguments: a 256-cell chunk of ``simulate --engine splitting``'s README
+   case (16 x 12 FoV, 8,192 slots, threshold 1e-6, 2 launch seeds), 4 of
+   its cells with shared and with per-cell seeds (each also against the
+   plain version on the CPU: tiles bit for bit), the 4 cells at 64 slots
+   (it must truncate, and its peak pass 64) and a 128-cell chunk of the
+   100 x 75 grid at ``--tail-exact``'s engine knobs (32,768 slots,
+   threshold 1e-6, a pass of 4 pupil points, each launched TE and TM: 8
+   launch seeds); bars on the card: per-cell steps, peak and
+   stepped widths equal, truncation equal where 0 and else within 1e-6,
+   pruned and out-coupled weight within 1e-6 relative, tiles within rtol
+   1e-6 / atol 1e-12 with zeros at the same places; the kernel's time
+   (CUDA events), the plain version's, and the bound from the kernel's
+   own sum of widths (88 B a stepped slot, and each cell's records, tile
+   and seeds once, at 3.35 TB/s, or 200 float32 operations a stepped
+   slot at 67 TFLOP/s);
 11. the device tail and the run options at the reference workload's full
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
@@ -209,8 +227,10 @@ Run from the repository root.  Phases:
    1e-5; (c) 256 cells of the 100 x 75 grid at 16 positions (8 passes of
    2): ms per cell, the widest wavefront and the full grid's time this
    implies; (d) the global engine on 3 x 2 FoV x 3 wavelengths at 4
-   positions, card against CPU within the same bars.  Phases 12 and 13
-   launch no kernel (the K2 cross-check aside).
+   positions, card against CPU within the same bars.  Phase 12 launches
+   no kernel (the K2 cross-check aside); phase 13's per-cell runs launch
+   ``csrc/split_cells.cu`` once per batch and pass (counted: 13a, 13b and
+   13c's batches x passes) and no trace kernel.
 14. ``simulate --tail-boost`` at full width through
    ``engine.hybrid.TailBoostHybrid`` with the CLI's knobs (tau 30 / 20,
    tiers up to 1024x): the reference workload, count spawn with folding,
@@ -242,7 +262,8 @@ Run from the repository root.  Phases:
    CLI's knobs: selected cells, pruned weight, pilot (timed twice: its first
    run holds the process's first uses of the splitting operations), tail
    and bulk seconds, starved positions; the bulk as ``simulate`` runs it
-   (gens spawn, one launch per iteration);
+   (gens spawn, one launch per iteration), the pilot and the tail one
+   ``split_cells`` launch per chunk and pass;
 15. ``optimize``: the README's apodization case (16 x 12 FoV, 16 rays per
    FoV, 4,096 slots, 64 trace steps, 40 Adam steps) and its joint case
    (24 x 18, 8 rays, tied pitch and orientation with the apodization,
@@ -351,6 +372,11 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
     "colorimetry": (f"{PORT}/csrc/eye_tail.cu",
                     f"{JAX_PACKAGE}/eval/metrics.py:266 _make_eval_core "
                     "(jnp, no Pallas counterpart)"),
+    # port-side: the JAX per-cell engine is jnp under lax.while_loop
+    "split_cells": (f"{PORT}/csrc/split_cells.cu",
+                    f"{JAX_PACKAGE}/engine/splitting.py:720 "
+                    "make_splitting_cells_fn's trace (jnp under "
+                    "lax.while_loop, no Pallas counterpart)"),
 }
 # the libraries of csrc/ the kernels live in, one nvcc process each
 LIBRARIES = list(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
@@ -2494,7 +2520,9 @@ def phase13(ctx) -> None:
     out_w = sim.split_out_coupled
     met = res.metrics
     a = {"cells": 576, "positions": 64, "wall_s": wall,
-         "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+         "setup_s": sim.setup_seconds,
+         "setup_timings": dict(sim.setup_timings),
+         "trace_s": res.trace_seconds,
          "seed_s": res.timings["seed_s"],
          "seed_ms": res.timings.get("seed_ms"),
          "tail": {k: res.timings[k] for k in ("metrics_s", "perceive_ms",
@@ -2517,8 +2545,15 @@ def phase13(ctx) -> None:
                                             - r4b.histogram).max())
     rec["readme"] = a
     save_record(ctx)
+    st = sim.setup_timings
     print(f"phase 13a: 576 cells x 64 positions (32 passes of 2): wall "
-          f"{wall:.3f} s, seeding {a['seed_s']:.4f} s host, "
+          f"{wall:.3f} s (setup {sim.setup_seconds:.3f} s before it: "
+          f"geometry {st.get('geometry_s', 0.0):.3f} s, host tables "
+          f"{st.get('host_tables_s', 0.0):.3f} s, trace geometry "
+          f"{st.get('trace_geometry_s', 0.0):.3f} s, kernel build and bind "
+          f"{st.get('kernel_build_s', 0.0):.3f} s, the trace's tables and "
+          f"region grid {st.get('split_tables_s', 0.0):.3f} s, synchronize "
+          f"{st.get('sync_s', 0.0):.3f} s), seeding {a['seed_s']:.4f} s host, "
           f"{tail_text(res.timings)}, peak device memory "
           f"{a['peak_bytes'] / 2**20:.1f} MiB, "
           f"{res.total_bounces} steps; truncated "
@@ -2630,9 +2665,24 @@ def phase13(ctx) -> None:
     launches = dict(tp.launch_counts)
     rec["launches"] = launches
     rec["wall_s"] = time.perf_counter() - t_phase
+    # one split_cells launch per batch and pass: 13a's run (32 passes) and
+    # its two 4-pass runs in batches of 256 and 100 cells, 13b's card run
+    # (one batch), 13c's 8 passes of one batch; 13d's global engine is
+    # plain PyTorch
+    per = pipeline.SPLIT_SLOT_BUDGET // 8192
+    want = (math.ceil(576 / per) * (32 + 4) + math.ceil(576 / 100) * 4 + 1
+            + math.ceil(256 / per) * 8)
+    rec["split_cells_expected"] = want
     save_record(ctx)
+    print(f"phase 13 launches: {launches} (split_cells expected {want})")
     if launches["persistent_trace"] or launches["cell_trace"]:
-        faults.append(f"the splitting engine launched kernels: {launches}")
+        faults.append(f"the splitting engine launched the trace kernels: "
+                      f"{launches}")
+    if launches["split_cells"] != want:
+        faults.append(f"{launches['split_cells']} split_cells launches, "
+                      f"expected {want}")
+    ctx["split_launches"] = (ctx.get("split_launches", 0)
+                             + launches["split_cells"])
     if faults:
         fail("phase 13: " + "; ".join(faults))
     if jax_modules():
@@ -2938,6 +2988,18 @@ def phase14b(ctx) -> None:
     if trace_launches(launches) != {"persistent_trace": bulk,
                                     "cell_trace": 0}:
         faults.append(f"launches {launches}, expected {bulk}")
+    # the exact tail: one split_cells launch per chunk and pass of the
+    # pilot (the coarse subgrid) and of the selected cells
+    coarse = sim.L * math.prod(
+        len(set(range(0, n, hy.stride)) | {n - 1}) for n in (sim.M, sim.N))
+    want = sum(math.ceil(cells / hy._cpb)
+               * math.ceil(pts / min(pts, hy.points_per_pass))
+               for cells, pts in ((coarse, hy.pilot_points),
+                                  (d.selected_cells, hy.exact_points)))
+    rec["split_cells_expected"] = want
+    if launches["split_cells"] != want:
+        faults.append(f"{launches['split_cells']} split_cells launches, "
+                      f"expected {want}")
     if not (d.selected_cells and met.starved_eye_positions <= before):
         faults.append(f"starved {before} -> {met.starved_eye_positions} "
                       f"with {d.selected_cells} cells selected")
@@ -2949,6 +3011,8 @@ def phase14b(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_hybrid_launches"] = (ctx.get("k1_hybrid_launches", 0)
                                  + launches["persistent_trace"])
+    ctx["split_launches"] = (ctx.get("split_launches", 0)
+                             + launches["split_cells"])
 
 
 TIED = ("lambda_tied", "phi_tied")
@@ -3794,11 +3858,205 @@ def phase20(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
 
 
+# bytes of one slot that a step of csrc/split_cells.cu must move: its 11
+# fields read (44 B) and written once, as the child that it was (44 B).  A
+# cell's interaction records are staged in shared memory once per block and
+# counted once per cell (split_bytes), not per slot
+SPLIT_SLOT_BYTES = 88
+# float32 operations of one slot's step, counted from csrc/split_cells.cu
+# with each comparison, division and square root one operation (the exact
+# half-plane tests where the region grid leaves a position open are left
+# out, so the bound is a floor): the grid lookup 6, the site and its strips
+# 16, three Jones products 84, the efficiencies 20, the deposit 16, two
+# children 52, the survivor 6
+SPLIT_SLOT_OPS = 200
+
+
+def split_bytes(a, work: int) -> int:
+    """The bytes that the chunk ``a`` must move through HBM for ``work``
+    stepped slots: each slot's fields read and written once, each cell's
+    records, constants, direction rows and tile once, the seeds, the
+    geometry and the region grid once, and the per-cell ledgers."""
+    ny, nx = a.eyebox_bins
+    once = sum(t.numel() * t.element_size()
+               for t in (a.rec, a.cell, a.dirs, a.seeds, a.geom, a.grid))
+    # tile, trunc, pruned, peak, steps (4 B each) and work (8 B) per cell
+    return work * SPLIT_SLOT_BYTES + once + a.C * (ny * nx * 4 + 24)
+
+
+def split_compare(out, ref) -> dict:
+    """The kernel's chunk ``out`` against the plain version's ``ref`` (both
+    :class:`SplitCellsOut`, on one device): the phase-21 bars."""
+    import torch
+
+    k, p = out.tiles.double(), ref.tiles.double()
+    diff = (k - p).abs()
+    beyond = diff > 1e-12 + 1e-6 * p.abs()
+    rel = torch.where(p != 0, diff / p.abs().clamp_min(1e-300), diff)
+
+    def rel_err(a, b):
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
+
+    tr_k, tr_p = out.trunc.double(), ref.trunc.double()
+    ow_k, ow_p = k.sum(dim=(1, 2)), p.sum(dim=(1, 2))
+    e = {"steps_equal": bool(torch.equal(out.steps.long(), ref.steps.long())),
+         "peak_equal": bool(torch.equal(out.peak.long(), ref.peak.long())),
+         "work_equal": bool(torch.equal(out.work.long(), ref.work.long())),
+         "trunc_zero_equal": bool(torch.equal(tr_k == 0, tr_p == 0)),
+         "trunc_rel": rel_err(tr_k, tr_p), "pruned_rel": rel_err(
+             out.pruned, ref.pruned), "out_w_rel": rel_err(ow_k, ow_p),
+         "tiles_beyond": int(beyond.sum()),
+         "zeros_equal": bool(torch.equal(k == 0, p == 0)),
+         "tiles_max_rel": float(rel.max()), "max_abs_err": float(diff.max()),
+         "bits_differ": int((out.tiles.view(torch.int32)
+                             != ref.tiles.view(torch.int32)).sum())}
+    e["ok"] = bool(e["steps_equal"] and e["peak_equal"] and e["work_equal"]
+                   and e["trunc_zero_equal"] and e["trunc_rel"] <= 1e-6
+                   and e["pruned_rel"] <= 1e-6 and e["out_w_rel"] <= 1e-6
+                   and e["tiles_beyond"] == 0 and e["zeros_equal"])
+    return e
+
+
+def _split_case(name: str, trace, cells, seeds, reps: int,
+                against_cpu: bool = False) -> dict:
+    """One phase-21 chunk: the kernel against its plain version on the card
+    (and, with ``against_cpu``, on the CPU), the times and the bound from
+    the kernel's own widths."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    a = trace.args(cells, seeds)
+    out = splitting.launch_split_cells(a)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: splitting.launch_split_cells(a), reps)
+    t0 = time.perf_counter()
+    ref = splitting.split_cells_reference(a)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    e = {"name": name, "cells": a.C, "points": a.P, "capacity": a.capacity,
+         "threshold": a.weight_threshold,
+         "per_cell_seeds": a.seeds.dim() == 3, "ms": ms,
+         "plain_ms": plain_ms, **split_compare(out, ref)}
+    work = int(out.work.sum())
+    nbytes = split_bytes(a, work)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = work * SPLIT_SLOT_OPS / PEAK_FP32_OPS * 1e3
+    e.update(work=work, bytes=nbytes, steps=int(out.steps.max()),
+             peak=int(out.peak.max()), trunc=float(out.trunc.sum()),
+             pruned=float(out.pruned.sum()),
+             out_w=float(out.tiles.sum(dtype=torch.float64)),
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if against_cpu:
+        t0 = time.perf_counter()
+        cpu = splitting.split_cells_reference(a.to("cpu"))
+        e["cpu_plain_s"] = time.perf_counter() - t0
+        got = splitting.SplitCellsOut(**{
+            f: getattr(out, f).cpu()
+            for f in ("tiles", "trunc", "pruned", "peak", "steps", "work")})
+        c = split_compare(got, cpu)
+        e["cpu"] = c
+        e["cpu_bitwise"] = c["bits_differ"] == 0
+    return e
+
+
+def phase21(ctx) -> None:
+    """The per-cell splitting kernel against its plain version."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        hybrid, pipeline, splitting,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase21", {})
+    readme = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=2)
+    cells4 = np.array([0, 191, 300, 575])
+    cases = []
+    for shared in (True, False):
+        cfg = dc.replace(readme, shared_pupil_samples=shared)
+        sim = pipeline.Simulator(cfg=cfg, device=dev, engine="splitting")
+        kw = dict(weight_threshold=1e-6, max_steps=1024, device=dev,
+                  per_cell_seeds=not shared)
+        trace = splitting.make_splitting_cells_fn(
+            sim.tables, sim.tgeom, cfg, capacity=8192, **kw)
+        if shared:
+            # the main path's chunk: 256 cells of simulate --engine splitting
+            cells = np.arange(256)
+            cases.append(_split_case("readme_256", trace, cells,
+                                     sim._split_seeds(cells, 2, 0), 3))
+            small = splitting.make_splitting_cells_fn(
+                sim.tables, sim.tgeom, cfg, capacity=64, **kw)
+            cases.append(_split_case("readme_4_k64", small, cells4,
+                                     sim._split_seeds(cells4, 2, 0), 5))
+        cases.append(_split_case(
+            "readme_4_" + ("shared" if shared else "per_cell"), trace,
+            cells4, sim._split_seeds(cells4, 2, 0), 5, against_cpu=True))
+        del sim, trace
+    # --tail-exact's engine at its own knobs: 32,768 slots, threshold 1e-6,
+    # a pass of 4 pupil points (each launched TE and TM: 8 launch seeds), a
+    # chunk of 128 cells of the 100 x 75 grid
+    sim = pipeline.Simulator(cfg=TraceConfig(), device=dev,
+                             engine="splitting")
+    hy = hybrid.ExactTailHybrid(sim)
+    cells = np.linspace(0, sim.L * sim.M * sim.N - 1, hy._cpb).astype(
+        np.int64)
+    cases.append(_split_case("tail_exact_128", hy._trace, cells,
+                             hy._seeds(4, 1_000_003), 2))
+    del sim, hy
+    faults = []
+    for e in cases:
+        rec[e["name"]] = e
+        cpu = ""
+        if "cpu" in e:
+            cpu = (f"; against the plain version on the CPU: "
+                   f"{e['cpu']['bits_differ']} tile entries differ in their "
+                   f"bits ({e['cpu']['tiles_beyond']} beyond the bar), "
+                   f"steps {e['cpu']['steps_equal']}, peak "
+                   f"{e['cpu']['peak_equal']}, pruned "
+                   f"{e['cpu']['pruned_rel']:.2e} apart (CPU plain "
+                   f"{e['cpu_plain_s']:.2f} s)")
+            if not e["cpu"]["ok"]:
+                faults.append(f"{e['name']} against the CPU: {e['cpu']}")
+        print(f"phase 21 {e['name']}: {e['cells']} cells x {e['points']} "
+              f"launch seeds, K {e['capacity']}: kernel {e['ms']:.3f} ms, "
+              f"plain {e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms "
+              f"({e['bound_by']}; {e['work']:,} slot-steps = the sum of the "
+              f"widths, {e['bytes']:,} B); steps {e['steps']}, peak {e['peak']}, truncated "
+              f"{e['trunc']:.6g}, pruned {e['pruned']:.6g}, out-coupled "
+              f"{e['out_w']:.8g}; against the plain version on the card: "
+              f"steps {e['steps_equal']}, peak {e['peak_equal']}, widths "
+              f"{e['work_equal']}, truncated {e['trunc_rel']:.2e}, pruned "
+              f"{e['pruned_rel']:.2e}, out-coupled {e['out_w_rel']:.2e} "
+              f"apart, tiles {e['tiles_beyond']} beyond rtol 1e-6 / atol "
+              f"1e-12 (max rel {e['tiles_max_rel']:.2e}, {e['bits_differ']} "
+              f"differ in their bits), zeros equal {e['zeros_equal']}{cpu}")
+        if not e["ok"]:
+            faults.append(f"{e['name']}: {e}")
+    k64 = rec["readme_4_k64"]
+    if not (k64["trunc"] > 0 and k64["peak"] > 64):
+        faults.append(f"the 64-slot chunk did not truncate: {k64}")
+    save_record(ctx)
+    ctx["split_modes"] = cases
+    if faults:
+        fail("phase 21: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
-          "6c": phase6c, "19": phase19, "20": phase20,
+          "6c": phase6c, "19": phase19, "20": phase20, "21": phase21,
           "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
@@ -3808,8 +4066,9 @@ def kernel_line(ctx) -> dict:
     """The kernels' summary; a kernel's headline numbers are those of the
     main path's mode: gens spawn (phase 2's first mode), full mode with
     the whole budget, the rows of the reference workload (phase 19's
-    first case), and the sampled perception and the colorimetry with the
-    image of ``simulate`` (phase 20's first cases)."""
+    first case), the sampled perception and the colorimetry with the
+    image of ``simulate`` (phase 20's first cases), and the splitting
+    engine's 256-cell chunk (phase 21's first case)."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
@@ -3835,9 +4094,11 @@ def kernel_line(ctx) -> dict:
             ("eye_perceive", ctx["tail_modes"]["eye_perceive"],
              ctx["tail_launches"]["eye_perceive"]),
             ("colorimetry", ctx["tail_modes"]["colorimetry"],
-             ctx["tail_launches"]["colorimetry"])):
+             ctx["tail_launches"]["colorimetry"]),
+            ("split_cells", ctx["split_modes"], ctx["split_launches"])):
         # the headline: the main path's shape (the reference workload's rows,
-        # simulate's sampled perception and its colorimetry with the image)
+        # simulate's sampled perception and its colorimetry with the image,
+        # a 256-cell chunk of simulate --engine splitting)
         head = modes[0]
         source, replaces = KERNELS[name]
         out.append({

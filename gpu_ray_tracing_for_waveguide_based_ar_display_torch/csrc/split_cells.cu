@@ -1,0 +1,644 @@
+// The exact per-cell splitting engine for NVIDIA Hopper (sm_90a): one launch
+// traces every wavefront of a chunk of (lambda, FoV) cells to the end.
+//
+// Replaces no Pallas kernel.  The JAX package runs its per-cell engine
+// (engine/splitting.py::make_splitting_cells_fn, fast=False) as jnp under a
+// jax.lax.while_loop on its device; the port's plain PyTorch version
+// (engine/splitting.py::split_cells_reference) runs that loop eagerly from
+// the host: about 300 operations and two reads of the device per step.
+// This kernel runs the whole loop inside one block per cell, so a chunk is
+// one launch and no step reads the device from the host.
+//
+// Per cell, every step takes each slot of the wavefront to its two children
+// (the branch A and B transports of split_step), its deposit and its pruned
+// weight, with the plain version's float32 operations in its order (no
+// contraction: -fmad=false; 1 / sqrt as __fdiv_rn(1, __fsqrt_rn(v)); every
+// comparison against a float32 constant, as torch compares a float32 tensor
+// with a Python scalar).  The next wavefront is the live A children in slot
+// order, then the live B children in slot order, cut to K slots (the rest
+// goes to the truncated ledger, and the peak counts the live children
+// before the cut): the plain version's per-row cumsum compaction.
+//
+// Design.  One block of 512 threads per cell, the step loop inside the
+// block, __syncthreads between phases; a cell's results do not depend on
+// the other cells of its launch.  The wavefront lives in device memory,
+// double-buffered, with a side buffer for the B children (11 fields of K
+// slots each, 132 * K bytes a buffer).  A step walks its slots in chunks of
+// 512: each thread computes one slot; a block scan of the (A live, B live,
+// deposits) flags gives each child its place, so A children go straight to
+// the next buffer and B children to the side buffer, which is copied in
+// behind the A children after the sweep.  The cell's (ny, nx) tile lives in
+// shared memory; a chunk's deposits are sorted by (bin, slot) in a bitonic
+// sort over the next power of two of their count, and the first deposit of
+// each bin adds the bin's run in slot order: every bin receives its adds in
+// the plain version's order (the deposits of earlier chunks and steps
+// first), with no float atomics.  The pruned and truncated weights are
+// summed per step in float64 in a fixed order and rounded once, then added
+// to the float32 ledgers as the plain version adds them.
+//
+// What bounds it on an H100: the bytes of the wavefront (each stepped slot
+// read once, 44 B, and written once as a child, 44 B) over the sum of the
+// widths of the steps, and each cell's records (staged in shared memory
+// once) and tile once; its float32 work is about 200 operations a slot.
+// Two blocks fit an SM (64 registers a thread, about 50 KB of shared
+// memory), so a 256-cell chunk is one wave on 132 SMs; the threads of a
+// narrow wavefront idle: a simple kernel first.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int SLOT_BITS = 9;          // a slot's index within its chunk
+constexpr int DEAD = 6;
+constexpr int NF = 11;                // wavefront fields
+enum { F_X, F_Y, F_TER, F_TEI, F_TMR, F_TMI, F_COS, F_GX, F_GY, F_ST, F_W };
+constexpr int REC_W = 26;             // interaction record: j_a, j_b, j_c, s_a, s_b
+constexpr int CELL_W = 26;            // per-cell constants
+constexpr int DIR_W = 6;              // per direction: gap, TIR phasor, hop phasor
+constexpr int DIR_IC = 0, DIR_FC = 1, DIR_IC2 = 2, DIR_OC = 3;
+constexpr int I_JA = 0, I_JB = 8, I_SA = 16, I_SB = 17, I_COS0 = 18,
+              I_ICA = 19, I_ICB = 20, C_SOUT = 21, C_EBR = 22;
+// the geometry scalars (engine/splitting.py::GEOM_SCALARS), then the
+// half-planes of the in-coupler, r1, r2 and the hull, (E, 3) each
+enum { G_ICX, G_ICY, G_ICR, G_FCR0, G_FCR1, G_FC_TOP, G_FC_WIDTH, G_OCR0,
+       G_OCR1, G_OC_TOP, G_OC_WIDTH, G_B0, G_B1, G_B2, G_B3, G_GRID_X0,
+       G_GRID_Y0, G_GRID_INV_HX, G_GRID_INV_HY, NG };
+constexpr float EDGE_TOL = 1e-6f;
+
+struct Args {
+  const float* rec;      // (26, C * R2) component-major
+  const float* cell;     // (26, C)
+  const float* dirs;     // (6, C * 4)
+  const float* geom;     // NG scalars, then the four half-plane packs
+  const uint8_t* grid;   // (grid_n, grid_n) region codes
+  const float* seeds;    // (6, P), or (6, C, P) with per_cell_seeds
+  float* buf;            // (C, 3, NF, K) wavefront scratch
+  float* tiles;          // (C, ny * nx)
+  float* trunc;          // (C,)
+  float* pruned;         // (C,)
+  int* peak;             // (C,)
+  int* steps;            // (C,)
+  long long* work;       // (C,) slots stepped, summed over the steps
+  int C, P, K, R2, num_fc, num_oc, ny, nx, max_steps, per_cell_seeds, circle;
+  int grid_n, e_ic, e_r1, e_r2, e_hull;
+  float thr;
+};
+
+struct Ray {
+  float x, y, ter, tei, tmr, tmi, cos, gx, gy, w;
+  int st;
+};
+
+// the block's view of its cell and of the geometry, in shared memory
+struct Cell {
+  const float* rec;      // (R2, 26): record of key k at k * 26
+  const float* cell;     // (26,)
+  const float* dirs;     // (4, 6)
+  const float* g;        // NG scalars
+  const float* ic_hp;
+  const float* r1_hp;
+  const float* r2_hp;
+  const float* hull_hp;
+  const uint8_t* grid;
+  int e_ic, e_r1, e_r2, e_hull, grid_n, num_fc, num_oc, ny, nx;
+  bool circle;
+  float thr;
+};
+
+__device__ __forceinline__ float power4(float a, float b, float c, float d) {
+  return a * a + b * b + c * c + d * d;
+}
+
+// 1 / sqrt(v) with the correctly rounded root and quotient
+__device__ __forceinline__ float rsqrt_rn(float v) {
+  return __fdiv_rn(1.0f, __fsqrt_rn(v));
+}
+
+// split-real complex 2x2 matvec, j in row-major (re, im) order
+__device__ __forceinline__ void jones(const float* j, float ter, float tei,
+                                      float tmr, float tmi, float* o) {
+  o[0] = j[0] * ter - j[1] * tei + j[2] * tmr - j[3] * tmi;
+  o[1] = j[0] * tei + j[1] * ter + j[2] * tmi + j[3] * tmr;
+  o[2] = j[4] * ter - j[5] * tei + j[6] * tmr - j[7] * tmi;
+  o[3] = j[4] * tei + j[5] * ter + j[6] * tmi + j[7] * tmr;
+}
+
+__device__ __forceinline__ void phase_mul(float pr, float pi, float re,
+                                          float im, float& o_re,
+                                          float& o_im) {
+  o_re = pr * re - pi * im;
+  o_im = pr * im + pi * re;
+}
+
+// floor, clamped to [0, hi]
+__device__ __forceinline__ int bin_of(float v, int hi) {
+  return (int)fminf(fmaxf(floorf(v), 0.0f), (float)hi);
+}
+
+// every half-plane of hp (E, 3): x * a + y * b - c <= tol
+__device__ bool hp_inside(const float* hp, int E, float x, float y) {
+  for (int e = 0; e < E; ++e) {
+    const float v = x * hp[3 * e] + y * hp[3 * e + 1] - hp[3 * e + 2];
+    if (!(v <= EDGE_TOL)) return false;
+  }
+  return true;
+}
+
+__device__ __forceinline__ bool in_ic(const Cell& c, float x, float y) {
+  if (c.circle) {
+    const float dx = x - c.g[G_ICX];
+    const float dy = y - c.g[G_ICY];
+    return dx * dx + dy * dy <= c.g[G_ICR] * c.g[G_ICR];
+  }
+  return hp_inside(c.ic_hp, c.e_ic, x, y);
+}
+
+// (in r1, in the hull, in r2): the grid's code, and the exact test of all
+// three where the grid leaves any of them open
+__device__ void regions(const Cell& c, float x, float y, bool& r1,
+                        bool& hull, bool& r2) {
+  const float n = (float)c.grid_n;
+  const float ix = floorf((x - c.g[G_GRID_X0]) * c.g[G_GRID_INV_HX]);
+  const float iy = floorf((y - c.g[G_GRID_Y0]) * c.g[G_GRID_INV_HY]);
+  int code = 0x2A;   // every region open
+  if (ix >= 0.0f && ix < n && iy >= 0.0f && iy < n)
+    code = c.grid[(int)iy * c.grid_n + (int)ix];
+  const int k0 = code & 3, k1 = (code >> 2) & 3, k2 = (code >> 4) & 3;
+  if (k0 == 2 || k1 == 2 || k2 == 2) {
+    r1 = hp_inside(c.r1_hp, c.e_r1, x, y);
+    hull = hp_inside(c.hull_hp, c.e_hull, x, y);
+    r2 = hp_inside(c.r2_hp, c.e_r2, x, y);
+  } else {
+    r1 = k0 == 1;
+    hull = k1 == 1;
+    r2 = k2 == 1;
+  }
+}
+
+// split_init: a launch ray's first in-coupler interaction, both orders
+__device__ void init_children(const Cell& c, const float* s, Ray& a, Ray& b,
+                              float& pr_a, float& pr_b) {
+  const float w0 = fabsf(s[2]) + fabsf(s[3]) + fabsf(s[4]) + fabsf(s[5]);
+  const float w = w0 > 0.0f ? 1.0f : 0.0f;
+  for (int branch = 0; branch < 2; ++branch) {
+    Ray& o = branch == 0 ? a : b;
+    const float* jm = c.cell + (branch == 0 ? I_JA : I_JB);
+    const float sc = c.cell[branch == 0 ? I_SA : I_SB];
+    float p[4];
+    jones(jm, s[2], s[3], s[4], s[5], p);
+    const float eff = __fdiv_rn(power4(p[0], p[1], p[2], p[3]) * sc,
+                                c.cell[I_COS0]);
+    const float pw = power4(p[0], p[1], p[2], p[3]);
+    const float inv = rsqrt_rn(pw > 1e-30f ? pw : 1.0f);
+    const float* d = c.dirs + DIR_W * (branch == 0 ? DIR_IC : DIR_IC2);
+    o.ter = p[0] * inv;
+    o.tei = p[1] * inv;
+    phase_mul(d[2], d[3], p[2] * inv, p[3] * inv, o.tmr, o.tmi);
+    o.gx = d[0];
+    o.gy = d[1];
+    o.x = s[0] + d[0];
+    o.y = s[1] + d[1];
+    const bool icin = in_ic(c, o.x, o.y);
+    int st = branch == 0 ? (icin ? 0 : 2) : (icin ? 1 : DEAD);
+    const float wgt = w * eff;
+    const bool keep = wgt > c.thr;
+    const float killed = (st < DEAD && !keep) ? wgt : 0.0f;
+    if (branch == 0) pr_a = killed; else pr_b = killed;
+    o.st = keep ? st : DEAD;
+    o.cos = c.cell[branch == 0 ? I_ICA : I_ICB];
+    o.w = wgt;
+  }
+}
+
+// one child of split_step's child(): renormalise, phasor, hop, state, weight
+__device__ void child(const Cell& c, const Ray& r, const float* bp, float eff,
+                      float scale_cos, int dir, int to_fc, int to_oc,
+                      int ic_in, int ic_out, bool grp_oc, bool grp_fc,
+                      bool interact, bool alive, Ray& o, float& pr) {
+  const float pw = power4(bp[0], bp[1], bp[2], bp[3]);
+  const float inv = rsqrt_rn(pw > 1e-30f ? pw : 1.0f);
+  const float* d = c.dirs + DIR_W * dir;
+  o.ter = bp[0] * inv;
+  o.tei = bp[1] * inv;
+  phase_mul(d[2], d[3], bp[2] * inv, bp[3] * inv, o.tmr, o.tmi);
+  o.gx = d[0];
+  o.gy = d[1];
+  o.x = r.x + d[0];
+  o.y = r.y + d[1];
+  int st;
+  if (grp_oc) st = to_oc;
+  else if (grp_fc) st = to_fc;
+  else st = in_ic(c, o.x, o.y) ? ic_in : ic_out;
+  const float wgt = r.w * eff;
+  const bool keep = wgt > c.thr;
+  pr = (interact && alive && !keep) ? wgt : 0.0f;
+  o.st = (interact && keep) ? st : DEAD;
+  o.cos = scale_cos;
+  o.w = wgt;
+}
+
+// split_step for one slot: children A and B, the deposit (bin or -1, and
+// its weight) and each child's pruned weight
+__device__ void step_children(const Cell& c, const Ray& r, Ray& a, Ray& b,
+                              int& dbin, float& dw, float& pr_a,
+                              float& pr_b) {
+  const float x = r.x, y = r.y;
+  const int state = r.st;
+  bool in_r1, in_hull, in_r2;
+  regions(c, x, y, in_r1, in_hull, in_r2);
+  const bool alive = state < DEAD && in_r1;
+  // site_key
+  const bool grp_ic = alive && state <= 1;
+  const bool grp_fc = alive && (state == 2 || state == 3);
+  const bool grp_oc = alive && state >= 4;
+  const int bit = state & 1;
+  const float yrot = c.g[G_FCR0] * x + c.g[G_FCR1] * y;
+  const int fc_strip = bin_of(__fdiv_rn(c.g[G_FC_TOP] - yrot,
+                                        c.g[G_FC_WIDTH]), c.num_fc - 1);
+  const float yr = c.g[G_OCR0] * x + c.g[G_OCR1] * y;
+  const bool in_rect = x >= c.g[G_B0] - EDGE_TOL && x <= c.g[G_B1] + EDGE_TOL
+                       && y >= c.g[G_B2] - EDGE_TOL
+                       && y <= c.g[G_B3] + EDGE_TOL;
+  const int oc_strip = bin_of(__fdiv_rn(c.g[G_OC_TOP] - yr,
+                                        c.g[G_OC_WIDTH]), c.num_oc - 1);
+  const int site = grp_oc ? 1 + c.num_fc + oc_strip
+                          : (grp_fc ? 1 + fc_strip : 0);
+  const float* rec = c.rec + (site * 2 + bit) * REC_W;
+  const bool hit_fc = grp_fc && in_hull;
+  const bool hit_oc = grp_oc && in_rect;
+  const bool interact = grp_ic || hit_fc || hit_oc;
+
+  float pol_a[4], pol_b[4];
+  jones(rec, r.ter, r.tei, r.tmr, r.tmi, pol_a);
+  jones(rec + 8, r.ter, r.tei, r.tmr, r.tmi, pol_b);
+  const float s_a = rec[24], s_b = rec[25];
+  const float inv_cos = __fdiv_rn(1.0f, r.cos > 0.0f ? r.cos : 1.0f);
+  const float eff_a = power4(pol_a[0], pol_a[1], pol_a[2], pol_a[3]) * s_a
+                      * inv_cos;
+  const float eff_b = power4(pol_b[0], pol_b[1], pol_b[2], pol_b[3]) * s_b
+                      * inv_cos;
+
+  // the deposit: branch C of an out-coupler hit, at the slot's position
+  dbin = -1;
+  dw = 0.0f;
+  if (hit_oc) {
+    float pol_c[4];
+    jones(rec + 16, r.ter, r.tei, r.tmr, r.tmi, pol_c);
+    const float eff_c = power4(pol_c[0], pol_c[1], pol_c[2], pol_c[3])
+                        * c.cell[C_SOUT] * inv_cos;
+    const float dep_w = r.w * eff_c;
+    const float* e = c.cell + C_EBR;
+    const bool in_quad = x >= e[0] - EDGE_TOL && x <= e[1] + EDGE_TOL
+                         && y >= e[2] - EDGE_TOL && y <= e[3] + EDGE_TOL;
+    if (in_quad && dep_w != 0.0f) {
+      const float dxb = __fdiv_rn(e[1] - e[0], (float)c.nx);
+      const float dyb = __fdiv_rn(e[3] - e[2], (float)c.ny);
+      const int ix = bin_of(__fdiv_rn(x - e[0], dxb), c.nx - 1);
+      const int iy = bin_of(__fdiv_rn(y - e[2], dyb), c.ny - 1);
+      dbin = iy * c.nx + ix;
+      dw = dep_w;
+    }
+  }
+
+  const bool miss_fc2 = grp_fc && !in_hull && state == 2;
+  const bool miss_fc3 = grp_fc && !in_hull && state == 3;
+  const bool fc3_to_oc = miss_fc3 && !in_r2;
+  const bool hop = miss_fc2 || (miss_fc3 && in_r2)
+                   || (grp_oc && !in_rect && state == 4);
+  const bool miss_oc5 = grp_oc && !in_rect && state == 5;
+
+  const int dir_a = grp_oc ? DIR_FC : DIR_IC;
+  const int dir_b = grp_ic ? DIR_IC2 : (grp_fc ? DIR_FC : DIR_OC);
+  child(c, r, pol_a, eff_a, s_a, dir_a, 2, 4, 0, 2, grp_oc, grp_fc,
+        interact, alive, a, pr_a);
+  child(c, r, pol_b, eff_b, s_b, dir_b, 3, 5, 1, DEAD, grp_oc, grp_fc,
+        interact, alive, b, pr_b);
+
+  // a slot that does not interact: child A carries the hop survivor or the
+  // phase change
+  const bool not_int = alive && !interact;
+  if (not_int) {
+    const float* hd = c.dirs + DIR_W * (miss_fc2 ? DIR_IC : DIR_FC);
+    float hop_tmr, hop_tmi;
+    phase_mul(hd[4], hd[5], r.tmr, r.tmi, hop_tmr, hop_tmi);
+    a.x = hop ? x + r.gx : x;
+    a.y = hop ? y + r.gy : y;
+    a.ter = r.ter;
+    a.tei = r.tei;
+    a.tmr = hop ? hop_tmr : r.tmr;
+    a.tmi = hop ? hop_tmi : r.tmi;
+    a.cos = r.cos;
+    a.gx = r.gx;
+    a.gy = r.gy;
+    a.w = r.w;
+    int surv = fc3_to_oc ? 4 : (hop ? state : DEAD);
+    if (miss_oc5) surv = DEAD;
+    a.st = surv;
+  }
+  if (!alive) a.st = DEAD;
+  if (!(alive && interact)) b.st = DEAD;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* src, int K, int i) {
+  Ray r;
+  r.x = src[F_X * K + i];
+  r.y = src[F_Y * K + i];
+  r.ter = src[F_TER * K + i];
+  r.tei = src[F_TEI * K + i];
+  r.tmr = src[F_TMR * K + i];
+  r.tmi = src[F_TMI * K + i];
+  r.cos = src[F_COS * K + i];
+  r.gx = src[F_GX * K + i];
+  r.gy = src[F_GY * K + i];
+  r.st = __float_as_int(src[F_ST * K + i]);
+  r.w = src[F_W * K + i];
+  return r;
+}
+
+__device__ __forceinline__ void store_ray(float* dst, int K, int i,
+                                          const Ray& r) {
+  dst[F_X * K + i] = r.x;
+  dst[F_Y * K + i] = r.y;
+  dst[F_TER * K + i] = r.ter;
+  dst[F_TEI * K + i] = r.tei;
+  dst[F_TMR * K + i] = r.tmr;
+  dst[F_TMI * K + i] = r.tmi;
+  dst[F_COS * K + i] = r.cos;
+  dst[F_GX * K + i] = r.gx;
+  dst[F_GY * K + i] = r.gy;
+  dst[F_ST * K + i] = __int_as_float(r.st);
+  dst[F_W * K + i] = r.w;
+}
+
+// a block-wide sum of one double per thread in a fixed order
+__device__ double block_sum(double v, double* s_red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  double t = 0.0;
+  for (int k = 0; k < WARPS; ++k) t += s_red[k];
+  return t;
+}
+
+__global__ void __launch_bounds__(THREADS)
+split_cells_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_wsum[WARPS];
+  __shared__ double s_red[WARPS];
+  const int c = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nb = a.ny * a.nx;
+  const int ng = NG + 3 * (a.e_ic + a.e_r1 + a.e_r2 + a.e_hull);
+
+  float* s_tile = smem;
+  float* s_rec = s_tile + nb;
+  float* s_cell = s_rec + REC_W * a.R2;
+  float* s_dirs = s_cell + CELL_W;
+  float* s_geom = s_dirs + 4 * DIR_W;
+  unsigned* s_key = reinterpret_cast<unsigned*>(s_geom + ng);
+  float* s_dw = reinterpret_cast<float*>(s_key + THREADS);
+
+  for (int k = tid; k < nb; k += THREADS) s_tile[k] = 0.0f;
+  for (int k = tid; k < REC_W * a.R2; k += THREADS) {
+    const int comp = k / a.R2, key = k - comp * a.R2;
+    s_rec[key * REC_W + comp] =
+        a.rec[(size_t)comp * a.C * a.R2 + (size_t)c * a.R2 + key];
+  }
+  if (tid < CELL_W) s_cell[tid] = a.cell[(size_t)tid * a.C + c];
+  if (tid < 4 * DIR_W) {
+    const int dir = tid / DIR_W, comp = tid - dir * DIR_W;
+    s_dirs[tid] = a.dirs[(size_t)comp * a.C * 4 + (size_t)c * 4 + dir];
+  }
+  for (int k = tid; k < ng; k += THREADS) s_geom[k] = a.geom[k];
+  __syncthreads();
+
+  Cell cc;
+  cc.rec = s_rec;
+  cc.cell = s_cell;
+  cc.dirs = s_dirs;
+  cc.g = s_geom;
+  cc.ic_hp = s_geom + NG;
+  cc.r1_hp = cc.ic_hp + 3 * a.e_ic;
+  cc.r2_hp = cc.r1_hp + 3 * a.e_r1;
+  cc.hull_hp = cc.r2_hp + 3 * a.e_r2;
+  cc.grid = a.grid;
+  cc.e_ic = a.e_ic;
+  cc.e_r1 = a.e_r1;
+  cc.e_r2 = a.e_r2;
+  cc.e_hull = a.e_hull;
+  cc.grid_n = a.grid_n;
+  cc.num_fc = a.num_fc;
+  cc.num_oc = a.num_oc;
+  cc.ny = a.ny;
+  cc.nx = a.nx;
+  cc.circle = a.circle != 0;
+  cc.thr = a.thr;
+
+  const int K = a.K;
+  float* base = a.buf + (size_t)c * 3 * NF * K;
+  float* side = base + (size_t)2 * NF * K;
+  const float* seeds = a.seeds + (a.per_cell_seeds ? (size_t)c * a.P : 0);
+  const size_t seed_stride = (size_t)a.P * (a.per_cell_seeds ? a.C : 1);
+
+  float pruned = 0.0f, trunc = 0.0f;
+  int peak = 0, it = 0;
+  long long work = 0;
+  int n = a.P;       // the width being swept (the seeds, then each step's)
+  int cur = -1;      // the buffer being swept (-1: the seeds)
+  while (true) {
+    float* next = base + (size_t)(cur == 0 ? 1 : 0) * NF * K;
+    const float* src = cur < 0 ? nullptr : base + (size_t)cur * NF * K;
+    double pr_a = 0.0, pr_b = 0.0, drop = 0.0;
+    int run_a = 0, run_b = 0;
+    for (int c0 = 0; c0 < n; c0 += THREADS) {
+      const int i = c0 + tid;
+      Ray ca, cb;
+      int dbin = -1;
+      float dw = 0.0f;
+      bool la = false, lb = false;
+      if (i < n) {
+        float pa, pb;
+        if (cur < 0) {
+          float s[6];
+          for (int f = 0; f < 6; ++f) s[f] = seeds[f * seed_stride + i];
+          init_children(cc, s, ca, cb, pa, pb);
+        } else {
+          step_children(cc, load_ray(src, K, i), ca, cb, dbin, dw, pa, pb);
+        }
+        pr_a += pa;
+        pr_b += pb;
+        la = ca.st < DEAD;
+        lb = cb.st < DEAD;
+      }
+      const bool ld = dbin >= 0;
+      // block scan of the packed flags (10 bits each: at most 512 a chunk)
+      const int v = (int)la | ((int)lb << 10) | ((int)ld << 20);
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += t;
+      }
+      if (lane == 31) s_wsum[warp] = incl;
+      __syncthreads();
+      int off = 0, tot = 0;
+      for (int k = 0; k < WARPS; ++k) {
+        const int s = s_wsum[k];
+        if (k < warp) off += s;
+        tot += s;
+      }
+      const int ex = off + incl - v;
+      const int ex_a = ex & 1023, ex_b = (ex >> 10) & 1023, ex_d = ex >> 20;
+      const int tot_a = tot & 1023, tot_b = (tot >> 10) & 1023;
+      const int tot_d = tot >> 20;
+      if (la) {
+        const int p = run_a + ex_a;
+        if (p < K) store_ray(next, K, p, ca);
+        else drop += ca.w;
+      }
+      if (lb) {
+        const int p = run_b + ex_b;
+        if (p < K) store_ray(side, K, p, cb);
+        else drop += cb.w;
+      }
+      if (tot_d > 0) {
+        // the chunk's deposits by (bin, slot), then each bin's run in order
+        if (ld) {
+          s_key[ex_d] = ((unsigned)dbin << SLOT_BITS) | (unsigned)tid;
+          s_dw[tid] = dw;
+        }
+        int p2 = 1;
+        while (p2 < tot_d) p2 <<= 1;
+        if (tid >= tot_d && tid < p2) s_key[tid] = 0xFFFFFFFFu;
+        __syncthreads();
+        for (int k = 2; k <= p2; k <<= 1) {
+          for (int j = k >> 1; j > 0; j >>= 1) {
+            const int ixj = tid ^ j;
+            if (tid < p2 && ixj > tid) {
+              const unsigned u = s_key[tid], w = s_key[ixj];
+              if ((u > w) == ((tid & k) == 0)) {
+                s_key[tid] = w;
+                s_key[ixj] = u;
+              }
+            }
+            __syncthreads();
+          }
+        }
+        if (tid < tot_d) {
+          const unsigned key = s_key[tid];
+          const unsigned b = key >> SLOT_BITS;
+          if (tid == 0 || (s_key[tid - 1] >> SLOT_BITS) != b) {
+            float acc = s_tile[b];
+            for (int u = tid; u < tot_d && (s_key[u] >> SLOT_BITS) == b; ++u)
+              acc = acc + s_dw[s_key[u] & ((1u << SLOT_BITS) - 1)];
+            s_tile[b] = acc;
+          }
+        }
+      }
+      run_a += tot_a;
+      run_b += tot_b;
+      __syncthreads();
+    }
+    if (cur >= 0) work += n;
+    // the B children behind the A children, cut to K slots
+    const int live = run_a + run_b;
+    const int keep_b = max(0, min(run_b, K - run_a));
+    for (int k = tid; k < keep_b; k += THREADS)
+      store_ray(next, K, run_a + k, load_ray(side, K, k));
+    for (int k = keep_b + tid; k < min(run_b, K); k += THREADS)
+      drop += side[F_W * K + k];
+    const float fa = (float)block_sum(pr_a, s_red);
+    const float fb = (float)block_sum(pr_b, s_red);
+    const float fd = (float)block_sum(drop, s_red);
+    pruned = pruned + (fa + fb);
+    trunc = trunc + fd;
+    peak = max(peak, live);
+    if (cur >= 0) ++it;
+    cur = cur == 0 ? 1 : 0;
+    n = min(K, live);
+    // the copy into `next` ends before it is swept
+    __syncthreads();
+    if (n == 0 || it >= a.max_steps) break;
+  }
+
+  float* tile = a.tiles + (size_t)c * nb;
+  for (int k = tid; k < nb; k += THREADS) tile[k] = s_tile[k];
+  if (tid == 0) {
+    a.trunc[c] = trunc;
+    a.pruned[c] = pruned;
+    a.peak[c] = peak;
+    a.steps[c] = it;
+    a.work[c] = work;
+  }
+}
+
+size_t shared_bytes(int ny, int nx, int R2, int e_total) {
+  return sizeof(float) * ((size_t)ny * nx + REC_W * R2 + CELL_W + 4 * DIR_W
+                          + NG + 3 * e_total)
+         + (sizeof(unsigned) + sizeof(float)) * THREADS;
+}
+
+}  // namespace
+
+// Launch on `stream`: C cells' wavefront traces (layouts as in Args).
+// Returns a cudaError_t code (0: launched).
+extern "C" int split_cells_launch(
+    const void* rec, const void* cell, const void* dirs, const void* geom,
+    const void* grid, const void* seeds, void* buf, void* tiles, void* trunc,
+    void* pruned, void* peak, void* steps, void* work, int C, int P, int K,
+    int R2, int num_fc, int num_oc, int ny, int nx, int max_steps,
+    int per_cell_seeds, int circle, int grid_n, int e_ic, int e_r1, int e_r2,
+    int e_hull, float thr, void* stream) {
+  if (C <= 0) return 0;
+  if (P < 0 || 2 * P > K || K <= 0 || R2 != 2 * (1 + num_fc + num_oc) ||
+      num_fc < 1 || num_oc < 1 || ny < 1 || nx < 1 ||
+      (long long)ny * nx >= (1LL << (32 - SLOT_BITS)) || grid_n < 1 ||
+      e_ic < 0 || e_r1 < 0 || e_r2 < 0 || e_hull < 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(ny, nx, R2, e_ic + e_r1 + e_r2 + e_hull);
+  cudaError_t err = cudaFuncSetAttribute(
+      split_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  a.rec = static_cast<const float*>(rec);
+  a.cell = static_cast<const float*>(cell);
+  a.dirs = static_cast<const float*>(dirs);
+  a.geom = static_cast<const float*>(geom);
+  a.grid = static_cast<const uint8_t*>(grid);
+  a.seeds = static_cast<const float*>(seeds);
+  a.buf = static_cast<float*>(buf);
+  a.tiles = static_cast<float*>(tiles);
+  a.trunc = static_cast<float*>(trunc);
+  a.pruned = static_cast<float*>(pruned);
+  a.peak = static_cast<int*>(peak);
+  a.steps = static_cast<int*>(steps);
+  a.work = static_cast<long long*>(work);
+  a.C = C;
+  a.P = P;
+  a.K = K;
+  a.R2 = R2;
+  a.num_fc = num_fc;
+  a.num_oc = num_oc;
+  a.ny = ny;
+  a.nx = nx;
+  a.max_steps = max_steps;
+  a.per_cell_seeds = per_cell_seeds;
+  a.circle = circle;
+  a.grid_n = grid_n;
+  a.e_ic = e_ic;
+  a.e_r1 = e_r1;
+  a.e_r2 = e_r2;
+  a.e_hull = e_hull;
+  a.thr = thr;
+  split_cells_kernel<<<C, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* split_cells_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

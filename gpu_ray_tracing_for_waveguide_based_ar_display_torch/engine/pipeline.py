@@ -23,7 +23,9 @@ engines:
 - ``engine="splitting"``: its zero-variance engine
   (:mod:`.splitting`) with the general loop: every branch followed with its
   weight, ``rays_per_fov`` launch positions per cell, one wavefront per cell
-  (``splitting_percell``, the default) or one shared by the batch.
+  (``splitting_percell``, the default: on a GPU one launch of
+  ``csrc/split_cells.cu`` per batch) or one shared by the batch (plain
+  PyTorch).
 
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device
@@ -292,6 +294,8 @@ class Simulator:
                 libs["persistent_trace"] = trace_persistent
             elif engine == "cell":
                 libs["cell_trace"] = trace_cell
+            elif engine == "splitting" and splitting_percell:
+                libs["split_cells"] = splitting
             if device_rows:
                 libs["cell_rows"] = cell_rows
             build.build_all(libs)
@@ -311,8 +315,20 @@ class Simulator:
                                   weight_threshold=splitting_threshold,
                                   max_steps=splitting_max_steps,
                                   device=self.device)
-            self._split_fns = {}   # per-cell mode: shared seeds -> trace
-            if not splitting_percell:
+            if splitting_percell:
+                # the tables and region grid go to the device in setup,
+                # not in the first batch
+                t1 = time.perf_counter()
+                self._split_cells = splitting.make_splitting_cells_fn(
+                    self.tables, self.tgeom, cfg,
+                    per_cell_seeds=not cfg.shared_pupil_samples,
+                    **self._split_kw)
+                st["split_tables_s"] = time.perf_counter() - t1
+                if self.device.type == "cuda":
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize(self.device)
+                    st["sync_s"] = time.perf_counter() - t1
+            else:
                 self._split_trace = splitting.make_splitting_trace_fn(
                     self.tables, self.tgeom, cfg, **self._split_kw)
             self.split_truncated = 0.0
@@ -960,12 +976,7 @@ class Simulator:
                     "the expectation is biased low; lower cells_per_batch "
                     "or raise splitting_capacity")
             return hist.reshape(self.L, self.N, self.M, ny, nx), steps
-        shared = bool(self.cfg.shared_pupil_samples)
-        if shared not in self._split_fns:
-            self._split_fns[shared] = splitting.make_splitting_cells_fn(
-                self.tables, self.tgeom, self.cfg, per_cell_seeds=not shared,
-                **self._split_kw)
-        tiles, out_w, trunc, pruned, steps, peak = self._split_fns[shared](
+        tiles, out_w, trunc, pruned, steps, peak = self._split_cells(
             cell_ids, seeds)
         self.split_pruned += float(pruned.sum())
         self.split_out_coupled += float(out_w.sum())

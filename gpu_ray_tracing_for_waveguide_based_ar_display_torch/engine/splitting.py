@@ -19,19 +19,27 @@ Two schedules share it:
    the histogram is a function of the tables that autograd differentiates
    (:mod:`..opt.grating_opt`).
 2. :func:`make_splitting_cells_fn`: one ``capacity``-slot wavefront per
-   (lambda, FoV) cell, the rows of a (C, K) batch: each cell's tables are cut
-   out once per chunk, each cell deposits into its own (ny, nx) tile, and
-   compaction is a per-row cumsum and scatter (overflow into a scratch slot
-   K, counted in ``truncated``).
+   (lambda, FoV) cell: each cell's tables are cut out once per chunk, each
+   cell deposits into its own (ny, nx) tile, and a step's next wavefront is
+   its live A children, then its live B children, in slot order (overflow
+   counted in ``truncated``).  On a GPU a chunk is one launch of the
+   hand-written kernel ``csrc/split_cells.cu`` (:func:`launch_split_cells`:
+   one block per cell, the whole step loop inside it, no host read); its
+   plain version :func:`split_cells_reference` runs the chunk as the rows
+   of a (C, K) batch, compacted by a per-row cumsum and scatter, and serves
+   the CPU (:func:`split_cells` routes by device).
 
-Both keep a wavefront's live slots first and step only as many slots as the
-widest wavefront holds, which they read from the device once per step (the
-loop's stop test needs it anyway): a dead slot has no children and deposits
-nothing, so the slots left out change no result and no ledger.
+The global engine and the plain version keep a wavefront's live slots
+first and step only as many slots as the widest wavefront holds, which they
+read from the device once per step (the loop's stop test needs it anyway):
+a dead slot has no children and deposits nothing, so the slots left out
+change no result and no ledger.
 
-The deposits add weights with ``index_add_``, under deterministic algorithms
-(on the card a sorted accumulation in place of float atomics), so a cell's
-tile does not depend on the other cells of its chunk.  The backward of a
+The plain versions add deposits with ``index_add_``, under deterministic
+algorithms (on the card a sorted accumulation in place of float atomics),
+so a cell's tile does not depend on the other cells of its chunk; the
+kernel adds each bin's deposits in the same slot order, bit for bit the
+plain version on the CPU.  The backward of a
 table gather (``index_select``) is an ``index_add`` too: a gradient is
 deterministic when the backward runs under :func:`deterministic`.  Only the
 global engine with ``table_arg=True`` records a graph; every other trace
@@ -45,6 +53,7 @@ deposits by a one-hot matmul), which are TPU lowerings of the same values.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -53,8 +62,10 @@ import torch
 
 from ..config import TraceConfig
 from ..luts.packing import CellTables, DIR_FC, DIR_IC, DIR_IC2, DIR_OC
+from . import build
 from .device import resolve_device
 from .trace_geometry import TraceGeometry
+from .trace_persistent import launch_counts
 from .trace_vector import (
     DEAD, _C_EBR, _C_SOUT, _EDGE_TOL, _I_COS0, _I_ICA, _I_ICB, _I_JA, _I_JB,
     _I_SA, _I_SB, _col, _jones_apply, _phase_mul, _power, _rsqrt, _take,
@@ -101,6 +112,31 @@ def _accumulate(hist: torch.Tensor, n: int, idx: torch.Tensor,
     with deterministic():
         hist.index_add_(0, torch.where(use, idx, scratch),
                         torch.where(use, val, 0.0))
+
+
+def _accumulate_in_order(hist: torch.Tensor, n: int, idx: torch.Tensor,
+                         val: torch.Tensor) -> None:
+    """:func:`_accumulate`, with every bin adding its values one by one in
+    slot order on any device.  ``index_add_`` on the CPU adds in index
+    order; the deterministic one on the card sums a bin's values first and
+    then adds the sum, so there the values go in rounds of distinct bins,
+    round r holding each bin's r-th value."""
+    if hist.device.type == "cpu":
+        _accumulate(hist, n, idx, val)
+        return
+    idx, val = idx.reshape(-1), val.reshape(-1)
+    sel = torch.nonzero((idx >= 0) & (val != 0)).squeeze(1)
+    if not sel.numel():
+        return
+    bins, order = torch.sort(idx[sel], stable=True)
+    vals = val[sel][order]
+    pos = torch.arange(bins.numel(), device=bins.device)
+    first = torch.ones_like(bins, dtype=torch.bool)
+    first[1:] = bins[1:] != bins[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        m = rank == r
+        hist.index_add_(0, bins[m], vals[m])
 
 
 @contextlib.contextmanager
@@ -437,6 +473,272 @@ def _gather_cell_tables(T: dict, cell_ids: torch.Tensor) -> dict:
     return out
 
 
+# the geometry scalars the kernel reads, in its order (csrc/split_cells.cu
+# G_*), then the half-plane packs of GEOM_HP, (E, 3) each
+GEOM_SCALARS = ("icx", "icy", "icr", "fcr0", "fcr1", "fc_top", "fc_width",
+                "ocr0", "ocr1", "oc_top", "oc_width", "b0", "b1", "b2", "b3",
+                "grid_x0", "grid_y0", "grid_inv_hx", "grid_inv_hy")
+GEOM_HP = ("ic_hp", "r1_hp", "r2_hp", "hull_hp")
+_G_GRID = GEOM_SCALARS[-4:]    # the region grid's window, from G itself
+_NF = 11                  # wavefront fields of a kernel buffer
+# the C parameters of split_cells_launch, in order: 13 pointers, 16 ints,
+# the threshold and the stream
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 16
+                   + [ctypes.c_float, ctypes.c_void_p])
+
+
+@dataclasses.dataclass
+class SplitCellsArgs:
+    """One chunk of the per-cell engine as the kernel takes it: the chunk's
+    packed tables (:func:`.trace_vector.pack_tables` of the chunk's cells),
+    the design's geometry flattened (:func:`pack_geometry`) and its region
+    grid, and the launch seeds as one float32 tensor, (6, P) shared by every
+    cell or (6, C, P), in :data:`.seeding.FIELDS` order."""
+    rec: torch.Tensor          # (26, C * R2)
+    cell: torch.Tensor         # (26, C)
+    dirs: torch.Tensor         # (6, C * 4)
+    geom: torch.Tensor         # (len(GEOM_SCALARS) + 3 * sum(edges),)
+    grid: torch.Tensor         # (n, n) uint8 region codes
+    seeds: torch.Tensor        # (6, P) or (6, C, P)
+    edges: tuple               # half-planes of each pack of GEOM_HP
+    C: int
+    P: int
+    capacity: int
+    weight_threshold: float
+    max_steps: int
+    num_fc: int
+    num_oc: int
+    eyebox_bins: tuple
+    circle: bool
+
+    def to(self, device) -> "SplitCellsArgs":
+        """The same chunk with its tensors on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
+
+
+@dataclasses.dataclass
+class SplitCellsOut:
+    """Per cell: ``tiles`` (C, ny, nx), the ``trunc`` and ``pruned``
+    ledgers, the ``peak`` live children of a step before the cut, the
+    ``steps`` it took and the slots it stepped (``work``, summed over its
+    steps)."""
+    tiles: torch.Tensor
+    trunc: torch.Tensor
+    pruned: torch.Tensor
+    peak: torch.Tensor
+    steps: torch.Tensor
+    work: torch.Tensor
+
+
+def pack_geometry(G: dict) -> tuple:
+    """One design's geometry with its region grid (:func:`_geometry`) as
+    the kernel reads it: ``(flat float32, grid codes (n, n) uint8, edges)``
+    (:data:`GEOM_SCALARS`, then the packs of :data:`GEOM_HP`)."""
+    S = _col(G, 1, 1)
+    scal = [S[k] for k in GEOM_SCALARS[:11]] + list(S["b"])
+    scal += [G[k] for k in _G_GRID]
+    flat = torch.cat([v.reshape(1).float() for v in scal]
+                     + [G[k][0].reshape(-1).float() for k in GEOM_HP])
+    edges = tuple(int(G[k].shape[1]) for k in GEOM_HP)
+    return flat.contiguous(), G["grid_code"][0].contiguous(), edges
+
+
+def unpack_geometry(flat: torch.Tensor, grid: torch.Tensor,
+                    edges: tuple) -> dict:
+    """The one-design geometry dict of :func:`pack_geometry`'s output, as
+    :func:`.trace_vector.regions_inside`, :func:`.trace_vector.in_ic` and
+    :func:`.trace_vector._col` read it."""
+    v = dict(zip(GEOM_SCALARS, flat[:len(GEOM_SCALARS)].reshape(-1, 1)))
+    G = {"ic_center": torch.stack([v["icx"], v["icy"]], 1),
+         "ic_radius": v["icr"], "fc_rot": torch.stack([v["fcr0"],
+                                                       v["fcr1"]], 1),
+         "fc_top": v["fc_top"], "fc_width": v["fc_width"],
+         "oc_rot_y": torch.stack([v["ocr0"], v["ocr1"]], 1),
+         "oc_bounds": torch.stack([v[f"b{i}"] for i in range(4)], 1),
+         "oc_top": v["oc_top"], "oc_width": v["oc_width"],
+         "grid_code": grid[None]}
+    G.update((k, v[k]) for k in _G_GRID)
+    at = len(GEOM_SCALARS)
+    for k, e in zip(GEOM_HP, edges):
+        G[k] = flat[at:at + 3 * e].reshape(1, e, 3)
+        at += 3 * e
+    return G
+
+
+def split_cells_args(Tc: dict, packed: tuple, seeds: torch.Tensor,
+                     cfg: TraceConfig, num_fc: int, num_oc: int,
+                     capacity: int, weight_threshold: float,
+                     max_steps: int) -> SplitCellsArgs:
+    """The kernel's arguments of one chunk: ``Tc`` the chunk's packed
+    tables, ``packed`` the design's geometry with its grid as
+    :func:`pack_geometry` gives it, ``seeds`` (6, P) or (6, C, P), all on
+    one device."""
+    geom, grid, edges = packed
+    C = Tc["cell"].shape[1]
+    return SplitCellsArgs(
+        rec=Tc["rec"].contiguous(), cell=Tc["cell"].contiguous(),
+        dirs=Tc["dirs"].contiguous(), geom=geom, grid=grid,
+        seeds=seeds.float().contiguous(), edges=edges, C=C,
+        P=seeds.shape[-1], capacity=int(capacity),
+        weight_threshold=float(weight_threshold), max_steps=int(max_steps),
+        num_fc=num_fc, num_oc=num_oc, eyebox_bins=tuple(cfg.eyebox_bins),
+        circle=cfg.ic_test == "circle")
+
+
+def split_cells_reference(a: SplitCellsArgs) -> SplitCellsOut:
+    """The plain PyTorch version of the kernel: the eager step loop over
+    the chunk's (C, width) wavefront, on ``a``'s device.  Each step reads
+    the widest row's live count (and the positions the region grids leave
+    open) from the device.  Every bin adds its deposits one by one in slot
+    order (:func:`_accumulate_in_order`), as the kernel does, on either
+    device."""
+    dev = a.rec.device
+    ny, nx = a.eyebox_bins
+    K, C = a.capacity, a.C
+    G = unpack_geometry(a.geom, a.grid, a.edges)
+    S = _col(G, 1, 2)
+    Tc = {"rec": a.rec, "cell": a.cell, "dirs": a.dirs}
+    cfg = TraceConfig(eyebox_bins=(ny, nx),
+                      ic_test="circle" if a.circle else "polygon")
+    nkeys = tuple(k for k in _KEYS if k != "cid")
+    split_init, split_step, _ = _build_step_fns(
+        cfg, n_cells_mn=1, M=1, N=1, num_fc=a.num_fc, num_oc=a.num_oc,
+        weight_threshold=a.weight_threshold)
+
+    def compact(children: dict):
+        """Per-row cumsum compaction into at most K slots: the rows are cut
+        to the widest row's live count (read from the device), since the
+        slots past it would be dead.  Returns (buffer, dropped weight, live
+        children per row, width)."""
+        alive = children["state"] < DEAD
+        pos = torch.cumsum(alive.to(torch.int32), dim=1) - 1
+        nlive = alive.sum(dim=1)
+        width = min(K, int(nlive.max()))
+        keep = alive & (pos < K)
+        idx = torch.where(keep, pos, width).to(torch.int64)
+        out = {}
+        for k in nkeys:
+            v = children[k]
+            init = torch.full((C, width + 1), DEAD if k == "state" else 0,
+                              dtype=v.dtype, device=dev)
+            out[k] = init.scatter_(1, idx, v)[:, :width]
+        dropped = torch.where(alive & ~keep, children["w"], 0.0).sum(dim=1)
+        return out, dropped, nlive, width
+
+    g = torch.arange(C, device=dev)[:, None]
+    ebr = _take(Tc["cell"][_C_EBR:_C_EBR + 4], g)
+    rays0 = {k: a.seeds[i].expand(C, a.P) for i, k in
+             enumerate(("x", "y", "ter", "tei", "tmr", "tmi"))}
+    w0 = (rays0["ter"].abs() + rays0["tei"].abs() + rays0["tmr"].abs()
+          + rays0["tmi"].abs())
+    rays0["w"] = torch.where(w0 > 0, 1.0, 0.0).to(w0.dtype)
+    kids, pruned = split_init(Tc, S, G, g, rays0)
+    children = {k: torch.cat([kids[0][k], kids[1][k]], dim=-1)
+                for k in nkeys}
+    buf, trunc, peak, width = compact(children)
+    n_bins = C * ny * nx
+    hist = torch.zeros(n_bins + C * K, dtype=w0.dtype, device=dev)
+    steps = torch.zeros(C, dtype=torch.int64, device=dev)
+    work = torch.zeros(C, dtype=torch.int64, device=dev)
+    rows = torch.clamp(peak, max=K)
+    it = 0
+    # each row holds its live slots first; the buffer is as wide as the
+    # widest row's (a dead slot has no children and deposits nothing)
+    while it < a.max_steps and width > 0:
+        steps += rows > 0
+        work += rows
+        ch_a, ch_b, dep_w, pr = split_step(Tc, S, G, g, buf)
+        in_quad, b = deposit_bin(ebr, buf["x"], buf["y"], ny, nx)
+        _accumulate_in_order(hist, n_bins,
+                             torch.where(in_quad, g * (ny * nx) + b, -1),
+                             dep_w)
+        children = {k: torch.cat([ch_a[k], ch_b[k]], dim=-1) for k in nkeys}
+        buf, dropped, nlive, width = compact(children)
+        trunc = trunc + dropped
+        pruned = pruned + pr
+        peak = torch.maximum(peak, nlive)
+        rows = torch.clamp(nlive, max=K)
+        it += 1
+    return SplitCellsOut(tiles=hist[:n_bins].reshape(C, ny, nx), trunc=trunc,
+                         pruned=pruned, peak=peak, steps=steps, work=work)
+
+
+def launch_split_cells(a: SplitCellsArgs) -> SplitCellsOut:
+    """The kernel on ``a``'s CUDA tensors: one launch for the chunk, queued
+    on the current stream (no host read).  Raises if the launch is
+    refused, e.g. for a tile too large for the card's shared memory."""
+    dev = a.rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"the split_cells kernel runs on cuda, not {dev}")
+    for name in ("rec", "cell", "dirs", "geom", "seeds"):
+        t = getattr(a, name)
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if a.grid.device != dev or a.grid.dtype != torch.uint8:
+        raise ValueError("the region grid must be uint8 on the card")
+    lib = load_kernel()
+    ny, nx = a.eyebox_bins
+    C, K = a.C, a.capacity
+    out = SplitCellsOut(
+        tiles=torch.empty((C, ny, nx), dtype=torch.float32, device=dev),
+        trunc=torch.empty(C, dtype=torch.float32, device=dev),
+        pruned=torch.empty(C, dtype=torch.float32, device=dev),
+        peak=torch.empty(C, dtype=torch.int32, device=dev),
+        steps=torch.empty(C, dtype=torch.int32, device=dev),
+        work=torch.empty(C, dtype=torch.int64, device=dev))
+    if C == 0:
+        return out
+    buf = torch.empty((C, 3, _NF, K), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.split_cells_launch(
+            a.rec.data_ptr(), a.cell.data_ptr(), a.dirs.data_ptr(),
+            a.geom.data_ptr(), a.grid.data_ptr(), a.seeds.data_ptr(),
+            buf.data_ptr(), out.tiles.data_ptr(), out.trunc.data_ptr(),
+            out.pruned.data_ptr(), out.peak.data_ptr(), out.steps.data_ptr(),
+            out.work.data_ptr(), C, a.P, K, 2 * (1 + a.num_fc + a.num_oc),
+            a.num_fc, a.num_oc, ny, nx, a.max_steps,
+            int(a.seeds.dim() == 3), int(a.circle), a.grid.shape[0],
+            *a.edges, float(np.float32(a.weight_threshold)), stream)
+    if err != 0:
+        msg = lib.split_cells_error_string(err).decode()
+        raise RuntimeError(f"split_cells launch failed: {msg} ({err})")
+    launch_counts["split_cells"] += 1
+    return out
+
+
+def split_cells(a: SplitCellsArgs) -> SplitCellsOut:
+    """One chunk of the per-cell engine: the kernel for CUDA tensors, the
+    plain version for CPU ones (no fallback between them)."""
+    dev = a.rec.device
+    if dev.type == "cuda":
+        return launch_split_cells(a)
+    if dev.type != "cpu":
+        raise ValueError(f"split_cells runs on cpu or cuda, not {dev}")
+    return split_cells_reference(a)
+
+
+_LIB = None
+
+
+def load_kernel():
+    """Build (at first use) and bind ``csrc/split_cells.cu``; raises with
+    the compiler's output if the build fails."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library("split_cells")
+        lib.split_cells_launch.argtypes = LAUNCH_ARGTYPES
+        lib.split_cells_launch.restype = ctypes.c_int
+        lib.split_cells_error_string.argtypes = [ctypes.c_int]
+        lib.split_cells_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
 def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
                             cfg: TraceConfig, capacity: int = 4096,
                             weight_threshold: float = 1e-5,
@@ -456,81 +758,50 @@ def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
       (C,) the widest live wavefront of each cell (the zero-variance
       guarantee needs ``trunc == 0``, i.e. ``peak <= capacity``).
 
-    Each cell's wavefront is one row of a (C, width <= capacity) batch;
-    children compact with a per-row cumsum and scatter (overflow goes to a
-    scratch slot and is counted in ``trunc``)."""
+    Each cell's wavefront holds at most ``capacity`` slots; a step's
+    children are its live A children in slot order, then its live B
+    children, and those past the capacity are counted in ``trunc``.  On a
+    CUDA device a chunk is one launch of ``csrc/split_cells.cu``
+    (:func:`launch_split_cells`, built and bound here); on the CPU the
+    plain version :func:`split_cells_reference`.  ``trace.args(cell_ids,
+    seeds)`` gives a chunk's :class:`SplitCellsArgs` (what the kernel
+    takes)."""
     device = resolve_device(device)
     T = {k: (v.to(device) if torch.is_tensor(v) else v)
          for k, v in as_tables(tables).items()}
     G, G0 = _geometry(tgeom, device)
-    ny, nx = cfg.eyebox_bins
-    K = capacity
-    nkeys = tuple(k for k in _KEYS if k != "cid")
-    split_init, split_step, deposit = _build_step_fns(
-        cfg, n_cells_mn=1, M=1, N=1, num_fc=tgeom.num_fc,
-        num_oc=tgeom.num_oc, weight_threshold=weight_threshold)
-
-    def compact(children: dict):
-        """Per-row cumsum compaction into at most K slots: the rows are cut
-        to the widest row's live count (read from the device), since the
-        slots past it would be dead.  Returns (buffer, dropped weight, live
-        children per row, width)."""
-        alive = children["state"] < DEAD
-        pos = torch.cumsum(alive.to(torch.int32), dim=1) - 1
-        nlive = alive.sum(dim=1)
-        width = min(K, int(nlive.max()))
-        keep = alive & (pos < K)
-        idx = torch.where(keep, pos, width).to(torch.int64)
-        rows = alive.shape[0]
-        out = {}
-        for k in nkeys:
-            v = children[k]
-            init = torch.full((rows, width + 1), DEAD if k == "state" else 0,
-                              dtype=v.dtype, device=v.device)
-            out[k] = init.scatter_(1, idx, v)[:, :width]
-        dropped = torch.where(alive & ~keep, children["w"], 0.0).sum(dim=1)
-        return out, dropped, nlive, width
+    G0 = {k: v.to(device) for k, v in G0.items()}
+    packed = pack_geometry(G)
+    if device.type == "cuda":
+        load_kernel()
 
     @torch.no_grad()
-    def trace(cell_ids, seeds: dict):
+    def chunk_args(cell_ids, seeds: dict) -> SplitCellsArgs:
+        """The kernel's arguments for the chunk ``cell_ids``."""
         ids = torch.as_tensor(np.asarray(cell_ids) if not torch.is_tensor(
             cell_ids) else cell_ids).to(device, torch.int64)
         C = ids.shape[0]
         P = seeds["x"].shape[-1]
-        if 2 * P > K:
-            raise ValueError(
-                f"2 x {P} seed children exceed the {K}-slot per-cell buffer")
-        Tc = pack_tables(_gather_cell_tables(T, ids),
-                         {k: v.to(device) for k, v in G0.items()}, ids)
-        S = _col(G, 1, 2)
-        g = torch.arange(C, device=device)[:, None]
-        rays0 = {k: torch.as_tensor(seeds[k]).to(device).expand(C, P)
-                 for k in ("x", "y", "ter", "tei", "tmr", "tmi")}
-        w0 = (rays0["ter"].abs() + rays0["tei"].abs() + rays0["tmr"].abs()
-              + rays0["tmi"].abs())
-        rays0["w"] = torch.where(w0 > 0, 1.0, 0.0).to(w0.dtype)
-        kids, pruned = split_init(Tc, S, G, g, rays0)
-        children = {k: torch.cat([kids[0][k], kids[1][k]], dim=-1)
-                    for k in nkeys}
-        buf, trunc, peak, width = compact(children)
-        n_bins = C * ny * nx
-        hist = torch.zeros(n_bins + C * K, dtype=w0.dtype, device=device)
-        it = 0
-        # each row holds its live slots first; the buffer is as wide as the
-        # widest row's (a dead slot has no children and deposits nothing)
-        while it < max_steps and width > 0:
-            ch_a, ch_b, dep_w, pr = split_step(Tc, S, G, g, buf)
-            deposit(Tc, hist, n_bins, g, g, buf["x"], buf["y"], dep_w)
-            children = {k: torch.cat([ch_a[k], ch_b[k]], dim=-1)
-                        for k in nkeys}
-            buf, dropped, nlive, width = compact(children)
-            trunc = trunc + dropped
-            pruned = pruned + pr
-            peak = torch.maximum(peak, nlive)
-            it += 1
-        tiles = hist[:n_bins].reshape(C, ny, nx)
-        return tiles, tiles.sum(dim=(1, 2)), trunc, pruned, it, peak
+        if 2 * P > capacity:
+            raise ValueError(f"2 x {P} seed children exceed the "
+                             f"{capacity}-slot per-cell buffer")
+        Tc = pack_tables(_gather_cell_tables(T, ids), G0, ids)
+        s = torch.stack([torch.as_tensor(seeds[k]).to(device, torch.float32)
+                         for k in ("x", "y", "ter", "tei", "tmr", "tmi")])
+        if per_cell_seeds:
+            s = s.expand(6, C, P)
+        return split_cells_args(Tc, packed, s, cfg, tgeom.num_fc,
+                                tgeom.num_oc, capacity, weight_threshold,
+                                max_steps)
 
+    @torch.no_grad()
+    def trace(cell_ids, seeds: dict):
+        out = split_cells(chunk_args(cell_ids, seeds))
+        steps = int(out.steps.max()) if out.steps.numel() else 0
+        return (out.tiles, out.tiles.sum(dim=(1, 2)), out.trunc, out.pruned,
+                steps, out.peak.to(torch.int64))
+
+    trace.args = chunk_args
     return trace
 
 

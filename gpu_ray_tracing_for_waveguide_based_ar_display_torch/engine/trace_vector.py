@@ -419,8 +419,10 @@ def deposit_bin(ebr: torch.Tensor, x, y, ny: int, nx: int):
     e0, e1, e2, e3 = ebr.unbind(0)
     in_quad = ((x >= e0 - _EDGE_TOL) & (x <= e1 + _EDGE_TOL)
                & (y >= e2 - _EDGE_TOL) & (y <= e3 + _EDGE_TOL))
-    dxb = (e1 - e0) / nx
-    dyb = (e3 - e2) / ny
+    # divided by tensors: torch on the card multiplies by the reciprocal of
+    # a Python scalar divisor, which can move a position on a bin edge
+    dxb = (e1 - e0) / torch.full_like(e1, nx)
+    dyb = (e3 - e2) / torch.full_like(e3, ny)
     ix = _bin((x - e0) / dxb, nx - 1)
     iy = _bin((y - e2) / dyb, ny - 1)
     return in_quad, iy * nx + ix

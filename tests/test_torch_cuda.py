@@ -938,3 +938,107 @@ def test_colorimetry_kernel_within_bars_on_card(cuda_device, designs,
                                      with_image)
     for k, v in last.items():
         np.testing.assert_array_equal(v.cpu().numpy()[0], got[k][-1])
+
+
+def _split_fixture(capacity, per_cell):
+    """The splitting tests' fixture (paper design, 3 x 2 FoV x 3
+    wavelengths, 4 launch positions, threshold 1e-5): the per-cell trace on
+    the card and the chunk's seeds, (4,) shared or (18, 4) per cell."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding, splitting,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4, seed=2)
+    cells = np.arange(18)
+    b = seeding.build_ray_batch(geom, cfg, cell_ids=cells if per_cell
+                                else np.arange(1), rays_per_cell=4)
+    shape = (18, 4) if per_cell else (4,)
+    vals = (b["x"], b["y"], b["te"].real, b["te"].imag, b["tm"].real,
+            b["tm"].imag)
+    seeds = {k: torch.tensor(np.asarray(v).reshape(shape),
+                             dtype=torch.float32)
+             for k, v in zip(("x", "y", "ter", "tei", "tmr", "tmi"), vals)}
+    trace = splitting.make_splitting_cells_fn(
+        tables, build_trace_geometry(geom), cfg, capacity=capacity,
+        weight_threshold=1e-5, max_steps=300, per_cell_seeds=per_cell,
+        device="cuda")
+    return trace, cells, seeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity,per_cell", [(8192, False), (8192, True),
+                                               (64, False)])
+def test_split_kernel_equals_plain_version_on_card(cuda_device, capacity,
+                                                   per_cell):
+    """The per-cell splitting kernel (one launch, counted) against its plain
+    version on the same packed arguments: on the card per-cell steps, peak
+    and stepped widths equal, truncation equal where 0 and else within
+    1e-6, pruned and out-coupled weight within 1e-6 relative, tiles within
+    rtol 1e-6 / atol 1e-12 with zeros at the same places; against the
+    plain version on the CPU the tiles bit for bit.  At 64 slots the
+    wavefronts truncate (peak above the capacity)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    trace, cells, seeds = _split_fixture(capacity, per_cell)
+    a = trace.args(cells, seeds)
+    n0 = tp.launch_counts["split_cells"]
+    got = splitting.split_cells(a)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["split_cells"] == n0 + 1
+    for ref in (splitting.split_cells_reference(a),
+                splitting.split_cells_reference(a.to("cpu"))):
+        g = {f: getattr(got, f).to(ref.tiles.device)
+             for f in ("tiles", "trunc", "pruned", "peak", "steps", "work")}
+        for f in ("steps", "peak", "work"):
+            assert torch.equal(g[f].long(), getattr(ref, f).long()), f
+        assert torch.equal(g["trunc"] == 0, ref.trunc == 0)
+        torch.testing.assert_close(g["trunc"], ref.trunc, rtol=1e-6, atol=0)
+        torch.testing.assert_close(g["pruned"], ref.pruned, rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(g["tiles"].sum(dim=(1, 2)),
+                                   ref.tiles.sum(dim=(1, 2)), rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(g["tiles"], ref.tiles, rtol=1e-6,
+                                   atol=1e-12)
+        assert torch.equal(g["tiles"] == 0, ref.tiles == 0)
+    assert torch.equal(g["tiles"].view(torch.int32),
+                       ref.tiles.view(torch.int32))
+    assert got.tiles.sum() > 0
+    if capacity == 64:
+        assert int(got.peak.max()) > 64 and float(got.trunc.sum()) > 0
+    else:
+        assert float(got.trunc.sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_split_kernel_chunks_are_independent_on_card(cuda_device):
+    """A cell's tile, ledgers and steps from the kernel do not depend on
+    the other cells of its launch: chunks of 7, 7 and 4 cells give one
+    18-cell chunk's outputs bit for bit, and a second launch repeats the
+    first."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    trace, cells, seeds = _split_fixture(8192, False)
+    whole = splitting.launch_split_cells(trace.args(cells, seeds))
+    again = splitting.launch_split_cells(trace.args(cells, seeds))
+    parts = [splitting.launch_split_cells(trace.args(cells[i:i + 7], seeds))
+             for i in (0, 7, 14)]
+    for f in ("tiles", "trunc", "pruned", "peak", "steps", "work"):
+        cat = torch.cat([getattr(p, f) for p in parts])
+        assert torch.equal(getattr(whole, f), cat), f
+        assert torch.equal(getattr(whole, f), getattr(again, f)), f
