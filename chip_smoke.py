@@ -178,6 +178,22 @@ Run from the repository root.  Phases:
    own sum of widths (88 B a stepped slot, and each cell's records, tile
    and seeds once, at 3.35 TB/s, or 200 float32 operations a stepped
    slot at 67 TFLOP/s);
+22. the vector engine's kernel (``csrc/vector_trace.cu``: one launch per
+   trace call runs every ray's whole bounce loop) against its plain
+   PyTorch version (``trace_vector.vector_trace_reference``) on the same
+   arguments, on the card: (a) a 2,048-cell batch of phase 12's case at
+   full width (10.24 M rays, the whole 100,000-bounce budget); (b) the
+   same rays in full mode with a 24-step budget, then in resume mode with
+   the rest, which together must equal (a); (c) the CLI's default sweep's
+   8 designs at its widths (180,000 cells x 256 rays in one call); (d) the
+   polygon in-coupler test (512 cells of phase 12's case; (a) to (c) run
+   the default, the circle).  Every ray field, the per-design bounces and
+   the steps must be equal bit for bit; the kernel's time (CUDA events),
+   the plain version's (host clock), and the bound: each ray field read
+   once and each output field written once (68 + 52 B a ray), the tables
+   of the cells the rays touch, the geometry and grids once, at 3.35
+   TB/s, or ``VEC_BOUNCE_OPS`` float32 operations a bounce and
+   ``VEC_INIT_OPS`` a full-mode ray at 67 TFLOP/s;
 11. the device tail and the run options at the reference workload's full
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
@@ -197,25 +213,31 @@ Run from the repository root.  Phases:
    engine, 2 iterations
    checkpointed and resumed to 3 equal to 3 uninterrupted.  Launch counts
    are reset at its start and read at its end.
-12. the vector engine at full width through ``Simulator(engine="vector",
-   segmented=True)``: phase 8's workload (22,500 cells, 5,000 rays per cell,
+12. the vector engine at full width through ``Simulator(engine="vector")``
+   as ``simulate --engine vector`` builds it (``cli.vector_segmented``):
+   phase 8's workload (22,500 cells, 5,000 rays per cell,
    the ray state built on the card, in 11 batches, 80 x 120 bins, a
    100,000-bounce bound, metrics on, ``num_iter=1``, the tail on the card
    as ``simulate`` runs it), with its layers (setup, seeding on the host
    and the card, the bounce loop, compaction, scatter, the tail's
-   perception, colorimetry and pull), the steps of each batch, the
-   reads from the device, the wall and the peak device memory; every
+   perception, colorimetry and pull), the steps and the reads from the
+   device of each batch, the wall and the peak device memory, with launch
+   counts reset just before the run and read just after it: one
+   ``vector_trace`` launch per batch and segment and no K1 or K2; every
    colour's efficiency within 2 % of phase 8's cell engine (both weigh
-   launch points equally); phase 8's two batches built by the engine and
-   seeded on the host, each timed, equal (``torch.equal``).  The first
-   batch again, to the end in one loop:
-   it must equal the compacted run bit for bit, and its per-ray deposits
-   must agree with K2's (the cell engine, the same seeds) for at least
-   99.5 % of the rays (the two geometries are simplified at different
-   tolerances).  Then the CLI's default sweep (8 periods, 180,000 cells, 256
-   rays per cell) through ``run_design_sweep``, its wall (host prep and
-   seeding apart) and peak memory beside phase 6a's; design 3 must equal
-   its solo sweep bit for bit;
+   launch points equally); the histogram's digest, bounces, deposits and
+   efficiencies printed for an A/B; phase 8's two batches built by the
+   engine and seeded on the host, each timed, equal (``torch.equal``).
+   The first batch again, to the end in one call and in segments of 24
+   bounces, three times each in turns: the two must be equal bit for bit,
+   and its per-ray deposits must agree with K2's (the cell engine, the
+   same seeds) for at least 99.5 % of the rays (the two geometries are
+   simplified at different tolerances).  Then the CLI's default sweep (8
+   periods, 180,000 cells, 256 rays per cell) through ``run_design_sweep``,
+   launch counts reset just before it and read just after (one
+   ``vector_trace`` launch per segment), its wall (host prep and seeding
+   apart) and peak memory beside phase 6a's, design 3's digest; design 3
+   must equal its solo sweep bit for bit;
 13. the exact splitting engine: (a) the README's case, 16 x 12 FoV x 3
    wavelengths = 576 cells, 64 launch positions per cell in 32 passes of 2,
    threshold 1e-6, 8,192-slot wavefronts per cell: nothing truncated, the
@@ -228,7 +250,8 @@ Run from the repository root.  Phases:
    2): ms per cell, the widest wavefront and the full grid's time this
    implies; (d) the global engine on 3 x 2 FoV x 3 wavelengths at 4
    positions, card against CPU within the same bars.  Phase 12 launches
-   no kernel (the K2 cross-check aside); phase 13's per-cell runs launch
+   ``csrc/vector_trace.cu`` and neither K1 nor K2 (the K2 cross-check
+   aside, counted apart); phase 13's per-cell runs launch
    ``csrc/split_cells.cu`` once per batch and pass (counted: 13a, 13b and
    13c's batches x passes) and no trace kernel.
 14. ``simulate --tail-boost`` at full width through
@@ -344,6 +367,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import inspect
 import json
 import math
 import re
@@ -377,6 +401,11 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                     f"{JAX_PACKAGE}/engine/splitting.py:720 "
                     "make_splitting_cells_fn's trace (jnp under "
                     "lax.while_loop, no Pallas counterpart)"),
+    # port-side: the JAX vector engine is jnp under lax.while_loop
+    "vector_trace": (f"{PORT}/csrc/vector_trace.cu",
+                     f"{JAX_PACKAGE}/engine/trace_jnp.py:140 "
+                     "make_trace_fn_dynamic's trace_core (:378, jnp under "
+                     "lax.while_loop :393, no Pallas counterpart)"),
 }
 # the libraries of csrc/ the kernels live in, one nvcc process each
 LIBRARIES = list(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
@@ -2290,7 +2319,7 @@ def phase12(ctx) -> None:
     tp.reset_launch_counts()
     t0 = time.perf_counter()
     sim = pipeline.Simulator(cfg=cfg, device=dev, engine="vector",
-                             segmented=True)
+                             segmented=cli.vector_segmented(dev))
     res = sim.run(num_iter=1, **simulate_options())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2300,15 +2329,15 @@ def phase12(ctx) -> None:
     n_cells = sim.L * sim.M * sim.N
     entry = {
         "cells": n_cells, "rays_per_cell": cfg.rays_per_fov, "num_iter": 1,
+        "segmented": sim._segmented,
         "segment_bounces": sim._segment_bounces, "wall_s": wall,
         "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
         "seed_s": tm["seed_s"], "seed_ms": tm.get("seed_ms"),
-        "init_ms": tm.get("init_ms"),
         "bounce_ms": tm.get("bounce_ms", 0.0), "compact_ms": tm.get("compact_ms"),
         "scatter_ms": tm.get("scatter_ms", 0.0), "assemble_s": tm["assemble_s"],
         "tail_s": tm["metrics_s"], "perceive_ms": tm["perceive_ms"],
         "colorimetry_ms": tm["colorimetry_ms"], "pull_s": tm["pull_s"],
-        "batch_steps": tm["batch_steps"],
+        "batch_steps": tm["batch_steps"], "batch_syncs": tm["batch_syncs"],
         "syncs": tm["syncs"], "segments": tm.get("segments"),
         "total_bounces": res.total_bounces,
         "bounces_per_s": res.bounces_per_second,
@@ -2320,19 +2349,26 @@ def phase12(ctx) -> None:
     rec["run"] = entry
     save_record(ctx)
     print(pipeline.format_report(res))
+    schedule = (f"segments of {sim._segment_bounces}" if sim._segmented
+                else "one trace call a batch")
     print(f"phase 12: {n_cells} cells x {cfg.rays_per_fov} rays, vector "
-          f"engine, segments of {sim._segment_bounces}: wall {wall:.3f} s "
+          f"engine, {schedule}: wall {wall:.3f} s "
           f"(setup {sim.setup_seconds:.3f} s), trace {res.trace_seconds:.3f} "
           f"s, seeding {tm['seed_s']:.3f} s host, "
           f"{tm.get('seed_ms', float('nan')):.1f} ms device, bounce loop "
-          f"{tm.get('bounce_ms', 0.0):.1f} ms (init {tm.get('init_ms', 0.0):.1f} "
-          f"ms), compaction {tm.get('compact_ms', 0.0):.1f} ms, scatter "
+          f"{tm.get('bounce_ms', 0.0):.1f} ms, compaction "
+          f"{tm.get('compact_ms', 0.0):.1f} ms, scatter "
           f"{tm.get('scatter_ms', 0.0):.1f} ms, assembly (a synchronize) "
           f"{tm['assemble_s']:.3f} s, {tail_text(tm)}; steps "
-          f"per batch {tm['batch_steps']}, {tm['syncs']} reads from the "
-          f"device, {tm.get('segments', 0)} compactions; bounces "
-          f"{res.total_bounces:,} ({res.bounces_per_second:.4g}/s), deposits "
-          f"{res.deposits:,}; peak device memory {peak / 2**20:.1f} MiB")
+          f"per batch {tm['batch_steps']}, reads from the device per batch "
+          f"{tm['batch_syncs']} ({tm['syncs']} in all), "
+          f"{tm.get('segments', 0)} compactions, launches {launches}; "
+          f"bounces {res.total_bounces:,} ({res.bounces_per_second:.4g}/s), "
+          f"deposits {res.deposits:,}; peak device memory "
+          f"{peak / 2**20:.1f} MiB")
+    print(f"phase 12 digests: histogram {entry['histogram_digest']}, "
+          f"bounces {res.total_bounces}, deposits {res.deposits}, "
+          f"efficiencies {res.efficiencies}")
     vals = list(res.efficiencies.values()) + [met.delta_e, met.u_fov,
                                               met.u_eyebox]
     if not all(math.isfinite(v) for v in vals) or min(
@@ -2343,7 +2379,13 @@ def phase12(ctx) -> None:
     if res.rays_traced != n_cells * cfg.rays_per_fov:
         faults.append(f"{res.rays_traced} rays traced")
     if launches["persistent_trace"] or launches["cell_trace"]:
-        faults.append(f"the vector engine launched kernels: {launches}")
+        faults.append(f"the vector engine launched K1 or K2: {launches}")
+    want = vector_launches(tm["batch_steps"], sim._segment_bounces
+                           if sim._segmented else None)
+    if launches["vector_trace"] != want:
+        faults.append(f"{launches['vector_trace']} vector_trace launches, "
+                      f"not {want}")
+    ctx["vector_launches"] = launches["vector_trace"]
     ref = ctx.get("cell_efficiencies")
     if ref is not None:
         rel = {k: v / ref[k] - 1 for k, v in res.efficiencies.items()}
@@ -2378,17 +2420,29 @@ def phase12(ctx) -> None:
         return lambda r: tv.add_deposits(h.view(-1), r["dep"], r["cid"],
                                          sim.M, sim.N, *cfg.eyebox_bins)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    mono, b_mono = sim.tracer(rays)
-    add(hists[0])(mono)
-    torch.cuda.synchronize()
-    t_mono = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    b_comp = tv.trace_compacted(sim.tracer, rays, cfg.max_bounces,
-                                sim._segment_bounces, add(hists[1]))
-    torch.cuda.synchronize()
-    t_comp = time.perf_counter() - t0
+    def monolithic():
+        hists[0].zero_()
+        mono, b = sim.tracer(rays)
+        add(hists[0])(mono)
+        return mono, b
+
+    def compacted():
+        hists[1].zero_()
+        return tv.trace_compacted(sim.tracer, rays, cfg.max_bounces,
+                                  sim._segment_bounces, add(hists[1]))
+
+    # each schedule three times, in turns (host clock, synchronised: what a
+    # batch of simulate waits for)
+    t_mono, t_comp = [], []
+    for run in ("m", "c", "c", "m", "m", "c"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if run == "m":
+            mono, b_mono = monolithic()
+        else:
+            b_comp = compacted()
+        torch.cuda.synchronize()
+        (t_mono if run == "m" else t_comp).append(time.perf_counter() - t0)
     same = (torch.equal(hists[0], hists[1])
             and int(b_mono.sum()) == int(b_comp.sum()))
     dep_v = mono["dep"].reshape(len(chunk), -1)
@@ -2410,7 +2464,8 @@ def phase12(ctx) -> None:
         "k2_comparison_launches": dict(tp.launch_counts)}
     save_record(ctx)
     print(f"phase 12 first batch (2,048 cells x 5,000 rays): monolithic "
-          f"{t_mono:.3f} s, compacted {t_comp:.3f} s, "
+          f"{', '.join(f'{t:.4f}' for t in t_mono)} s, compacted "
+          f"{', '.join(f'{t:.4f}' for t in t_comp)} s (in turns), "
           f"{'identical' if same else 'DIFFERENT'}; per-ray deposits equal "
           f"to K2's (the cell engine, the same seeds) for {agree:.5f} "
           f"of the rays (deposit rates {dep_rate[0]:.5f}, {dep_rate[1]:.5f})")
@@ -2427,11 +2482,13 @@ def phase12(ctx) -> None:
     cfg6 = cli.sweep_config(sargs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    tp.reset_launch_counts()
     t0 = time.perf_counter()
     sw = design_sweep.run_design_sweep(designs, cfg6, device=dev,
                                        keep_histograms=(3,))
     torch.cuda.synchronize()
     wall6 = time.perf_counter() - t0
+    launches6 = dict(tp.launch_counts)
     peak6 = torch.cuda.max_memory_allocated()
     solo = design_sweep.run_design_sweep(designs[3:4], cfg6, device=dev)
     solo_same = (np.array_equal(sw.histograms[0], solo.histograms[0])
@@ -2446,7 +2503,7 @@ def phase12(ctx) -> None:
         "bounces": sw.bounces.tolist(),
         "efficiencies": sw.efficiencies.tolist(),
         "design3_digest": digest(sw.histograms[0]),
-        "design3_equals_solo": solo_same,
+        "design3_equals_solo": solo_same, "launches": launches6,
         "phase6a_wall_s": p6.get("wall_s"),
         "phase6a_peak_bytes": p6.get("peak_bytes")}
     save_record(ctx)
@@ -2464,9 +2521,20 @@ def phase12(ctx) -> None:
           f"{p6.get('wall_s', float('nan')):.3f} s, peak "
           f"{p6.get('peak_bytes', float('nan')) / 2**20:.1f} MiB; design 3 "
           f"{'equals' if solo_same else 'DIFFERS FROM'} its solo sweep")
+    print(f"phase 12 sweep digests: design 3 "
+          f"{rec['sweep']['design3_digest']}, bounces {sw.bounces.tolist()}, "
+          f"efficiencies {sw.efficiencies.tolist()}; launches {launches6}")
     eff = sw.efficiencies
     if not (np.isfinite(eff).all() and (eff > 0).all()):
         faults.append(f"sweep efficiencies {eff.tolist()}")
+    seg6 = inspect.signature(design_sweep.run_design_sweep).parameters[
+        "segment_bounces"].default   # what the CLI's sweep runs
+    want6 = vector_launches([stm["steps"]], seg6)
+    if (launches6["vector_trace"] != want6 or launches6["persistent_trace"]
+            or launches6["cell_trace"]):
+        faults.append(f"the sweep's launches {launches6}: not {want6} "
+                      "vector_trace and no K1 or K2")
+    ctx["vector_launches"] += launches6["vector_trace"]
     if not solo_same:
         faults.append("sweep design 3 differs from its solo sweep")
     if faults:
@@ -4052,12 +4120,243 @@ def phase21(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
 
 
+# float32 operations that every live bounce of csrc/vector_trace.cu does at
+# least, counted from the kernel with each comparison, division, square root
+# and floor one operation: the region grid's lookup 10, the record key with
+# its strip bins and the out-coupler rectangle 24, a hop's phasor and step
+# 8 (an interacting bounce does about 140: its two Jones products alone are
+# 56); and the in-coupling of a full-mode ray, about 100.  The exact
+# half-plane tests where the grid leaves a position open are left out, so
+# the bound is a floor
+VEC_BOUNCE_OPS = 42
+VEC_INIT_OPS = 100
+
+
+def vector_launches(batch_steps, segment_bounces) -> int:
+    """The ``vector_trace`` launches of batches that took ``batch_steps``
+    steps each: one a batch, or with segments (``trace_compacted``) one per
+    segment begun, at least one."""
+    if segment_bounces is None:
+        return len(batch_steps)
+    return sum(max(1, -(-s // segment_bounces)) for s in batch_steps)
+
+
+def vector_bytes(a, out) -> int:
+    """The bytes that the trace call ``a`` must move through HBM: every ray
+    field read once (68 B a ray) and every output field written once (52 B),
+    the bounces and steps, the tables of the (design, cell) pairs its rays
+    touch, and the geometry rows and region grids once."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    ins = sum(size(a.rays[k]) for k in tv.RAY_KEYS)
+    outs = (sum(size(out.rays[k]) for k in tv.RAY_KEYS[:-2])
+            + size(out.bounces) + size(out.steps))
+    D = a.geom.shape[0]
+    C = a.cell.shape[1] // D
+    g = a.rays["cid"] + C * torch.arange(D, device=a.cell.device)[:, None]
+    touched = int(torch.unique(g).numel())
+    R2 = 2 * (1 + a.num_fc + a.num_oc)
+    tables = touched * (a.rec.shape[0] * R2 + a.cell.shape[0]
+                        + a.dirs.shape[0] * 4) * a.rec.element_size()
+    return ins + outs + tables + size(a.geom) + size(a.grid)
+
+
+def vector_compare(out, ref) -> dict:
+    """The kernel's call ``out`` against the plain version's ``ref`` (both
+    :class:`VectorTraceOut`, on one device): every field, the bounces and
+    the steps, bit for bit."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    differ, err = {}, 0.0
+    for k in tv.RAY_KEYS:
+        a, b = out.rays[k], ref.rays[k]
+        if a.dtype != b.dtype:
+            differ[k] = -1
+            continue
+        if a.is_floating_point():
+            differ[k] = int((a.view(torch.int32)
+                             != b.view(torch.int32)).sum())
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+        else:
+            differ[k] = int((a != b).sum())
+    e = {"fields_differ": {k: v for k, v in differ.items() if v},
+         "bounces_equal": bool(torch.equal(out.bounces, ref.bounces)),
+         "steps": int(out.steps), "steps_equal":
+             int(out.steps) == int(ref.steps), "max_abs_err": err}
+    e["ok"] = bool(not e["fields_differ"] and e["bounces_equal"]
+                   and e["steps_equal"])
+    return e
+
+
+def _vector_case(name: str, a, reps: int) -> tuple:
+    """One phase-22 call: the kernel against its plain version on the card,
+    the kernel's CUDA-event time, the plain version's (host clock, once)
+    and the bound from this call's rays and bounces; returns (the record,
+    the kernel's output)."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    out = tv.launch_vector_trace(a)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: tv.launch_vector_trace(a), reps)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = tv.vector_trace_reference(a)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    D, R = a.rays["x"].shape
+    bounces = int(out.bounces.sum())
+    nbytes = vector_bytes(a, out)
+    ops = bounces * VEC_BOUNCE_OPS + (D * R * VEC_INIT_OPS
+                                      if a.mode == "full" else 0)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = ops / PEAK_FP32_OPS * 1e3
+    e = {"name": name, "designs": D, "rays": D * R, "mode": a.mode,
+         "max_bounces": a.max_bounces, "circle": a.circle, "ms": ms,
+         "plain_ms": plain_ms,
+         "plain_peak_bytes": torch.cuda.max_memory_allocated(),
+         "bounces": bounces, "bounces_per_design": out.bounces.tolist(),
+         "deposits": int((out.rays["dep"] >= 0).sum()), "bytes": nbytes,
+         "ops": ops, "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None, **vector_compare(out, ref)}
+    return e, out
+
+
+def phase22(ctx) -> None:
+    """The vector engine's kernel against its plain version."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch import cli
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        pipeline, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.sweep import (
+        design_sweep,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase22", {})
+    faults, cases = [], []
+
+    def args_of(tracer, cfg, rays, mode, budget):
+        return tv.vector_trace_args(
+            rays, tracer.tables(), tracer.geometry(), mode=mode,
+            max_bounces=budget, num_fc=tracer.num_fc, num_oc=tracer.num_oc,
+            eyebox_bins=cfg.eyebox_bins, circle=cfg.ic_test == "circle")
+
+    # (a) a 2,048-cell batch of phase 12's case (simulate --engine vector)
+    cfg = TraceConfig()
+    sim = pipeline.Simulator(cfg=cfg, device=dev, engine="vector")
+    rays = sim._vector_rays(np.arange(2048), cfg.rays_per_fov, 0)
+    e, whole = _vector_case("batch_2048", args_of(
+        sim.tracer, cfg, rays, "full", cfg.max_bounces), 3)
+    cases.append(e)
+    # (b) the same rays: full mode with a 24-step budget, then resume mode
+    # with the rest; together they must equal (a)
+    e24, first = _vector_case("batch_2048_full_24", args_of(
+        sim.tracer, cfg, rays, "full", 24), 3)
+    er, rest = _vector_case("batch_2048_resume_rest", args_of(
+        sim.tracer, cfg, first.rays, "resume", cfg.max_bounces - 24), 3)
+    split_ok = (all(torch.equal(rest.rays[k], whole.rays[k])
+                    for k in tv.RAY_KEYS)
+                and torch.equal(first.bounces + rest.bounces, whole.bounces))
+    er["full_24_then_resume_equals_whole"] = split_ok
+    cases += [e24, er]
+    if not split_ok:
+        faults.append("full 24 + resume differs from the whole trace")
+    del sim, rays, whole, first, rest
+    torch.cuda.empty_cache()
+    # (c) the CLI's default sweep: 8 designs at its widths, as
+    # run_design_sweep packs them (one shared seed batch per in-coupler)
+    sargs = cli.build_parser().parse_args(["sweep", "--engine", "vector"])
+    designs, _ = cli.sweep_designs(sargs)
+    cfg6 = cli.sweep_config(sargs)
+    tables, tgeoms, states = [], [], []
+    for d in designs:
+        geom = generate_geometry(d, cfg6.num_fov_x, cfg6.num_fov_y)
+        tables.append(build_cell_tables(geom, make_synthetic_luts(
+            geom, seed=1234)))
+        tgeoms.append(build_trace_geometry(geom, simplify_tol=1e-3))
+        states.append(design_sweep._ray_state(geom, cfg6, dev))
+    tracer = tv.VectorTracer(tables, tgeoms, cfg6, device=dev)
+    rays = tv.stack_ray_states(states)
+    del states
+    e, _ = _vector_case("sweep_8", args_of(tracer, cfg6, rays, "full",
+                                           cfg6.max_bounces), 2)
+    cases.append(e)
+    del tracer, rays
+    torch.cuda.empty_cache()
+    # (d) the other in-coupler test (the default is the circle): the
+    # polygon's half-planes, 512 cells of phase 12's case
+    cfgc = dc.replace(TraceConfig(), ic_test="polygon")
+    sim = pipeline.Simulator(cfg=cfgc, device=dev, engine="vector")
+    rays = sim._vector_rays(np.arange(0, 22500, 44)[:512], cfgc.rays_per_fov,
+                            0)
+    e, _ = _vector_case("polygon_512", args_of(sim.tracer, cfgc, rays, "full",
+                                               cfgc.max_bounces), 3)
+    cases.append(e)
+    del sim, rays
+    torch.cuda.empty_cache()
+    for e in cases:
+        rec[e["name"]] = e
+        print(f"phase 22 {e['name']}: {e['designs']} design(s), "
+              f"{e['rays']:,} rays, {e['mode']} mode, budget "
+              f"{e['max_bounces']}, in-coupler "
+              f"{'circle' if e['circle'] else 'polygon'}: "
+              f"kernel {e['ms']:.3f} ms, plain {e['plain_ms']:.1f} ms "
+              f"(peak {e['plain_peak_bytes'] / 2**20:.0f} MiB), bound "
+              f"{e['bound_ms']:.4f} ms ({e['bound_by']}; {e['bytes']:,} B, "
+              f"{e['ops']:,} operations); steps {e['steps']}, bounces "
+              f"{e['bounces']:,}, deposits {e['deposits']:,}; against the "
+              f"plain version on the card: fields differing "
+              f"{e['fields_differ'] or 'none'}, bounces "
+              f"{e['bounces_equal']}, steps {e['steps_equal']}")
+        if not e["ok"]:
+            faults.append(f"{e['name']}: {e}")
+    save_record(ctx)
+    ctx["vector_modes"] = cases
+    if faults:
+        fail("phase 22: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
           "6c": phase6c, "19": phase19, "20": phase20, "21": phase21,
-          "11": phase11, "12": phase12, "13": phase13,
+          "22": phase22, "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
 
@@ -4067,8 +4366,9 @@ def kernel_line(ctx) -> dict:
     main path's mode: gens spawn (phase 2's first mode), full mode with
     the whole budget, the rows of the reference workload (phase 19's
     first case), the sampled perception and the colorimetry with the
-    image of ``simulate`` (phase 20's first cases), and the splitting
-    engine's 256-cell chunk (phase 21's first case)."""
+    image of ``simulate`` (phase 20's first cases), the splitting
+    engine's 256-cell chunk (phase 21's first case) and the vector engine's
+    2,048-cell batch (phase 22's first case)."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
@@ -4095,10 +4395,12 @@ def kernel_line(ctx) -> dict:
              ctx["tail_launches"]["eye_perceive"]),
             ("colorimetry", ctx["tail_modes"]["colorimetry"],
              ctx["tail_launches"]["colorimetry"]),
-            ("split_cells", ctx["split_modes"], ctx["split_launches"])):
+            ("split_cells", ctx["split_modes"], ctx["split_launches"]),
+            ("vector_trace", ctx["vector_modes"], ctx["vector_launches"])):
         # the headline: the main path's shape (the reference workload's rows,
         # simulate's sampled perception and its colorimetry with the image,
-        # a 256-cell chunk of simulate --engine splitting)
+        # a 256-cell chunk of simulate --engine splitting, a 2,048-cell
+        # batch of simulate --engine vector)
         head = modes[0]
         source, replaces = KERNELS[name]
         out.append({

@@ -398,6 +398,18 @@ def cmd_simulate(args) -> int:
         dist.destroy_process_group()
 
 
+def vector_segmented(device) -> bool:
+    """Whether ``simulate --engine vector`` traces each batch in bounce
+    segments with the survivors compacted between them (the ``Simulator``'s
+    ``segmented``), on ``device``; both schedules give the same result bit
+    for bit.  On the CPU the plain version's steps cost in proportion to
+    the batch, so segments win; on a GPU a batch is one kernel launch,
+    which compactions between segments only add to."""
+    import torch
+
+    return torch.device(device).type != "cuda"
+
+
 def _simulate(args, mesh) -> int:
     """``simulate``'s run, on one device or (``mesh``) on every rank of
     the mesh; with a mesh rank 0 alone reports and writes files."""
@@ -417,7 +429,9 @@ def _simulate(args, mesh) -> int:
                     spawn_iters=args.spawn_iters,
                     fold_iterations=args.fold_iterations,
                     pers_accum_mode=args.accum_mode,
-                    segmented=args.engine == "vector", mesh=mesh)
+                    segmented=(args.engine == "vector" and vector_segmented(
+                        mesh_device(mesh) if mesh else args.device)),
+                    mesh=mesh)
     lead = mesh is None or mesh.get_rank() == 0
     hy = _tail_hybrid(args, sim)
     diags = None

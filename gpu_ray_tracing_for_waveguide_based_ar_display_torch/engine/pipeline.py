@@ -16,10 +16,11 @@ engines:
   to the end in one launch per batch or, with ``segmented=True``, under the
   segment-and-compact scheduler of :mod:`.cell_segments`;
 - ``engine="vector"``: its portable tracer (``engine="jnp"``) with the
-  general loop, through :class:`.trace_vector.VectorTracer` in plain
-  PyTorch: to the end in one loop per batch or, with ``segmented=True``, in
-  bounce segments with the survivors gathered between them
-  (:meth:`Simulator.trace_batch_compacted`);
+  general loop, through :class:`.trace_vector.VectorTracer` (on a GPU one
+  launch of ``csrc/vector_trace.cu`` per trace call, on the CPU its plain
+  PyTorch version): to the end in one call per batch or, with
+  ``segmented=True``, in bounce segments with the survivors gathered
+  between them (:meth:`Simulator.trace_batch_compacted`);
 - ``engine="splitting"``: its zero-variance engine
   (:mod:`.splitting`) with the general loop: every branch followed with its
   weight, ``rays_per_fov`` launch positions per cell, one wavefront per cell
@@ -296,6 +297,8 @@ class Simulator:
                 libs["cell_trace"] = trace_cell
             elif engine == "splitting" and splitting_percell:
                 libs["split_cells"] = splitting
+            elif engine == "vector":
+                libs["vector_trace"] = trace_vector
             if device_rows:
                 libs["cell_rows"] = cell_rows
             build.build_all(libs)
@@ -1054,11 +1057,14 @@ class Simulator:
             return self._trace_blocks(chunk, *rays, hist_dev, timer)
         if self.engine == "vector":
             steps0 = self.stats.get("steps", 0)
+            syncs0 = self.stats.get("syncs", 0)
             out = self._trace_vector(
                 rays, hist_dev, timer,
                 self._segment_bounces if self._segmented else None)
             timings.setdefault("batch_steps", []).append(
                 self.stats["steps"] - steps0)
+            timings.setdefault("batch_syncs", []).append(
+                self.stats["syncs"] - syncs0)
             return out
         with timer.span("trace"):
             hist, steps = self._trace_splitting(rays, chunk, rpf)

@@ -66,11 +66,12 @@ from . import build
 from .device import resolve_device
 from .trace_geometry import TraceGeometry
 from .trace_persistent import launch_counts
+from . import trace_vector
 from .trace_vector import (
-    DEAD, _C_EBR, _C_SOUT, _EDGE_TOL, _I_COS0, _I_ICA, _I_ICB, _I_JA, _I_JB,
-    _I_SA, _I_SB, _col, _jones_apply, _phase_mul, _power, _rsqrt, _take,
-    add_region_grids, as_tables, deposit_bin, geom_tensors, in_ic,
-    pack_tables, regions_inside, site_key, stack_geoms,
+    DEAD, GEOM_SCALARS, _C_EBR, _C_SOUT, _EDGE_TOL, _I_COS0, _I_ICA,
+    _I_ICB, _I_JA, _I_JB, _I_SA, _I_SB, _col, _jones_apply, _phase_mul,
+    _power, _rsqrt, _take, add_region_grids, as_tables, deposit_bin,
+    geom_tensors, in_ic, pack_tables, regions_inside, site_key, stack_geoms,
 )
 
 # wavefront fields (cid is left out of the per-cell engine, where a slot's
@@ -473,13 +474,6 @@ def _gather_cell_tables(T: dict, cell_ids: torch.Tensor) -> dict:
     return out
 
 
-# the geometry scalars the kernel reads, in its order (csrc/split_cells.cu
-# G_*), then the half-plane packs of GEOM_HP, (E, 3) each
-GEOM_SCALARS = ("icx", "icy", "icr", "fcr0", "fcr1", "fc_top", "fc_width",
-                "ocr0", "ocr1", "oc_top", "oc_width", "b0", "b1", "b2", "b3",
-                "grid_x0", "grid_y0", "grid_inv_hx", "grid_inv_hy")
-GEOM_HP = ("ic_hp", "r1_hp", "r2_hp", "hull_hp")
-_G_GRID = GEOM_SCALARS[-4:]    # the region grid's window, from G itself
 _NF = 11                  # wavefront fields of a kernel buffer
 # the C parameters of split_cells_launch, in order: 13 pointers, 16 ints,
 # the threshold and the stream
@@ -536,14 +530,11 @@ class SplitCellsOut:
 def pack_geometry(G: dict) -> tuple:
     """One design's geometry with its region grid (:func:`_geometry`) as
     the kernel reads it: ``(flat float32, grid codes (n, n) uint8, edges)``
-    (:data:`GEOM_SCALARS`, then the packs of :data:`GEOM_HP`)."""
-    S = _col(G, 1, 1)
-    scal = [S[k] for k in GEOM_SCALARS[:11]] + list(S["b"])
-    scal += [G[k] for k in _G_GRID]
-    flat = torch.cat([v.reshape(1).float() for v in scal]
-                     + [G[k][0].reshape(-1).float() for k in GEOM_HP])
-    edges = tuple(int(G[k].shape[1]) for k in GEOM_HP)
-    return flat.contiguous(), G["grid_code"][0].contiguous(), edges
+    (:data:`.trace_vector.GEOM_SCALARS`, then the packs of
+    :data:`.trace_vector.GEOM_HP`): row 0 of
+    :func:`.trace_vector.pack_geometry`."""
+    rows, grid, edges = trace_vector.pack_geometry(G)
+    return rows[0].float().contiguous(), grid[0].contiguous(), edges
 
 
 def unpack_geometry(flat: torch.Tensor, grid: torch.Tensor,
@@ -551,21 +542,7 @@ def unpack_geometry(flat: torch.Tensor, grid: torch.Tensor,
     """The one-design geometry dict of :func:`pack_geometry`'s output, as
     :func:`.trace_vector.regions_inside`, :func:`.trace_vector.in_ic` and
     :func:`.trace_vector._col` read it."""
-    v = dict(zip(GEOM_SCALARS, flat[:len(GEOM_SCALARS)].reshape(-1, 1)))
-    G = {"ic_center": torch.stack([v["icx"], v["icy"]], 1),
-         "ic_radius": v["icr"], "fc_rot": torch.stack([v["fcr0"],
-                                                       v["fcr1"]], 1),
-         "fc_top": v["fc_top"], "fc_width": v["fc_width"],
-         "oc_rot_y": torch.stack([v["ocr0"], v["ocr1"]], 1),
-         "oc_bounds": torch.stack([v[f"b{i}"] for i in range(4)], 1),
-         "oc_top": v["oc_top"], "oc_width": v["oc_width"],
-         "grid_code": grid[None]}
-    G.update((k, v[k]) for k in _G_GRID)
-    at = len(GEOM_SCALARS)
-    for k, e in zip(GEOM_HP, edges):
-        G[k] = flat[at:at + 3 * e].reshape(1, e, 3)
-        at += 3 * e
-    return G
+    return trace_vector.unpack_geometry(flat[None], grid[None], edges)
 
 
 def split_cells_args(Tc: dict, packed: tuple, seeds: torch.Tensor,

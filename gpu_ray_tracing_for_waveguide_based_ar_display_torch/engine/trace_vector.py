@@ -5,8 +5,7 @@ Every ray is one element of a masked struct-of-arrays batch; a step applies
 one bounce to every live ray, and the loop ends when no ray is alive or the
 bounce budget is spent.  The step follows the JAX step operation for
 operation (containment tests, the interaction record of the ray's site, the
-2x2 complex Jones products, one roulette draw, the masked update); it runs
-as plain PyTorch on any device.
+2x2 complex Jones products, one roulette draw, the masked update).
 
 The batch has a leading design axis: every tensor of the ray state is
 (D, R), and row ``d`` holds the rays of design ``d``, traced with that
@@ -30,10 +29,19 @@ Deposits.  A ray out-couples on its last bounce and keeps its position
 after it, so the step only marks the out-coupling and the deposit bin is
 computed once, at the end of the trace call, from that position: the same
 bin the JAX step computes in the step.
+
+The trace.  :func:`vector_trace` routes one trace call by device: on a GPU
+one launch of the hand-written kernel ``csrc/vector_trace.cu``
+(:func:`launch_vector_trace`: one thread per ray runs its whole bounce
+loop, no read of the device from the host), on the CPU its plain version
+:func:`vector_trace_reference` (the eager loop above, which reads the
+device twice a step).  Both take a :class:`VectorTraceArgs` and agree bit
+for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Sequence
 
@@ -44,9 +52,11 @@ from torch import nn
 from ..config import TraceConfig
 from ..luts.packing import CellTables, DIR_FC, DIR_IC, DIR_IC2, DIR_OC
 from ..ops.rng import draw_uniform
+from . import build
 from .device import resolve_device
 from .timing import EventTimer
 from .trace_geometry import TraceGeometry
+from .trace_persistent import launch_counts
 
 DEAD = 6
 _EDGE_TOL = 1e-6   # the float32-scale edge tolerance of the JAX step
@@ -295,7 +305,56 @@ def add_region_grids(G: dict, n: int = GRID_N) -> dict:
     out.update(grid_code=torch.stack(codes).to(torch.uint8),
                grid_x0=torch.stack(x0s), grid_y0=torch.stack(y0s),
                grid_inv_hx=torch.stack(ixs), grid_inv_hy=torch.stack(iys))
+    out["geom_rows"] = pack_geometry(out)[0]
     return out
+
+
+# the geometry scalars the kernels read, in their order (csrc/step_common.cuh
+# G_*), then the half-plane packs of GEOM_HP, (E, 3) each
+GEOM_SCALARS = ("icx", "icy", "icr", "fcr0", "fcr1", "fc_top", "fc_width",
+                "ocr0", "ocr1", "oc_top", "oc_width", "b0", "b1", "b2", "b3",
+                "grid_x0", "grid_y0", "grid_inv_hx", "grid_inv_hy")
+GEOM_HP = ("ic_hp", "r1_hp", "r2_hp", "hull_hp")
+_G_GRID = GEOM_SCALARS[-4:]    # the region grid's window, from G itself
+
+
+def pack_geometry(G: dict) -> tuple:
+    """Stacked geometry with its region grids (:func:`add_region_grids`)
+    as the kernels read it: ``(rows (D, len(GEOM_SCALARS) + 3 * sum(edges))
+    in G's float type, grid codes (D, n, n) uint8, edges)``, each row
+    :data:`GEOM_SCALARS`, then the packs of :data:`GEOM_HP` (padded to the
+    designs' largest edge counts by :func:`stack_geoms`)."""
+    D = G["fc_top"].shape[0]
+    fdt = G["fc_top"].dtype
+    S = _col(G, D, 1)
+    scal = [S[k] for k in GEOM_SCALARS[:11]] + list(S["b"])
+    scal += [G[k] for k in _G_GRID]
+    rows = torch.cat([v.reshape(D, 1).to(fdt) for v in scal]
+                     + [G[k].reshape(D, -1).to(fdt) for k in GEOM_HP], dim=1)
+    edges = tuple(int(G[k].shape[1]) for k in GEOM_HP)
+    return rows.contiguous(), G["grid_code"].contiguous(), edges
+
+
+def unpack_geometry(rows: torch.Tensor, grid: torch.Tensor,
+                    edges: tuple) -> dict:
+    """The stacked geometry dict of :func:`pack_geometry`'s output, as
+    :func:`regions_inside`, :func:`in_ic` and :func:`_col` read it."""
+    D = rows.shape[0]
+    v = dict(zip(GEOM_SCALARS, rows[:, :len(GEOM_SCALARS)].T))
+    G = {"ic_center": torch.stack([v["icx"], v["icy"]], 1),
+         "ic_radius": v["icr"], "fc_rot": torch.stack([v["fcr0"],
+                                                       v["fcr1"]], 1),
+         "fc_top": v["fc_top"], "fc_width": v["fc_width"],
+         "oc_rot_y": torch.stack([v["ocr0"], v["ocr1"]], 1),
+         "oc_bounds": torch.stack([v[f"b{i}"] for i in range(4)], 1),
+         "oc_top": v["oc_top"], "oc_width": v["oc_width"],
+         "grid_code": grid}
+    G.update((k, v[k]) for k in _G_GRID)
+    at = len(GEOM_SCALARS)
+    for k, e in zip(GEOM_HP, edges):
+        G[k] = rows[:, at:at + 3 * e].reshape(D, e, 3)
+        at += 3 * e
+    return G
 
 
 def regions_inside(G: dict, x: torch.Tensor, y: torch.Tensor,
@@ -469,7 +528,350 @@ def stack_ray_states(states: Sequence[dict]) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# the trace
+# the trace: the plain version's steps
+
+
+def _init_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict,
+               circle: bool) -> dict:
+    """First IC interaction from air (reference kernel :860-904)."""
+    pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
+    cell = _take(T["cell"], g)
+    pol_a = _jones_apply(cell[_I_JA:_I_JA + 8], *pol)
+    pol_b = _jones_apply(cell[_I_JB:_I_JB + 8], *pol)
+    cos0 = cell[_I_COS0]
+    eff_a = _power(*pol_a) * cell[_I_SA] / cos0
+    eff_b = _power(*pol_b) * cell[_I_SB] / cos0
+    u, rng = draw_uniform(r["rng"], r["idx"],
+                          torch.ones_like(r["state"], dtype=torch.bool))
+    a = u <= eff_a
+    b = (~a) & (u <= eff_a + eff_b)
+    ter_n, tei_n, tmr_n, tmi_n = (torch.where(a, pa, pb)
+                                  for pa, pb in zip(pol_a, pol_b))
+    inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
+                             min=1e-30))
+    dirs = torch.where(a, DIR_IC, DIR_IC2)
+    d = _take(T["dirs"], g * 4 + dirs)
+    ter_n, tei_n = ter_n * inv, tei_n * inv
+    tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
+    gx, gy = d[0], d[1]
+    x = r["x"] + gx
+    y = r["y"] + gy
+    ic_in = in_ic(G, S, x, y, circle)
+    state = torch.where(
+        a, torch.where(ic_in, 0, 2),
+        torch.where(b, torch.where(ic_in, 1, DEAD), DEAD)).to(torch.int32)
+    cos_th = torch.where(a, cell[_I_ICA], cell[_I_ICB])
+    live = state < DEAD
+    out = dict(r)
+    out.update(
+        x=torch.where(live, x, r["x"]), y=torch.where(live, y, r["y"]),
+        ter=torch.where(live, ter_n, r["ter"]),
+        tei=torch.where(live, tei_n, r["tei"]),
+        tmr=torch.where(live, tmr_n, r["tmr"]),
+        tmi=torch.where(live, tmi_n, r["tmi"]),
+        cos_th=torch.where(live, cos_th, r["cos_th"]),
+        gap_x=torch.where(live, gx, 0.0), gap_y=torch.where(live, gy, 0.0),
+        state=state, rng=rng)
+    return out
+
+
+def _bounce_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict,
+                 stats: dict, num_fc: int, num_oc: int, circle: bool) -> dict:
+    """One bounce of the whole batch (reference kernel :906-1247)."""
+    x, y, state = r["x"], r["y"], r["state"]
+    alive = state < DEAD
+    in_r1, in_hull, in_r2 = regions_inside(G, x, y, alive, stats)
+    # global containment
+    state = torch.where(alive & ~in_r1, DEAD, state)
+    alive = state < DEAD
+    grp_ic, grp_fc, grp_oc, in_rect, key = site_key(
+        S, x, y, state, alive, in_hull, num_fc, num_oc)
+    hit_fc = grp_fc & in_hull
+    hit_oc = grp_oc & in_rect
+    interact = grp_ic | hit_fc | hit_oc
+
+    rec = _take(T["rec"], g * (2 * (1 + num_fc + num_oc)) + key)
+    pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
+    s_a, s_b = rec[24], rec[25]
+    pol_a = _jones_apply(rec[0:8], *pol)
+    pol_b = _jones_apply(rec[8:16], *pol)
+    pol_c = _jones_apply(rec[16:24], *pol)
+    s_c = _take(T["cell"][_C_SOUT:_C_SOUT + 1], g)[0]
+    inv_cos = 1.0 / r["cos_th"]
+    eff_a = _power(*pol_a) * s_a * inv_cos
+    eff_b = _power(*pol_b) * s_b * inv_cos
+    eff_c = _power(*pol_c) * s_c * inv_cos
+
+    u, rng = draw_uniform(r["rng"], r["idx"], interact)
+    br_a = interact & (u <= eff_a) & (eff_a > 0)
+    br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
+    br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
+            & (eff_c > 0))
+    die_roulette = interact & ~(br_a | br_b | br_c)
+
+    # accepted A / B: renormalise, TIR phasor, hop
+    accept = br_a | br_b
+    dir_a = torch.where(grp_oc, DIR_FC, DIR_IC)
+    dir_b = torch.where(grp_ic, DIR_IC2,
+                        torch.where(grp_fc, DIR_FC, DIR_OC))
+    dirs = torch.where(br_a, dir_a, dir_b)
+    ter_n, tei_n, tmr_n, tmi_n = (torch.where(br_a, pa, pb)
+                                  for pa, pb in zip(pol_a, pol_b))
+    inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
+                             min=1e-30))
+    d = _take(T["dirs"], g * 4 + dirs)
+    ter_n, tei_n = ter_n * inv, tei_n * inv
+    tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
+    cos_n = torch.where(br_a, s_a, s_b)
+    gx_n, gy_n = d[0], d[1]
+
+    st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, -1))
+    st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, -1))
+    x_acc = x + gx_n
+    y_acc = y + gy_n
+    ic_in = in_ic(G, S, x_acc, y_acc, circle)
+    st_a = torch.where(grp_ic, torch.where(ic_in, 0, 2), st_a)
+    st_b = torch.where(grp_ic, torch.where(ic_in, 1, DEAD), st_b)
+    st_acc = torch.where(br_a, st_a, st_b)
+
+    # out-couple (C): the bin is taken from this position at the end
+    dep = torch.where(br_c, _OUT, r["dep"])
+
+    # misses: TIR hop with the doubled phasor, or a phase transition
+    miss_fc2 = grp_fc & ~in_hull & (state == 2)
+    miss_fc3 = grp_fc & ~in_hull & (state == 3)
+    fc3_to_oc = miss_fc3 & ~in_r2
+    miss_hop_fc3 = miss_fc3 & in_r2
+    miss_oc4 = grp_oc & ~in_rect & (state == 4)
+    miss_oc5 = grp_oc & ~in_rect & (state == 5)
+    hop = miss_fc2 | miss_hop_fc3 | miss_oc4
+    hop_dir = torch.where(miss_fc2, DIR_IC, DIR_FC)
+    hd = _take(T["dirs"], g * 4 + hop_dir)
+
+    new_state = torch.where(
+        accept, st_acc,
+        torch.where(br_c | die_roulette | miss_oc5, DEAD,
+                    torch.where(fc3_to_oc, 4, state))).to(torch.int32)
+    hop_tmr, hop_tmi = _phase_mul(hd[4], hd[5], r["tmr"], r["tmi"])
+    out = dict(r)
+    out.update(
+        x=torch.where(accept, x_acc, torch.where(hop, x + r["gap_x"], x)),
+        y=torch.where(accept, y_acc, torch.where(hop, y + r["gap_y"], y)),
+        ter=torch.where(accept, ter_n, r["ter"]),
+        tei=torch.where(accept, tei_n, r["tei"]),
+        tmr=torch.where(accept, tmr_n,
+                        torch.where(hop, hop_tmr, r["tmr"])),
+        tmi=torch.where(accept, tmi_n,
+                        torch.where(hop, hop_tmi, r["tmi"])),
+        cos_th=torch.where(accept, cos_n, r["cos_th"]),
+        gap_x=torch.where(accept, gx_n, r["gap_x"]),
+        gap_y=torch.where(accept, gy_n, r["gap_y"]),
+        state=new_state, rng=rng, dep=dep)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the trace call: its arguments, the plain version and the kernel
+
+# the ray state's fields in the kernel's order (csrc/vector_trace.cu): the
+# float fields, then state, rng and dep (read and written), then cid and
+# idx (read only)
+RAY_FLOATS = ("x", "y", "ter", "tei", "tmr", "tmi", "cos_th", "gap_x",
+              "gap_y")
+RAY_KEYS = RAY_FLOATS + ("state", "rng", "dep", "cid", "idx")
+_RAY_INTS = {"state": torch.int32, "rng": torch.int64, "dep": torch.int32,
+             "cid": torch.int64, "idx": torch.int64}
+_RAY_OUT = RAY_KEYS[:-2]
+# the C parameters of vector_trace_launch, in order: 5 table pointers, the
+# input and output pointer arrays, bounces and steps, 16 ints, the stream
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
+                   + [ctypes.c_void_p])
+
+
+@dataclasses.dataclass
+class VectorTraceArgs:
+    """One trace call as the kernel takes it: the designs' packed tables
+    (:func:`stack_tables` of :func:`pack_tables`), their geometry rows and
+    region grids (:func:`pack_geometry`), the (D, R) ray state and the
+    call's knobs.  ``mode="resume"`` skips the first in-coupler
+    interaction; ``max_bounces`` bounds the call's steps."""
+    rec: torch.Tensor          # (26, D * C * R2)
+    cell: torch.Tensor         # (26, D * C)
+    dirs: torch.Tensor         # (6, D * C * 4)
+    geom: torch.Tensor         # (D, len(GEOM_SCALARS) + 3 * sum(edges))
+    grid: torch.Tensor         # (D, n, n) uint8 region codes
+    rays: dict                 # RAY_KEYS -> (D, R)
+    edges: tuple               # half-planes of each pack of GEOM_HP
+    mode: str
+    max_bounces: int
+    num_fc: int
+    num_oc: int
+    eyebox_bins: tuple
+    circle: bool
+
+    def to(self, device) -> "VectorTraceArgs":
+        """The same call with its tensors on ``device``."""
+        out = dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
+        out.rays = {k: v.to(device) for k, v in self.rays.items()}
+        return out
+
+
+@dataclasses.dataclass
+class VectorTraceOut:
+    """The final (D, R) ray state (``dep`` holds each out-coupled ray's bin,
+    or -1 outside its deposit rectangle), the (D,) int64 count of live rays
+    summed over the steps, and the call's steps (an int32 scalar tensor:
+    the most steps any ray began alive)."""
+    rays: dict
+    bounces: torch.Tensor
+    steps: torch.Tensor
+
+
+def vector_trace_args(rays: dict, T: dict, G: dict, *, mode: str,
+                      max_bounces: int, num_fc: int, num_oc: int,
+                      eyebox_bins, circle: bool) -> VectorTraceArgs:
+    """A trace call's :class:`VectorTraceArgs` from (D, R) rays, packed
+    tables ``T`` and geometry ``G`` with its region grids
+    (:func:`add_region_grids`, which packs the geometry rows)."""
+    if mode not in ("full", "resume"):
+        raise ValueError(f"mode must be 'full' or 'resume', got {mode!r}")
+    return VectorTraceArgs(
+        rec=T["rec"], cell=T["cell"], dirs=T["dirs"], geom=G["geom_rows"],
+        grid=G["grid_code"], rays=dict(rays),
+        edges=tuple(int(G[k].shape[1]) for k in GEOM_HP), mode=mode,
+        max_bounces=int(max_bounces), num_fc=int(num_fc),
+        num_oc=int(num_oc), eyebox_bins=tuple(eyebox_bins),
+        circle=bool(circle))
+
+
+def vector_trace_reference(a: VectorTraceArgs,
+                           stats: Optional[dict] = None) -> VectorTraceOut:
+    """The plain PyTorch version of the kernel: the eager step loop on
+    ``a``'s device.  Each step reads from the device whether any ray is
+    alive and the positions the region grids leave open
+    (``stats["syncs"]`` counts both reads)."""
+    stats = stats if stats is not None else {}
+    r = dict(a.rays)
+    D = r["x"].shape[0]
+    ny, nx = a.eyebox_bins
+    G = unpack_geometry(a.geom, a.grid, a.edges)
+    T = {"rec": a.rec, "cell": a.cell, "dirs": a.dirs}
+    C = T["cell"].shape[1] // D
+    g = r["cid"] + C * torch.arange(D, device=r["cid"].device)[:, None]
+    S = _col(G, D, 2)
+    if a.mode == "full":
+        r = _init_step(r, T, S, g, G, a.circle)
+    bounces = torch.zeros(D, dtype=torch.int64, device=g.device)
+    it = 0
+    while it < a.max_bounces:
+        n_alive = (r["state"] < DEAD).sum(dim=1)
+        stats["syncs"] = stats.get("syncs", 0) + 1
+        if not bool(n_alive.any()):
+            break
+        bounces += n_alive
+        r = _bounce_step(r, T, S, g, G, stats, a.num_fc, a.num_oc, a.circle)
+        it += 1
+    out = r["dep"] == _OUT
+    ebr = _take(T["cell"][_C_EBR:_C_EBR + 4], g)
+    in_quad, b = deposit_bin(ebr, r["x"], r["y"], ny, nx)
+    r["dep"] = torch.where(out, torch.where(in_quad, b, -1),
+                           r["dep"]).to(torch.int32)
+    return VectorTraceOut(rays=r, bounces=bounces,
+                          steps=torch.tensor(it, dtype=torch.int32,
+                                             device=g.device))
+
+
+def launch_vector_trace(a: VectorTraceArgs) -> VectorTraceOut:
+    """The kernel on ``a``'s CUDA tensors: one launch, queued on the
+    current stream (no host read).  Every output field is a new tensor
+    (the inputs are not written; ``cid`` and ``idx`` are passed through).
+    Raises if a tensor is not what the kernel takes or the launch is
+    refused."""
+    dev = a.rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"the vector_trace kernel runs on cuda, not {dev}")
+    for name in ("rec", "cell", "dirs", "geom"):
+        t = getattr(a, name)
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if a.grid.device != dev or a.grid.dtype != torch.uint8:
+        raise ValueError("the region grids must be uint8 on the card")
+    rays = {k: a.rays[k].contiguous() for k in RAY_KEYS}
+    D, R = rays["x"].shape
+    for k, v in rays.items():
+        want = _RAY_INTS.get(k, torch.float32)
+        if v.device != dev or v.dtype != want or v.shape != (D, R):
+            raise ValueError(f"ray field {k} must be {want} ({D}, {R}) on "
+                             f"{dev}, got {v.dtype} {tuple(v.shape)} on "
+                             f"{v.device}")
+    if a.geom.shape[0] != D or a.grid.shape[0] != D:
+        raise ValueError(f"{D} design rows against {a.geom.shape[0]} "
+                         f"geometry rows and {a.grid.shape[0]} grids")
+    C = a.cell.shape[1] // D
+    R2 = 2 * (1 + a.num_fc + a.num_oc)
+    if (a.cell.shape[1] != D * C or a.rec.shape[1] != D * C * R2
+            or a.dirs.shape[1] != D * C * 4):
+        raise ValueError("the tables do not hold D x C cells")
+    out = {k: torch.empty_like(rays[k]) for k in _RAY_OUT}
+    bounces = torch.zeros(D, dtype=torch.int64, device=dev)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
+    if D * R:
+        lib = load_kernel()
+        ins = (ctypes.c_void_p * len(RAY_KEYS))(
+            *[rays[k].data_ptr() for k in RAY_KEYS])
+        outs = (ctypes.c_void_p * len(_RAY_OUT))(
+            *[out[k].data_ptr() for k in _RAY_OUT])
+        ny, nx = a.eyebox_bins
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.vector_trace_launch(
+                a.rec.data_ptr(), a.cell.data_ptr(), a.dirs.data_ptr(),
+                a.geom.data_ptr(), a.grid.data_ptr(), ins, outs,
+                bounces.data_ptr(), steps.data_ptr(), D, R, C, R2,
+                a.num_fc, a.num_oc, ny, nx, a.max_bounces,
+                int(a.mode == "full"), int(a.circle), a.grid.shape[1],
+                *a.edges, stream)
+        if err != 0:
+            msg = lib.vector_trace_error_string(err).decode()
+            raise RuntimeError(f"vector_trace launch failed: {msg} ({err})")
+        launch_counts["vector_trace"] += 1
+    out.update(cid=rays["cid"], idx=rays["idx"])
+    final = dict(a.rays)
+    final.update(out)
+    return VectorTraceOut(rays=final, bounces=bounces, steps=steps)
+
+
+def vector_trace(a: VectorTraceArgs,
+                 stats: Optional[dict] = None) -> VectorTraceOut:
+    """One trace call: the kernel for CUDA tensors, the plain version for
+    CPU ones (no fallback between them)."""
+    dev = a.rec.device
+    if dev.type == "cuda":
+        return launch_vector_trace(a)
+    if dev.type != "cpu":
+        raise ValueError(f"vector_trace runs on cpu or cuda, not {dev}")
+    return vector_trace_reference(a, stats)
+
+
+_LIB = None
+
+
+def load_kernel():
+    """Build (at first use) and bind ``csrc/vector_trace.cu``; raises with
+    the compiler's output if the build fails."""
+    global _LIB
+    if _LIB is None:
+        lib = build.load_library("vector_trace")
+        lib.vector_trace_launch.argtypes = LAUNCH_ARGTYPES
+        lib.vector_trace_launch.restype = ctypes.c_int
+        lib.vector_trace_error_string.argtypes = [ctypes.c_int]
+        lib.vector_trace_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
 
 
 def make_trace_fn_dynamic(cfg: TraceConfig, num_fc: int, num_oc: int,
@@ -485,152 +887,16 @@ def make_trace_fn_dynamic(cfg: TraceConfig, num_fc: int, num_oc: int,
     ``mode="resume"`` skips the first in-coupler interaction and continues
     the state: the building block of segment-and-compact scheduling.
     ``max_bounces`` (default ``cfg.max_bounces``) bounds the steps of this
-    call; the loop also ends when no ray is alive, which it reads from the
-    device once per step, besides the step's own read of the positions the
-    containment grids leave open (``stats["syncs"]`` counts both,
-    ``stats["steps"]`` the steps).  ``G`` holds the region grids
-    (:func:`add_region_grids`).  ``timer`` collects the device time of the
-    spans ``init`` and ``bounce``."""
+    call; the loop also ends when no ray is alive.  A call is one
+    :func:`vector_trace`: on a GPU one kernel launch, on the CPU the plain
+    version, which reads the device twice a step (``stats["syncs"]``
+    counts those reads).  ``stats["steps"]`` adds the call's steps, which
+    on a GPU is one read from the device (counted in ``stats["syncs"]``),
+    made only when ``stats`` is given.  ``timer`` collects the device time
+    of the call in the span ``bounce``."""
     if mode not in ("full", "resume"):
         raise ValueError(f"mode must be 'full' or 'resume', got {mode!r}")
-    ny, nx = cfg.eyebox_bins
     circle = cfg.ic_test == "circle"
-
-    def init_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict):
-        """First IC interaction from air (reference kernel :860-904)."""
-        pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
-        cell = _take(T["cell"], g)
-        pol_a = _jones_apply(cell[_I_JA:_I_JA + 8], *pol)
-        pol_b = _jones_apply(cell[_I_JB:_I_JB + 8], *pol)
-        cos0 = cell[_I_COS0]
-        eff_a = _power(*pol_a) * cell[_I_SA] / cos0
-        eff_b = _power(*pol_b) * cell[_I_SB] / cos0
-        u, rng = draw_uniform(r["rng"], r["idx"],
-                              torch.ones_like(r["state"], dtype=torch.bool))
-        a = u <= eff_a
-        b = (~a) & (u <= eff_a + eff_b)
-        ter_n, tei_n, tmr_n, tmi_n = (torch.where(a, pa, pb)
-                                      for pa, pb in zip(pol_a, pol_b))
-        inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
-                                 min=1e-30))
-        dirs = torch.where(a, DIR_IC, DIR_IC2)
-        d = _take(T["dirs"], g * 4 + dirs)
-        ter_n, tei_n = ter_n * inv, tei_n * inv
-        tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
-        gx, gy = d[0], d[1]
-        x = r["x"] + gx
-        y = r["y"] + gy
-        ic_in = in_ic(G, S, x, y, circle)
-        state = torch.where(
-            a, torch.where(ic_in, 0, 2),
-            torch.where(b, torch.where(ic_in, 1, DEAD), DEAD)).to(torch.int32)
-        cos_th = torch.where(a, cell[_I_ICA], cell[_I_ICB])
-        live = state < DEAD
-        out = dict(r)
-        out.update(
-            x=torch.where(live, x, r["x"]), y=torch.where(live, y, r["y"]),
-            ter=torch.where(live, ter_n, r["ter"]),
-            tei=torch.where(live, tei_n, r["tei"]),
-            tmr=torch.where(live, tmr_n, r["tmr"]),
-            tmi=torch.where(live, tmi_n, r["tmi"]),
-            cos_th=torch.where(live, cos_th, r["cos_th"]),
-            gap_x=torch.where(live, gx, 0.0), gap_y=torch.where(live, gy, 0.0),
-            state=state, rng=rng)
-        return out
-
-    def bounce_step(r: dict, T: dict, S: dict, g: torch.Tensor, G: dict,
-                    stats: dict):
-        """One bounce of the whole batch (reference kernel :906-1247)."""
-        x, y, state = r["x"], r["y"], r["state"]
-        alive = state < DEAD
-        in_r1, in_hull, in_r2 = regions_inside(G, x, y, alive, stats)
-        # global containment
-        state = torch.where(alive & ~in_r1, DEAD, state)
-        alive = state < DEAD
-        grp_ic, grp_fc, grp_oc, in_rect, key = site_key(
-            S, x, y, state, alive, in_hull, num_fc, num_oc)
-        hit_fc = grp_fc & in_hull
-        hit_oc = grp_oc & in_rect
-        interact = grp_ic | hit_fc | hit_oc
-
-        rec = _take(T["rec"], g * (2 * (1 + num_fc + num_oc)) + key)
-        pol = (r["ter"], r["tei"], r["tmr"], r["tmi"])
-        s_a, s_b = rec[24], rec[25]
-        pol_a = _jones_apply(rec[0:8], *pol)
-        pol_b = _jones_apply(rec[8:16], *pol)
-        pol_c = _jones_apply(rec[16:24], *pol)
-        s_c = _take(T["cell"][_C_SOUT:_C_SOUT + 1], g)[0]
-        inv_cos = 1.0 / r["cos_th"]
-        eff_a = _power(*pol_a) * s_a * inv_cos
-        eff_b = _power(*pol_b) * s_b * inv_cos
-        eff_c = _power(*pol_c) * s_c * inv_cos
-
-        u, rng = draw_uniform(r["rng"], r["idx"], interact)
-        br_a = interact & (u <= eff_a) & (eff_a > 0)
-        br_b = interact & ~br_a & (u <= eff_a + eff_b) & (eff_b > 0)
-        br_c = (hit_oc & ~br_a & ~br_b & (u <= eff_a + eff_b + eff_c)
-                & (eff_c > 0))
-        die_roulette = interact & ~(br_a | br_b | br_c)
-
-        # accepted A / B: renormalise, TIR phasor, hop
-        accept = br_a | br_b
-        dir_a = torch.where(grp_oc, DIR_FC, DIR_IC)
-        dir_b = torch.where(grp_ic, DIR_IC2,
-                            torch.where(grp_fc, DIR_FC, DIR_OC))
-        dirs = torch.where(br_a, dir_a, dir_b)
-        ter_n, tei_n, tmr_n, tmi_n = (torch.where(br_a, pa, pb)
-                                      for pa, pb in zip(pol_a, pol_b))
-        inv = _rsqrt(torch.clamp(_power(ter_n, tei_n, tmr_n, tmi_n),
-                                 min=1e-30))
-        d = _take(T["dirs"], g * 4 + dirs)
-        ter_n, tei_n = ter_n * inv, tei_n * inv
-        tmr_n, tmi_n = _phase_mul(d[2], d[3], tmr_n * inv, tmi_n * inv)
-        cos_n = torch.where(br_a, s_a, s_b)
-        gx_n, gy_n = d[0], d[1]
-
-        st_a = torch.where(grp_oc, 4, torch.where(grp_fc, 2, -1))
-        st_b = torch.where(grp_oc, 5, torch.where(grp_fc, 3, -1))
-        x_acc = x + gx_n
-        y_acc = y + gy_n
-        ic_in = in_ic(G, S, x_acc, y_acc, circle)
-        st_a = torch.where(grp_ic, torch.where(ic_in, 0, 2), st_a)
-        st_b = torch.where(grp_ic, torch.where(ic_in, 1, DEAD), st_b)
-        st_acc = torch.where(br_a, st_a, st_b)
-
-        # out-couple (C): the bin is taken from this position at the end
-        dep = torch.where(br_c, _OUT, r["dep"])
-
-        # misses: TIR hop with the doubled phasor, or a phase transition
-        miss_fc2 = grp_fc & ~in_hull & (state == 2)
-        miss_fc3 = grp_fc & ~in_hull & (state == 3)
-        fc3_to_oc = miss_fc3 & ~in_r2
-        miss_hop_fc3 = miss_fc3 & in_r2
-        miss_oc4 = grp_oc & ~in_rect & (state == 4)
-        miss_oc5 = grp_oc & ~in_rect & (state == 5)
-        hop = miss_fc2 | miss_hop_fc3 | miss_oc4
-        hop_dir = torch.where(miss_fc2, DIR_IC, DIR_FC)
-        hd = _take(T["dirs"], g * 4 + hop_dir)
-
-        new_state = torch.where(
-            accept, st_acc,
-            torch.where(br_c | die_roulette | miss_oc5, DEAD,
-                        torch.where(fc3_to_oc, 4, state))).to(torch.int32)
-        hop_tmr, hop_tmi = _phase_mul(hd[4], hd[5], r["tmr"], r["tmi"])
-        out = dict(r)
-        out.update(
-            x=torch.where(accept, x_acc, torch.where(hop, x + r["gap_x"], x)),
-            y=torch.where(accept, y_acc, torch.where(hop, y + r["gap_y"], y)),
-            ter=torch.where(accept, ter_n, r["ter"]),
-            tei=torch.where(accept, tei_n, r["tei"]),
-            tmr=torch.where(accept, tmr_n,
-                            torch.where(hop, hop_tmr, r["tmr"])),
-            tmi=torch.where(accept, tmi_n,
-                            torch.where(hop, hop_tmi, r["tmi"])),
-            cos_th=torch.where(accept, cos_n, r["cos_th"]),
-            gap_x=torch.where(accept, gx_n, r["gap_x"]),
-            gap_y=torch.where(accept, gy_n, r["gap_y"]),
-            state=new_state, rng=rng, dep=dep)
-        return out
 
     def trace(rays: dict, T: dict, G: dict, max_bounces: Optional[int] = None,
               timer: Optional[EventTimer] = None,
@@ -642,34 +908,19 @@ def make_trace_fn_dynamic(cfg: TraceConfig, num_fc: int, num_oc: int,
             raise ValueError(f"{D} design rows against "
                              f"{G['fc_top'].shape[0]} geometries")
         timer = timer if timer is not None else EventTimer("cpu")
-        stats = stats if stats is not None else {}
         budget = cfg.max_bounces if max_bounces is None else int(max_bounces)
-        C = T["cell"].shape[1] // D
-        g = r["cid"] + C * torch.arange(D, device=r["cid"].device)[:, None]
-        S = _col(G, D, 2)
-        if mode == "full":
-            with timer.span("init"):
-                r = init_step(r, T, S, g, G)
-        bounces = torch.zeros(D, dtype=torch.int64, device=g.device)
-        it = 0
+        a = vector_trace_args(r, T, G, mode=mode, max_bounces=budget,
+                              num_fc=num_fc, num_oc=num_oc,
+                              eyebox_bins=cfg.eyebox_bins, circle=circle)
         with timer.span("bounce"):
-            while it < budget:
-                n_alive = (r["state"] < DEAD).sum(dim=1)
+            res = vector_trace(a, stats)
+        if stats is not None:
+            if res.steps.is_cuda:
                 stats["syncs"] = stats.get("syncs", 0) + 1
-                if not bool(n_alive.any()):
-                    break
-                bounces += n_alive
-                r = bounce_step(r, T, S, g, G, stats)
-                it += 1
-            out = r["dep"] == _OUT
-            ebr = _take(T["cell"][_C_EBR:_C_EBR + 4], g)
-            in_quad, b = deposit_bin(ebr, r["x"], r["y"], ny, nx)
-            r["dep"] = torch.where(out, torch.where(in_quad, b, -1),
-                                   r["dep"]).to(torch.int32)
-        stats["steps"] = stats.get("steps", 0) + it
+            stats["steps"] = stats.get("steps", 0) + int(res.steps)
         if flat:
-            return {k: v[0] for k, v in r.items()}, bounces
-        return r, bounces
+            return {k: v[0] for k, v in res.rays.items()}, res.bounces
+        return res.rays, res.bounces
 
     return trace
 
@@ -678,9 +929,15 @@ def make_trace_fn(tables: CellTables, tgeom: TraceGeometry, cfg: TraceConfig,
                   precision: str = "f32", device="cuda"):
     """Build ``trace(rays) -> (rays_final, bounces)`` with the tables of one
     design bound on ``device``; ``precision="f64"`` traces in float64
-    (oracle parity)."""
+    (oracle parity) with the plain version, on the CPU only: on a GPU every
+    trace is the float32 kernel, so a float64 request there raises."""
+    if torch.device(device).type == "cuda" and precision != "f32":
+        raise ValueError(f"precision={precision!r} traces on the CPU only: "
+                         "the vector_trace kernel is float32")
     device = resolve_device(device)
     fdt = torch.float64 if precision == "f64" else torch.float32
+    if device.type == "cuda":
+        load_kernel()
     G = geom_tensors(tgeom, fdt)
     T = {k: v.to(device) for k, v in pack_tables(as_tables(tables, fdt),
                                                    G).items()}
@@ -698,15 +955,22 @@ def make_trace_fn(tables: CellTables, tgeom: TraceGeometry, cfg: TraceConfig,
 class VectorTracer(nn.Module):
     """The vector trace bound to D designs: their tables and geometry held
     as buffers on the module's device.  ``forward(rays, mode=, ...)`` runs
-    :func:`make_trace_fn_dynamic`'s trace in full or resume mode."""
+    :func:`make_trace_fn_dynamic`'s trace in full or resume mode: one
+    kernel launch on a GPU, the plain version on the CPU."""
 
     def __init__(self, tables: Sequence[CellTables],
                  tgeoms: Sequence[TraceGeometry], cfg: TraceConfig,
                  dtype=torch.float32, device="cuda"):
         """The tables are packed and the region grids built on ``device``
-        (the card unless the caller asks for the CPU)."""
+        (the card unless the caller asks for the CPU); on a GPU the kernel
+        is built and bound here, and only float32 is taken."""
         super().__init__()
+        if torch.device(device).type == "cuda" and dtype != torch.float32:
+            raise ValueError(f"{dtype} traces on the CPU only: the "
+                             "vector_trace kernel is float32")
         device = resolve_device(device)
+        if device.type == "cuda":
+            load_kernel()
         num_fc, num_oc = tgeoms[0].num_fc, tgeoms[0].num_oc
         if any(g.num_fc != num_fc or g.num_oc != num_oc for g in tgeoms):
             raise ValueError("designs in one trace must share strip counts")

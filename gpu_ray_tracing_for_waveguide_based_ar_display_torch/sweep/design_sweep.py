@@ -97,11 +97,12 @@ def run_design_sweep(
 
     ``SweepResult.timings``: host seconds ``prep_s`` (geometry, tables),
     ``seed_s`` (the ray batches), ``upload_s`` (the tracer's tables and
-    grids) and ``pull_s``; device milliseconds from CUDA events on a GPU
-    (``seed_ms``, ``init_ms``, ``bounce_ms``, ``compact_ms``,
-    ``scatter_ms``);
-    ``steps``, ``syncs`` (reads from the device that end a step loop or size
-    a compaction) and ``segments``."""
+    grids, and on a GPU the kernel's build and bind) and ``pull_s``; device
+    milliseconds from CUDA events on a GPU (``seed_ms``, ``bounce_ms``: the
+    trace calls, ``compact_ms``, ``scatter_ms``);
+    ``steps``, ``syncs`` (reads from the device: a trace call's steps on a
+    GPU, each step's two reads on the CPU, a compaction's size) and
+    ``segments``."""
     dev = resolve_device(device)
     timings = {}
     timer = EventTimer(dev)

@@ -1042,3 +1042,94 @@ def test_split_kernel_chunks_are_independent_on_card(cuda_device):
         cat = torch.cat([getattr(p, f) for p in parts])
         assert torch.equal(getattr(whole, f), cat), f
         assert torch.equal(getattr(whole, f), getattr(again, f)), f
+
+
+# ---------------------------------------------------------------------------
+# the vector engine's kernel (csrc/vector_trace.cu)
+
+
+def _vector_fixture(n_designs: int, circle: bool):
+    """``VectorTracer`` on the card over 1 or 3 designs (the paper design,
+    then coupler periods at 392 and 380 nm; trace geometry simplified at
+    1e-3, as the sweep builds it) and their (D, R) ray state: 4 x 3 FoV x 3
+    wavelengths, 256 rays a cell, a 600-bounce bound."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+
+    cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=256,
+                      max_bounces=600, seed=6,
+                      ic_test="circle" if circle else "polygon")
+    designs = [WaveguideDesign()] + [
+        dataclasses.replace(WaveguideDesign(), lambda_ic=lam, lambda_oc=lam)
+        for lam in (392.0, 380.0)]
+    tables, tgeoms, states = [], [], []
+    for d in designs[:n_designs]:
+        geom = generate_geometry(d, num_fov_x=M, num_fov_y=N)
+        tables.append(build_cell_tables(geom, make_synthetic_luts(geom)))
+        tgeoms.append(build_trace_geometry(geom, simplify_tol=1e-3))
+        b = seeding.build_ray_batch(geom, cfg)
+        states.append(tv.make_ray_state(b["x"], b["y"], b["te"], b["tm"],
+                                        b["cid"], b["idx"], b["rng"],
+                                        device="cuda"))
+    tracer = tv.VectorTracer(tables, tgeoms, cfg, device="cuda")
+    return cfg, tracer, tv.stack_ray_states(states)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_designs,circle", [(1, False), (3, False),
+                                              (1, True), (3, True)])
+def test_vector_kernel_equals_plain_version_on_card(cuda_device, n_designs,
+                                                    circle):
+    """The vector kernel (one launch a call, counted) against its plain
+    version on the same arguments, on the card and on the CPU: every ray
+    field, the per-design bounces and the steps bit for bit, in full mode
+    with the whole budget, in full mode with a 3-step budget and in resume
+    mode with the rest, which together equal the whole trace; the inputs
+    are left as they were."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    cfg, tracer, rays = _vector_fixture(n_designs, circle)
+    T, G = tracer.tables(), tracer.geometry()
+    keep = {k: v.clone() for k, v in rays.items()}
+
+    def args(r, mode, budget):
+        return tv.vector_trace_args(
+            r, T, G, mode=mode, max_bounces=budget, num_fc=tracer.num_fc,
+            num_oc=tracer.num_oc, eyebox_bins=cfg.eyebox_bins, circle=circle)
+
+    n0 = tp.launch_counts["vector_trace"]
+    calls = [args(rays, "full", cfg.max_bounces), args(rays, "full", 3)]
+    outs = [tv.vector_trace(a) for a in calls]
+    calls.append(args(outs[1].rays, "resume", cfg.max_bounces - 3))
+    outs.append(tv.vector_trace(calls[2]))
+    torch.cuda.synchronize()
+    assert tp.launch_counts["vector_trace"] == n0 + 3
+    for got, a in zip(outs, calls):
+        for ref in (tv.vector_trace_reference(a),
+                    tv.vector_trace_reference(a.to("cpu"))):
+            for k in tv.RAY_KEYS:
+                assert got.rays[k].dtype == ref.rays[k].dtype, k
+                assert torch.equal(got.rays[k].cpu(), ref.rays[k].cpu()), k
+            assert torch.equal(got.bounces.cpu(), ref.bounces.cpu())
+            assert int(got.steps) == int(ref.steps)
+    whole, first, rest = outs
+    for k in tv.RAY_KEYS:
+        assert torch.equal(rest.rays[k], whole.rays[k]), k
+    assert torch.equal(first.bounces + rest.bounces, whole.bounces)
+    assert int(first.steps) == 3 and int(whole.steps) > 3
+    assert (whole.rays["dep"] >= 0).sum() > 0
+    assert whole.bounces.shape == (n_designs,)
+    for k, v in keep.items():
+        assert torch.equal(rays[k], v), k

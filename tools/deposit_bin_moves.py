@@ -22,6 +22,12 @@ compared bin by bin:
 - ``global``: the global splitting engine on the 3 x 2 fixture of phase
   13d (weights, not counts).
 
+The vector engine's trace calls run its plain version here
+(``trace_vector.vector_trace_reference``, put in place of the routing
+``vector_trace``): on the card they otherwise launch
+``csrc/vector_trace.cu``, which takes the bin in the tensor form and
+calls no ``deposit_bin``.
+
 Prints one JSON object per engine, each with the card's name and power
 limit; ``--record`` writes them as one JSON list.
 """
@@ -176,6 +182,7 @@ def main() -> int:
         print("no CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    tv.vector_trace = tv.vector_trace_reference
     name = card()
     out = []
     for fn in (vector, sweep, global_engine):
