@@ -194,6 +194,24 @@ Run from the repository root.  Phases:
    of the cells the rays touch, the geometry and grids once, at 3.35
    TB/s, or ``VEC_BOUNCE_OPS`` float32 operations a bounce and
    ``VEC_INIT_OPS`` a full-mode ray at 67 TFLOP/s;
+23. the global splitting engine's kernels (``csrc/split_trace.cu``: the
+   forward, a few launches a step, and its hand-written adjoint) against
+   their plain PyTorch versions (``splitting.split_trace_reference``,
+   ``splitting.split_trace_backward_reference``) on the same arguments, on
+   the card: (a) ``optimize``'s README apodization case (16 x 12 FoV x 3
+   wavelengths = 576 cells x 16 rays, 4,096 slots, 64 fixed steps, hard
+   binning; it truncates, F6); (b) its joint case with soft binning (24 x
+   18, 8 rays, 16,384 slots, 64 steps); (c) the global engine in stop-test
+   mode (phase 13d's 18 cells x 4 positions, 32,768 slots, threshold 1e-5).
+   The forward's histogram, step count and tape (every kept slot's fields
+   and provenance) must be equal bit for bit, the truncated, pruned and
+   deposited weight within 1e-6 relative; the backward of a seeded
+   histogram adjoint equal bit for bit in the three tables, and two
+   backward runs identical.  Each kernel's time (CUDA events around whole
+   calls), the plain version's (host clock), and the bound: the bytes of
+   the stepped slots (``SPLIT_TRACE_BYTES``) with the tables, rays and
+   histogram once at 3.35 TB/s, or ``SPLIT_TRACE_OPS`` float32 operations
+   a stepped slot at 67 TFLOP/s;
 11. the device tail and the run options at the reference workload's full
    width: the card's seed hash equal to the host's over phase 3's index
    range unfolded (4 x 22,500 cells x 2,048 slots, one batch of 2,048 cells
@@ -249,11 +267,12 @@ Run from the repository root.  Phases:
    1e-5; (c) 256 cells of the 100 x 75 grid at 16 positions (8 passes of
    2): ms per cell, the widest wavefront and the full grid's time this
    implies; (d) the global engine on 3 x 2 FoV x 3 wavelengths at 4
-   positions, card against CPU within the same bars.  Phase 12 launches
-   ``csrc/vector_trace.cu`` and neither K1 nor K2 (the K2 cross-check
-   aside, counted apart); phase 13's per-cell runs launch
-   ``csrc/split_cells.cu`` once per batch and pass (counted: 13a, 13b and
-   13c's batches x passes) and no trace kernel.
+   positions, card against CPU within the same bars, through
+   ``csrc/split_trace.cu``.  Phase 12 launches ``csrc/vector_trace.cu`` and
+   neither K1 nor K2 (the K2 cross-check aside, counted apart); phase 13's
+   per-cell runs launch ``csrc/split_cells.cu`` once per batch and pass
+   (counted: 13a, 13b and 13c's batches x passes), 13d's run
+   ``split_trace`` once, and no trace kernel.
 14. ``simulate --tail-boost`` at full width through
    ``engine.hybrid.TailBoostHybrid`` with the CLI's knobs (tau 30 / 20,
    tiers up to 1024x): the reference workload, count spawn with folding,
@@ -296,7 +315,10 @@ Run from the repository root.  Phases:
    trace; both README cases truncate part of their wavefront (as in the
    JAX package), so the no-truncation check runs on a third case, the
    apodization grid at 2 rays per FoV in 262,144 slots.  The loss must fall
-   in every case.
+   in every case.  Launch counts are reset just before each run and read
+   just after it: the run's traces go through ``split_trace`` (one call per
+   Adam step and one for the final loss) and its gradients through
+   ``split_trace_backward`` (one per Adam step).
 16. the mesh (``parallel/shard.py``; one H100, so no multi-GPU scaling is
    measured): (a) an NCCL process group of world size 1 in this process and
    ``Simulator(mesh=)`` at the reference workload in count spawn, folded:
@@ -406,6 +428,16 @@ KERNELS = {   # name -> (source in the repo, the TPU kernel it replaces)
                      f"{JAX_PACKAGE}/engine/trace_jnp.py:140 "
                      "make_trace_fn_dynamic's trace_core (:378, jnp under "
                      "lax.while_loop :393, no Pallas counterpart)"),
+    # port-side: the JAX global engine is jnp under lax.scan, its gradient
+    # jax.value_and_grad of it
+    "split_trace": (f"{PORT}/csrc/split_trace.cu",
+                    f"{JAX_PACKAGE}/engine/splitting.py:466 "
+                    "make_splitting_trace_fn's trace (jnp under lax.scan / "
+                    "lax.while_loop, no Pallas counterpart)"),
+    "split_trace_backward": (f"{PORT}/csrc/split_trace.cu",
+                             f"{JAX_PACKAGE}/engine/splitting.py:466 "
+                             "make_splitting_trace_fn under "
+                             "jax.value_and_grad (no Pallas counterpart)"),
 }
 # the libraries of csrc/ the kernels live in, one nvcc process each
 LIBRARIES = list(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
@@ -2735,22 +2767,29 @@ def phase13(ctx) -> None:
     rec["wall_s"] = time.perf_counter() - t_phase
     # one split_cells launch per batch and pass: 13a's run (32 passes) and
     # its two 4-pass runs in batches of 256 and 100 cells, 13b's card run
-    # (one batch), 13c's 8 passes of one batch; 13d's global engine is
-    # plain PyTorch
+    # (one batch), 13c's 8 passes of one batch; one split_trace call for
+    # 13d's card run
     per = pipeline.SPLIT_SLOT_BUDGET // 8192
     want = (math.ceil(576 / per) * (32 + 4) + math.ceil(576 / 100) * 4 + 1
             + math.ceil(256 / per) * 8)
     rec["split_cells_expected"] = want
     save_record(ctx)
-    print(f"phase 13 launches: {launches} (split_cells expected {want})")
+    print(f"phase 13 launches: {launches} (split_cells expected {want}, "
+          f"split_trace 1)")
     if launches["persistent_trace"] or launches["cell_trace"]:
         faults.append(f"the splitting engine launched the trace kernels: "
                       f"{launches}")
     if launches["split_cells"] != want:
         faults.append(f"{launches['split_cells']} split_cells launches, "
                       f"expected {want}")
+    if launches["split_trace"] != 1 or launches["split_trace_backward"]:
+        faults.append(f"13d's global engine: {launches['split_trace']} "
+                      f"split_trace launches, expected 1, and "
+                      f"{launches['split_trace_backward']} backward")
     ctx["split_launches"] = (ctx.get("split_launches", 0)
                              + launches["split_cells"])
+    ctx["trace_launches"] = (ctx.get("trace_launches", 0)
+                             + launches["split_trace"])
     if faults:
         fail("phase 13: " + "; ".join(faults))
     if jax_modules():
@@ -3102,7 +3141,7 @@ def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
         generate_geometry,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        splitting,
+        splitting, trace_persistent as tp,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
         build_trace_geometry,
@@ -3178,6 +3217,7 @@ def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
     torch.cuda.reset_peak_memory_stats()
     splitting.make_splitting_trace_fn = recording
     try:
+        tp.reset_launch_counts()
         t0 = time.perf_counter()
         if joint:
             res = opt.optimize_grating(
@@ -3189,6 +3229,7 @@ def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
                 learning_rate=lr, device=dev, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = dict(tp.launch_counts)
     finally:
         splitting.make_splitting_trace_fn = make
     n0 = len(rays0["x"])
@@ -3201,7 +3242,8 @@ def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
            "nonuniformity": list(res.nonuniformity),
            "truncated_first_last": [tr0, tr1],
            "out_coupled_first_last": [ow0, ow1], "traces": len(ledger),
-           "peak_bytes": torch.cuda.max_memory_allocated(), **kw}
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, **kw}
     if joint:
         out["params"] = res.params
     ctx["record"].setdefault("phase15", {})[name] = out
@@ -3216,7 +3258,8 @@ def _optimize_case(ctx, name, grid, rays, steps_asked, budget_s, joint,
           f"{layers['adam_ms'][-1]:.2f} ms; loss {h[0]:.5f} -> {h[-1]:.5f}; "
           f"truncated weight {tr0:.4g} -> {tr1:.4g} of {n0:,} launched "
           f"(deposited {ow0:.4g} -> {ow1:.4g}); peak "
-          f"{out['peak_bytes'] / 2**20:.0f} MiB")
+          f"{out['peak_bytes'] / 2**20:.0f} MiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
     return out
 
 
@@ -3247,6 +3290,16 @@ def phase15(ctx) -> None:
         if name.endswith("whole_wavefront") and any(
                 out["truncated_first_last"]):
             faults.append(f"{name}: truncated {out['truncated_first_last']}")
+        n = out["launches"]
+        if (n["split_trace"] != out["steps"] + 1
+                or n["split_trace_backward"] != out["steps"]):
+            faults.append(f"{name}: {n['split_trace']} split_trace and "
+                          f"{n['split_trace_backward']} backward launches "
+                          f"for {out['steps']} Adam steps")
+        ctx["trace_launches"] = (ctx.get("trace_launches", 0)
+                                 + n["split_trace"])
+        ctx["trace_backward_launches"] = (
+            ctx.get("trace_backward_launches", 0) + n["split_trace_backward"])
     if faults:
         fail("phase 15: " + "; ".join(faults))
     if jax_modules():
@@ -4350,13 +4403,224 @@ def phase22(ctx) -> None:
     if jax_modules():
         fail(f"the port loaded {jax_modules()}")
 
+# the bytes a stepped slot of the global engine must move, forward: its 12
+# words read (11 fields and its cell) and its kept child's 13 written to
+# the tape (a kept child is a slot of the next step, so each stepped slot
+# is counted once for each); backward: its tape row read (13 words), its
+# adjoint written and read once by its parent (10 words each way)
+SPLIT_TRACE_BYTES = {"forward": 48 + 52, "backward": 52 + 40 + 40}
+# float32 operations of a stepped slot, counted from csrc/split_trace.cu
+# with each comparison, division and square root one operation (floors:
+# the exact half-plane tests are left out): forward as SPLIT_SLOT_OPS and
+# the soft deposit's 30; backward the step recomputed (about 130), the two
+# children's and the deposit's adjoints (about 120), three Jones adjoints
+# (156), the survivor and the deposit's position (about 40)
+SPLIT_TRACE_OPS = {"forward": 230, "backward": 450}
+
+
+def _trace_bound(a, work: int, kind: str) -> tuple:
+    """The least time of one forward or backward call of the global
+    engine's kernels on ``a`` over ``work`` stepped slots: the slots'
+    bytes, the tables, geometry and rays read once, the histogram (or its
+    adjoint) and the ledgers (or the table gradients) once, at 3.35 TB/s;
+    or the operations at 67 TFLOP/s."""
+    once = sum(t.numel() * t.element_size()
+               for t in (a.rec, a.cell, a.dirs, a.geom, a.grid, a.rays,
+                         a.cid))
+    nbytes = (work * SPLIT_TRACE_BYTES[kind] + once
+              + a.hist_size * 4 + (once if kind == "backward" else 8))
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = work * SPLIT_TRACE_OPS[kind] / PEAK_FP32_OPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def _trace_case(name: str, a, reps: int) -> tuple:
+    """One phase-23 case: the forward kernel against its plain version on
+    the card (histogram, steps and tape bit for bit, ledgers within 1e-6),
+    the backward kernel against the plain backward on a seeded histogram
+    adjoint (bit for bit; two runs identical); times and bounds.  Returns
+    (forward record, backward record)."""
+    import numpy as np
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    def rel(x, y):
+        x, y = float(x), float(y)
+        return abs(x - y) / max(abs(y), 1e-300)
+
+    def nbits(x, y):
+        return int((x.contiguous().view(torch.int32)
+                    != y.contiguous().view(torch.int32)).sum())
+
+    out = splitting.launch_split_trace(a, keep_tape=True)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: splitting.launch_split_trace(a, keep_tape=True),
+                 reps)
+    t0 = time.perf_counter()
+    ref = splitting.split_trace_reference(a, keep_tape=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    wk, wr = out.tape.widths.long().cpu(), ref.tape.widths.long().cpu()
+    widths_equal = bool(torch.equal(wk, wr))
+    tape_bits = -1
+    if widths_equal:
+        tape_bits = sum(nbits(out.tape.fields[t, :, :int(wr[t])],
+                              ref.tape.fields[t, :, :int(wr[t])])
+                        for t in range(len(wr)))
+    work = int(wr[:-1].sum())
+    diff = (out.hist - ref.hist).abs()
+    f = {"name": name, "kind": "forward", "launch_rays": a.rays.shape[1],
+         "capacity": a.capacity, "soft_binning": a.soft_binning,
+         "fixed_steps": a.fixed_steps, "steps": out.steps,
+         "steps_equal": out.steps == ref.steps, "widths_equal": widths_equal,
+         "tape_bits": tape_bits, "hist_bits": nbits(out.hist, ref.hist),
+         "trunc": float(out.trunc), "pruned": float(out.pruned),
+         "out_w": float(out.hist.sum(dtype=torch.float64)),
+         "trunc_rel": rel(out.trunc, ref.trunc),
+         "pruned_rel": rel(out.pruned, ref.pruned),
+         "out_w_rel": rel(out.hist.sum(dtype=torch.float64),
+                          ref.hist.sum(dtype=torch.float64)),
+         "max_abs_err": float(diff.max()), "work": work, "ms": ms,
+         "plain_ms": plain_ms, "library_ms": None}
+    f["bound_ms"], f["bound_by"], f["bytes"] = _trace_bound(a, work,
+                                                            "forward")
+    f["ok"] = bool(f["steps_equal"] and widths_equal and tape_bits == 0
+                   and f["hist_bits"] == 0 and f["trunc_rel"] <= 1e-6
+                   and f["pruned_rel"] <= 1e-6 and f["out_w_rel"] <= 1e-6)
+    rng = np.random.default_rng(23)
+    gh = torch.from_numpy(rng.standard_normal(a.hist_size).astype(
+        np.float32)).to(a.rec.device)
+    dk = splitting.launch_split_trace_backward(a, out.tape, gh)
+    dk2 = splitting.launch_split_trace_backward(a, out.tape, gh)
+    torch.cuda.synchronize()
+    bms = cuda_ms(lambda: splitting.launch_split_trace_backward(
+        a, out.tape, gh), reps)
+    t0 = time.perf_counter()
+    dr = splitting.split_trace_backward_reference(a, ref.tape, gh)
+    torch.cuda.synchronize()
+    bplain_ms = (time.perf_counter() - t0) * 1e3
+    b = {"name": name, "kind": "backward", "launch_rays": a.rays.shape[1],
+         "capacity": a.capacity, "soft_binning": a.soft_binning,
+         "steps": out.steps, "work": work,
+         "bits": {k: nbits(x, y) for k, x, y in zip(("rec", "cell", "dirs"),
+                                                    dk, dr)},
+         "again_bits": sum(nbits(x, y) for x, y in zip(dk, dk2)),
+         "max_grad": {k: float(y.abs().max()) for k, y in
+                      zip(("rec", "cell", "dirs"), dr)},
+         "max_abs_err": max(float((x - y).abs().max())
+                            for x, y in zip(dk, dr)),
+         "ms": bms, "plain_ms": bplain_ms, "library_ms": None}
+    b["bound_ms"], b["bound_by"], b["bytes"] = _trace_bound(a, work,
+                                                            "backward")
+    b["ok"] = bool(not any(b["bits"].values()) and b["again_bits"] == 0
+                   and max(b["max_grad"].values()) > 0)
+    return f, b
+
+
+def phase23(ctx) -> None:
+    """The global splitting engine's kernels against their plain versions."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
+        TraceConfig,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.design import (
+        generate_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding, splitting, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.io import (
+        load_or_synthesize,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt import (
+        grating_opt as opt,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase23", {})
+    cases = []
+    # optimize's README cases, with the tables optimize starts from
+    for name, (M, N), rays, kw in (
+            ("readme_apodization", (16, 12), 16,
+             dict(capacity=4096, fixed_steps=64, weight_threshold=1e-4)),
+            ("readme_joint_soft", (24, 18), 8,
+             dict(capacity=16384, fixed_steps=64, weight_threshold=1e-4,
+                  soft_binning=True))):
+        cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=rays,
+                          max_bounces=2048)
+        geom = generate_geometry(num_fov_x=M, num_fov_y=N)
+        tables = build_cell_tables(geom, load_or_synthesize(geom))
+        tgeom = build_trace_geometry(geom)
+        rays0 = opt._launch_rays(geom, cfg, rays, None, dev)
+        trace = splitting.make_splitting_trace_fn(
+            tables, tgeom, cfg, table_arg=True, device=dev, **kw)
+        cases.append(_trace_case(name, trace.args(rays0,
+                                                  tv.as_tables(tables)), 3))
+        del trace, rays0
+    # phase 13d's global engine, stop-tested
+    cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4,
+                      rng_mode="fast", seed=2)
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    b = seeding.build_ray_batch(geom, cfg)
+    rays0 = tv.make_ray_state(b["x"], b["y"], b["te"], b["tm"], b["cid"],
+                              b["idx"], b["rng"], device=dev)
+    trace = splitting.make_splitting_trace_fn(
+        tables, build_trace_geometry(geom), cfg, capacity=1 << 15,
+        weight_threshold=1e-5, max_steps=300, table_arg=True, device=dev)
+    cases.append(_trace_case("stop_test_18_cells",
+                             trace.args(rays0, tv.as_tables(tables)), 5))
+    faults = []
+    for f, bw in cases:
+        rec[f["name"]] = {"forward": f, "backward": bw}
+        print(f"phase 23 {f['name']}: {f['launch_rays']:,} launch rays, K "
+              f"{f['capacity']:,}, {f['steps']} steps ({f['work']:,} "
+              f"slot-steps), {'soft' if f['soft_binning'] else 'hard'} "
+              f"binning: forward {f['ms']:.3f} ms (plain "
+              f"{f['plain_ms']:.1f} ms, bound {f['bound_ms']:.4f} ms, "
+              f"{f['bound_by']}); histogram {f['hist_bits']} bins and tape "
+              f"{f['tape_bits']} words differ in their bits, steps "
+              f"{f['steps_equal']}, widths {f['widths_equal']}; truncated "
+              f"{f['trunc']:.6g} ({f['trunc_rel']:.1e}), pruned "
+              f"{f['pruned']:.6g} ({f['pruned_rel']:.1e}), out-coupled "
+              f"{f['out_w']:.8g} ({f['out_w_rel']:.1e}); backward "
+              f"{bw['ms']:.3f} ms (plain {bw['plain_ms']:.1f} ms, bound "
+              f"{bw['bound_ms']:.4f} ms, {bw['bound_by']}): bits differing "
+              f"{bw['bits']}, two runs {bw['again_bits']} apart, max |grad| "
+              f"{bw['max_grad']}")
+        if not f["ok"]:
+            faults.append(f"{f['name']} forward: {f}")
+        if not bw["ok"]:
+            faults.append(f"{f['name']} backward: {bw}")
+    if not cases[0][0]["trunc"] > 0:
+        faults.append("the README apodization case did not truncate")
+    save_record(ctx)
+    ctx["trace_modes"] = [f for f, _ in cases]
+    ctx["trace_backward_modes"] = [bw for _, bw in cases]
+    if faults:
+        fail("phase 23: " + "; ".join(faults))
+    if jax_modules():
+        fail(f"the port loaded {jax_modules()}")
+
+
 
 # in running order; "6c" follows the phases whose results it needs none of
 PHASES = {"1": phase1, "2": phase2, "3": phase3, "3b": phase3b,
           "5": phase5, "6": phase6,
           "7": phase7, "8": phase8, "9": phase9, "10": phase10,
           "6c": phase6c, "19": phase19, "20": phase20, "21": phase21,
-          "22": phase22, "11": phase11, "12": phase12, "13": phase13,
+          "22": phase22, "23": phase23, "11": phase11, "12": phase12, "13": phase13,
           "14": phase14, "14g": phase14g, "14b": phase14b, "15": phase15, "16": phase16,
           "17": phase17, "18": phase18}
 
@@ -4367,8 +4631,9 @@ def kernel_line(ctx) -> dict:
     the whole budget, the rows of the reference workload (phase 19's
     first case), the sampled perception and the colorimetry with the
     image of ``simulate`` (phase 20's first cases), the splitting
-    engine's 256-cell chunk (phase 21's first case) and the vector engine's
-    2,048-cell batch (phase 22's first case)."""
+    engine's 256-cell chunk (phase 21's first case), the vector engine's
+    2,048-cell batch (phase 22's first case) and the global splitting
+    engine's README apodization trace (phase 23's first case)."""
     k1, k2 = ctx["k1_modes"], ctx["k2_modes"]
     out = []
     for name, modes, head, launches in (
@@ -4396,11 +4661,15 @@ def kernel_line(ctx) -> dict:
             ("colorimetry", ctx["tail_modes"]["colorimetry"],
              ctx["tail_launches"]["colorimetry"]),
             ("split_cells", ctx["split_modes"], ctx["split_launches"]),
-            ("vector_trace", ctx["vector_modes"], ctx["vector_launches"])):
+            ("vector_trace", ctx["vector_modes"], ctx["vector_launches"]),
+            ("split_trace", ctx["trace_modes"], ctx["trace_launches"]),
+            ("split_trace_backward", ctx["trace_backward_modes"],
+             ctx["trace_backward_launches"])):
         # the headline: the main path's shape (the reference workload's rows,
         # simulate's sampled perception and its colorimetry with the image,
         # a 256-cell chunk of simulate --engine splitting, a 2,048-cell
-        # batch of simulate --engine vector)
+        # batch of simulate --engine vector, optimize's README apodization
+        # trace)
         head = modes[0]
         source, replaces = KERNELS[name]
         out.append({

@@ -25,8 +25,8 @@ engines:
   (:mod:`.splitting`) with the general loop: every branch followed with its
   weight, ``rays_per_fov`` launch positions per cell, one wavefront per cell
   (``splitting_percell``, the default: on a GPU one launch of
-  ``csrc/split_cells.cu`` per batch) or one shared by the batch (plain
-  PyTorch).
+  ``csrc/split_cells.cu`` per batch) or one shared by the batch (on a GPU
+  the kernels of ``csrc/split_trace.cu``, a few launches a step).
 
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device
@@ -290,20 +290,22 @@ class Simulator:
             # inside a timed run(); one nvcc process per source, side by
             # side.  Every engine's tail runs csrc/eye_tail.cu.
             t1 = time.perf_counter()
-            libs = {"eye_tail": eye_tail}
+            libs = {"eye_tail": eye_tail.load_kernel}
             if engine == "persistent":
-                libs["persistent_trace"] = trace_persistent
+                libs["persistent_trace"] = trace_persistent.load_kernel
             elif engine == "cell":
-                libs["cell_trace"] = trace_cell
+                libs["cell_trace"] = trace_cell.load_kernel
             elif engine == "splitting" and splitting_percell:
-                libs["split_cells"] = splitting
+                libs["split_cells"] = splitting.load_kernel
+            elif engine == "splitting":
+                libs["split_trace"] = splitting.load_trace_kernel
             elif engine == "vector":
-                libs["vector_trace"] = trace_vector
+                libs["vector_trace"] = trace_vector.load_kernel
             if device_rows:
-                libs["cell_rows"] = cell_rows
+                libs["cell_rows"] = cell_rows.load_kernel
             build.build_all(libs)
-            for mod in libs.values():
-                mod.load_kernel()
+            for load in libs.values():
+                load()
             st["kernel_build_s"] = time.perf_counter() - t1
         if engine == "vector":
             self.tracer = trace_vector.VectorTracer(

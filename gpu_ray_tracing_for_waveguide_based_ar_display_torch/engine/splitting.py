@@ -16,8 +16,16 @@ Two schedules share it:
    aliveness (heaviest first), and children that overflow are dropped
    lightest first into the ``truncated`` ledger.  With the options of the
    differentiable path (``table_arg``, ``fixed_steps``, ``soft_binning``)
-   the histogram is a function of the tables that autograd differentiates
-   (:mod:`..opt.grating_opt`).
+   the histogram is a function of the tables, differentiated by a
+   hand-written adjoint (:class:`SplitTraceFunction`,
+   :mod:`..opt.grating_opt`).  On a GPU a trace runs the kernels of
+   ``csrc/split_trace.cu`` (:func:`launch_split_trace`: a few launches a
+   step, no host read in a fixed-step trace) and its gradient their
+   adjoint (:func:`launch_split_trace_backward`, a reverse sweep over the
+   forward's tape); their plain versions :func:`split_trace_reference`
+   (the eager step loop) and :func:`split_trace_backward_reference` (the
+   adjoint written out in PyTorch) serve the CPU (:func:`split_trace`,
+   :func:`split_trace_backward` route by device).
 2. :func:`make_splitting_cells_fn`: one ``capacity``-slot wavefront per
    (lambda, FoV) cell: each cell's tables are cut out once per chunk, each
    cell deposits into its own (ny, nx) tile, and a step's next wavefront is
@@ -35,14 +43,14 @@ read from the device once per step (the loop's stop test needs it anyway):
 a dead slot has no children and deposits nothing, so the slots left out
 change no result and no ledger.
 
-The plain versions add deposits with ``index_add_``, under deterministic
-algorithms (on the card a sorted accumulation in place of float atomics),
-so a cell's tile does not depend on the other cells of its chunk; the
-kernel adds each bin's deposits in the same slot order, bit for bit the
-plain version on the CPU.  The backward of a
-table gather (``index_select``) is an ``index_add`` too: a gradient is
-deterministic when the backward runs under :func:`deterministic`.  Only the
-global engine with ``table_arg=True`` records a graph; every other trace
+The plain versions add each bin's deposits one by one in slot order
+(:func:`_accumulate_in_order`: ``index_add_`` on the CPU, rounds of
+distinct bins on the card), so a cell's tile does not depend on the other
+cells of its chunk; the kernels add each bin's deposits in the same order,
+bit for bit the plain versions on either device.  The plain backward adds
+each table entry's gradient terms in a fixed order too
+(:func:`_add_rows`), and so does its kernel.  Only the global engine with
+``table_arg=True`` and grad mode on builds a graph node; every other trace
 runs under ``torch.no_grad()``.
 
 Not ported: the JAX package's ``fast=True`` lowerings of the per-cell
@@ -68,8 +76,8 @@ from .trace_geometry import TraceGeometry
 from .trace_persistent import launch_counts
 from . import trace_vector
 from .trace_vector import (
-    DEAD, GEOM_SCALARS, _C_EBR, _C_SOUT, _EDGE_TOL, _I_COS0, _I_ICA,
-    _I_ICB, _I_JA, _I_JB, _I_SA, _I_SB, _col, _jones_apply, _phase_mul,
+    DEAD, DIR_W, GEOM_SCALARS, REC_W, _C_EBR, _C_SOUT, _EDGE_TOL, _I_COS0,
+    _I_ICA, _I_ICB, _I_JA, _I_JB, _I_SA, _I_SB, _col, _jones_apply, _phase_mul,
     _power, _rsqrt, _take, add_region_grids, as_tables, deposit_bin,
     geom_tensors, in_ic, pack_tables, regions_inside, site_key, stack_geoms,
 )
@@ -184,15 +192,15 @@ def _build_step_fns(cfg: TraceConfig, *, n_cells_mn: int, M: int, N: int,
         ebr = _take(T["cell"][_C_EBR:_C_EBR + 4], g)
         if not soft_binning:
             in_quad, b = deposit_bin(ebr, x, y, ny, nx)
-            _accumulate(hist, n, torch.where(in_quad, grid_base(cid) + b, -1),
-                        w)
+            _accumulate_in_order(
+                hist, n, torch.where(in_quad, grid_base(cid) + b, -1), w)
             return hist
         e0, e1, e2, e3 = ebr.unbind(0)
         in_quad = ((x >= e0 - _EDGE_TOL) & (x <= e1 + _EDGE_TOL)
                    & (y >= e2 - _EDGE_TOL) & (y <= e3 + _EDGE_TOL))
         w = torch.where(in_quad, w, 0.0)
-        dxb = (e1 - e0) / nx
-        dyb = (e3 - e2) / ny
+        dxb = _div(e1 - e0, nx)
+        dyb = _div(e3 - e2, ny)
         # bin-centre coordinates; the clamp keeps all mass inside the map
         u = torch.clamp((x - e0) / dxb - 0.5, 0.0, nx - 1.0)
         v = torch.clamp((y - e2) / dyb - 0.5, 0.0, ny - 1.0)
@@ -205,7 +213,8 @@ def _build_step_fns(cfg: TraceConfig, *, n_cells_mn: int, M: int, N: int,
                            (1, 0, fx * (1 - fy)),
                            (0, 1, (1 - fx) * fy),
                            (1, 1, fx * fy)):
-            _accumulate(hist, n, base + (iy0 + dj) * nx + (ix0 + di), w * wf)
+            _accumulate_in_order(hist, n,
+                                 base + (iy0 + dj) * nx + (ix0 + di), w * wf)
         return hist
 
     def split_init(T, S, G, g, rays):
@@ -366,83 +375,70 @@ def make_splitting_trace_fn(tables: CellTables, tgeom: TraceGeometry,
     ``table_arg``: the trace takes the :func:`.trace_vector.as_tables` dict
     as a second argument (``trace(rays0, T)``) and packs it inside, so the
     histogram is a differentiable function of the tables: with grad mode
-    on, autograd records the trace (the forward values are those of the
+    on, the trace runs through :class:`SplitTraceFunction`, whose backward
+    is the hand-written adjoint (the forward values are those of the
     closed-over tables bit for bit).  ``fixed_steps > 0`` runs exactly that
     many steps, with no stop test.  ``soft_binning`` splats each deposit
     bilinearly over the four nearest bins, a continuous function of the
-    deposit position (it blurs the map by at most half a bin).  Without
-    ``table_arg`` the trace runs under ``torch.no_grad()``."""
+    deposit position (it blurs the map by at most half a bin).
+
+    On a CUDA device the trace runs ``csrc/split_trace.cu`` (built and
+    bound here), on the CPU its plain version: :func:`split_trace`.
+    ``trace.args(rays0, T=None)`` gives the :class:`SplitTraceArgs` of a
+    trace (what the kernels take)."""
     device = resolve_device(device)
     G, G0 = _geometry(tgeom, device)
-    ny, nx = cfg.eyebox_bins
-    L, M, N = tables.L, tables.M, tables.N
-    hist_size = L * N * M * ny * nx
-    split_init, split_step, deposit = _build_step_fns(
-        cfg, n_cells_mn=M * N, M=M, N=N, num_fc=tgeom.num_fc,
-        num_oc=tgeom.num_oc, weight_threshold=weight_threshold,
-        soft_binning=soft_binning)
-    S = _col(G, 1, 1)
-    T_closed = None
-    if not table_arg:
-        T_closed = {k: v.to(device) for k, v in
-                    pack_tables(as_tables(tables), G0).items()}
+    G0 = {k: v.to(device) for k, v in G0.items()}
+    packed = pack_geometry(G)
+    if device.type == "cuda":
+        load_trace_kernel()
+    kw = dict(capacity=int(capacity), weight_threshold=float(weight_threshold),
+              fixed_steps=int(fixed_steps), max_steps=int(max_steps),
+              soft_binning=bool(soft_binning),
+              eyebox_bins=tuple(cfg.eyebox_bins), num_fc=tgeom.num_fc,
+              num_oc=tgeom.num_oc, circle=cfg.ic_test == "circle",
+              L=tables.L, M=tables.M, N=tables.N)
 
-    def compact(children: dict, cap: int):
-        """Keep the ``cap`` heaviest live slots (a stable sort), as a buffer
-        of just the live ones kept: ``(buffer, dropped weight, its
-        width)``; the width is read from the device."""
-        alive = children["state"] < DEAD
-        aliveness = torch.where(alive, children["w"], -1.0)
-        order = torch.argsort(-aliveness, stable=True)
-        width = min(cap, int(alive.sum()))
-        kept = {k: v[order[:width]] for k, v in children.items()}
-        rest = order[cap:]
-        dropped = torch.where(alive[rest], children["w"][rest], 0.0).sum()
-        return kept, dropped, width
+    def pack(T: dict) -> dict:
+        return pack_tables({k: (v.to(device) if torch.is_tensor(v) else v)
+                            for k, v in T.items()}, G0)
+
+    T_closed = None if table_arg else pack(as_tables(tables))
+
+    def packed_tables(T: Optional[dict]) -> dict:
+        return pack(T) if table_arg else T_closed
+
+    def args(rays0: dict, T: Optional[dict] = None,
+             Tp: Optional[dict] = None) -> SplitTraceArgs:
+        """The kernels' arguments of one trace (``Tp``: the packed tables,
+        else those of ``T``)."""
+        Tp = packed_tables(T) if Tp is None else Tp
+        geom, grid, edges = packed
+        rays = torch.stack([rays0[k] for k in ("x", "y", "ter", "tei", "tmr",
+                                               "tmi")]).to(torch.float32)
+        return SplitTraceArgs(
+            rec=Tp["rec"], cell=Tp["cell"], dirs=Tp["dirs"], geom=geom,
+            grid=grid, rays=rays.contiguous(),
+            cid=rays0["cid"].to(torch.int32).contiguous(), edges=edges, **kw)
 
     def trace(rays0: dict, T: Optional[dict] = None):
-        with torch.set_grad_enabled(table_arg and torch.is_grad_enabled()):
-            return _trace(rays0, T)
-
-    def _trace(rays0: dict, T: Optional[dict]):
-        if table_arg:
-            T = pack_tables({k: (v.to(device) if torch.is_tensor(v) else v)
-                             for k, v in T.items()},
-                            {k: v.to(device) for k, v in G0.items()})
+        Tp = packed_tables(T)
+        a = args(rays0, Tp=Tp)
+        if table_arg and torch.is_grad_enabled() and any(
+                Tp[k].requires_grad for k in ("rec", "cell", "dirs")):
+            hist, trunc, pruned, steps = SplitTraceFunction.apply(
+                Tp["rec"], Tp["cell"], Tp["dirs"], a)
+            steps = int(steps)
         else:
-            T = T_closed
-        w0 = (rays0["ter"].abs() + rays0["tei"].abs() + rays0["tmr"].abs()
-              + rays0["tmi"].abs())
-        r0 = {k: rays0[k] for k in ("x", "y", "ter", "tei", "tmr", "tmi",
-                                    "cid")}
-        r0["w"] = torch.where(w0 > 0, 1.0, 0.0).to(w0.dtype)
-        kids, pruned = split_init(T, S, G, r0["cid"], r0)
-        children = {k: torch.cat([kids[0][k], kids[1][k]]) for k in _KEYS}
-        buf, trunc, width = compact(children, capacity)
-        hist = torch.zeros(hist_size + capacity, dtype=w0.dtype,
-                           device=w0.device)
+            with torch.no_grad():
+                out = split_trace(dataclasses.replace(
+                    a, rec=a.rec.detach(), cell=a.cell.detach(),
+                    dirs=a.dirs.detach()))
+            hist, trunc, pruned, steps = (out.hist, out.trunc, out.pruned,
+                                          out.steps)
+        return hist, hist.sum(), trunc, pruned, steps
 
-        def body(buf, trunc, pruned):
-            ch_a, ch_b, dep_w, pr = split_step(T, S, G, buf["cid"], buf)
-            deposit(T, hist, hist_size, buf["cid"], buf["cid"], buf["x"],
-                    buf["y"], dep_w)
-            children = {k: torch.cat([ch_a[k], ch_b[k]]) for k in _KEYS}
-            buf, dropped, width = compact(children, capacity)
-            return buf, trunc + dropped, pruned + pr, width
-
-        # the buffer holds only its live slots: a dead slot has no children
-        # and deposits nothing, so stepping it would change no result
-        it = 0
-        if fixed_steps > 0:
-            for it in range(1, fixed_steps + 1):
-                buf, trunc, pruned, width = body(buf, trunc, pruned)
-        else:
-            while it < max_steps and width > 0:
-                buf, trunc, pruned, width = body(buf, trunc, pruned)
-                it += 1
-        hist = hist[:hist_size]
-        return hist, hist.sum(), trunc, pruned, it
-
+    trace.args = args
     return trace
 
 
@@ -458,6 +454,729 @@ def run_splitting(tables: CellTables, tgeom: TraceGeometry, cfg: TraceConfig,
                                              ny, nx),
         out_coupled=float(out_w), truncated=float(trunc),
         pruned=float(pruned), steps=int(steps))
+
+
+# tape fields: the 11 of a kernel buffer (state as int32 bits), then the
+# slot's table cell and its provenance (int32 bits)
+_NT = 13
+_TAPE_FLOATS = ("x", "y", "ter", "tei", "tmr", "tmi", "cos_th", "gap_x",
+                "gap_y")
+_T_ST, _T_W, _T_CID, _T_SRC = 9, 10, 11, 12
+# the differentiable fields of a slot, in the order of its adjoint
+_ADJ = ("x", "y", "ter", "tei", "tmr", "tmi", "cos_th", "gap_x", "gap_y",
+        "w")
+# the int parameters of split_trace_forward / split_trace_backward, in order
+TRACE_PARAMS = ("R", "K", "E", "C", "R2", "num_fc", "num_oc", "ny", "nx",
+                "M", "N", "hist", "soft", "circle", "grid_n", "e_ic", "e_r1",
+                "e_r2", "e_hull", "t0", "nsteps", "ring", "init")
+_NCNT = 8                 # the kernels' device counters
+_CNT_STEPS = 4
+_STOP_EVERY = 8           # steps between two reads of the width (stop test)
+
+
+@dataclasses.dataclass
+class SplitTraceArgs:
+    """One trace of the global engine as its kernels take it: the packed
+    tables (:func:`.trace_vector.pack_tables`, component-major; the
+    differentiable inputs), the design's geometry flattened
+    (:func:`pack_geometry`) with its region grid, the launch rays' fields
+    (x, y, ter, tei, tmr, tmi) with their table cells, and the knobs."""
+    rec: torch.Tensor          # (26, C * R2)
+    cell: torch.Tensor         # (26, C)
+    dirs: torch.Tensor         # (6, C * 4)
+    geom: torch.Tensor         # (len(GEOM_SCALARS) + 3 * sum(edges),)
+    grid: torch.Tensor         # (n, n) uint8 region codes
+    rays: torch.Tensor         # (6, R) float32
+    cid: torch.Tensor          # (R,) int32
+    edges: tuple
+    capacity: int
+    weight_threshold: float
+    fixed_steps: int           # > 0: exactly this many steps, no stop test
+    max_steps: int
+    soft_binning: bool
+    eyebox_bins: tuple
+    num_fc: int
+    num_oc: int
+    circle: bool
+    L: int
+    M: int
+    N: int
+
+    @property
+    def hist_size(self) -> int:
+        ny, nx = self.eyebox_bins
+        return self.L * self.N * self.M * ny * nx
+
+    def to(self, device) -> "SplitTraceArgs":
+        """The same trace with its tensors on ``device``."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if torch.is_tensor(getattr(self, f.name))})
+
+
+@dataclasses.dataclass
+class SplitTape:
+    """The wavefront kept after each step, all the backward needs:
+    ``fields`` (steps + 1, 13, K) float32, row t the buffer that step t
+    sweeps (row 0: the launch rays' kept children), each slot's 11 fields
+    as a kernel buffer holds them, its table cell and its provenance
+    ``src``: its index among the children of the step before (child A of
+    slot s at s, child B at width + s; of launch ray r, A at r and B at
+    R + r); ``widths`` (steps + 1,) int32, the live slots of each row (the
+    rest of a row is unspecified)."""
+    fields: torch.Tensor
+    widths: torch.Tensor
+
+
+@dataclasses.dataclass
+class SplitTraceOut:
+    """``hist`` (hist_size,), the ``trunc`` and ``pruned`` ledgers (0-d),
+    the ``steps`` taken and, when asked for, the :class:`SplitTape`."""
+    hist: torch.Tensor
+    trunc: torch.Tensor
+    pruned: torch.Tensor
+    steps: int
+    tape: Optional[SplitTape] = None
+
+
+def _tape_row(buf: dict, src: torch.Tensor, K: int) -> torch.Tensor:
+    """One tape row (13, K) of a kept buffer and its provenance."""
+    width = src.shape[0]
+    row = torch.zeros((_NT, K), dtype=torch.float32, device=src.device)
+    for f, k in enumerate(_TAPE_FLOATS):
+        row[f, :width] = buf[k].detach()
+    row[_T_ST, :width] = buf["state"].to(torch.int32).view(torch.float32)
+    row[_T_W, :width] = buf["w"].detach()
+    row[_T_CID, :width] = buf["cid"].to(torch.int32).view(torch.float32)
+    row[_T_SRC, :width] = src.to(torch.int32).view(torch.float32)
+    return row
+
+
+def tape_buffer(row: torch.Tensor, width: int) -> dict:
+    """The wavefront buffer of one tape row, as the step functions take it
+    (with ``src``, the provenance)."""
+    buf = {k: row[f, :width] for f, k in enumerate(_TAPE_FLOATS)}
+    buf["state"] = row[_T_ST, :width].view(torch.int32)
+    buf["w"] = row[_T_W, :width]
+    buf["cid"] = row[_T_CID, :width].view(torch.int32).to(torch.int64)
+    buf["src"] = row[_T_SRC, :width].view(torch.int32).to(torch.int64)
+    return buf
+
+
+def _trace_setup(a: SplitTraceArgs):
+    """(geometry dict, its broadcast scalars, the step functions, tables)
+    of ``a``'s trace."""
+    ny, nx = a.eyebox_bins
+    G = unpack_geometry(a.geom, a.grid, a.edges)
+    S = _col(G, 1, 1)
+    cfg = TraceConfig(eyebox_bins=(ny, nx),
+                      ic_test="circle" if a.circle else "polygon")
+    fns = _build_step_fns(
+        cfg, n_cells_mn=a.M * a.N, M=a.M, N=a.N, num_fc=a.num_fc,
+        num_oc=a.num_oc, weight_threshold=a.weight_threshold,
+        soft_binning=a.soft_binning)
+    return G, S, fns, {"rec": a.rec, "cell": a.cell, "dirs": a.dirs}
+
+
+def split_trace_reference(a: SplitTraceArgs,
+                          keep_tape: bool = False) -> SplitTraceOut:
+    """The plain PyTorch version of the forward kernel: the eager step loop
+    of the global wavefront, on ``a``'s device.  After every step the
+    children are compacted by a stable sort on their aliveness (heaviest
+    first) into at most ``capacity`` slots; the overflow goes to the
+    truncated ledger.  The buffer holds only its live slots, whose count is
+    read from the device once a step.  Every bin adds its deposits one by
+    one in slot order (:func:`_accumulate_in_order`; soft binning: four
+    rounds, one per corner), as the kernel does, on either device.  Its
+    operations are differentiable by autograd; ``keep_tape`` also returns
+    the :class:`SplitTape` the hand-written backward reads."""
+    ny, nx = a.eyebox_bins
+    K = a.capacity
+    G, S, (split_init, split_step, deposit), T = _trace_setup(a)
+    hist_size = a.hist_size
+    rows, widths = [], []
+
+    def compact(children: dict):
+        """Keep the ``K`` heaviest live slots (a stable sort), as a buffer
+        of just the live ones kept: ``(buffer, dropped weight, its
+        width)``; the width is read from the device."""
+        alive = children["state"] < DEAD
+        aliveness = torch.where(alive, children["w"], -1.0)
+        order = torch.argsort(-aliveness, stable=True)
+        width = min(K, int(alive.sum()))
+        kept = {k: v[order[:width]] for k, v in children.items()}
+        rest = order[K:]
+        dropped = torch.where(alive[rest], children["w"][rest], 0.0).sum()
+        if keep_tape:
+            rows.append(_tape_row(kept, order[:width], K))
+            widths.append(width)
+        return kept, dropped, width
+
+    r0 = {k: a.rays[i] for i, k in enumerate(("x", "y", "ter", "tei", "tmr",
+                                              "tmi"))}
+    r0["cid"] = a.cid.to(torch.int64)
+    w0 = r0["ter"].abs() + r0["tei"].abs() + r0["tmr"].abs() + r0["tmi"].abs()
+    r0["w"] = torch.where(w0 > 0, 1.0, 0.0).to(w0.dtype)
+    kids, pruned = split_init(T, S, G, r0["cid"], r0)
+    children = {k: torch.cat([kids[0][k], kids[1][k]]) for k in _KEYS}
+    buf, trunc, width = compact(children)
+    hist = torch.zeros(hist_size + K, dtype=w0.dtype, device=w0.device)
+
+    def body(buf, trunc, pruned):
+        ch_a, ch_b, dep_w, pr = split_step(T, S, G, buf["cid"], buf)
+        deposit(T, hist, hist_size, buf["cid"], buf["cid"], buf["x"],
+                buf["y"], dep_w)
+        children = {k: torch.cat([ch_a[k], ch_b[k]]) for k in _KEYS}
+        buf, dropped, width = compact(children)
+        return buf, trunc + dropped, pruned + pr, width
+
+    # the buffer holds only its live slots: a dead slot has no children
+    # and deposits nothing, so stepping it would change no result
+    it = 0
+    if a.fixed_steps > 0:
+        for it in range(1, a.fixed_steps + 1):
+            buf, trunc, pruned, width = body(buf, trunc, pruned)
+    else:
+        while it < a.max_steps and width > 0:
+            buf, trunc, pruned, width = body(buf, trunc, pruned)
+            it += 1
+    tape = None
+    if keep_tape:
+        tape = SplitTape(torch.stack(rows), torch.tensor(
+            widths, dtype=torch.int32, device=hist.device))
+    return SplitTraceOut(hist[:hist_size], trunc, pruned, it, tape)
+
+
+def _add_rows(table: torch.Tensor, idx: torch.Tensor,
+              rows: torch.Tensor) -> None:
+    """``table[idx[i]] += rows[i]`` for i in order, in place: every entry
+    adds its rows one by one in that order on any device (on the card in
+    rounds of distinct entries, round r holding each entry's r-th row)."""
+    if table.device.type == "cpu":
+        table.index_add_(0, idx, rows)
+        return
+    if not idx.numel():
+        return
+    entries, order = torch.sort(idx, stable=True)
+    vals = rows[order]
+    pos = torch.arange(entries.numel(), device=entries.device)
+    first = torch.ones_like(entries, dtype=torch.bool)
+    first[1:] = entries[1:] != entries[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        m = rank == r
+        table.index_add_(0, entries[m], vals[m])
+
+
+def _div(v: torch.Tensor, n: int) -> torch.Tensor:
+    """``v / n`` divided by a tensor (torch on the card multiplies by the
+    reciprocal of a Python scalar divisor; the kernel divides)."""
+    return v / torch.full_like(v, n)
+
+
+def _jones_adjoint(j, pol, d):
+    """The adjoint of :func:`.trace_vector._jones_apply`: given the output's
+    adjoint ``d`` (4), the adjoints of the matrix ``j`` (8) and of the
+    input polarisation ``pol`` (4)."""
+    ter, tei, tmr, tmi = pol
+    d0, d1, d2, d3 = d
+    dj = (d0 * ter + d1 * tei, d1 * ter - d0 * tei,
+          d0 * tmr + d1 * tmi, d1 * tmr - d0 * tmi,
+          d2 * ter + d3 * tei, d3 * ter - d2 * tei,
+          d2 * tmr + d3 * tmi, d3 * tmr - d2 * tmi)
+    dpol = (d0 * j[0] + d1 * j[1] + d2 * j[4] + d3 * j[5],
+            d1 * j[0] - d0 * j[1] + d3 * j[4] - d2 * j[5],
+            d0 * j[2] + d1 * j[3] + d2 * j[6] + d3 * j[7],
+            d1 * j[2] - d0 * j[3] + d3 * j[6] - d2 * j[7])
+    return dj, dpol
+
+
+def _branch_adjoint(bp, pw, D, lam, w, inv_cos, s):
+    """The adjoint of one child of a transport (``child`` of
+    :func:`_build_step_fns`, and ``split_init``'s children): ``bp`` its
+    polarisation before renormalisation, ``pw`` its power, ``D`` its
+    direction row (6), ``lam`` the child's adjoint (:data:`_ADJ`), ``w`` the
+    parent's weight, ``s`` the efficiency's scale; the efficiency is
+    ``pw * s * inv_cos``.  Returns (the direction row's adjoint (4), the
+    polarisation's (4), the scale's share through the efficiency, the
+    adjoint of ``inv_cos``, the weight's)."""
+    lx, ly, lter, ltei, ltmr, ltmi, _, lgx, lgy, lw = lam
+    pos = pw > 1e-30
+    inv = _rsqrt(torch.where(pos, pw, 1.0))
+    q2 = bp[2] * inv
+    q3 = bp[3] * inv
+    dD = (lx + lgx, ly + lgy, ltmr * q2 + ltmi * q3, ltmi * q2 - ltmr * q3)
+    dq2 = ltmr * D[2] + ltmi * D[3]
+    dq3 = ltmi * D[2] - ltmr * D[3]
+    dinv = lter * bp[0] + ltei * bp[1] + dq2 * bp[2] + dq3 * bp[3]
+    dpw = torch.where(pos, dinv * -0.5 * inv * inv * inv, 0.0)
+    d_eff = lw * w
+    dps = d_eff * inv_cos
+    dpw = dpw + dps * s
+    d_s = dps * pw
+    d_ic = d_eff * (pw * s)
+    dbp = (lter * inv + (bp[0] + bp[0]) * dpw,
+           ltei * inv + (bp[1] + bp[1]) * dpw,
+           dq2 * inv + (bp[2] + bp[2]) * dpw,
+           dq3 * inv + (bp[3] + bp[3]) * dpw)
+    return dD, dbp, d_s, d_ic
+
+
+def _step_adjoint(a: SplitTraceArgs, T: dict, G: dict, S: dict, buf: dict,
+                  lam_a, lam_b, gh: torch.Tensor):
+    """The adjoint of one step of the plain forward over the buffer
+    ``buf``: its decisions and values recomputed with the forward's
+    operations, then the chain rule written out.  ``lam_a`` / ``lam_b``
+    (10, n) are the adjoints of each slot's child A (or survivor) and child
+    B, zero where that child was not kept; ``gh`` the histogram's adjoint.
+    Returns (the slots' adjoints (10, n), the table contributions: (rec
+    entries, (n, 26)), (cells, (n, 26)), (direction entries (3n,),
+    (3n, 6)))."""
+    ny, nx = a.eyebox_bins
+    R2 = 2 * (1 + a.num_fc + a.num_oc)
+    n_mn = a.M * a.N
+    x, y, state, w, g = buf["x"], buf["y"], buf["state"], buf["w"], buf["cid"]
+    in_r1, in_hull, in_r2 = regions_inside(G, x, y, state < DEAD)
+    alive = (state < DEAD) & in_r1
+    grp_ic, grp_fc, grp_oc, in_rect, key = site_key(
+        S, x, y, state, alive, in_hull, a.num_fc, a.num_oc)
+    hit_fc = grp_fc & in_hull
+    hit_oc = grp_oc & in_rect
+    interact = grp_ic | hit_fc | hit_oc
+    rec_idx = g * R2 + key
+    rec = _take(T["rec"], rec_idx)
+    pol = (buf["ter"], buf["tei"], buf["tmr"], buf["tmi"])
+    s_a, s_b = rec[24], rec[25]
+    pol_a = _jones_apply(rec[0:8], *pol)
+    pol_b = _jones_apply(rec[8:16], *pol)
+    pol_c = _jones_apply(rec[16:24], *pol)
+    cpos = buf["cos_th"] > 0
+    inv_cos = 1.0 / torch.where(cpos, buf["cos_th"], 1.0)
+    pw_a, pw_b, pw_c = _power(*pol_a), _power(*pol_b), _power(*pol_c)
+    eff_a = pw_a * s_a * inv_cos
+    eff_b = pw_b * s_b * inv_cos
+    s_c = _take(T["cell"][_C_SOUT:_C_SOUT + 1], g)[0]
+    eff_c = pw_c * s_c * inv_cos
+    dep = torch.where(hit_oc, w * eff_c, 0.0)
+    miss_fc2 = grp_fc & ~in_hull & (state == 2)
+    miss_fc3 = grp_fc & ~in_hull & (state == 3)
+    hop = (miss_fc2 | (miss_fc3 & in_r2)
+           | (grp_oc & ~in_rect & (state == 4)))
+    not_int = alive & ~interact
+    dir_a = torch.where(grp_oc, DIR_FC, DIR_IC)
+    dir_b = torch.where(grp_ic, DIR_IC2, torch.where(grp_fc, DIR_FC, DIR_OC))
+    hop_dir = torch.where(miss_fc2, DIR_IC, DIR_FC)
+    z = torch.zeros_like(x)
+    # child A's adjoint is the survivor's where the slot does not interact
+    lam_c = [torch.where(interact, v, z) for v in lam_a]
+    lam_s = [torch.where(not_int, v, z) for v in lam_a]
+    lam_b = [torch.where(interact, v, z) for v in lam_b]
+
+    # the deposit's adjoint, hard: the bin's; soft: the four corners'
+    ebr = _take(T["cell"][_C_EBR:_C_EBR + 4], g)
+    mn = g % n_mn
+    base = ((g // n_mn * a.N + mn % a.N) * a.M + mn // a.N) * (ny * nx)
+    d_e = [z, z, z, z]
+    d_xd = d_yd = z
+    if not a.soft_binning:
+        in_quad, b = deposit_bin(ebr, x, y, ny, nx)
+        use = in_quad & (dep != 0)
+        d_dep = torch.where(use, gh[torch.where(use, base + b, 0)], 0.0)
+    else:
+        e0, e1, e2, e3 = ebr.unbind(0)
+        in_quad = ((x >= e0 - _EDGE_TOL) & (x <= e1 + _EDGE_TOL)
+                   & (y >= e2 - _EDGE_TOL) & (y <= e3 + _EDGE_TOL))
+        wq = torch.where(in_quad, dep, 0.0)
+        dxb = _div(e1 - e0, nx)
+        dyb = _div(e3 - e2, ny)
+        qx = (x - e0) / dxb
+        qy = (y - e2) / dyb
+        pu = qx - 0.5
+        pv = qy - 0.5
+        u = torch.clamp(pu, 0.0, nx - 1.0)
+        v = torch.clamp(pv, 0.0, ny - 1.0)
+        ix0 = torch.clamp(torch.floor(u), 0, nx - 2).to(torch.int64)
+        iy0 = torch.clamp(torch.floor(v), 0, ny - 2).to(torch.int64)
+        fx = u - ix0
+        fy = v - iy0
+        ax = 1 - fx
+        ay = 1 - fy
+        wf = (ax * ay, fx * ay, ax * fy, fx * fy)
+        gk = [torch.where(wq * f != 0, gh[base + (iy0 + dj) * nx + ix0 + di],
+                          0.0)
+              for (di, dj), f in zip(((0, 0), (1, 0), (0, 1), (1, 1)), wf)]
+        d_wq = gk[0] * wf[0] + gk[1] * wf[1] + gk[2] * wf[2] + gk[3] * wf[3]
+        dwf = [c * wq for c in gk]
+        d_ax = dwf[0] * ay + dwf[2] * fy
+        d_ay = dwf[0] * ax + dwf[1] * fx
+        d_fx = dwf[1] * ay + dwf[3] * fy - d_ax
+        d_fy = dwf[2] * ax + dwf[3] * fx - d_ay
+        d_u = torch.where((pu >= 0) & (pu <= nx - 1), d_fx, 0.0)
+        d_v = torch.where((pv >= 0) & (pv <= ny - 1), d_fy, 0.0)
+        d_xd = d_u / dxb
+        d_yd = d_v / dyb
+        d_spx = _div(-(d_u * qx) / dxb, nx)
+        d_spy = _div(-(d_v * qy) / dyb, ny)
+        d_e = [-d_xd - d_spx, d_spx, -d_yd - d_spy, d_spy]
+        d_dep = torch.where(in_quad, d_wq, 0.0)
+    d_dep = torch.where(hit_oc, d_dep, 0.0)
+
+    Da = _take(T["dirs"], g * 4 + dir_a)
+    Db = _take(T["dirs"], g * 4 + dir_b)
+    dDa, dbpa, dsa, dica = _branch_adjoint(pol_a, pw_a, Da, lam_c, w,
+                                           inv_cos, s_a)
+    dDb, dbpb, dsb, dicb = _branch_adjoint(pol_b, pw_b, Db, lam_b, w,
+                                           inv_cos, s_b)
+    # the deposit: dep = w * eff_c
+    d_effc = d_dep * w
+    dpcs = d_effc * inv_cos
+    dpwc = dpcs * s_c
+    d_sc = dpcs * pw_c
+    dicc = d_effc * (pw_c * s_c)
+    dbpc = tuple((p + p) * dpwc for p in pol_c)
+    dja, dpa = _jones_adjoint(rec[0:8], pol, dbpa)
+    djb, dpb = _jones_adjoint(rec[8:16], pol, dbpb)
+    djc, dpc = _jones_adjoint(rec[16:24], pol, dbpc)
+    d_ic = dica + dicb + dicc
+    d_cos = torch.where(cpos, -(d_ic * inv_cos * inv_cos), 0.0)
+    # the survivor: a hop adds the gap and turns the TM phase
+    hd = _take(T["dirs"][4:6], g * 4 + hop_dir)
+    sx, sy, ster, stei, stmr, stmi, scos, sgx, sgy, sw = lam_s
+    tmr, tmi = buf["tmr"], buf["tmi"]
+    s_tmr = torch.where(hop, stmr * hd[0] + stmi * hd[1], stmr)
+    s_tmi = torch.where(hop, stmi * hd[0] - stmr * hd[1], stmi)
+    dH = (torch.where(hop, stmr * tmr + stmi * tmi, 0.0),
+          torch.where(hop, stmi * tmr - stmr * tmi, 0.0))
+    lam = torch.stack([
+        lam_c[0] + lam_b[0] + sx + d_xd,
+        lam_c[1] + lam_b[1] + sy + d_yd,
+        dpa[0] + dpb[0] + dpc[0] + ster,
+        dpa[1] + dpb[1] + dpc[1] + stei,
+        dpa[2] + dpb[2] + dpc[2] + s_tmr,
+        dpa[3] + dpb[3] + dpc[3] + s_tmi,
+        d_cos + scos,
+        torch.where(hop, sx, 0.0) + sgx,
+        torch.where(hop, sy, 0.0) + sgy,
+        lam_c[9] * eff_a + lam_b[9] * eff_b + d_dep * eff_c + sw])
+    c_rec = torch.stack([*dja, *djb, *djc, lam_c[6] + dsa, lam_b[6] + dsb])
+    c_cell = torch.stack([z] * _C_SOUT + [d_sc, *d_e])
+    c_dirs = torch.cat([torch.stack([*dDa, z, z]), torch.stack([*dDb, z, z]),
+                        torch.stack([z, z, z, z, *dH])], dim=1)
+    dir_idx = torch.cat([g * 4 + dir_a, g * 4 + dir_b, g * 4 + hop_dir])
+    return lam, (rec_idx, c_rec.T), (g, c_cell.T), (dir_idx, c_dirs.T)
+
+
+def _init_adjoint(a: SplitTraceArgs, T: dict, lam: torch.Tensor):
+    """The adjoint of ``split_init`` given its children's adjoints ``lam``
+    (10, 2R) (child A of ray r at r, B at R + r): the table contributions
+    ((cells (2R,), (2R, 26)), (direction entries (2R,), (2R, 6)))."""
+    R = a.rays.shape[1]
+    g = a.cid.to(torch.int64)
+    cell = _take(T["cell"], g)
+    pol0 = tuple(a.rays[2:6])
+    w0 = pol0[0].abs() + pol0[1].abs() + pol0[2].abs() + pol0[3].abs()
+    w = torch.where(w0 > 0, 1.0, 0.0).to(w0.dtype)
+    z = torch.zeros_like(w)
+    c_cell, c_dirs, dir_idx = [], [], []
+    for branch, dir_ in ((0, DIR_IC), (1, DIR_IC2)):
+        jo, so, ico = ((_I_JA, _I_SA, _I_ICA) if branch == 0
+                       else (_I_JB, _I_SB, _I_ICB))
+        lb = lam[:, branch * R:(branch + 1) * R]
+        p = _jones_apply(cell[jo:jo + 8], *pol0)
+        pw = _power(*p)
+        eff = pw * cell[so] / cell[_I_COS0]
+        D = _take(T["dirs"], g * 4 + dir_)
+        lx, ly, lter, ltei, ltmr, ltmi, lcos, lgx, lgy, lw = lb
+        pos = pw > 1e-30
+        inv = _rsqrt(torch.where(pos, pw, 1.0))
+        q2 = p[2] * inv
+        q3 = p[3] * inv
+        dD = (lx + lgx, ly + lgy, ltmr * q2 + ltmi * q3, ltmi * q2 - ltmr * q3)
+        dq2 = ltmr * D[2] + ltmi * D[3]
+        dq3 = ltmi * D[2] - ltmr * D[3]
+        dinv = lter * p[0] + ltei * p[1] + dq2 * p[2] + dq3 * p[3]
+        dpw = torch.where(pos, dinv * -0.5 * inv * inv * inv, 0.0)
+        d_eff = lw * w
+        d_num = d_eff / cell[_I_COS0]
+        d_c0 = -(d_eff * eff) / cell[_I_COS0]
+        dpw = dpw + d_num * cell[so]
+        d_so = d_num * pw
+        dp = (lter * inv + (p[0] + p[0]) * dpw,
+              ltei * inv + (p[1] + p[1]) * dpw,
+              dq2 * inv + (p[2] + p[2]) * dpw,
+              dq3 * inv + (p[3] + p[3]) * dpw)
+        dj, _ = _jones_adjoint(cell[jo:jo + 8], pol0, dp)
+        c = [z] * 26
+        c[jo:jo + 8] = dj
+        c[so] = d_so
+        c[_I_COS0] = d_c0
+        c[ico] = lcos
+        c_cell.append(torch.stack(c))
+        c_dirs.append(torch.stack([*dD, z, z]))
+        dir_idx.append(g * 4 + dir_)
+    return ((torch.cat([g, g]), torch.cat(c_cell, dim=1).T),
+            (torch.cat(dir_idx), torch.cat(c_dirs, dim=1).T))
+
+
+def split_trace_backward_reference(a: SplitTraceArgs, tape: SplitTape,
+                                   grad_hist: torch.Tensor) -> tuple:
+    """The plain PyTorch version of the backward kernel: the adjoint of
+    :func:`split_trace_reference` written out by hand, an explicit reverse
+    sweep over ``tape`` (not autograd).  Each step's adjoint recomputes the
+    step's decisions and values from its tape row; its children's adjoints
+    come from the next row through the provenance.  Discrete choices carry
+    no gradient (region tests, the threshold, the sort's order, the bins).
+    The table gradients are added per table entry in a fixed order: steps
+    from last to first, then the launch rays, within a step the slots in
+    order (directions: the A children, the B children, the hops).  Returns
+    ``(d_rec, d_cell, d_dirs)``, shaped as ``a.rec``, ``a.cell``,
+    ``a.dirs``."""
+    dev, dt = a.rec.device, a.rec.dtype
+    G, S, _, T = _trace_setup(a)
+    gh = grad_hist.reshape(-1).to(dt)
+    widths = [int(v) for v in tape.widths.tolist()]
+    d_rec = torch.zeros((a.rec.shape[1], REC_W), dtype=dt, device=dev)
+    d_cell = torch.zeros((a.cell.shape[1], a.cell.shape[0]), dtype=dt,
+                         device=dev)
+    d_dirs = torch.zeros((a.dirs.shape[1], DIR_W), dtype=dt, device=dev)
+    lam, src = None, None
+    for t in range(len(widths) - 2, -1, -1):
+        n = widths[t]
+        lc = torch.zeros((len(_ADJ), 2 * n), dtype=dt, device=dev)
+        if lam is not None:
+            lc[:, src] = lam
+        buf = tape_buffer(tape.fields[t], n)
+        lam, *contribs = _step_adjoint(a, T, G, S, buf, lc[:, :n],
+                                       lc[:, n:], gh)
+        src = buf["src"]
+        for table, (idx, rows) in zip((d_rec, d_cell, d_dirs), contribs):
+            _add_rows(table, idx, rows)
+    lc = torch.zeros((len(_ADJ), 2 * a.rays.shape[1]), dtype=dt, device=dev)
+    if lam is not None:
+        lc[:, src] = lam
+    for table, (idx, rows) in zip((d_cell, d_dirs), _init_adjoint(a, T, lc)):
+        _add_rows(table, idx, rows)
+    return d_rec.T.contiguous(), d_cell.T.contiguous(), d_dirs.T.contiguous()
+
+
+def _trace_params(a: SplitTraceArgs, **kw):
+    """The int parameters of the kernels' C functions (:data:`TRACE_PARAMS`)."""
+    ny, nx = a.eyebox_bins
+    v = dict(R=a.rays.shape[1], K=a.capacity, E=a.rec.shape[1],
+             C=a.cell.shape[1], R2=2 * (1 + a.num_fc + a.num_oc),
+             num_fc=a.num_fc, num_oc=a.num_oc, ny=ny, nx=nx, M=a.M, N=a.N,
+             hist=a.hist_size, soft=int(a.soft_binning), circle=int(a.circle),
+             grid_n=a.grid.shape[0], e_ic=a.edges[0], e_r1=a.edges[1],
+             e_r2=a.edges[2], e_hull=a.edges[3], t0=0, nsteps=0, ring=0,
+             init=0)
+    v.update(kw)
+    return (ctypes.c_int * len(TRACE_PARAMS))(*(int(v[k])
+                                                for k in TRACE_PARAMS))
+
+
+def _check_trace_args(a: SplitTraceArgs, what: str):
+    dev = a.rec.device
+    if dev.type != "cuda":
+        raise ValueError(f"the {what} kernel runs on cuda, not {dev}")
+    for name in ("rec", "cell", "dirs", "geom", "rays"):
+        t = getattr(a, name)
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {dev}, got "
+                             f"{t.dtype} on {t.device}")
+    if a.grid.device != dev or a.grid.dtype != torch.uint8:
+        raise ValueError("the region grid must be uint8 on the card")
+    if a.cid.device != dev:
+        raise ValueError(f"cid must be on {dev}")
+    if not a.weight_threshold >= 0:
+        raise ValueError("the kernels take a weight threshold >= 0 (live "
+                         "weights are then positive)")
+    return dev
+
+
+def _tables_entry_major(a: SplitTraceArgs) -> tuple:
+    """The packed tables entry-major, as the kernels read them: (C * R2, 26),
+    (C, 26), (C * 4, 6)."""
+    return tuple(t.detach().t().contiguous() for t in (a.rec, a.cell, a.dirs))
+
+
+def _ptrs(*ts) -> list:
+    return [t.data_ptr() for t in ts]
+
+
+def launch_split_trace(a: SplitTraceArgs,
+                       keep_tape: bool = False) -> SplitTraceOut:
+    """The forward kernels on ``a``'s CUDA tensors, queued on the current
+    stream.  ``fixed_steps`` mode reads nothing from the device; stop-test
+    mode reads the width once every 8 steps (the empty steps in between
+    change nothing) and the step count once at the end.  With
+    ``keep_tape`` every step's kept wavefront stays in the tape (one row a
+    step), else two rows take turns.  Raises if a launch is refused."""
+    dev = _check_trace_args(a, "split_trace")
+    lib = load_trace_kernel()
+    K = a.capacity
+    steps_max = a.fixed_steps if a.fixed_steps > 0 else a.max_steps
+    recT, cellT, dirsT = _tables_entry_major(a)
+    cid = a.cid.to(torch.int32).contiguous()
+    rays = a.rays.contiguous()
+    tape = torch.empty((steps_max + 1 if keep_tape else 2, _NT, K),
+                       dtype=torch.float32, device=dev)
+    ints = torch.zeros(_NCNT + steps_max + 1, dtype=torch.int32, device=dev)
+    widths = ints[_NCNT:]
+    hist = torch.zeros(a.hist_size, dtype=torch.float32, device=dev)
+    ledger = torch.zeros(2, dtype=torch.float32, device=dev)
+    p = _trace_params(a, ring=int(not keep_tape))
+    scratch = torch.empty(lib.split_trace_scratch_bytes(p, 0),
+                          dtype=torch.uint8, device=dev)
+    thr = float(np.float32(a.weight_threshold))
+
+    def run(t0: int, nsteps: int, init: int) -> None:
+        p[TRACE_PARAMS.index("t0")] = t0
+        p[TRACE_PARAMS.index("nsteps")] = nsteps
+        p[TRACE_PARAMS.index("init")] = init
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.split_trace_forward(
+                p, thr, *_ptrs(recT, cellT, dirsT, a.geom, a.grid, rays, cid,
+                               tape, widths, hist, ledger, ints, scratch),
+                stream)
+        if err != 0:
+            msg = lib.split_trace_error_string(err).decode()
+            raise RuntimeError(f"split_trace launch failed: {msg} ({err})")
+
+    if a.fixed_steps > 0:
+        run(0, a.fixed_steps, 1)
+        steps = a.fixed_steps
+    else:
+        t = min(_STOP_EVERY, a.max_steps)
+        run(0, t, 1)
+        while True:
+            width, steps = ints[[_NCNT + t, _CNT_STEPS]].tolist()
+            if width == 0 or t >= a.max_steps:
+                break
+            n = min(_STOP_EVERY, a.max_steps - t)
+            run(t, n, 0)
+            t += n
+    launch_counts["split_trace"] += 1
+    out = SplitTraceOut(hist, ledger[0], ledger[1], int(steps))
+    if keep_tape:
+        out.tape = SplitTape(tape[:steps + 1], widths[:steps + 1])
+    return out
+
+
+def launch_split_trace_backward(a: SplitTraceArgs, tape: SplitTape,
+                                grad_hist: torch.Tensor) -> tuple:
+    """The backward kernels on ``a``'s CUDA tensors and ``tape``, queued on
+    the current stream: ``(d_rec, d_cell, d_dirs)`` shaped as ``a``'s
+    tables.  Raises if a launch is refused."""
+    dev = _check_trace_args(a, "split_trace_backward")
+    lib = load_trace_kernel()
+    recT, cellT, dirsT = _tables_entry_major(a)
+    fields = tape.fields.contiguous()
+    widths = tape.widths.to(dev, torch.int32).contiguous()
+    if fields.device != dev or fields.shape[1:] != (_NT, a.capacity):
+        raise ValueError(f"the tape must be (steps + 1, {_NT}, "
+                         f"{a.capacity}) on {dev}")
+    gh = grad_hist.reshape(-1).to(torch.float32).contiguous()
+    if gh.numel() != a.hist_size:
+        raise ValueError(f"grad_hist holds {gh.numel()} bins, not "
+                         f"{a.hist_size}")
+    d = [torch.zeros_like(t) for t in (recT, cellT, dirsT)]
+    ints = torch.zeros(_NCNT, dtype=torch.int32, device=dev)
+    p = _trace_params(a, t0=fields.shape[0] - 1)
+    scratch = torch.empty(lib.split_trace_scratch_bytes(p, 1),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.split_trace_backward(
+            p, *_ptrs(recT, cellT, dirsT, a.geom, a.grid, a.rays.contiguous(),
+                      a.cid.to(torch.int32).contiguous(), fields, widths, gh,
+                      *d, ints, scratch), stream)
+    if err != 0:
+        msg = lib.split_trace_error_string(err).decode()
+        raise RuntimeError(f"split_trace_backward launch failed: {msg} "
+                           f"({err})")
+    launch_counts["split_trace_backward"] += 1
+    return tuple(t.t().contiguous() for t in d)
+
+
+def split_trace(a: SplitTraceArgs, keep_tape: bool = False) -> SplitTraceOut:
+    """One forward trace of the global engine: the kernels for CUDA
+    tensors, the plain version for CPU ones (no fallback between them)."""
+    dev = a.rec.device
+    if dev.type == "cuda":
+        return launch_split_trace(a, keep_tape)
+    if dev.type != "cpu":
+        raise ValueError(f"split_trace runs on cpu or cuda, not {dev}")
+    return split_trace_reference(a, keep_tape)
+
+
+def split_trace_backward(a: SplitTraceArgs, tape: SplitTape,
+                         grad_hist: torch.Tensor) -> tuple:
+    """The tables' adjoints of a forward trace: the backward kernels for
+    CUDA tensors, the hand-written plain version for CPU ones."""
+    dev = a.rec.device
+    if dev.type == "cuda":
+        return launch_split_trace_backward(a, tape, grad_hist)
+    if dev.type != "cpu":
+        raise ValueError(f"split_trace runs on cpu or cuda, not {dev}")
+    return split_trace_backward_reference(a, tape, grad_hist)
+
+
+class SplitTraceFunction(torch.autograd.Function):
+    """The global trace as an autograd node: ``apply(rec, cell, dirs, args)
+    -> (hist, trunc, pruned, steps)``, the histogram differentiable in the
+    packed tables; the ledgers and the step count are not.  Both directions
+    dispatch on the device (:func:`split_trace`,
+    :func:`split_trace_backward`); the tape is kept only when a table
+    needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, rec, cell, dirs, args):
+        a = dataclasses.replace(args, rec=rec, cell=cell, dirs=dirs)
+        keep = any(ctx.needs_input_grad[:3])
+        out = split_trace(a, keep_tape=keep)
+        steps = torch.tensor(out.steps)
+        ctx.mark_non_differentiable(out.trunc, out.pruned, steps)
+        ctx.args, ctx.tape = (a, out.tape) if keep else (None, None)
+        return out.hist, out.trunc, out.pruned, steps
+
+    @staticmethod
+    def backward(ctx, g_hist, g_trunc, g_pruned, g_steps):
+        a = ctx.args
+        if g_hist is None:
+            g_hist = torch.zeros(a.hist_size, dtype=a.rec.dtype,
+                                 device=a.rec.device)
+        d_rec, d_cell, d_dirs = split_trace_backward(a, ctx.tape, g_hist)
+        return d_rec, d_cell, d_dirs, None
+
+
+# the C parameters of split_trace_forward: the int parameters, the
+# threshold, 13 pointers and the stream; of split_trace_backward: the int
+# parameters, 15 pointers and the stream
+_FORWARD_ARGTYPES = ([ctypes.POINTER(ctypes.c_int), ctypes.c_float]
+                     + [ctypes.c_void_p] * 14)
+_BACKWARD_ARGTYPES = [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 16
+_TRACE_LIB = None
+
+
+def load_trace_kernel():
+    """Build (at first use) and bind ``csrc/split_trace.cu``; raises with
+    the compiler's output if the build fails."""
+    global _TRACE_LIB
+    if _TRACE_LIB is None:
+        lib = build.load_library("split_trace")
+        lib.split_trace_forward.argtypes = _FORWARD_ARGTYPES
+        lib.split_trace_forward.restype = ctypes.c_int
+        lib.split_trace_backward.argtypes = _BACKWARD_ARGTYPES
+        lib.split_trace_backward.restype = ctypes.c_int
+        lib.split_trace_scratch_bytes.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.split_trace_scratch_bytes.restype = ctypes.c_size_t
+        lib.split_trace_error_string.argtypes = [ctypes.c_int]
+        lib.split_trace_error_string.restype = ctypes.c_char_p
+        _TRACE_LIB = lib
+    return _TRACE_LIB
 
 
 # ---------------------------------------------------------------------------

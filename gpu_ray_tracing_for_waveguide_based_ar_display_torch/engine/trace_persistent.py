@@ -111,7 +111,8 @@ _STATIC_SMEM = -(-(8 * 4 * MAX_CPB + 8) // 16) * 16
 # nothing else touches it except reset_launch_counts
 launch_counts = {"persistent_trace": 0, "cell_trace": 0, "cell_rows": 0,
                  "eye_perceive": 0, "colorimetry": 0, "split_cells": 0,
-                 "vector_trace": 0}
+                 "vector_trace": 0, "split_trace": 0,
+                 "split_trace_backward": 0}
 
 
 def reset_launch_counts() -> None:

@@ -5,7 +5,10 @@ Port of ``opt/grating_opt.py`` of the JAX package.  The deterministic
 splitting tracer (:mod:`..engine.splitting`) runs in its differentiable
 configuration (a fixed number of steps, the cell tables as an argument), so
 the map from grating parameters to the eyebox energy distribution is one
-autograd graph; Adam steps then do what waveguide designers do by hand:
+autograd graph, whose trace node (``splitting.SplitTraceFunction``) runs
+the kernels of ``csrc/split_trace.cu`` forward and backward on a GPU and
+their plain versions on the CPU; Adam steps then do what waveguide
+designers do by hand:
 
 - :func:`optimize_apodization`: per-strip grating strengths (weaken the
   early out-coupler strips so energy survives to the far ones, flattening

@@ -1133,3 +1133,135 @@ def test_vector_kernel_equals_plain_version_on_card(cuda_device, n_designs,
     assert whole.bounces.shape == (n_designs,)
     for k, v in keep.items():
         assert torch.equal(rays[k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the global splitting engine's kernels (csrc/split_trace.cu)
+
+
+def _trace_fixture(case):
+    """``test_torch_opt.py``'s fixtures on the card as the kernels take
+    them: the apodization fixture (3 x 2 FoV, 8 rays, 1,024 slots, 32
+    fixed steps, hard binning; it truncates), the grating fixture with soft
+    binning (4 x 3, 2,048 slots, 40 steps), the apodization fixture at 96
+    slots, and the global engine's stop test (4,096 slots, at most 300
+    steps)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        seeding, splitting, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+
+    soft = case == "soft"
+    M, N = (4, 3) if soft else (3, 2)
+    geom = generate_geometry(num_fov_x=M, num_fov_y=N)
+    tables = build_cell_tables(geom, make_synthetic_luts(
+        geom, **({"seed": 77} if soft else {})))
+    tgeom = build_trace_geometry(geom, simplify_tol=1e-3 if soft else 0.0)
+    cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=8,
+                      max_bounces=64, rng_mode="fast", seed=5,
+                      ic_test="circle" if soft else "polygon")
+    b = seeding.build_ray_batch(geom, cfg)
+    rays = tv.make_ray_state(b["x"], b["y"], b["te"], b["tm"], b["cid"],
+                             b["idx"], b["rng"], device="cuda")
+    kw = {"hard": dict(capacity=1024, fixed_steps=32, weight_threshold=1e-4),
+          "soft": dict(capacity=2048, fixed_steps=40, weight_threshold=1e-9,
+                       soft_binning=True),
+          "truncating": dict(capacity=96, fixed_steps=20,
+                             weight_threshold=1e-4),
+          "stop_test": dict(capacity=4096, max_steps=300,
+                            weight_threshold=1e-4)}[case]
+    trace = splitting.make_splitting_trace_fn(tables, tgeom, cfg,
+                                              table_arg=True, device="cuda",
+                                              **kw)
+    return trace.args(rays, tv.as_tables(tables))
+
+
+def _bits_equal(x, y):
+    return torch.equal(x.contiguous().view(torch.int32),
+                       y.contiguous().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hard", "soft", "truncating", "stop_test"])
+def test_split_trace_kernels_equal_plain_versions_on_card(cuda_device, case):
+    """The global engine's forward kernels (one counted call) against their
+    plain version on the card: histogram, steps and tape (every kept
+    slot's fields and provenance) bit for bit, the ledgers within 1e-6
+    relative; the backward kernels (one counted call) against the
+    hand-written plain backward, bit for bit, and a second run identical."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    a = _trace_fixture(case)
+    n0 = dict(tp.launch_counts)
+    out = splitting.split_trace(a, keep_tape=True)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["split_trace"] == n0["split_trace"] + 1
+    ref = splitting.split_trace_reference(a, keep_tape=True)
+    assert out.steps == ref.steps
+    assert _bits_equal(out.hist, ref.hist)
+    for k in ("trunc", "pruned"):
+        assert float(getattr(out, k)) == pytest.approx(
+            float(getattr(ref, k)), rel=1e-6), k
+    if case in ("hard", "truncating"):
+        assert float(out.trunc) > 0
+    widths = ref.tape.widths.cpu()
+    assert torch.equal(out.tape.widths.cpu(), widths)
+    for t, n in enumerate(widths.tolist()):
+        assert _bits_equal(out.tape.fields[t, :, :n],
+                           ref.tape.fields[t, :, :n]), t
+    rng = np.random.default_rng(11)
+    gh = torch.from_numpy(rng.standard_normal(a.hist_size).astype(
+        np.float32)).to(cuda_device)
+    got = splitting.split_trace_backward(a, out.tape, gh)
+    again = splitting.launch_split_trace_backward(a, out.tape, gh)
+    torch.cuda.synchronize()
+    assert (tp.launch_counts["split_trace_backward"]
+            == n0["split_trace_backward"] + 2)
+    want = splitting.split_trace_backward_reference(a, ref.tape, gh)
+    for x, y, z in zip(got, want, again):
+        assert x.shape == y.shape
+        assert _bits_equal(x, y)
+        assert _bits_equal(x, z)
+    assert float(got[0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_optimize_runs_the_trace_kernels_on_card(cuda_device):
+    """``optimize_apodization`` on the card goes through the kernels: one
+    forward call per Adam step and one for the final loss, one backward
+    call per Adam step, and the loss falls."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts import (
+        make_synthetic_luts,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt import (
+        grating_opt as opt,
+    )
+
+    geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+    tables = build_cell_tables(geom, make_synthetic_luts(geom))
+    cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=8,
+                      max_bounces=64, rng_mode="fast", seed=5)
+    tp.reset_launch_counts()
+    res = opt.optimize_apodization(geom, tables, build_trace_geometry(geom),
+                                   cfg, rays_per_fov=8, steps=3,
+                                   capacity=1024, fixed_steps=32,
+                                   device=cuda_device)
+    assert tp.launch_counts["split_trace"] == 4
+    assert tp.launch_counts["split_trace_backward"] == 3
+    assert res.loss_history[-1] < res.loss_history[0]

@@ -24,9 +24,11 @@ compared bin by bin:
 
 The vector engine's trace calls run its plain version here
 (``trace_vector.vector_trace_reference``, put in place of the routing
-``vector_trace``): on the card they otherwise launch
-``csrc/vector_trace.cu``, which takes the bin in the tensor form and
-calls no ``deposit_bin``.
+``vector_trace``), and the global engine's its own
+(``splitting.split_trace_reference`` in place of ``split_trace``): on the
+card they otherwise launch ``csrc/vector_trace.cu`` and
+``csrc/split_trace.cu``, which take the bin in the tensor form and call
+no ``deposit_bin``.
 
 Prints one JSON object per engine, each with the card's name and power
 limit; ``--record`` writes them as one JSON list.
@@ -183,6 +185,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     tv.vector_trace = tv.vector_trace_reference
+    splitting.split_trace = splitting.split_trace_reference
     name = card()
     out = []
     for fn in (vector, sweep, global_engine):
