@@ -195,14 +195,19 @@ Run from the repository root.  Phases:
    TB/s, or ``VEC_BOUNCE_OPS`` float32 operations a bounce and
    ``VEC_INIT_OPS`` a full-mode ray at 67 TFLOP/s;
 23. the global splitting engine's kernels (``csrc/split_trace.cu``: the
-   forward, a few launches a step, and its hand-written adjoint) against
+   forward and its hand-written adjoint, one cooperative kernel a call
+   each) against
    their plain PyTorch versions (``splitting.split_trace_reference``,
    ``splitting.split_trace_backward_reference``) on the same arguments, on
    the card: (a) ``optimize``'s README apodization case (16 x 12 FoV x 3
    wavelengths = 576 cells x 16 rays, 4,096 slots, 64 fixed steps, hard
    binning; it truncates, F6); (b) its joint case with soft binning (24 x
    18, 8 rays, 16,384 slots, 64 steps); (c) the global engine in stop-test
-   mode (phase 13d's 18 cells x 4 positions, 32,768 slots, threshold 1e-5).
+   mode (phase 13d's 18 cells x 4 positions, 32,768 slots, threshold 1e-5:
+   every table entry's run is long); (d) phase 15's whole wavefront (16 x
+   12, 2 rays, 262,144 slots, 64 fixed steps: wider than the co-resident
+   grid).  Each call must launch one kernel; the grid, the resident blocks
+   per SM and the barriers a step are printed.
    The forward's histogram, step count and tape (every kept slot's fields
    and provenance) must be equal bit for bit, the truncated, pruned and
    deposited weight within 1e-6 relative; the backward of a seeded
@@ -272,7 +277,7 @@ Run from the repository root.  Phases:
    neither K1 nor K2 (the K2 cross-check aside, counted apart); phase 13's
    per-cell runs launch ``csrc/split_cells.cu`` once per batch and pass
    (counted: 13a, 13b and 13c's batches x passes), 13d's run
-   ``split_trace`` once, and no trace kernel.
+   ``split_trace`` once (one kernel), and no trace kernel.
 14. ``simulate --tail-boost`` at full width through
    ``engine.hybrid.TailBoostHybrid`` with the CLI's knobs (tau 30 / 20,
    tiers up to 1024x): the reference workload, count spawn with folding,
@@ -318,7 +323,7 @@ Run from the repository root.  Phases:
    in every case.  Launch counts are reset just before each run and read
    just after it: the run's traces go through ``split_trace`` (one call per
    Adam step and one for the final loss) and its gradients through
-   ``split_trace_backward`` (one per Adam step).
+   ``split_trace_backward`` (one per Adam step), each call one kernel.
 16. the mesh (``parallel/shard.py``; one H100, so no multi-GPU scaling is
    measured): (a) an NCCL process group of world size 1 in this process and
    ``Simulator(mesh=)`` at the reference workload in count spawn, folded:
@@ -2782,10 +2787,12 @@ def phase13(ctx) -> None:
     if launches["split_cells"] != want:
         faults.append(f"{launches['split_cells']} split_cells launches, "
                       f"expected {want}")
-    if launches["split_trace"] != 1 or launches["split_trace_backward"]:
+    if (launches["split_trace"] != 1 or launches["split_trace_kernels"] != 1
+            or launches["split_trace_backward"]):
         faults.append(f"13d's global engine: {launches['split_trace']} "
-                      f"split_trace launches, expected 1, and "
-                      f"{launches['split_trace_backward']} backward")
+                      f"split_trace calls, expected 1, launching "
+                      f"{launches['split_trace_kernels']} kernels, expected "
+                      f"1, and {launches['split_trace_backward']} backward")
     ctx["split_launches"] = (ctx.get("split_launches", 0)
                              + launches["split_cells"])
     ctx["trace_launches"] = (ctx.get("trace_launches", 0)
@@ -3296,6 +3303,10 @@ def phase15(ctx) -> None:
             faults.append(f"{name}: {n['split_trace']} split_trace and "
                           f"{n['split_trace_backward']} backward launches "
                           f"for {out['steps']} Adam steps")
+        for k in ("split_trace", "split_trace_backward"):
+            if n[f"{k}_kernels"] != n[k]:
+                faults.append(f"{name}: {n[k]} {k} calls launched "
+                              f"{n[f'{k}_kernels']} kernels, not one each")
         ctx["trace_launches"] = (ctx.get("trace_launches", 0)
                                  + n["split_trace"])
         ctx["trace_backward_launches"] = (
@@ -4439,8 +4450,9 @@ def _trace_case(name: str, a, reps: int) -> tuple:
     """One phase-23 case: the forward kernel against its plain version on
     the card (histogram, steps and tape bit for bit, ledgers within 1e-6),
     the backward kernel against the plain backward on a seeded histogram
-    adjoint (bit for bit; two runs identical); times and bounds.  Returns
-    (forward record, backward record)."""
+    adjoint (bit for bit; two runs identical); one kernel a call, its grid
+    and barriers; times and bounds.  Returns (forward record, backward
+    record)."""
     import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
@@ -4455,8 +4467,20 @@ def _trace_case(name: str, a, reps: int) -> tuple:
         return int((x.contiguous().view(torch.int32)
                     != y.contiguous().view(torch.int32)).sum())
 
+    def launched(what: str, steps: int) -> dict:
+        """The last call's kernels, grid and barriers (a step: the total
+        over the steps that ran, the launch rays' phases included)."""
+        info = splitting.last_launch[what]
+        barriers = int(info["counters"][splitting._CNT_BARRIERS])
+        return {"kernels": info["kernels"], "grid": info["grid"],
+                "blocks_per_sm": info["blocks_per_sm"],
+                "barriers": barriers,
+                "barriers_a_step": barriers / max(steps, 1)}
+
     out = splitting.launch_split_trace(a, keep_tape=True)
     torch.cuda.synchronize()
+    ran = int((out.tape.widths[:-1] > 0).sum())
+    f_launch = launched("split_trace", ran)
     ms = cuda_ms(lambda: splitting.launch_split_trace(a, keep_tape=True),
                  reps)
     t0 = time.perf_counter()
@@ -4484,16 +4508,19 @@ def _trace_case(name: str, a, reps: int) -> tuple:
          "out_w_rel": rel(out.hist.sum(dtype=torch.float64),
                           ref.hist.sum(dtype=torch.float64)),
          "max_abs_err": float(diff.max()), "work": work, "ms": ms,
-         "plain_ms": plain_ms, "library_ms": None}
+         "plain_ms": plain_ms, "library_ms": None, **f_launch}
     f["bound_ms"], f["bound_by"], f["bytes"] = _trace_bound(a, work,
                                                             "forward")
-    f["ok"] = bool(f["steps_equal"] and widths_equal and tape_bits == 0
+    f["ok"] = bool(f["kernels"] == 1 and f["steps_equal"] and widths_equal
+                   and tape_bits == 0
                    and f["hist_bits"] == 0 and f["trunc_rel"] <= 1e-6
                    and f["pruned_rel"] <= 1e-6 and f["out_w_rel"] <= 1e-6)
     rng = np.random.default_rng(23)
     gh = torch.from_numpy(rng.standard_normal(a.hist_size).astype(
         np.float32)).to(a.rec.device)
     dk = splitting.launch_split_trace_backward(a, out.tape, gh)
+    torch.cuda.synchronize()
+    b_launch = launched("split_trace_backward", ran)
     dk2 = splitting.launch_split_trace_backward(a, out.tape, gh)
     torch.cuda.synchronize()
     bms = cuda_ms(lambda: splitting.launch_split_trace_backward(
@@ -4512,16 +4539,20 @@ def _trace_case(name: str, a, reps: int) -> tuple:
                       zip(("rec", "cell", "dirs"), dr)},
          "max_abs_err": max(float((x - y).abs().max())
                             for x, y in zip(dk, dr)),
-         "ms": bms, "plain_ms": bplain_ms, "library_ms": None}
+         "ms": bms, "plain_ms": bplain_ms, "library_ms": None, **b_launch}
     b["bound_ms"], b["bound_by"], b["bytes"] = _trace_bound(a, work,
                                                             "backward")
-    b["ok"] = bool(not any(b["bits"].values()) and b["again_bits"] == 0
+    b["ok"] = bool(b["kernels"] == 1 and not any(b["bits"].values())
+                   and b["again_bits"] == 0
                    and max(b["max_grad"].values()) > 0)
     return f, b
 
 
-def phase23(ctx) -> None:
-    """The global splitting engine's kernels against their plain versions."""
+def trace_cases(dev) -> list:
+    """Phase 23's traces of the global engine, as (name, SplitTraceArgs,
+    timed calls): ``optimize``'s README apodization and joint cases and
+    its whole wavefront, with the tables ``optimize`` starts from, and
+    phase 13d's stop-tested trace."""
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
     )
@@ -4547,16 +4578,16 @@ def phase23(ctx) -> None:
         grating_opt as opt,
     )
 
-    dev = ctx["dev"]
-    rec = ctx["record"].setdefault("phase23", {})
     cases = []
-    # optimize's README cases, with the tables optimize starts from
     for name, (M, N), rays, kw in (
             ("readme_apodization", (16, 12), 16,
              dict(capacity=4096, fixed_steps=64, weight_threshold=1e-4)),
             ("readme_joint_soft", (24, 18), 8,
              dict(capacity=16384, fixed_steps=64, weight_threshold=1e-4,
-                  soft_binning=True))):
+                  soft_binning=True)),
+            # phase 15's whole wavefront: wider than the co-resident grid
+            ("readme_whole_wavefront", (16, 12), 2,
+             dict(capacity=1 << 18, fixed_steps=64, weight_threshold=1e-4))):
         cfg = TraceConfig(num_fov_x=M, num_fov_y=N, rays_per_fov=rays,
                           max_bounces=2048)
         geom = generate_geometry(num_fov_x=M, num_fov_y=N)
@@ -4565,10 +4596,8 @@ def phase23(ctx) -> None:
         rays0 = opt._launch_rays(geom, cfg, rays, None, dev)
         trace = splitting.make_splitting_trace_fn(
             tables, tgeom, cfg, table_arg=True, device=dev, **kw)
-        cases.append(_trace_case(name, trace.args(rays0,
-                                                  tv.as_tables(tables)), 3))
-        del trace, rays0
-    # phase 13d's global engine, stop-tested
+        cases.append((name, trace.args(rays0, tv.as_tables(tables)), 3))
+    # phase 13d's global engine, stop-tested; listed third
     cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4,
                       rng_mode="fast", seed=2)
     geom = generate_geometry(num_fov_x=3, num_fov_y=2)
@@ -4579,8 +4608,16 @@ def phase23(ctx) -> None:
     trace = splitting.make_splitting_trace_fn(
         tables, build_trace_geometry(geom), cfg, capacity=1 << 15,
         weight_threshold=1e-5, max_steps=300, table_arg=True, device=dev)
-    cases.append(_trace_case("stop_test_18_cells",
-                             trace.args(rays0, tv.as_tables(tables)), 5))
+    cases.insert(2, ("stop_test_18_cells",
+                     trace.args(rays0, tv.as_tables(tables)), 5))
+    return cases
+
+
+def phase23(ctx) -> None:
+    """The global splitting engine's kernels against their plain versions."""
+    rec = ctx["record"].setdefault("phase23", {})
+    cases = [_trace_case(name, a, reps)
+             for name, a, reps in trace_cases(ctx["dev"])]
     faults = []
     for f, bw in cases:
         rec[f["name"]] = {"forward": f, "backward": bw}
@@ -4589,14 +4626,20 @@ def phase23(ctx) -> None:
               f"slot-steps), {'soft' if f['soft_binning'] else 'hard'} "
               f"binning: forward {f['ms']:.3f} ms (plain "
               f"{f['plain_ms']:.1f} ms, bound {f['bound_ms']:.4f} ms, "
-              f"{f['bound_by']}); histogram {f['hist_bits']} bins and tape "
+              f"{f['bound_by']}; {f['kernels']} kernel, grid {f['grid']} "
+              f"({f['blocks_per_sm']} a SM), {f['barriers']} barriers, "
+              f"{f['barriers_a_step']:.2f} a step); histogram "
+              f"{f['hist_bits']} bins and tape "
               f"{f['tape_bits']} words differ in their bits, steps "
               f"{f['steps_equal']}, widths {f['widths_equal']}; truncated "
               f"{f['trunc']:.6g} ({f['trunc_rel']:.1e}), pruned "
               f"{f['pruned']:.6g} ({f['pruned_rel']:.1e}), out-coupled "
               f"{f['out_w']:.8g} ({f['out_w_rel']:.1e}); backward "
               f"{bw['ms']:.3f} ms (plain {bw['plain_ms']:.1f} ms, bound "
-              f"{bw['bound_ms']:.4f} ms, {bw['bound_by']}): bits differing "
+              f"{bw['bound_ms']:.4f} ms, {bw['bound_by']}; {bw['kernels']} "
+              f"kernel, grid {bw['grid']} ({bw['blocks_per_sm']} a SM), "
+              f"{bw['barriers']} barriers, {bw['barriers_a_step']:.2f} a "
+              f"step): bits differing "
               f"{bw['bits']}, two runs {bw['again_bits']} apart, max |grad| "
               f"{bw['max_grad']}")
         if not f["ok"]:

@@ -9,45 +9,69 @@
 // The port's plain versions (engine/splitting.py::split_trace_reference,
 // ::split_trace_backward_reference) run the step loop eagerly from the host
 // (about 420 operations and a read of the device a step) and its adjoint as
-// an explicit reverse sweep over a tape.  These kernels run both with no
-// host read in a fixed_steps trace; a stop-tested trace reads the width
-// once every 8 steps.
+// an explicit reverse sweep over a tape.
 //
-// Forward, a step (a few launches on one stream, the live width read from
-// device memory by every launch): one thread per slot takes the slot to its
+// Each direction is one cooperative persistent kernel a call
+// (cudaLaunchCooperativeKernel: every block resident, so a grid-wide
+// barrier is safe).  The grid is min(the blocks of one step's widest
+// phase, resident blocks per SM x SMs); every phase is a grid-stride loop,
+// so any width runs on that grid, and a barrier in device memory
+// (grid_sync) separates the phases.  The stop test is decided on the card:
+// after each step every block reads the new width and all leave together
+// when it is 0; the host reads only the step count, once, at the end.
+//
+// Forward, a step (9 barriers): one thread per slot takes the slot to its
 // two children, its deposit(s) and its pruned weights with the plain
 // version's float32 operations in its order (the step transport of
 // split_common.cuh, shared with split_cells.cu); the children (A of slot s
 // at s, B at width + s) are sorted by a stable LSD radix sort on their
 // weight, heaviest first (key ~bits(w), dead children last), and the first
-// min(K, live) are gathered into the next wavefront with their provenance;
-// the rest of the live ones go to the truncated ledger.  The step's deposits
+// min(K, live) go into the next wavefront with their provenance (the
+// sort's last pass places them there itself); the rest of the live ones go
+// to the truncated ledger.  The step's deposits
 // ((corner, slot) order: one round per corner in soft binning) are sorted
-// by bin with the same sort, and the first deposit of each bin adds the
-// bin's run in that order: every bin adds its deposits one by one in the
-// plain version's order, with no float atomics.  The ledgers are summed per
-// step in float64 in a fixed order by one block and added in float32.
+// by bin with the same sort, side by side with the children's passes, and
+// the first deposit of each bin adds the bin's run in that order: every bin
+// adds its deposits one by one in the plain version's order, with no float
+// atomics.  A sort pass is two phases: each block counts the digits of a
+// contiguous range of items and the last block to finish scans the counts
+// (a ticket, no barrier of its own); then each block scatters its range in
+// ascending order, so the sort is stable.  The last block sums the
+// ledgers in float64 in a fixed order (that of a 1,024-thread block) while
+// the others start the next step; their buffers alternate by step parity.
 //
-// Backward, a step from the last to the first, then the launch rays: one
-// thread per slot of the step's tape row reads its children's adjoints
-// (written by the step after it at the children's provenance, zeroed as
-// read), recomputes the step's decisions and values, writes its own adjoint
-// at its provenance, and stages its table contributions (its record, its
-// cell's out-coupling scale and deposit rectangle, its three direction
-// rows); the contributions are sorted by table entry (stable, so in list
-// order: slots in order, direction rows A, B, then the hops) and the first
-// of each entry's run adds the run in order.  The arithmetic is the plain
-// backward's, so the two agree bit for bit; two runs give identical bits.
+// Backward, a step from the last to the first (2 + 2 x passes barriers),
+// then the launch rays: one thread per slot of the step's tape row reads
+// its children's adjoints (written by the step after it at the children's
+// provenance, zeroed as read), recomputes the step's decisions and values,
+// writes its own adjoint at its provenance, and stages its table
+// contributions (its record, its cell's out-coupling scale and deposit
+// rectangle, its three direction rows); the contributions are sorted by
+// table entry (stable, so in list order: slots in order, direction rows A,
+// B, then the hops).  The table add is warp-wide: a warp takes 32 sorted
+// contributions and every run that starts among them, its lanes the
+// entry's columns (26, or 6 for a direction row); it walks each run once in
+// list order with its rows' loads issued ahead of the add chain, so a
+// crowded entry costs one coalesced pass, not one thread re-walking the run
+// per column.  The arithmetic is the plain backward's, so the two agree bit
+// for bit; two runs give identical bits.
 //
-// What bounds it on an H100: the bytes of the wavefront and its tape (each
-// stepped slot read once and written once as a child, 13 words a kept
-// slot), the sort passes over the children (4 passes of 8 bits, 8 B a key
-// and index, read and written), the deposits and, backward, the table
-// contributions (about 60 words a slot); its float32 work is about 200
-// operations a slot forward and 600 backward.  At `optimize`'s widths
-// (thousands of slots) a step is a few microseconds of work in about 25
-// launches forward and 8 backward: launch latency bounds it.  A simple
-// kernel first.
+// What bounds it on an H100: the bytes a stepped slot must move
+// (chip_smoke.py's SPLIT_TRACE_BYTES: 100 B forward, 132 B backward) come
+// to 12-75 us a call at chip_smoke.py phase 23's widths, the float32 work
+// (about 230 operations a slot forward, 450 backward) to less.  What the
+// design pays instead is latency, phase by phase: 9 barriers a step forward
+// (the step, then four sort passes of two phases each; the compaction
+// rides on the last pass and the deposits' adds on a counting phase) and
+// 2 + 2 x passes backward (6 at optimize's table sizes), each a round trip
+// of every block through one L2 word, and within each phase a dependent
+// chain: a slot's step or adjoint on one thread (hundreds of float32
+// operations without contraction and its table loads), the sort's scan by
+// the last block to count, a crowded entry's run of adds.  The grid is kept
+// to the blocks a step's widths need, since a barrier costs more with more
+// blocks, and every phase's loads that do not depend on each other are
+// issued together.  tools/split_trace_phases.py times each phase and the
+// barrier alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,25 +81,29 @@
 namespace {
 
 constexpr int THREADS = 256;          // one slot (or child, or item) a thread
-constexpr int RED_THREADS = 1024;     // the ledger's block
+constexpr int LEDGER_THREADS = 1024;  // the ledger's order: a 1,024-thread sum
 constexpr int NT = 13;                // tape fields: the NF, cid, src
 constexpr int T_CID = 11, T_SRC = 12;
 constexpr int NCH = 12;               // children buffer fields: NF, cid
 constexpr int NADJ = 10;              // a slot's adjoint
 enum { A_X, A_Y, A_TER, A_TEI, A_TMR, A_TMI, A_COS, A_GX, A_GY, A_W };
-constexpr int RADIX = 256;
-constexpr int SORT_THREADS = 256;
-constexpr int SORT_ITEMS = 4;
-constexpr int TILE = SORT_THREADS * SORT_ITEMS;
-constexpr int SORT_WARPS = SORT_THREADS / 32;
+constexpr int RADIX = 256;            // == THREADS: a thread per digit
+constexpr int SORT_WARPS = THREADS / 32;
+constexpr int SCAN_AHEAD = 16;        // the scan's loads in flight
 constexpr unsigned NO_KEY = 0xFFFFFFFFu;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int ADD_GROUP = 16;         // contributions whose loads go ahead
 
 // the int parameters (engine/splitting.py::TRACE_PARAMS)
 enum { P_R, P_K, P_E, P_C, P_R2, P_NUM_FC, P_NUM_OC, P_NY, P_NX, P_M, P_N,
        P_HIST, P_SOFT, P_CIRCLE, P_GRID_N, P_E_IC, P_E_R1, P_E_R2, P_E_HULL,
-       P_T0, P_NSTEPS, P_RING, P_INIT, NPARAM };
-// device counters (engine/splitting.py::_NCNT, _CNT_STEPS)
-enum { CNT_ITEMS, CNT_LIVE, CNT_DEPS, CNT_USED, CNT_STEPS };
+       P_STEPS, P_RING, NPARAM };
+// device counters (engine/splitting.py::_NCNT, _CNT_STEPS, _CNT_BARRIERS):
+// live children and used deposits by step parity, the steps taken, the
+// barrier's arrivals and generation (the barriers passed), the sorts'
+// tickets
+enum { CNT_LIVE = 0, CNT_USED = 2, CNT_STEPS = 4, CNT_BAR = 5,
+       CNT_BAR_GEN = 6, CNT_TICK = 7, NCNT = 16 };
 
 struct Args {
   const float* rec;      // (E, 26) entry-major: cell g's key k at g * R2 + k
@@ -196,121 +224,189 @@ __device__ __forceinline__ int soft_bin(const Soft& s, int k, int nx) {
 }
 
 // ---------------------------------------------------------------------------
-// the stable LSD radix sort of (key, index) pairs, `count` of them on the
-// device (at most the launch's grid), 8 bits a pass
+// the grid: a barrier, counters, grid-stride loops
 
-__global__ void __launch_bounds__(SORT_THREADS)
-radix_hist(const unsigned* keys, const int* count, int shift,
-           unsigned* counts) {
-  __shared__ unsigned s[RADIX];
-  const int n = *count, nb = (n + TILE - 1) / TILE, b = blockIdx.x;
-  if (b >= nb) return;
-  for (int d = threadIdx.x; d < RADIX; d += SORT_THREADS) s[d] = 0u;
-  __syncthreads();
-  for (int k = 0; k < SORT_ITEMS; ++k) {
-    const int i = b * TILE + k * SORT_THREADS + threadIdx.x;
-    if (i < n) atomicAdd(&s[(keys[i] >> shift) & (RADIX - 1)], 1u);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < RADIX; d += SORT_THREADS)
-    counts[d * nb + b] = s[d];
+// a counter or width written by another block before the last barrier
+__device__ __forceinline__ int load_shared_int(const int* p) {
+  return *reinterpret_cast<const volatile int*>(p);
 }
 
-// exclusive scan of the (digit, block) counts, digit-major, in one block
-__global__ void __launch_bounds__(1024)
-radix_scan(unsigned* counts, const int* count) {
-  __shared__ unsigned s[1024];
-  const int n = *count, nb = (n + TILE - 1) / TILE, m = RADIX * nb;
-  const int per = (m + 1023) / 1024;
-  const int lo = min(m, (int)threadIdx.x * per), hi = min(m, lo + per);
-  unsigned sum = 0u;
-  for (int k = lo; k < hi; ++k) sum += counts[k];
-  s[threadIdx.x] = sum;
+// every block of the (co-resident) grid waits here for all the others;
+// what a block wrote before it is seen by every block after it.  bar[0]
+// counts the arrivals, bar[1] the barriers passed.  A wait of more than
+// about 2^35 cycles (some 20 s) traps: a launch error, not a hung card.
+__device__ void grid_sync(unsigned* bar) {
   __syncthreads();
-  for (int o = 1; o < 1024; o <<= 1) {
-    const unsigned v = threadIdx.x >= (unsigned)o ? s[threadIdx.x - o] : 0u;
-    __syncthreads();
-    s[threadIdx.x] += v;
-    __syncthreads();
-  }
-  unsigned run = threadIdx.x ? s[threadIdx.x - 1] : 0u;
-  for (int k = lo; k < hi; ++k) {
-    const unsigned c = counts[k];
-    counts[k] = run;
-    run += c;
-  }
-}
-
-// each item to its place: its digit's offset for the block, plus the items
-// of that digit before it in the block (in item order: stable)
-__global__ void __launch_bounds__(SORT_THREADS)
-radix_scatter(const unsigned* kin, const int* vin, unsigned* kout, int* vout,
-              const int* count, int shift, const unsigned* counts) {
-  __shared__ unsigned s_base[RADIX];
-  __shared__ unsigned s_wc[SORT_WARPS][RADIX];
-  const int n = *count, nb = (n + TILE - 1) / TILE, b = blockIdx.x;
-  if (b >= nb) return;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int d = tid; d < RADIX; d += SORT_THREADS)
-    s_base[d] = counts[d * nb + b];
-  for (int k = 0; k < SORT_ITEMS; ++k) {
-    const int i = b * TILE + k * SORT_THREADS + tid;
-    const bool valid = i < n;
-    const unsigned key = valid ? kin[i] : 0u;
-    const int d = valid ? (int)((key >> shift) & (RADIX - 1)) : RADIX;
-    for (int e = tid; e < SORT_WARPS * RADIX; e += SORT_THREADS)
-      s_wc[e / RADIX][e % RADIX] = 0u;
-    __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const unsigned rank = __popc(peers & ((1u << lane) - 1u));
-    if (valid && rank == 0u) s_wc[warp][d] = __popc(peers);
-    __syncthreads();
-    if (tid < RADIX) {
-      unsigned run = s_base[tid];
-      for (int w = 0; w < SORT_WARPS; ++w) {
-        const unsigned c = s_wc[w][tid];
-        s_wc[w][tid] = run;
-        run += c;
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      const long long t0 = clock64();
+      while (*gen == g) {
+        if (clock64() - t0 > (1LL << 35)) __trap();
       }
-      s_base[tid] = run;
     }
-    __syncthreads();
-    if (valid) {
-      const unsigned pos = s_wc[warp][d] + rank;
-      kout[pos] = key;
-      vout[pos] = vin ? vin[i] : i;
-    }
-    __syncthreads();
+    __threadfence();
   }
+  __syncthreads();
 }
 
-// the sort's buffers: keys and indices, two of each
+// a count summed over the block's threads, added to *ctr once a warp
+__device__ __forceinline__ void count_add(int* ctr, int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(ctr, v);
+}
+
+#define GRID_LOOP(i, n)                                             \
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < (n);         \
+       i += gridDim.x * THREADS)
+
+// ---------------------------------------------------------------------------
+// the stable LSD radix sort of (key, index) pairs, 8 bits a pass.  A block
+// takes a contiguous range of rounds of THREADS items, in ascending order,
+// so the sort is stable.
+
+// the sort's buffers: keys and indices, two of each; the blocks' digit
+// counts (grid, RADIX), scanned in place, and the digit offsets (RADIX)
 struct SortBuf {
   unsigned* k[2];
   int* v[2];
-  unsigned* counts;
+  unsigned* agg;
+  unsigned* off;
 };
 
-// sorts the first *count (<= nmax) pairs of (s.k[0], item index) by their
-// `bits` low key bits; returns the buffer that holds the result
-int radix_sort(const SortBuf& s, const int* count, int nmax, int bits,
-               cudaStream_t st, cudaError_t& err) {
-  const int blocks = (nmax + TILE - 1) / TILE;
-  const int passes = (bits + 7) / 8;
-  err = cudaSuccess;
-  if (blocks == 0) return 0;
-  for (int p = 0; p < passes; ++p) {
-    const int in = p & 1, out = in ^ 1;
-    radix_hist<<<blocks, SORT_THREADS, 0, st>>>(s.k[in], count, 8 * p,
-                                               s.counts);
-    radix_scan<<<1, 1024, 0, st>>>(s.counts, count);
-    radix_scatter<<<blocks, SORT_THREADS, 0, st>>>(
-        s.k[in], p == 0 ? nullptr : s.v[in], s.k[out], s.v[out], count,
-        8 * p, s.counts);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return 0;
+struct SortShared {
+  unsigned base[RADIX];
+  unsigned wc[SORT_WARPS][RADIX];
+  unsigned wsum[SORT_WARPS];
+  int last;
+};
+
+// the rounds [lo, hi) of the n items that this block takes, and the blocks
+// that take any
+__device__ __forceinline__ void sort_range(int n, int& lo, int& hi,
+                                           int& active) {
+  const int nr = (n + THREADS - 1) / THREADS;
+  const int per = (nr + (int)gridDim.x - 1) / (int)gridDim.x;
+  active = (nr + per - 1) / per;
+  lo = min(nr, (int)blockIdx.x * per);
+  hi = min(nr, lo + per);
+}
+
+// a pass's counts: the block's digits into agg[block]; the last block of
+// the pass to finish (its ticket) scans them: agg[b][d] becomes the count
+// of digit d in the blocks before b, off[d] the items of smaller digits
+__device__ void sort_hist(const SortBuf& s, int in, int n, int shift,
+                          int* tick, SortShared& sh) {
+  int lo, hi, active;
+  sort_range(n, lo, hi, active);
+  if (lo >= hi) return;
+  const int tid = threadIdx.x;
+  const unsigned* keys = s.k[in];
+  sh.base[tid] = 0u;
+  __syncthreads();
+  for (int r = lo; r < hi; ++r) {
+    const int i = r * THREADS + tid;
+    if (i < n) atomicAdd(&sh.base[(keys[i] >> shift) & (RADIX - 1)], 1u);
   }
-  return passes & 1;
+  __syncthreads();
+  s.agg[(size_t)blockIdx.x * RADIX + tid] = sh.base[tid];
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const bool last = atomicAdd(tick, 1) == active - 1;
+    if (last) __threadfence();
+    sh.last = last;
+  }
+  __syncthreads();
+  if (!sh.last) return;
+  unsigned run = 0u;
+  for (int b = 0; b < active; b += SCAN_AHEAD) {
+    unsigned c[SCAN_AHEAD];
+#pragma unroll
+    for (int q = 0; q < SCAN_AHEAD; ++q)
+      c[q] = b + q < active ? __ldcg(&s.agg[(size_t)(b + q) * RADIX + tid])
+                            : 0u;
+#pragma unroll
+    for (int q = 0; q < SCAN_AHEAD; ++q) {
+      if (b + q < active) {
+        s.agg[(size_t)(b + q) * RADIX + tid] = run;
+        run += c[q];
+      }
+    }
+  }
+  // the digit totals' exclusive scan: in each warp by shuffles, then the
+  // warps' sums
+  const int lane = tid & 31, warp = tid >> 5;
+  unsigned incl = run;
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) sh.wsum[warp] = incl;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) incl += sh.wsum[w];
+  s.off[tid] = incl - run;
+  if (tid == 0) *tick = 0;
+}
+
+// a pair to its place in the other buffers
+struct ScatterTo {
+  unsigned* kout;
+  int* vout;
+  __device__ void operator()(unsigned pos, unsigned key, int v) const {
+    kout[pos] = key;
+    vout[pos] = v;
+  }
+};
+
+// each item of the block's range to its place: its digit's offset for the
+// block, plus the items of that digit before it in the range (in item
+// order: stable); pass 0 takes the items' own indices.  place(pos, key,
+// index) puts it there.
+template <class Place>
+__device__ void sort_scatter(const SortBuf& s, int in, int n, int shift,
+                             SortShared& sh, const Place& place) {
+  int lo, hi, active;
+  sort_range(n, lo, hi, active);
+  if (lo >= hi) return;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned* kin = s.k[in];
+  const int* vin = shift == 0 ? nullptr : s.v[in];
+  sh.base[tid] = __ldcg(&s.agg[(size_t)blockIdx.x * RADIX + tid])
+                 + __ldcg(&s.off[tid]);
+  for (int r = lo; r < hi; ++r) {
+    const int i = r * THREADS + tid;
+    const bool valid = i < n;
+    const unsigned key = valid ? kin[i] : 0u;
+    const int d = valid ? (int)((key >> shift) & (RADIX - 1)) : RADIX;
+    for (int w = 0; w < SORT_WARPS; ++w) sh.wc[w][tid] = 0u;
+    __syncthreads();
+    const unsigned peers = __match_any_sync(FULL, d);
+    const unsigned rank = __popc(peers & ((1u << lane) - 1u));
+    if (valid && rank == 0u) sh.wc[warp][d] = __popc(peers);
+    __syncthreads();
+    unsigned run = sh.base[tid];
+    for (int w = 0; w < SORT_WARPS; ++w) {
+      const unsigned c = sh.wc[w][tid];
+      sh.wc[w][tid] = run;
+      run += c;
+    }
+    sh.base[tid] = run;
+    __syncthreads();
+    if (valid) place(sh.wc[warp][d] + rank, key, vin ? vin[i] : i);
+    __syncthreads();
+  }
+}
+
+__device__ void sort_scatter(const SortBuf& s, int in, int n, int shift,
+                             SortShared& sh) {
+  sort_scatter(s, in, n, shift, sh, ScatterTo{s.k[in ^ 1], s.v[in ^ 1]});
 }
 
 int bit_length(unsigned v) {
@@ -325,156 +421,266 @@ int bit_length(unsigned v) {
 // ---------------------------------------------------------------------------
 // the forward
 
-// a child into the children buffer (NCH fields of CH), with its sort key
-__device__ __forceinline__ void put_child(const Args& a, float* ch,
-                                          unsigned* keys, int j,
-                                          const Ray& r, int g, int* cnt) {
+// the forward's tensors and scratch
+struct Fwd {
+  float* tape;           // (rows, NT, K)
+  int* widths;           // (steps + 1,)
+  float* hist;
+  float* ledger;         // trunc, pruned
+  int* cnt;              // NCNT counters
+  float* ch;             // (NCH, CH) children
+  SortBuf sk;            // the children's sort, CH pairs
+  SortBuf sd;            // the deposits' sort, DN pairs
+  float* pr[2];          // (CH,) pruned weight of each child, by parity
+  float* drop;           // (CH,) weights past the capacity
+  float* dvals;          // (DN,)
+  int steps, ring, dpasses;
+};
+
+// a child into the children buffer (NCH fields of CH), with its sort key;
+// returns whether it lives
+__device__ __forceinline__ int put_child(const Args& a, float* ch,
+                                         unsigned* keys, int j,
+                                         const Ray& r, int g) {
   store_ray(ch, a.CH, j, r);
   ch[(size_t)T_CID * a.CH + j] = __int_as_float(g);
   const bool live = r.st < DEAD;
   // a live weight exceeds the threshold (>= 0): positive, so its bits order
   // it and ~bits sorts the heaviest first; no live key is NO_KEY
   keys[j] = live ? ~__float_as_uint(r.w) : NO_KEY;
-  if (live) atomicAdd(&cnt[CNT_LIVE], 1);
+  return live ? 1 : 0;
 }
 
-__global__ void __launch_bounds__(THREADS)
-init_kernel(const Args a, float* ch, unsigned* keys, float* pr, int* cnt) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i == 0) cnt[CNT_ITEMS] = 2 * a.R;
-  if (i >= a.R) return;
-  const int g = a.cid0[i];
-  const Cell c = cell_view(a, g);
-  float s[6];
-  for (int f = 0; f < 6; ++f) s[f] = a.rays[(size_t)f * a.R + i];
-  Ray ra, rb;
-  float pa, pb;
-  init_children(c, s, ra, rb, pa, pb);
-  put_child(a, ch, keys, i, ra, g, cnt);
-  put_child(a, ch, keys, a.R + i, rb, g, cnt);
-  pr[i] = pa;
-  pr[a.R + i] = pb;
-}
-
-// step t over tape row `row`: children, pruned weights and deposits
-__global__ void __launch_bounds__(THREADS)
-step_kernel(const Args a, const float* row, const int* widths, int t,
-            float* ch, unsigned* keys, float* pr, unsigned* dkeys,
-            float* dvals, int* cnt) {
-  const int n = widths[t];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i == 0) {
-    cnt[CNT_ITEMS] = 2 * n;
-    cnt[CNT_DEPS] = (a.soft ? 4 : 1) * n;
+// the launch rays' children (tape row 0's candidates)
+__device__ void init_phase(const Args& a, const Fwd& f) {
+  int live = 0;
+  float* pr = f.pr[1];
+  GRID_LOOP(i, a.R) {
+    const int g = a.cid0[i];
+    const Cell c = cell_view(a, g);
+    float s[6];
+    for (int q = 0; q < 6; ++q) s[q] = a.rays[(size_t)q * a.R + i];
+    Ray ra, rb;
+    float pa, pb;
+    init_children(c, s, ra, rb, pa, pb);
+    live += put_child(a, f.ch, f.sk.k[0], i, ra, g);
+    live += put_child(a, f.ch, f.sk.k[0], a.R + i, rb, g);
+    pr[i] = pa;
+    pr[a.R + i] = pb;
   }
-  if (i >= n) return;
-  const Ray r = load_ray(row, a.K, i);
-  const int g = __float_as_int(row[(size_t)T_CID * a.K + i]);
-  const Cell c = cell_view(a, g);
-  Ray ca, cb;
-  int dbin;
-  float dw, pa, pb;
-  step_children(c, r, ca, cb, dbin, dw, pa, pb);
-  put_child(a, ch, keys, i, ca, g, cnt);
-  put_child(a, ch, keys, n + i, cb, g, cnt);
-  pr[i] = pa;
-  pr[n + i] = pb;
-  const int base = grid_base(a, g);
-  if (!a.soft) {
-    const bool use = dbin >= 0;
-    dkeys[i] = use ? (unsigned)(base + dbin) : (unsigned)a.hist;
-    dvals[i] = dw;
-    if (use) atomicAdd(&cnt[CNT_USED], 1);
-    return;
+  count_add(&f.cnt[CNT_LIVE + 1], live);
+}
+
+// step t over tape row `row` (n slots): children, pruned weights and
+// deposits
+__device__ void step_phase(const Args& a, const Fwd& f, const float* row,
+                           int t, int n) {
+  int live = 0, used = 0;
+  float* pr = f.pr[t & 1];
+  unsigned* dkeys = f.sd.k[0];
+  GRID_LOOP(i, n) {
+    const Ray r = load_ray(row, a.K, i);
+    const int g = __float_as_int(row[(size_t)T_CID * a.K + i]);
+    const Cell c = cell_view(a, g);
+    Ray ca, cb;
+    int dbin;
+    float dw, pa, pb;
+    step_children(c, r, ca, cb, dbin, dw, pa, pb);
+    live += put_child(a, f.ch, f.sk.k[0], i, ca, g);
+    live += put_child(a, f.ch, f.sk.k[0], n + i, cb, g);
+    pr[i] = pa;
+    pr[n + i] = pb;
+    const int base = grid_base(a, g);
+    if (!a.soft) {
+      const bool use = dbin >= 0;
+      dkeys[i] = use ? (unsigned)(base + dbin) : (unsigned)a.hist;
+      f.dvals[i] = dw;
+      used += use;
+      continue;
+    }
+    // dw: the deposit weight inside the rectangle, else 0 (the soft mode's
+    // where(in_quad, dep_w, 0))
+    Soft s;
+    soft_bins(c.cell + C_EBR, r.x, r.y, a.ny, a.nx, s);
+    for (int k = 0; k < 4; ++k) {
+      const float val = dw * soft_weight(s, k);
+      const bool use = val != 0.0f;
+      dkeys[k * n + i] = use ? (unsigned)(base + soft_bin(s, k, a.nx))
+                             : (unsigned)a.hist;
+      f.dvals[k * n + i] = val;
+      used += use;
+    }
   }
-  // dw: the deposit weight inside the rectangle, else 0 (the soft mode's
-  // where(in_quad, dep_w, 0))
-  Soft s;
-  soft_bins(c.cell + C_EBR, r.x, r.y, a.ny, a.nx, s);
-  for (int k = 0; k < 4; ++k) {
-    const float val = dw * soft_weight(s, k);
-    const bool use = val != 0.0f;
-    dkeys[k * n + i] = use ? (unsigned)(base + soft_bin(s, k, a.nx))
-                           : (unsigned)a.hist;
-    dvals[k * n + i] = val;
-    if (use) atomicAdd(&cnt[CNT_USED], 1);
+  count_add(&f.cnt[CNT_LIVE + (t & 1)], live);
+  count_add(&f.cnt[CNT_USED + (t & 1)], used);
+}
+
+// the compaction, done by the children's last sort pass in place of its
+// scatter: child s at its sorted place j goes, if j < width = min(K,
+// live), into tape row `out` with its provenance, else, if live, its
+// weight to drop[j - K]
+struct PlaceChild {
+  const Args& a;
+  const Fwd& f;
+  float* out;
+  int live, width;
+  __device__ void operator()(unsigned pos, unsigned, int s) const {
+    const int j = (int)pos;
+    if (j < width) {
+      for (int q = 0; q < NCH; ++q)
+        out[(size_t)q * a.K + j] = f.ch[(size_t)q * a.CH + s];
+      out[(size_t)T_SRC * a.K + j] = __int_as_float(s);
+    } else if (j < live) {
+      f.drop[j - a.K] = f.ch[(size_t)F_W * a.CH + s];
+    }
+  }
+};
+
+// the sorted deposits of step t: each bin's first adds its run in order
+__device__ void deposit_phase(const Fwd& f, int t) {
+  const int used = load_shared_int(&f.cnt[CNT_USED + (t & 1)]);
+  const unsigned* bins = f.sd.k[f.dpasses & 1];
+  const int* order = f.sd.v[f.dpasses & 1];
+  GRID_LOOP(j, used) {
+    const unsigned b = bins[j];
+    if (j > 0 && bins[j - 1] == b) continue;
+    float acc = f.hist[b];
+    for (int u = j; u < used && bins[u] == b; ++u)
+      acc = acc + f.dvals[order[u]];
+    f.hist[b] = acc;
   }
 }
 
-// the sorted children: the first min(K, live) into tape row `out` with
-// their provenance, the other live ones' weights to `drop`
-__global__ void __launch_bounds__(THREADS)
-compact_kernel(const Args a, const float* ch, const int* order, float* out,
-               int* widths, int t1, float* drop, const int* cnt) {
-  const int live = cnt[CNT_LIVE];
-  const int width = min(a.K, live);
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j == 0) widths[t1] = width;
-  if (j >= live) return;
-  const int s = order[j];
-  if (j < width) {
-    for (int f = 0; f < NCH; ++f)
-      out[(size_t)f * a.K + j] = ch[(size_t)f * a.CH + s];
-    out[(size_t)T_SRC * a.K + j] = __int_as_float(s);
-  } else {
-    drop[j - a.K] = ch[(size_t)F_W * a.CH + s];
-  }
-}
-
-// the sorted deposits: each bin's first adds its run in order
-__global__ void __launch_bounds__(THREADS)
-deposit_kernel(const unsigned* bins, const int* order, const float* vals,
-               float* hist, const int* cnt) {
-  const int used = cnt[CNT_USED];
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= used) return;
-  const unsigned b = bins[j];
-  if (j > 0 && bins[j - 1] == b) return;
-  float acc = hist[b];
-  for (int u = j; u < used && bins[u] == b; ++u) acc = acc + vals[order[u]];
-  hist[b] = acc;
-}
-
-// a block-wide sum of one double per thread in a fixed order
-__device__ double block_sum(double v, double* s_red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+// a sum over the block of one double per virtual thread v * THREADS + tid
+// of a LEDGER_THREADS-thread block, in that block's order: each virtual
+// warp by shuffles, then the virtual warps' sums in order
+__device__ double ledger_sum(const double* v, double* s_red) {
+  constexpr int V = LEDGER_THREADS / THREADS;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __syncthreads();
-  if (lane == 0) s_red[warp] = v;
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    double x = v[q];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+    if (lane == 0) s_red[q * SORT_WARPS + warp] = x;
+  }
   __syncthreads();
   double t = 0.0;
-  for (int k = 0; k < RED_THREADS / 32; ++k) t += s_red[k];
+  for (int k = 0; k < LEDGER_THREADS / 32; ++k) t += s_red[k];
   return t;
 }
 
-// the step's ledgers (t < 0: the launch rays' children), the step count,
-// and the counters reset for the next step
-__global__ void __launch_bounds__(RED_THREADS)
-ledger_kernel(const Args a, const int* widths, int t, const float* pr,
-              const float* drop, float* ledger, int* cnt) {
-  __shared__ double s_red[RED_THREADS / 32];
-  const int n = t < 0 ? a.R : widths[t];
-  const int ndrop = max(0, cnt[CNT_LIVE] - a.K);
-  double sa = 0.0, sb = 0.0, sd = 0.0;
-  for (int i = threadIdx.x; i < n; i += RED_THREADS) {
-    sa += pr[i];
-    sb += pr[n + i];
+// one block (the last: the one a step's grid-stride loops load least):
+// step t's ledgers (t < 0: the launch rays' children), the step count,
+// and the step parity's counters reset for step t + 2.  Virtual thread
+// q * THREADS + tid sums items q * THREADS + tid + k * LEDGER_THREADS in
+// order; the loads of the four go together.
+__device__ void ledger_block(const Args& a, const Fwd& f, int t,
+                             double* s_red) {
+  constexpr int V = LEDGER_THREADS / THREADS;
+  const int n = t < 0 ? a.R : load_shared_int(&f.widths[t]);
+  const int ndrop = max(0, load_shared_int(&f.cnt[CNT_LIVE + (t & 1)])
+                             - a.K);
+  const float* pr = f.pr[t & 1];
+  double sa[V], sb[V], sd[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    sa[q] = 0.0;
+    sb[q] = 0.0;
+    sd[q] = 0.0;
   }
-  for (int i = threadIdx.x; i < ndrop; i += RED_THREADS) sd += drop[i];
-  sa = block_sum(sa, s_red);
-  sb = block_sum(sb, s_red);
-  sd = block_sum(sd, s_red);
+  for (int i0 = threadIdx.x; i0 < n; i0 += LEDGER_THREADS) {
+    float va[V], vb[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int i = i0 + q * THREADS;
+      va[q] = i < n ? pr[i] : 0.0f;
+      vb[q] = i < n ? pr[n + i] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      if (i0 + q * THREADS < n) {
+        sa[q] += va[q];
+        sb[q] += vb[q];
+      }
+    }
+  }
+  for (int i0 = threadIdx.x; i0 < ndrop; i0 += LEDGER_THREADS) {
+    float vd[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int i = i0 + q * THREADS;
+      vd[q] = i < ndrop ? f.drop[i] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (i0 + q * THREADS < ndrop) sd[q] += vd[q];
+  }
+  const double ta = ledger_sum(sa, s_red);
+  const double tb = ledger_sum(sb, s_red);
+  const double td = ledger_sum(sd, s_red);
   if (threadIdx.x == 0) {
-    ledger[1] = ledger[1] + ((float)sa + (float)sb);
-    ledger[0] = ledger[0] + (float)sd;
-    if (t >= 0 && n > 0) cnt[CNT_STEPS] += 1;
-    cnt[CNT_LIVE] = 0;
-    cnt[CNT_USED] = 0;
+    f.ledger[1] = f.ledger[1] + ((float)ta + (float)tb);
+    f.ledger[0] = f.ledger[0] + (float)td;
+    if (t >= 0 && n > 0) f.cnt[CNT_STEPS] += 1;
+    f.cnt[CNT_LIVE + (t & 1)] = 0;
+    f.cnt[CNT_USED + (t & 1)] = 0;
   }
 }
 
-// ---------------------------------------------------------------------------
-// the backward
+// step t's sorts (t < 0: the launch rays'): the four passes of its n
+// children, the last of which compacts them into tape row `out` (and the
+// width into widths[t + 1]), and side by side the f.dpasses passes of its
+// dn deposits, whose adds run in the phase after their last pass
+__device__ void sort_and_compact(const Args& a, const Fwd& f, int t, int n,
+                                 int dn, float* out, unsigned* bar,
+                                 SortShared& sh) {
+  const int live = load_shared_int(&f.cnt[CNT_LIVE + (t & 1)]);
+  const int width = min(a.K, live);
+  if (blockIdx.x == 0 && threadIdx.x == 0) f.widths[t + 1] = width;
+  for (int p = 0; p < 4; ++p) {
+    const bool dep = p < f.dpasses && dn > 0;
+    sort_hist(f.sk, p & 1, n, 8 * p, &f.cnt[CNT_TICK], sh);
+    if (dep) sort_hist(f.sd, p & 1, dn, 8 * p, &f.cnt[CNT_TICK + 1], sh);
+    if (dn > 0 && p == f.dpasses) deposit_phase(f, t);
+    grid_sync(bar);
+    if (p < 3)
+      sort_scatter(f.sk, p & 1, n, 8 * p, sh);
+    else
+      sort_scatter(f.sk, p & 1, n, 8 * p, sh,
+                   PlaceChild{a, f, out, live, width});
+    if (dep) sort_scatter(f.sd, p & 1, dn, 8 * p, sh);
+    grid_sync(bar);
+  }
+  if (dn > 0 && f.dpasses == 4) {
+    deposit_phase(f, t);
+    grid_sync(bar);
+  }
+}
+
+// the whole forward: the launch rays' children, then up to f.steps steps,
+// leaving after the step whose kept wavefront is empty
+__global__ void __launch_bounds__(THREADS)
+split_forward_kernel(const Args a, const Fwd f) {
+  __shared__ SortShared sh;
+  __shared__ double s_red[LEDGER_THREADS / 32];
+  unsigned* bar = reinterpret_cast<unsigned*>(f.cnt + CNT_BAR);
+  const size_t row = (size_t)NT * a.K;
+  init_phase(a, f);
+  grid_sync(bar);
+  if (a.R > 0) sort_and_compact(a, f, -1, 2 * a.R, 0, f.tape, bar, sh);
+  for (int t = 0;; ++t) {
+    if (blockIdx.x == gridDim.x - 1) ledger_block(a, f, t - 1, s_red);
+    const int n = load_shared_int(&f.widths[t]);
+    if (t >= f.steps || n == 0) break;
+    const size_t r_in = f.ring ? (size_t)(t & 1) : (size_t)t;
+    const size_t r_out = f.ring ? (size_t)((t + 1) & 1) : (size_t)t + 1;
+    step_phase(a, f, f.tape + r_in * row, t, n);
+    grid_sync(bar);
+    sort_and_compact(a, f, t, 2 * n, (a.soft ? 4 : 1) * n,
+                     f.tape + r_out * row, bar, sh);
+  }
+}
 
 // the adjoint of jones(): the matrix's (8) and the polarisation's (4)
 __device__ __forceinline__ void jones_adjoint(const float* j, float ter,
@@ -525,21 +731,15 @@ __device__ void branch_adjoint(const float* bp, float pw, const float* D,
   dbp[2] = dq2 * inv + (bp[2] + bp[2]) * dpw;
   dbp[3] = dq3 * inv + (bp[3] + bp[3]) * dpw;
 }
-
-// step t's adjoint (splitting.py::_step_adjoint), one thread per slot of
-// tape row `row`: children's adjoints from lam_in (zeroed as read), the
-// slot's into lam_out at its provenance, the contributions staged with
+// step t's adjoint (splitting.py::_step_adjoint) for slot i of tape row
+// `row` (n slots): its children's adjoints from lam_in (zeroed as read),
+// its own into lam_out at its provenance, its contributions staged with
 // their table entries as sort keys (records [0, n), cells [n, 2n),
 // direction rows A, B, hop [2n, 5n))
-__global__ void __launch_bounds__(THREADS)
-adjoint_kernel(const Args a, const float* row, const int* widths, int t,
-               const float* gh, float* lam_in, float* lam_out, int LC,
-               float* c_rec, float* c_cell, float* c_dirs, unsigned* keys,
-               int* cnt) {
-  const int n = widths[t];
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i == 0) cnt[CNT_ITEMS] = 5 * n;
-  if (i >= n) return;
+__device__ void adjoint_slot(const Args& a, const float* row, int n, int i,
+                             const float* gh, float* lam_in, float* lam_out,
+                             int LC, float* c_rec, float* c_cell,
+                             float* c_dirs, unsigned* keys) {
   const Ray r = load_ray(row, a.K, i);
   const int g = __float_as_int(row[(size_t)T_CID * a.K + i]);
   const int src = __float_as_int(row[(size_t)T_SRC * a.K + i]);
@@ -717,15 +917,11 @@ adjoint_kernel(const Args a, const float* row, const int* widths, int t,
   keys[4 * n + i] = dbase + hop_dir;
 }
 
-// split_init's adjoint (splitting.py::_init_adjoint), one thread per launch
-// ray: cells [0, 2R) (A of ray r at r, B at R + r), direction rows
-// [2R, 4R)
-__global__ void __launch_bounds__(THREADS)
-init_adjoint_kernel(const Args a, float* lam_in, int LC, float* c_cell,
-                    float* c_dirs, unsigned* keys, int* cnt) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i == 0) cnt[CNT_ITEMS] = 4 * a.R;
-  if (i >= a.R) return;
+// split_init's adjoint (splitting.py::_init_adjoint) for launch ray i:
+// cells [0, 2R) (A of ray r at r, B at R + r), direction rows [2R, 4R)
+__device__ void init_adjoint_ray(const Args& a, int i, float* lam_in, int LC,
+                                 float* c_cell, float* c_dirs,
+                                 unsigned* keys) {
   const int g = a.cid0[i];
   const Cell c = cell_view(a, g);
   float s[6];
@@ -787,50 +983,262 @@ init_adjoint_kernel(const Args a, float* lam_in, int LC, float* c_cell,
   }
 }
 
-// the sorted contributions: each table entry's first adds the entry's run
-// in list order (t < 0: the launch rays' lists)
-__global__ void __launch_bounds__(THREADS)
-table_add_kernel(const Args a, const int* widths, int t,
-                 const unsigned* ents, const int* order, const float* c_rec,
-                 const float* c_cell, const float* c_dirs, float* d_rec,
-                 float* d_cell, float* d_dirs, const int* cnt) {
-  const int items = cnt[CNT_ITEMS];
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= items) return;
-  const unsigned e = ents[j];
-  if (j > 0 && ents[j - 1] == e) return;
-  const int n = t < 0 ? 0 : widths[t];
-  const int rec_end = n;
-  const int cell_end = t < 0 ? 2 * a.R : 2 * n;
+// ---------------------------------------------------------------------------
+// the backward
+
+// the backward's tensors and scratch
+struct Bwd {
+  const float* tape;     // (steps + 1, NT, K)
+  const int* widths;     // (steps + 1,)
+  const float* gh;       // the histogram's adjoint
+  float* d_rec;          // the tables' adjoints, entry-major
+  float* d_cell;
+  float* d_dirs;
+  int* cnt;              // NCNT counters
+  float* lam;            // (2, NADJ, LC) children's adjoints, two levels
+  int LC;
+  float* c_rec;          // (K, 26)
+  float* c_cell;         // (max(K, 2R), 26)
+  float* c_dirs;         // (max(3K, 2R), 6)
+  SortBuf sc;            // the contributions' sort, max(5K, 4R) pairs
+  int steps, passes;
+};
+
+// where a table entry's run adds, the contributions it adds (row width,
+// and the entry type's first row in the list)
+struct Entry {
   float* dst;
   const float* src;
   int width, off;
+};
+
+__device__ __forceinline__ Entry entry_of(const Args& a, const Bwd& b,
+                                          unsigned e, int rec_end,
+                                          int cell_end) {
+  Entry x;
   if (e < (unsigned)a.E) {
-    dst = d_rec + (size_t)e * REC_W;
-    src = c_rec;
-    width = REC_W;
-    off = 0;
+    x.dst = b.d_rec + (size_t)e * REC_W;
+    x.src = b.c_rec;
+    x.width = REC_W;
+    x.off = 0;
   } else if (e < (unsigned)(a.E + a.C)) {
-    dst = d_cell + (size_t)(e - a.E) * CELL_W;
-    src = c_cell;
-    width = CELL_W;
-    off = rec_end;
+    x.dst = b.d_cell + (size_t)(e - a.E) * CELL_W;
+    x.src = b.c_cell;
+    x.width = CELL_W;
+    x.off = rec_end;
   } else {
-    dst = d_dirs + (size_t)(e - a.E - a.C) * DIR_W;
-    src = c_dirs;
-    width = DIR_W;
-    off = cell_end;
+    x.dst = b.d_dirs + (size_t)(e - a.E - a.C) * DIR_W;
+    x.src = b.c_dirs;
+    x.width = DIR_W;
+    x.off = cell_end;
   }
-  for (int k = 0; k < width; ++k) {
-    float acc = dst[k];
-    for (int u = j; u < items && ents[u] == e; ++u)
-      acc = acc + src[(size_t)(order[u] - off) * width + k];
-    dst[k] = acc;
+  return x;
+}
+
+// the run a warp adds: its entry and, in lane k, column k's sum
+struct Run {
+  unsigned e;
+  Entry x;
+  float acc;
+  bool open;
+};
+
+__device__ __forceinline__ void close_run(Run& r, int lane) {
+  if (r.open && lane < r.x.width) r.x.dst[lane] = r.acc;
+  r.open = false;
+}
+
+// the items [lo, hi) of a window of 32 sorted contributions (lane q holds
+// item q's entry e_l and list index o_l) in list order: a head (its bit in
+// `heads`) closes the open run and opens its own, starting from the
+// entry's sum so far.  The rows (and the heads' sums) of ADD_GROUP items
+// are loaded before they are added.
+__device__ void add_window(const Args& a, const Bwd& b, unsigned e_l,
+                           int o_l, int lo, int hi, unsigned heads,
+                           int rec_end, int cell_end, Run& run) {
+  const int lane = threadIdx.x & 31;
+  for (int q0 = lo; q0 < hi; q0 += ADD_GROUP) {
+    float v[ADD_GROUP], d[ADD_GROUP];
+    unsigned ee[ADD_GROUP];
+#pragma unroll
+    for (int q = 0; q < ADD_GROUP; ++q) {
+      const int p = q0 + q;
+      const unsigned e = __shfl_sync(FULL, e_l, p & 31);
+      const int o = __shfl_sync(FULL, o_l, p & 31);
+      ee[q] = e;
+      v[q] = 0.0f;
+      d[q] = 0.0f;
+      if (p < hi) {
+        const Entry x = entry_of(a, b, e, rec_end, cell_end);
+        if (lane < x.width) {
+          v[q] = x.src[(size_t)(o - x.off) * x.width + lane];
+          if ((heads >> p) & 1u) d[q] = x.dst[lane];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < ADD_GROUP; ++q) {
+      const int p = q0 + q;
+      if (p < hi) {
+        if ((heads >> p) & 1u) {
+          close_run(run, lane);
+          run.e = ee[q];
+          run.x = entry_of(a, b, ee[q], rec_end, cell_end);
+          run.acc = d[q];
+          run.open = true;
+        }
+        run.acc = run.acc + v[q];
+      }
+    }
+  }
+}
+
+// the rest of an open run through the next window (whose first `hi` items
+// are the run's: lane q holds item q's list index o_l): each lane loads
+// its column of the hi rows, then adds them in order
+__device__ __forceinline__ void add_run_window(int o_l, int hi, Run& run) {
+  const int lane = threadIdx.x & 31;
+  float v[32];
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const int o = __shfl_sync(FULL, o_l, q);
+    v[q] = q < hi && lane < run.x.width
+               ? run.x.src[(size_t)(o - run.x.off) * run.x.width + lane]
+               : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < 32; ++q)
+    if (q < hi) run.acc = run.acc + v[q];
+}
+
+// the row of an open run's item (entry e, list index o) into L1, ahead of
+// its add; items of other entries are skipped
+__device__ __forceinline__ void prefetch_row(const Run& run, unsigned e,
+                                             int o) {
+  if (e != run.e) return;
+  const float* r = run.x.src + (size_t)(o - run.x.off) * run.x.width;
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(r));
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(r + run.x.width - 1));
+}
+
+// the sorted contributions of step t (n slots; t < 0: the launch rays'),
+// `items` of them: a warp takes 32 and adds every run that starts among
+// them to its end, each lane its column, in list order.  A run that goes
+// on past the window is followed window by window, its entries and list
+// indices loaded four windows ahead and its rows prefetched two ahead.
+__device__ void table_add_phase(const Args& a, const Bwd& b, int t, int n,
+                                int items) {
+  const int lane = threadIdx.x & 31;
+  const unsigned* ents = b.sc.k[b.passes & 1];
+  const int* order = b.sc.v[b.passes & 1];
+  const int rec_end = n;
+  const int cell_end = t < 0 ? 2 * a.R : 2 * n;
+  const int stride = gridDim.x * THREADS;
+  for (int j0 = blockIdx.x * THREADS + (threadIdx.x & ~31); j0 < items;
+       j0 += stride) {
+    const int j = j0 + lane;
+    const unsigned e_l = j < items ? ents[j] : NO_KEY;
+    const int o_l = j < items ? order[j] : 0;
+    unsigned prev = __shfl_up_sync(FULL, e_l, 1);
+    if (lane == 0) prev = j0 > 0 ? ents[j0 - 1] : NO_KEY;
+    const unsigned heads = __ballot_sync(FULL, j < items && e_l != prev);
+    if (!heads) continue;
+    // the next window, in case the last run goes on past this one
+    int jw = j0 + 32 + lane;
+    unsigned ew = jw < items ? ents[jw] : NO_KEY;
+    int ow = jw < items ? order[jw] : 0;
+    Run run;
+    run.open = false;
+    add_window(a, b, e_l, o_l, __ffs(heads) - 1, min(32, items - j0), heads,
+               rec_end, cell_end, run);
+    unsigned same = __ballot_sync(FULL, jw < items && ew == run.e);
+    if (same) {
+      unsigned e1, e2, e3, e4;
+      int o1, o2, o3, o4;
+#define AHEAD(e, o, k)                                          \
+  do {                                                          \
+    const int j_ = jw + 32 * (k);                               \
+    e = j_ < items ? ents[j_] : NO_KEY;                         \
+    o = j_ < items ? order[j_] : 0;                             \
+  } while (0)
+      AHEAD(e1, o1, 1);
+      AHEAD(e2, o2, 2);
+      AHEAD(e3, o3, 3);
+      AHEAD(e4, o4, 4);
+      prefetch_row(run, ew, ow);
+      prefetch_row(run, e1, o1);
+      for (;;) {
+        if (same != FULL) {
+          add_run_window(ow, __ffs(~same) - 1, run);
+          break;
+        }
+        prefetch_row(run, e2, o2);
+        unsigned e5;
+        int o5;
+        AHEAD(e5, o5, 5);
+        add_run_window(ow, 32, run);
+        jw += 32;
+        ew = e1, ow = o1, e1 = e2, o1 = o2, e2 = e3, o2 = o3;
+        e3 = e4, o3 = o4, e4 = e5, o4 = o5;
+        same = __ballot_sync(FULL, jw < items && ew == run.e);
+        if (!same) break;
+      }
+#undef AHEAD
+    }
+    close_run(run, lane);
+  }
+}
+
+// the passes of one sort of n pairs
+__device__ void sort_passes(const SortBuf& s, int n, int passes, int* tick,
+                            unsigned* bar, SortShared& sh) {
+  for (int p = 0; p < passes; ++p) {
+    sort_hist(s, p & 1, n, 8 * p, tick, sh);
+    grid_sync(bar);
+    sort_scatter(s, p & 1, n, 8 * p, sh);
+    grid_sync(bar);
+  }
+}
+
+// the whole backward: the adjoints' levels zeroed, the steps from the last
+// to the first, then the launch rays.  Two blocks of THREADS a SM: the
+// adjoint needs about 120 registers.
+__global__ void __launch_bounds__(THREADS, 2)
+split_backward_kernel(const Args a, const Bwd b) {
+  __shared__ SortShared sh;
+  unsigned* bar = reinterpret_cast<unsigned*>(b.cnt + CNT_BAR);
+  const size_t row = (size_t)NT * a.K;
+  const size_t level = (size_t)NADJ * b.LC;
+  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < 2 * level;
+       i += (size_t)gridDim.x * THREADS)
+    b.lam[i] = 0.0f;
+  grid_sync(bar);
+  for (int t = b.steps - 1; t >= 0; --t) {
+    const int n = b.widths[t];
+    if (n == 0) continue;
+    const float* rt = b.tape + (size_t)t * row;
+    float* lam_in = b.lam + (size_t)(t & 1) * level;
+    float* lam_out = b.lam + (size_t)((t + 1) & 1) * level;
+    GRID_LOOP(i, n)
+      adjoint_slot(a, rt, n, i, b.gh, lam_in, lam_out, b.LC, b.c_rec,
+                   b.c_cell, b.c_dirs, b.sc.k[0]);
+    grid_sync(bar);
+    sort_passes(b.sc, 5 * n, b.passes, &b.cnt[CNT_TICK], bar, sh);
+    table_add_phase(a, b, t, n, 5 * n);
+    grid_sync(bar);
+  }
+  if (a.R > 0) {
+    GRID_LOOP(i, a.R)
+      init_adjoint_ray(a, i, b.lam + level, b.LC, b.c_cell, b.c_dirs,
+                       b.sc.k[0]);
+    grid_sync(bar);
+    sort_passes(b.sc, 4 * a.R, b.passes, &b.cnt[CNT_TICK], bar, sh);
+    table_add_phase(a, b, -1, 0, 4 * a.R);
   }
 }
 
 // ---------------------------------------------------------------------------
-// scratch layouts
+// scratch layouts and the launch
 
 size_t align_up(size_t v) { return (v + 255) & ~(size_t)255; }
 
@@ -845,47 +1253,40 @@ struct Carve {
   }
 };
 
-struct FwdScratch {
-  float* ch;             // (NCH, CH) children
-  SortBuf sk;            // the children's sort, CH pairs
-  float* pr;             // (CH,) pruned weight of each child
-  float* drop;           // (CH,) weights past the capacity
-  SortBuf sd;            // the deposits' sort, DN pairs
-  float* dvals;          // (DN,)
-};
+// the blocks of a step's widest phase: the forward's 2K children, the
+// backward's 5K contributions (a warp takes 32); the grid is at most that
+int fwd_blocks(const Args& a) {
+  return (int)((2LL * a.K + THREADS - 1) / THREADS);
+}
 
-size_t fwd_scratch(const Args& a, char* base, FwdScratch& s) {
+int bwd_blocks(const Args& a) {
+  return (int)((5LL * a.K + THREADS - 1) / THREADS);
+}
+
+size_t fwd_scratch(const Args& a, char* base, Fwd& f) {
   const size_t DN = (size_t)(a.soft ? 4 : 1) * a.K;
-  const size_t nmax = (size_t)a.CH > DN ? (size_t)a.CH : DN;
+  const size_t rows = (size_t)fwd_blocks(a) * RADIX;
   Carve c{base, 0};
-  s.ch = c.take<float>((size_t)NCH * a.CH);
+  f.ch = c.take<float>((size_t)NCH * a.CH);
   for (int b = 0; b < 2; ++b) {
-    s.sk.k[b] = c.take<unsigned>(a.CH);
-    s.sk.v[b] = c.take<int>(a.CH);
-    s.sd.k[b] = c.take<unsigned>(DN);
-    s.sd.v[b] = c.take<int>(DN);
+    f.sk.k[b] = c.take<unsigned>(a.CH);
+    f.sk.v[b] = c.take<int>(a.CH);
+    f.sd.k[b] = c.take<unsigned>(DN);
+    f.sd.v[b] = c.take<int>(DN);
+    f.pr[b] = c.take<float>(a.CH);
   }
-  s.sk.counts = s.sd.counts = c.take<unsigned>(RADIX * ((nmax + TILE - 1)
-                                                         / TILE));
-  s.pr = c.take<float>(a.CH);
-  s.drop = c.take<float>(a.CH);
-  s.dvals = c.take<float>(DN);
+  f.sk.agg = c.take<unsigned>(rows);
+  f.sd.agg = c.take<unsigned>(rows);
+  f.sk.off = c.take<unsigned>(RADIX);
+  f.sd.off = c.take<unsigned>(RADIX);
+  f.drop = c.take<float>(a.CH);
+  f.dvals = c.take<float>(DN);
   return c.at;
 }
 
-struct BwdScratch {
-  float* lam;            // (2, NADJ, LC) children's adjoints, two levels
-  int LC;
-  float* c_rec;          // (K, 26)
-  float* c_cell;         // (max(K, 2R), 26)
-  float* c_dirs;         // (max(3K, 2R), 6)
-  SortBuf sc;            // the contributions' sort, max(5K, 4R) pairs
-  int NI;
-};
-
-size_t bwd_scratch(const Args& a, char* base, BwdScratch& s) {
+size_t bwd_scratch(const Args& a, char* base, Bwd& s) {
   s.LC = a.CH;
-  s.NI = 5 * a.K > 4 * a.R ? 5 * a.K : 4 * a.R;
+  const int NI = 5 * a.K > 4 * a.R ? 5 * a.K : 4 * a.R;
   Carve c{base, 0};
   s.lam = c.take<float>((size_t)2 * NADJ * s.LC);
   s.c_rec = c.take<float>((size_t)a.K * REC_W);
@@ -893,10 +1294,11 @@ size_t bwd_scratch(const Args& a, char* base, BwdScratch& s) {
   s.c_dirs = c.take<float>((size_t)(3 * a.K > 2 * a.R ? 3 * a.K : 2 * a.R)
                            * DIR_W);
   for (int b = 0; b < 2; ++b) {
-    s.sc.k[b] = c.take<unsigned>(s.NI);
-    s.sc.v[b] = c.take<int>(s.NI);
+    s.sc.k[b] = c.take<unsigned>(NI);
+    s.sc.v[b] = c.take<int>(NI);
   }
-  s.sc.counts = c.take<unsigned>(RADIX * ((s.NI + TILE - 1) / TILE));
+  s.sc.agg = c.take<unsigned>((size_t)bwd_blocks(a) * RADIX);
+  s.sc.off = c.take<unsigned>(RADIX);
   return c.at;
 }
 
@@ -907,21 +1309,37 @@ bool params_ok(const int* p) {
          && p[P_NUM_OC] >= 1 && p[P_NY] >= 2 && p[P_NX] >= 2
          && p[P_M] >= 1 && p[P_N] >= 1 && p[P_GRID_N] >= 1
          && p[P_HIST] > 0 && p[P_E_IC] >= 0 && p[P_E_R1] >= 0
-         && p[P_E_R2] >= 0 && p[P_E_HULL] >= 0 && p[P_T0] >= 0
-         && p[P_NSTEPS] >= 0
+         && p[P_E_R2] >= 0 && p[P_E_HULL] >= 0 && p[P_STEPS] >= 0
          // keys: a bin (or hist) and the table entries in 32 bits, children
-         // indices in 31
+         // indices in 31, 5K contributions in an int
          && (long long)p[P_E] + 5LL * p[P_C] < (1LL << 31)
-         && 2LL * (p[P_R] > p[P_K] ? p[P_R] : p[P_K]) < (1LL << 30);
+         && 2LL * (p[P_R] > p[P_K] ? p[P_R] : p[P_K]) < (1LL << 30)
+         && 5LL * p[P_K] < (1LL << 31);
 }
 
-int blocks_of(long long n) { return (int)((n + THREADS - 1) / THREADS); }
-
-#define CHECK_LAUNCH()                          \
-  do {                                          \
-    const cudaError_t e_ = cudaGetLastError();  \
-    if (e_ != cudaSuccess) return (int)e_;      \
-  } while (0)
+// the cooperative launch of `fn` on min(blocks, resident blocks per SM x
+// SMs) blocks of THREADS; info: kernels launched, the grid, resident
+// blocks per SM
+int launch(const void* fn, int blocks, void** args, cudaStream_t st,
+           int* info) {
+  int dev, sms, per_sm;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, THREADS,
+                                                      0);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int grid = max(1, min(blocks, per_sm * sms));
+  info[1] = grid;
+  info[2] = per_sm;
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(THREADS), args, 0,
+                                  st);
+  if (e != cudaSuccess) return (int)e;
+  info[0] = 1;
+  return 0;
+}
 
 }  // namespace
 
@@ -931,126 +1349,73 @@ extern "C" size_t split_trace_scratch_bytes(const int* p, int backward) {
   const Args a = make_args(p, 0.0f, nullptr, nullptr, nullptr, nullptr,
                            nullptr, nullptr, nullptr);
   if (backward) {
-    BwdScratch s;
+    Bwd s;
     return bwd_scratch(a, nullptr, s);
   }
-  FwdScratch s;
+  Fwd s;
   return fwd_scratch(a, nullptr, s);
 }
 
-// The forward on `stream`: with p[P_INIT], the launch rays' children into
-// tape row 0; then steps p[P_T0] .. p[P_T0] + p[P_NSTEPS] - 1, step t
-// sweeping row t into row t + 1 (p[P_RING]: rows t & 1 and (t + 1) & 1),
-// its deposits into hist and its ledgers into ledger (trunc, pruned).
-// counters: int[8] (zero before the first call), widths: int[steps + 1].
-// Returns a cudaError_t code (0: launched).
+// The forward on `stream`, one kernel: the launch rays' children into tape
+// row 0, then up to p[P_STEPS] steps, step t sweeping row t into row t + 1
+// (p[P_RING]: rows t & 1 and (t + 1) & 1), its deposits into hist and its
+// ledgers into ledger (trunc, pruned); it stops after the first step that
+// keeps no slot.  counters: int[NCNT] then widths int[steps + 1], all zero
+// before the call.  info: int[3] (kernels launched, grid, resident blocks
+// per SM).  Returns a cudaError_t code (0: launched).
 extern "C" int split_trace_forward(
     const int* p, float thr, const void* rec, const void* cell,
     const void* dirs, const void* geom, const void* grid, const void* rays,
     const void* cid, void* tape, void* widths, void* hist, void* ledger,
-    void* counters, void* scratch, void* stream) {
+    void* counters, void* scratch, int* info, void* stream) {
+  info[0] = 0;
   if (!params_ok(p)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(p, thr, rec, cell, dirs, geom, grid, rays, cid);
-  FwdScratch s;
-  fwd_scratch(a, static_cast<char*>(scratch), s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* rows = static_cast<float*>(tape);
-  int* w = static_cast<int*>(widths);
-  int* cnt = static_cast<int*>(counters);
-  float* h = static_cast<float*>(hist);
-  float* led = static_cast<float*>(ledger);
-  const size_t row = (size_t)NT * a.K;
-  const int DN = (a.soft ? 4 : 1) * a.K;
-  const int dbits = bit_length((unsigned)a.hist);
-  cudaError_t err;
-  if (p[P_INIT]) {
-    if (a.R > 0)
-      init_kernel<<<blocks_of(a.R), THREADS, 0, st>>>(a, s.ch, s.sk.k[0],
-                                                      s.pr, cnt);
-    CHECK_LAUNCH();
-    const int o = radix_sort(s.sk, cnt + CNT_ITEMS, 2 * a.R, 32, st, err);
-    if (err != cudaSuccess) return (int)err;
-    compact_kernel<<<blocks_of(a.CH), THREADS, 0, st>>>(
-        a, s.ch, s.sk.v[o], rows, w, 0, s.drop, cnt);
-    ledger_kernel<<<1, RED_THREADS, 0, st>>>(a, w, -1, s.pr, s.drop, led,
-                                             cnt);
-    CHECK_LAUNCH();
-  }
-  for (int t = p[P_T0]; t < p[P_T0] + p[P_NSTEPS]; ++t) {
-    const size_t r_in = p[P_RING] ? (size_t)(t & 1) : (size_t)t;
-    const size_t r_out = p[P_RING] ? (size_t)((t + 1) & 1) : (size_t)t + 1;
-    step_kernel<<<blocks_of(a.K), THREADS, 0, st>>>(
-        a, rows + r_in * row, w, t, s.ch, s.sk.k[0], s.pr, s.sd.k[0],
-        s.dvals, cnt);
-    CHECK_LAUNCH();
-    const int o = radix_sort(s.sk, cnt + CNT_ITEMS, 2 * a.K, 32, st, err);
-    if (err != cudaSuccess) return (int)err;
-    compact_kernel<<<blocks_of(2 * a.K), THREADS, 0, st>>>(
-        a, s.ch, s.sk.v[o], rows + r_out * row, w, t + 1, s.drop, cnt);
-    CHECK_LAUNCH();
-    const int od = radix_sort(s.sd, cnt + CNT_DEPS, DN, dbits, st, err);
-    if (err != cudaSuccess) return (int)err;
-    deposit_kernel<<<blocks_of(DN), THREADS, 0, st>>>(
-        s.sd.k[od], s.sd.v[od], s.dvals, h, cnt);
-    ledger_kernel<<<1, RED_THREADS, 0, st>>>(a, w, t, s.pr, s.drop, led,
-                                             cnt);
-    CHECK_LAUNCH();
-  }
-  return 0;
+  Args a = make_args(p, thr, rec, cell, dirs, geom, grid, rays, cid);
+  Fwd f;
+  fwd_scratch(a, static_cast<char*>(scratch), f);
+  f.tape = static_cast<float*>(tape);
+  f.widths = static_cast<int*>(widths);
+  f.hist = static_cast<float*>(hist);
+  f.ledger = static_cast<float*>(ledger);
+  f.cnt = static_cast<int*>(counters);
+  f.steps = p[P_STEPS];
+  f.ring = p[P_RING];
+  f.dpasses = (bit_length((unsigned)a.hist) + 7) / 8;
+  void* args[] = {&a, &f};
+  return launch(reinterpret_cast<const void*>(split_forward_kernel),
+                fwd_blocks(a), args, static_cast<cudaStream_t>(stream),
+                info);
 }
 
-// The backward on `stream` over the p[P_T0] steps of a forward's tape
-// (rows 0 .. p[P_T0], widths alike): the tables' adjoints, entry-major as
-// the tables, added into d_rec, d_cell, d_dirs (zero before the call).
-// counters: int[8]. Returns a cudaError_t code (0: launched).
+// The backward on `stream`, one kernel, over the p[P_STEPS] steps of a
+// forward's tape (rows 0 .. p[P_STEPS], widths alike): the tables'
+// adjoints, entry-major as the tables, added into d_rec, d_cell, d_dirs
+// (zero before the call).  counters: int[NCNT], zero.  info as the
+// forward's.  Returns a cudaError_t code (0: launched).
 extern "C" int split_trace_backward(
     const int* p, const void* rec, const void* cell, const void* dirs,
     const void* geom, const void* grid, const void* rays, const void* cid,
     const void* tape, const void* widths, const void* grad_hist,
     void* d_rec, void* d_cell, void* d_dirs, void* counters, void* scratch,
-    void* stream) {
+    int* info, void* stream) {
+  info[0] = 0;
   if (!params_ok(p)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(p, 0.0f, rec, cell, dirs, geom, grid, rays, cid);
-  BwdScratch s;
-  bwd_scratch(a, static_cast<char*>(scratch), s);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* rows = static_cast<const float*>(tape);
-  const int* w = static_cast<const int*>(widths);
-  int* cnt = static_cast<int*>(counters);
-  const float* gh = static_cast<const float*>(grad_hist);
-  float* dr = static_cast<float*>(d_rec);
-  float* dc = static_cast<float*>(d_cell);
-  float* dd = static_cast<float*>(d_dirs);
-  const size_t row = (size_t)NT * a.K;
-  const size_t level = (size_t)NADJ * s.LC;
-  const int bits = bit_length((unsigned)(a.E + 5 * a.C));
-  cudaError_t err = cudaMemsetAsync(s.lam, 0, 2 * level * sizeof(float), st);
-  if (err != cudaSuccess) return (int)err;
-  for (int t = p[P_T0] - 1; t >= 0; --t) {
-    adjoint_kernel<<<blocks_of(a.K), THREADS, 0, st>>>(
-        a, rows + (size_t)t * row, w, t, gh, s.lam + (size_t)(t & 1) * level,
-        s.lam + (size_t)((t + 1) & 1) * level, s.LC, s.c_rec, s.c_cell,
-        s.c_dirs, s.sc.k[0], cnt);
-    CHECK_LAUNCH();
-    const int o = radix_sort(s.sc, cnt + CNT_ITEMS, 5 * a.K, bits, st, err);
-    if (err != cudaSuccess) return (int)err;
-    table_add_kernel<<<blocks_of(5 * a.K), THREADS, 0, st>>>(
-        a, w, t, s.sc.k[o], s.sc.v[o], s.c_rec, s.c_cell, s.c_dirs, dr, dc,
-        dd, cnt);
-    CHECK_LAUNCH();
-  }
-  if (a.R > 0) {
-    init_adjoint_kernel<<<blocks_of(a.R), THREADS, 0, st>>>(
-        a, s.lam + level, s.LC, s.c_cell, s.c_dirs, s.sc.k[0], cnt);
-    CHECK_LAUNCH();
-    const int o = radix_sort(s.sc, cnt + CNT_ITEMS, 4 * a.R, bits, st, err);
-    if (err != cudaSuccess) return (int)err;
-    table_add_kernel<<<blocks_of(4 * a.R), THREADS, 0, st>>>(
-        a, w, -1, s.sc.k[o], s.sc.v[o], s.c_rec, s.c_cell, s.c_dirs, dr, dc,
-        dd, cnt);
-    CHECK_LAUNCH();
-  }
-  return 0;
+  Args a = make_args(p, 0.0f, rec, cell, dirs, geom, grid, rays, cid);
+  Bwd b;
+  bwd_scratch(a, static_cast<char*>(scratch), b);
+  b.tape = static_cast<const float*>(tape);
+  b.widths = static_cast<const int*>(widths);
+  b.gh = static_cast<const float*>(grad_hist);
+  b.d_rec = static_cast<float*>(d_rec);
+  b.d_cell = static_cast<float*>(d_cell);
+  b.d_dirs = static_cast<float*>(d_dirs);
+  b.cnt = static_cast<int*>(counters);
+  b.steps = p[P_STEPS];
+  b.passes = (bit_length((unsigned)(a.E + 5 * a.C)) + 7) / 8;
+  void* args[] = {&a, &b};
+  return launch(reinterpret_cast<const void*>(split_backward_kernel),
+                bwd_blocks(a), args, static_cast<cudaStream_t>(stream),
+                info);
 }
 
 extern "C" const char* split_trace_error_string(int err) {

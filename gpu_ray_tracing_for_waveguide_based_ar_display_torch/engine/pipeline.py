@@ -26,7 +26,7 @@ engines:
   weight, ``rays_per_fov`` launch positions per cell, one wavefront per cell
   (``splitting_percell``, the default: on a GPU one launch of
   ``csrc/split_cells.cu`` per batch) or one shared by the batch (on a GPU
-  the kernels of ``csrc/split_trace.cu``, a few launches a step).
+  one kernel of ``csrc/split_trace.cu`` per trace call).
 
 ``run()`` takes the JAX package's options: wavelength subsets, checkpoint
 and resume, a histogram kept on the device with device perception or device

@@ -468,10 +468,14 @@ _ADJ = ("x", "y", "ter", "tei", "tmr", "tmi", "cos_th", "gap_x", "gap_y",
 # the int parameters of split_trace_forward / split_trace_backward, in order
 TRACE_PARAMS = ("R", "K", "E", "C", "R2", "num_fc", "num_oc", "ny", "nx",
                 "M", "N", "hist", "soft", "circle", "grid_n", "e_ic", "e_r1",
-                "e_r2", "e_hull", "t0", "nsteps", "ring", "init")
-_NCNT = 8                 # the kernels' device counters
-_CNT_STEPS = 4
-_STOP_EVERY = 8           # steps between two reads of the width (stop test)
+                "e_r2", "e_hull", "steps", "ring")
+_NCNT = 16                # the kernels' device counters
+_CNT_STEPS = 4            # the steps taken (forward)
+_CNT_BARRIERS = 6         # the grid barriers passed
+# the last call of each kernel: {"kernels": launched, "grid": blocks,
+# "blocks_per_sm": resident blocks a SM, "counters": the call's device
+# counters (int32, _NCNT)}
+last_launch = {}
 
 
 @dataclasses.dataclass
@@ -968,11 +972,22 @@ def _trace_params(a: SplitTraceArgs, **kw):
              num_fc=a.num_fc, num_oc=a.num_oc, ny=ny, nx=nx, M=a.M, N=a.N,
              hist=a.hist_size, soft=int(a.soft_binning), circle=int(a.circle),
              grid_n=a.grid.shape[0], e_ic=a.edges[0], e_r1=a.edges[1],
-             e_r2=a.edges[2], e_hull=a.edges[3], t0=0, nsteps=0, ring=0,
-             init=0)
+             e_r2=a.edges[2], e_hull=a.edges[3], steps=0, ring=0)
     v.update(kw)
     return (ctypes.c_int * len(TRACE_PARAMS))(*(int(v[k])
                                                 for k in TRACE_PARAMS))
+
+
+def _launched(lib, what: str, err: int, info, counters) -> None:
+    """Raise if the kernel was refused; else count it (its launches under
+    ``<what>_kernels``) and keep :data:`last_launch`."""
+    if err != 0:
+        msg = lib.split_trace_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+    launch_counts[what] += 1
+    launch_counts[f"{what}_kernels"] += info[0]
+    last_launch[what] = {"kernels": info[0], "grid": info[1],
+                         "blocks_per_sm": info[2], "counters": counters}
 
 
 def _check_trace_args(a: SplitTraceArgs, what: str):
@@ -1006,12 +1021,12 @@ def _ptrs(*ts) -> list:
 
 def launch_split_trace(a: SplitTraceArgs,
                        keep_tape: bool = False) -> SplitTraceOut:
-    """The forward kernels on ``a``'s CUDA tensors, queued on the current
-    stream.  ``fixed_steps`` mode reads nothing from the device; stop-test
-    mode reads the width once every 8 steps (the empty steps in between
-    change nothing) and the step count once at the end.  With
+    """The forward kernel on ``a``'s CUDA tensors, queued on the current
+    stream: one cooperative kernel runs the whole trace and decides the stop
+    test on the card.  ``fixed_steps`` mode reads nothing from the device;
+    stop-test mode reads the step count once, at the end.  With
     ``keep_tape`` every step's kept wavefront stays in the tape (one row a
-    step), else two rows take turns.  Raises if a launch is refused."""
+    step), else two rows take turns.  Raises if the launch is refused."""
     dev = _check_trace_args(a, "split_trace")
     lib = load_trace_kernel()
     K = a.capacity
@@ -1025,40 +1040,20 @@ def launch_split_trace(a: SplitTraceArgs,
     widths = ints[_NCNT:]
     hist = torch.zeros(a.hist_size, dtype=torch.float32, device=dev)
     ledger = torch.zeros(2, dtype=torch.float32, device=dev)
-    p = _trace_params(a, ring=int(not keep_tape))
+    p = _trace_params(a, steps=steps_max, ring=int(not keep_tape))
     scratch = torch.empty(lib.split_trace_scratch_bytes(p, 0),
                           dtype=torch.uint8, device=dev)
-    thr = float(np.float32(a.weight_threshold))
-
-    def run(t0: int, nsteps: int, init: int) -> None:
-        p[TRACE_PARAMS.index("t0")] = t0
-        p[TRACE_PARAMS.index("nsteps")] = nsteps
-        p[TRACE_PARAMS.index("init")] = init
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.split_trace_forward(
-                p, thr, *_ptrs(recT, cellT, dirsT, a.geom, a.grid, rays, cid,
-                               tape, widths, hist, ledger, ints, scratch),
-                stream)
-        if err != 0:
-            msg = lib.split_trace_error_string(err).decode()
-            raise RuntimeError(f"split_trace launch failed: {msg} ({err})")
-
-    if a.fixed_steps > 0:
-        run(0, a.fixed_steps, 1)
-        steps = a.fixed_steps
-    else:
-        t = min(_STOP_EVERY, a.max_steps)
-        run(0, t, 1)
-        while True:
-            width, steps = ints[[_NCNT + t, _CNT_STEPS]].tolist()
-            if width == 0 or t >= a.max_steps:
-                break
-            n = min(_STOP_EVERY, a.max_steps - t)
-            run(t, n, 0)
-            t += n
-    launch_counts["split_trace"] += 1
-    out = SplitTraceOut(hist, ledger[0], ledger[1], int(steps))
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.split_trace_forward(
+            p, float(np.float32(a.weight_threshold)),
+            *_ptrs(recT, cellT, dirsT, a.geom, a.grid, rays, cid, tape,
+                   widths, hist, ledger, ints, scratch), info, stream)
+    _launched(lib, "split_trace", err, info, ints[:_NCNT])
+    steps = (a.fixed_steps if a.fixed_steps > 0
+             else int(ints[_CNT_STEPS]))
+    out = SplitTraceOut(hist, ledger[0], ledger[1], steps)
     if keep_tape:
         out.tape = SplitTape(tape[:steps + 1], widths[:steps + 1])
     return out
@@ -1066,9 +1061,10 @@ def launch_split_trace(a: SplitTraceArgs,
 
 def launch_split_trace_backward(a: SplitTraceArgs, tape: SplitTape,
                                 grad_hist: torch.Tensor) -> tuple:
-    """The backward kernels on ``a``'s CUDA tensors and ``tape``, queued on
-    the current stream: ``(d_rec, d_cell, d_dirs)`` shaped as ``a``'s
-    tables.  Raises if a launch is refused."""
+    """The backward kernel on ``a``'s CUDA tensors and ``tape``, queued on
+    the current stream (one cooperative kernel, no read of the device):
+    ``(d_rec, d_cell, d_dirs)`` shaped as ``a``'s tables.  Raises if the
+    launch is refused."""
     dev = _check_trace_args(a, "split_trace_backward")
     lib = load_trace_kernel()
     recT, cellT, dirsT = _tables_entry_major(a)
@@ -1083,20 +1079,17 @@ def launch_split_trace_backward(a: SplitTraceArgs, tape: SplitTape,
                          f"{a.hist_size}")
     d = [torch.zeros_like(t) for t in (recT, cellT, dirsT)]
     ints = torch.zeros(_NCNT, dtype=torch.int32, device=dev)
-    p = _trace_params(a, t0=fields.shape[0] - 1)
+    p = _trace_params(a, steps=fields.shape[0] - 1)
     scratch = torch.empty(lib.split_trace_scratch_bytes(p, 1),
                           dtype=torch.uint8, device=dev)
+    info = (ctypes.c_int * 3)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.split_trace_backward(
             p, *_ptrs(recT, cellT, dirsT, a.geom, a.grid, a.rays.contiguous(),
                       a.cid.to(torch.int32).contiguous(), fields, widths, gh,
-                      *d, ints, scratch), stream)
-    if err != 0:
-        msg = lib.split_trace_error_string(err).decode()
-        raise RuntimeError(f"split_trace_backward launch failed: {msg} "
-                           f"({err})")
-    launch_counts["split_trace_backward"] += 1
+                      *d, ints, scratch), info, stream)
+    _launched(lib, "split_trace_backward", err, info, ints)
     return tuple(t.t().contiguous() for t in d)
 
 
@@ -1152,11 +1145,14 @@ class SplitTraceFunction(torch.autograd.Function):
 
 
 # the C parameters of split_trace_forward: the int parameters, the
-# threshold, 13 pointers and the stream; of split_trace_backward: the int
-# parameters, 15 pointers and the stream
-_FORWARD_ARGTYPES = ([ctypes.POINTER(ctypes.c_int), ctypes.c_float]
-                     + [ctypes.c_void_p] * 14)
-_BACKWARD_ARGTYPES = [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 16
+# threshold, 13 pointers, the launch info (int[3]) and the stream; of
+# split_trace_backward: the int parameters, 15 pointers, the info and the
+# stream
+_INTS = ctypes.POINTER(ctypes.c_int)
+_FORWARD_ARGTYPES = ([_INTS, ctypes.c_float] + [ctypes.c_void_p] * 13
+                     + [_INTS, ctypes.c_void_p])
+_BACKWARD_ARGTYPES = [_INTS] + [ctypes.c_void_p] * 15 + [_INTS,
+                                                          ctypes.c_void_p]
 _TRACE_LIB = None
 
 

@@ -108,11 +108,14 @@ _JUMP_WORDS = 5 * MAX_EDGES + 8   # transit-jump reciprocals (the kernel's)
 _STATIC_SMEM = -(-(8 * 4 * MAX_CPB + 8) // 16) * 16
 
 # kernel launches by wrapper name; the wrapper adds one per launch and
-# nothing else touches it except reset_launch_counts
+# nothing else touches it except reset_launch_counts ("<name>_kernels":
+# the device kernels a wrapper's calls launched, where a call could launch
+# several)
 launch_counts = {"persistent_trace": 0, "cell_trace": 0, "cell_rows": 0,
                  "eye_perceive": 0, "colorimetry": 0, "split_cells": 0,
                  "vector_trace": 0, "split_trace": 0,
-                 "split_trace_backward": 0}
+                 "split_trace_backward": 0, "split_trace_kernels": 0,
+                 "split_trace_backward_kernels": 0}
 
 
 def reset_launch_counts() -> None:

@@ -1145,7 +1145,8 @@ def _trace_fixture(case):
     fixed steps, hard binning; it truncates), the grating fixture with soft
     binning (4 x 3, 2,048 slots, 40 steps), the apodization fixture at 96
     slots, and the global engine's stop test (4,096 slots, at most 300
-    steps)."""
+    steps); ``crowded``: 72 rays of 18 cells in 32,768 slots, stop-tested
+    (``chip_smoke.py``'s phase 23 case: every table entry's run is long)."""
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
         seeding, splitting, trace_vector as tv,
     )
@@ -1159,6 +1160,19 @@ def _trace_fixture(case):
         build_cell_tables,
     )
 
+    if case == "crowded":
+        cfg = TraceConfig(num_fov_x=3, num_fov_y=2, rays_per_fov=4,
+                          rng_mode="fast", seed=2)
+        geom = generate_geometry(num_fov_x=3, num_fov_y=2)
+        tables = build_cell_tables(geom, make_synthetic_luts(geom))
+        b = seeding.build_ray_batch(geom, cfg)
+        rays = tv.make_ray_state(b["x"], b["y"], b["te"], b["tm"], b["cid"],
+                                 b["idx"], b["rng"], device="cuda")
+        trace = splitting.make_splitting_trace_fn(
+            tables, build_trace_geometry(geom), cfg, capacity=1 << 15,
+            weight_threshold=1e-5, max_steps=300, table_arg=True,
+            device="cuda")
+        return trace.args(rays, tv.as_tables(tables))
     soft = case == "soft"
     M, N = (4, 3) if soft else (3, 2)
     geom = generate_geometry(num_fov_x=M, num_fov_y=N)
@@ -1189,50 +1203,104 @@ def _bits_equal(x, y):
                        y.contiguous().view(torch.int32))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["hard", "soft", "truncating", "stop_test"])
-def test_split_trace_kernels_equal_plain_versions_on_card(cuda_device, case):
-    """The global engine's forward kernels (one counted call) against their
-    plain version on the card: histogram, steps and tape (every kept
-    slot's fields and provenance) bit for bit, the ledgers within 1e-6
-    relative; the backward kernels (one counted call) against the
-    hand-written plain backward, bit for bit, and a second run identical."""
+def _assert_trace_calls_equal_plain(a, seed):
+    """One forward and two backward calls of the kernels on ``a`` against
+    the plain versions (see the test below); each call launches one kernel.
+    Returns the forward's output."""
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
         splitting,
     )
 
-    a = _trace_fixture(case)
     n0 = dict(tp.launch_counts)
     out = splitting.split_trace(a, keep_tape=True)
     torch.cuda.synchronize()
     assert tp.launch_counts["split_trace"] == n0["split_trace"] + 1
+    assert (tp.launch_counts["split_trace_kernels"]
+            == n0["split_trace_kernels"] + 1)
     ref = splitting.split_trace_reference(a, keep_tape=True)
     assert out.steps == ref.steps
     assert _bits_equal(out.hist, ref.hist)
     for k in ("trunc", "pruned"):
         assert float(getattr(out, k)) == pytest.approx(
             float(getattr(ref, k)), rel=1e-6), k
-    if case in ("hard", "truncating"):
-        assert float(out.trunc) > 0
     widths = ref.tape.widths.cpu()
     assert torch.equal(out.tape.widths.cpu(), widths)
     for t, n in enumerate(widths.tolist()):
         assert _bits_equal(out.tape.fields[t, :, :n],
                            ref.tape.fields[t, :, :n]), t
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     gh = torch.from_numpy(rng.standard_normal(a.hist_size).astype(
-        np.float32)).to(cuda_device)
+        np.float32)).to(a.rec.device)
     got = splitting.split_trace_backward(a, out.tape, gh)
     again = splitting.launch_split_trace_backward(a, out.tape, gh)
     torch.cuda.synchronize()
     assert (tp.launch_counts["split_trace_backward"]
             == n0["split_trace_backward"] + 2)
+    assert (tp.launch_counts["split_trace_backward_kernels"]
+            == n0["split_trace_backward_kernels"] + 2)
     want = splitting.split_trace_backward_reference(a, ref.tape, gh)
     for x, y, z in zip(got, want, again):
         assert x.shape == y.shape
         assert _bits_equal(x, y)
         assert _bits_equal(x, z)
     assert float(got[0].abs().max()) > 0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hard", "soft", "truncating", "stop_test",
+                                  "crowded"])
+def test_split_trace_kernels_equal_plain_versions_on_card(cuda_device, case):
+    """The global engine's forward kernel (one counted call, one kernel)
+    against its plain version on the card: histogram, steps and tape (every
+    kept slot's fields and provenance) bit for bit, the ledgers within 1e-6
+    relative; the backward kernel (one counted call, one kernel) against
+    the hand-written plain backward, bit for bit, and a second run
+    identical.  Fixed-step and stop-tested traces alike; ``crowded`` adds
+    the long runs of 18 cells sharing 32,768 slots."""
+    out = _assert_trace_calls_equal_plain(_trace_fixture(case), 11)
+    if case in ("hard", "truncating"):
+        assert float(out.trunc) > 0
+
+
+@pytest.mark.cuda
+def test_split_trace_kernels_wrap_past_the_grid_on_card(cuda_device):
+    """A wavefront wider than the co-resident grid (the apodization grid
+    at 2 rays per FoV in 262,144 slots, 64 fixed steps): the grid-stride
+    loops wrap, forward (children) and backward (contributions), and both
+    kernels still equal their plain versions bit for bit."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting, trace_vector as tv,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine.trace_geometry import (
+        build_trace_geometry,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.io import (
+        load_or_synthesize,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
+        build_cell_tables,
+    )
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.opt import (
+        grating_opt as opt,
+    )
+
+    cfg = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=2,
+                      max_bounces=2048)
+    geom = generate_geometry(num_fov_x=16, num_fov_y=12)
+    tables = build_cell_tables(geom, load_or_synthesize(geom))
+    rays = opt._launch_rays(geom, cfg, 2, None, cuda_device)
+    trace = splitting.make_splitting_trace_fn(
+        tables, build_trace_geometry(geom), cfg, capacity=1 << 18,
+        fixed_steps=64, weight_threshold=1e-4, table_arg=True,
+        device=cuda_device)
+    out = _assert_trace_calls_equal_plain(
+        trace.args(rays, tv.as_tables(tables)), 19)
+    widest = int(out.tape.widths.max())
+    threads = {k: v["grid"] * 256
+               for k, v in splitting.last_launch.items()}
+    assert 2 * widest > threads["split_trace"]
+    assert 5 * widest > threads["split_trace_backward"]
 
 
 @pytest.mark.cuda
@@ -1264,4 +1332,6 @@ def test_optimize_runs_the_trace_kernels_on_card(cuda_device):
                                    device=cuda_device)
     assert tp.launch_counts["split_trace"] == 4
     assert tp.launch_counts["split_trace_backward"] == 3
+    assert tp.launch_counts["split_trace_kernels"] == 4
+    assert tp.launch_counts["split_trace_backward_kernels"] == 3
     assert res.loss_history[-1] < res.loss_history[0]
