@@ -161,23 +161,29 @@ Run from the repository root.  Phases:
    (bytes read and written once at 3.35 TB/s, or the operations at 67
    TFLOP/s);
 21. the per-cell splitting kernel (``csrc/split_cells.cu``: one launch per
-   chunk runs every cell's wavefront loop) against its plain PyTorch
-   version (``splitting.split_cells_reference``) on the same packed
-   arguments: a 256-cell chunk of ``simulate --engine splitting``'s README
-   case (16 x 12 FoV, 8,192 slots, threshold 1e-6, 2 launch seeds), 4 of
-   its cells with shared and with per-cell seeds (each also against the
-   plain version on the CPU: tiles bit for bit), the 4 cells at 64 slots
-   (it must truncate, and its peak pass 64) and a 128-cell chunk of the
-   100 x 75 grid at ``--tail-exact``'s engine knobs (32,768 slots,
-   threshold 1e-6, a pass of 4 pupil points, each launched TE and TM: 8
-   launch seeds); bars on the card: per-cell steps, peak and
-   stepped widths equal, truncation equal where 0 and else within 1e-6,
-   pruned and out-coupled weight within 1e-6 relative, tiles within rtol
-   1e-6 / atol 1e-12 with zeros at the same places; the kernel's time
-   (CUDA events), the plain version's, and the bound from the kernel's
-   own sum of widths (88 B a stepped slot, and each cell's records, tile
-   and seeds once, at 3.35 TB/s, or 200 float32 operations a stepped
-   slot at 67 TFLOP/s);
+   chunk runs every cell's wavefront loop, each cell on a cluster of 1, 2
+   or 4 blocks) against its plain PyTorch version
+   (``splitting.split_cells_reference``) on the same packed arguments
+   (``split_cases``): a 256-cell chunk of ``simulate --engine
+   splitting``'s README case (16 x 12 FoV, 8,192 slots, threshold 1e-6, 2
+   launch seeds), 4 of its cells with shared and with per-cell seeds (each
+   also against the plain version on the CPU), the 4 cells at 64 slots (it
+   must truncate, and its peak pass 64), a 128-cell chunk of the 100 x 75
+   grid at ``ExactTailHybrid``'s defaults (32,768 slots, threshold 1e-6, a
+   pass of 4 pupil points, each launched TE and TM: 8 launch seeds) and the
+   512-cell chunk ``simulate --tail-exact`` launches (``cli._tail_hybrid``:
+   8,192 slots, one point a pass: 2 launch seeds); bars on the card: tiles
+   bit for bit (on the CPU too), per-cell steps, peak and stepped widths
+   equal, truncation equal where 0 and else within 1e-6, pruned and
+   out-coupled weight within 1e-6 relative; the 4-cell chunk launched at
+   every cluster size gives the same outputs bit for bit; each case prints
+   the launch's cluster size, threads, resident blocks per SM, shared
+   memory and the instantiation's registers and spills (spills must be 0,
+   and a launch of one block a cell must hold 2 blocks an SM); the
+   kernel's time (CUDA events), the plain version's, and the bound from
+   the kernel's own sum of widths (88 B a stepped slot, and each cell's
+   records, tile and seeds once, at 3.35 TB/s, or 200 float32 operations
+   a stepped slot at 67 TFLOP/s);
 22. the vector engine's kernel (``csrc/vector_trace.cu``: one launch per
    trace call runs every ray's whole bounce loop) against its plain
    PyTorch version (``trace_vector.vector_trace_reference``) on the same
@@ -4008,12 +4014,27 @@ def split_bytes(a, work: int) -> int:
     """The bytes that the chunk ``a`` must move through HBM for ``work``
     stepped slots: each slot's fields read and written once, each cell's
     records, constants, direction rows and tile once, the seeds, the
-    geometry and the region grid once, and the per-cell ledgers."""
+    geometry and the refined region grid once, and the per-cell ledgers."""
     ny, nx = a.eyebox_bins
     once = sum(t.numel() * t.element_size()
-               for t in (a.rec, a.cell, a.dirs, a.seeds, a.geom, a.grid))
+               for t in (a.rec, a.cell, a.dirs, a.seeds, a.geom, a.fine,
+                         a.sub_codes))
     # tile, trunc, pruned, peak, steps (4 B each) and work (8 B) per cell
     return work * SPLIT_SLOT_BYTES + once + a.C * (ny * nx * 4 + 24)
+
+
+def split_bits_differ(x, y) -> dict:
+    """The entries of each field of two :class:`SplitCellsOut` that differ
+    in their bits."""
+    import torch
+
+    out = {}
+    for f in ("tiles", "trunc", "pruned", "peak", "steps", "work"):
+        u, v = getattr(x, f).contiguous(), getattr(y, f).contiguous()
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        out[f] = int((u != v).sum())
+    return out
 
 
 def split_compare(out, ref) -> dict:
@@ -4063,6 +4084,9 @@ def _split_case(name: str, trace, cells, seeds, reps: int,
     a = trace.args(cells, seeds)
     out = splitting.launch_split_cells(a)
     torch.cuda.synchronize()
+    launch = dict(splitting.last_launch["split_cells"],
+                  spill_bytes=split_spills(
+                      splitting.last_launch["split_cells"]["cluster"]))
     ms = cuda_ms(lambda: splitting.launch_split_cells(a), reps)
     t0 = time.perf_counter()
     ref = splitting.split_cells_reference(a)
@@ -4071,7 +4095,13 @@ def _split_case(name: str, trace, cells, seeds, reps: int,
     e = {"name": name, "cells": a.C, "points": a.P, "capacity": a.capacity,
          "threshold": a.weight_threshold,
          "per_cell_seeds": a.seeds.dim() == 3, "ms": ms,
-         "plain_ms": plain_ms, **split_compare(out, ref)}
+         "plain_ms": plain_ms, "launch": launch, **split_compare(out, ref)}
+    if name == "readme_4_shared":
+        # the cells' outputs at every cluster size, bit for bit
+        e["clusters_equal"] = {
+            q: not any(split_bits_differ(
+                splitting.launch_split_cells(a, cluster=q), out).values())
+            for q in splitting.CLUSTER_SIZES}
     work = int(out.work.sum())
     nbytes = split_bytes(a, work)
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
@@ -4095,12 +4125,16 @@ def _split_case(name: str, trace, cells, seeds, reps: int,
     return e
 
 
-def phase21(ctx) -> None:
-    """The per-cell splitting kernel against its plain version."""
+def split_cases(dev):
+    """Phase 21's chunks of the per-cell splitting engine, one at a time:
+    ``(name, trace, cells, seeds, reps, against_cpu)``.  The main path's
+    256-cell chunk of ``simulate --engine splitting``, 4 cells with shared
+    and per-cell seeds (and at 64 slots, truncating), a 128-cell chunk of
+    ``ExactTailHybrid``'s defaults and the 512-cell chunk that ``simulate
+    --tail-exact`` launches (``cli._tail_hybrid``)."""
     import dataclasses as dc
 
     import numpy as np
-    import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.config import (
         TraceConfig,
     )
@@ -4108,11 +4142,8 @@ def phase21(ctx) -> None:
         hybrid, pipeline, splitting,
     )
 
-    dev = ctx["dev"]
-    rec = ctx["record"].setdefault("phase21", {})
     readme = TraceConfig(num_fov_x=16, num_fov_y=12, rays_per_fov=2)
     cells4 = np.array([0, 191, 300, 575])
-    cases = []
     for shared in (True, False):
         cfg = dc.replace(readme, shared_pupil_samples=shared)
         sim = pipeline.Simulator(cfg=cfg, device=dev, engine="splitting")
@@ -4123,27 +4154,54 @@ def phase21(ctx) -> None:
         if shared:
             # the main path's chunk: 256 cells of simulate --engine splitting
             cells = np.arange(256)
-            cases.append(_split_case("readme_256", trace, cells,
-                                     sim._split_seeds(cells, 2, 0), 3))
+            yield ("readme_256", trace, cells, sim._split_seeds(cells, 2, 0),
+                   3, False)
             small = splitting.make_splitting_cells_fn(
                 sim.tables, sim.tgeom, cfg, capacity=64, **kw)
-            cases.append(_split_case("readme_4_k64", small, cells4,
-                                     sim._split_seeds(cells4, 2, 0), 5))
-        cases.append(_split_case(
-            "readme_4_" + ("shared" if shared else "per_cell"), trace,
-            cells4, sim._split_seeds(cells4, 2, 0), 5, against_cpu=True))
+            yield ("readme_4_k64", small, cells4,
+                   sim._split_seeds(cells4, 2, 0), 5, False)
+        yield ("readme_4_" + ("shared" if shared else "per_cell"), trace,
+               cells4, sim._split_seeds(cells4, 2, 0), 5, True)
         del sim, trace
-    # --tail-exact's engine at its own knobs: 32,768 slots, threshold 1e-6,
-    # a pass of 4 pupil points (each launched TE and TM: 8 launch seeds), a
-    # chunk of 128 cells of the 100 x 75 grid
+    # --tail-exact's engine: ExactTailHybrid's defaults (32,768 slots, a
+    # pass of 4 pupil points, each launched TE and TM: 8 launch seeds, a
+    # chunk of 128 cells), then the CLI's (8,192 slots, one point a pass: 2
+    # launch seeds, a chunk of 512 cells), both at threshold 1e-6 over the
+    # 100 x 75 grid
     sim = pipeline.Simulator(cfg=TraceConfig(), device=dev,
                              engine="splitting")
+    grid = sim.L * sim.M * sim.N
     hy = hybrid.ExactTailHybrid(sim)
-    cells = np.linspace(0, sim.L * sim.M * sim.N - 1, hy._cpb).astype(
-        np.int64)
-    cases.append(_split_case("tail_exact_128", hy._trace, cells,
-                             hy._seeds(4, 1_000_003), 2))
+    cells = np.linspace(0, grid - 1, hy._cpb).astype(np.int64)
+    yield ("tail_exact_128", hy._trace, cells, hy._seeds(4, 1_000_003), 2,
+           False)
+    hy = hybrid.ExactTailHybrid(sim, points_per_pass=1, capacity=8192,
+                                max_steps=1024)
+    cells = np.linspace(0, grid - 1, hy._cpb).astype(np.int64)
+    yield ("tail_exact_cli_512", hy._trace, cells, hy._seeds(1, 1_000_003),
+           2, False)
     del sim, hy
+
+
+def split_spills(cluster: int):
+    """Spill bytes of ``split_cells_kernel<cluster>`` in this run's build
+    (None when the library was built earlier)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        build,
+    )
+
+    log = build.build_info.get("split_cells", {}).get("log", "")
+    return ptxas_spills(log).get(f"[{cluster}]")
+
+
+def phase21(ctx) -> None:
+    """The per-cell splitting kernel against its plain version."""
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase21", {})
+    cases = [_split_case(name, trace, cells, seeds, reps,
+                         against_cpu=against_cpu)
+             for name, trace, cells, seeds, reps, against_cpu
+             in split_cases(dev)]
     faults = []
     for e in cases:
         rec[e["name"]] = e
@@ -4158,8 +4216,13 @@ def phase21(ctx) -> None:
                    f"{e['cpu_plain_s']:.2f} s)")
             if not e["cpu"]["ok"]:
                 faults.append(f"{e['name']} against the CPU: {e['cpu']}")
+        ln = e["launch"]
         print(f"phase 21 {e['name']}: {e['cells']} cells x {e['points']} "
-              f"launch seeds, K {e['capacity']}: kernel {e['ms']:.3f} ms, "
+              f"launch seeds, K {e['capacity']}: cluster {ln['cluster']} x "
+              f"{ln['threads']} threads, {ln['blocks_per_sm']} blocks per SM "
+              f"({ln['resident_blocks']} resident), {ln['smem']:,} B dynamic "
+              f"shared, {ln['registers']} registers, {ln['local_bytes']} B "
+              f"local, spills {ln['spill_bytes']} B; kernel {e['ms']:.3f} ms, "
               f"plain {e['plain_ms']:.1f} ms, bound {e['bound_ms']:.4f} ms "
               f"({e['bound_by']}; {e['work']:,} slot-steps = the sum of the "
               f"widths, {e['bytes']:,} B); steps {e['steps']}, peak {e['peak']}, truncated "
@@ -4171,8 +4234,22 @@ def phase21(ctx) -> None:
               f"apart, tiles {e['tiles_beyond']} beyond rtol 1e-6 / atol "
               f"1e-12 (max rel {e['tiles_max_rel']:.2e}, {e['bits_differ']} "
               f"differ in their bits), zeros equal {e['zeros_equal']}{cpu}")
-        if not e["ok"]:
+        if not e["ok"] or e["bits_differ"]:
             faults.append(f"{e['name']}: {e}")
+        if ln["spill_bytes"] or ln["local_bytes"]:
+            faults.append(f"{e['name']}: {ln['local_bytes']} B local, ptxas "
+                          f"reports {ln['spill_bytes']} B of spills")
+        if ln["cluster"] == 1 and ln["blocks_per_sm"] < 2:
+            faults.append(f"{e['name']}: {ln['blocks_per_sm']} block(s) "
+                          "per SM")
+        if "clusters_equal" in e:
+            print(f"phase 21 {e['name']} at each cluster size, outputs "
+                  f"equal bit for bit: {e['clusters_equal']}")
+            if not all(e["clusters_equal"].values()):
+                faults.append(f"{e['name']}: outputs differ between cluster "
+                              f"sizes {e['clusters_equal']}")
+        if "cpu" in e and not e["cpu_bitwise"]:
+            faults.append(f"{e['name']}: the tiles differ from the CPU's")
     k64 = rec["readme_4_k64"]
     if not (k64["trunc"] > 0 and k64["peak"] > 64):
         faults.append(f"the 64-slot chunk did not truncate: {k64}")

@@ -96,15 +96,13 @@ __device__ void child(const Cell& c, const Ray& r, const float* bp, float eff,
   o.w = wgt;
 }
 
-// split_step for one slot: children A and B, the deposit (bin or -1, and
-// its weight) and each child's pruned weight
-__device__ void step_children(const Cell& c, const Ray& r, Ray& a, Ray& b,
-                              int& dbin, float& dw, float& pr_a,
-                              float& pr_b) {
+// split_step for one slot whose region tests are given: children A and B,
+// the deposit (bin or -1, and its weight) and each child's pruned weight
+__device__ __forceinline__ void step_children_in(
+    const Cell& c, const Ray& r, bool in_r1, bool in_hull, bool in_r2,
+    Ray& a, Ray& b, int& dbin, float& dw, float& pr_a, float& pr_b) {
   const float x = r.x, y = r.y;
   const int state = r.st;
-  bool in_r1, in_hull, in_r2;
-  regions(c, x, y, in_r1, in_hull, in_r2);
   const bool alive = state < DEAD && in_r1;
   // site_key
   const bool grp_ic = alive && state <= 1;
@@ -183,6 +181,15 @@ __device__ void step_children(const Cell& c, const Ray& r, Ray& a, Ray& b,
   }
   if (!alive) a.st = DEAD;
   if (!(alive && interact)) b.st = DEAD;
+}
+
+// split_step for one slot, its region tests included
+__device__ void step_children(const Cell& c, const Ray& r, Ray& a, Ray& b,
+                              int& dbin, float& dw, float& pr_a,
+                              float& pr_b) {
+  bool in_r1, in_hull, in_r2;
+  regions(c, r.x, r.y, in_r1, in_hull, in_r2);
+  step_children_in(c, r, in_r1, in_hull, in_r2, a, b, dbin, dw, pr_a, pr_b);
 }
 
 __device__ __forceinline__ Ray load_ray(const float* src, int K, int i) {

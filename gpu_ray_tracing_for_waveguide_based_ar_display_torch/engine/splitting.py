@@ -1190,10 +1190,11 @@ def _gather_cell_tables(T: dict, cell_ids: torch.Tensor) -> dict:
 
 
 _NF = 11                  # wavefront fields of a kernel buffer
-# the C parameters of split_cells_launch, in order: 13 pointers, 16 ints,
-# the threshold and the stream
-LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 16
-                   + [ctypes.c_float, ctypes.c_void_p])
+# the C parameters of split_cells_launch, in order: 14 pointers, 17 ints,
+# the threshold, the cluster size and the stream
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 17
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+CLUSTER_SIZES = (1, 2, 4)
 
 
 @dataclasses.dataclass
@@ -1202,7 +1203,10 @@ class SplitCellsArgs:
     packed tables (:func:`.trace_vector.pack_tables` of the chunk's cells),
     the design's geometry flattened (:func:`pack_geometry`) and its region
     grid, and the launch seeds as one float32 tensor, (6, P) shared by every
-    cell or (6, C, P), in :data:`.seeding.FIELDS` order."""
+    cell or (6, C, P), in :data:`.seeding.FIELDS` order.  The kernel reads
+    the region grid refined where it is open
+    (:func:`.trace_vector.region_subgrids`: ``fine``, ``sub_codes``); the
+    plain version reads ``grid``."""
     rec: torch.Tensor          # (26, C * R2)
     cell: torch.Tensor         # (26, C)
     dirs: torch.Tensor         # (6, C * 4)
@@ -1219,6 +1223,8 @@ class SplitCellsArgs:
     num_oc: int
     eyebox_bins: tuple
     circle: bool
+    fine: torch.Tensor         # (n, n) int16 codes or -(subgrid row + 1)
+    sub_codes: torch.Tensor    # (M, sub, sub) uint8 subcell codes
 
     def to(self, device) -> "SplitCellsArgs":
         """The same chunk with its tensors on ``device``."""
@@ -1263,12 +1269,14 @@ def unpack_geometry(flat: torch.Tensor, grid: torch.Tensor,
 def split_cells_args(Tc: dict, packed: tuple, seeds: torch.Tensor,
                      cfg: TraceConfig, num_fc: int, num_oc: int,
                      capacity: int, weight_threshold: float,
-                     max_steps: int) -> SplitCellsArgs:
+                     max_steps: int, subgrids: tuple) -> SplitCellsArgs:
     """The kernel's arguments of one chunk: ``Tc`` the chunk's packed
     tables, ``packed`` the design's geometry with its grid as
-    :func:`pack_geometry` gives it, ``seeds`` (6, P) or (6, C, P), all on
-    one device."""
+    :func:`pack_geometry` gives it, ``seeds`` (6, P) or (6, C, P),
+    ``subgrids`` the grid refined (:func:`.trace_vector.region_subgrids`),
+    all on one device."""
     geom, grid, edges = packed
+    fine, sub_codes = subgrids
     C = Tc["cell"].shape[1]
     return SplitCellsArgs(
         rec=Tc["rec"].contiguous(), cell=Tc["cell"].contiguous(),
@@ -1277,7 +1285,7 @@ def split_cells_args(Tc: dict, packed: tuple, seeds: torch.Tensor,
         P=seeds.shape[-1], capacity=int(capacity),
         weight_threshold=float(weight_threshold), max_steps=int(max_steps),
         num_fc=num_fc, num_oc=num_oc, eyebox_bins=tuple(cfg.eyebox_bins),
-        circle=cfg.ic_test == "circle")
+        circle=cfg.ic_test == "circle", fine=fine, sub_codes=sub_codes)
 
 
 def split_cells_reference(a: SplitCellsArgs) -> SplitCellsOut:
@@ -1358,10 +1366,59 @@ def split_cells_reference(a: SplitCellsArgs) -> SplitCellsOut:
                          pruned=pruned, peak=peak, steps=steps, work=work)
 
 
-def launch_split_cells(a: SplitCellsArgs) -> SplitCellsOut:
+def cluster_size(cells: int, capacity: int, threads: int, sms: int,
+                 blocks_per_sm: int) -> int:
+    """The blocks that share each cell of a chunk of ``cells`` cells of
+    ``capacity`` slots: the largest of :data:`CLUSTER_SIZES` whose pass
+    (``q * threads`` slots) fits in the capacity and whose ``cells * q``
+    blocks fill at most two waves of a card of ``sms`` SMs holding
+    ``blocks_per_sm`` blocks each.  A cell's time is its steps times its
+    passes, so a chunk smaller than the card spreads each cell's passes over
+    several SMs; a large one keeps a cell to a block.  Shape alone decides,
+    and a cell's outputs do not depend on it."""
+    for q in sorted(CLUSTER_SIZES, reverse=True):
+        if q == 1 or (q * threads <= capacity
+                      and cells * q <= 2 * blocks_per_sm * sms):
+            return q
+    return 1
+
+
+_SHAPES = {}
+
+
+def split_cells_shape(ny: int, nx: int, R2: int, edges: tuple) -> dict:
+    """The kernel's launch shapes on the current card for a chunk's tile
+    and tables: ``{"threads", "sms", q: {"blocks_per_sm", "clusters",
+    "resident", "smem", "registers", "local_bytes"}}`` for each cluster size
+    q (``resident``: the blocks of clusters of q resident at once;
+    ``local_bytes``: a thread's local memory, spills included), from the
+    runtime's function attributes and occupancy calculator (cached per
+    shape)."""
+    key = (torch.cuda.current_device(), ny, nx, R2, sum(edges))
+    if key not in _SHAPES:
+        lib = load_kernel()
+        out = (ctypes.c_int * 17)()
+        err = lib.split_cells_shape(ny, nx, R2, sum(edges), out)
+        if err != 0:
+            msg = lib.split_cells_error_string(err).decode()
+            raise RuntimeError(f"split_cells_shape failed: {msg} ({err})")
+        shape = {"threads": out[15], "sms": out[16]}
+        for k, q in enumerate(CLUSTER_SIZES):
+            row = out[5 * k:5 * k + 5]
+            shape[q] = {"blocks_per_sm": row[0], "clusters": row[1],
+                        "resident": row[1] * q, "smem": row[2],
+                        "registers": row[3], "local_bytes": row[4]}
+        _SHAPES[key] = shape
+    return _SHAPES[key]
+
+
+def launch_split_cells(a: SplitCellsArgs, cluster: Optional[int] = None
+                       ) -> SplitCellsOut:
     """The kernel on ``a``'s CUDA tensors: one launch for the chunk, queued
-    on the current stream (no host read).  Raises if the launch is
-    refused, e.g. for a tile too large for the card's shared memory."""
+    on the current stream (no host read), each cell on a cluster of
+    ``cluster`` blocks (default :func:`cluster_size` of the chunk; the
+    outputs are the same at every size).  Raises if the launch is refused,
+    e.g. for a tile too large for the card's shared memory."""
     dev = a.rec.device
     if dev.type != "cuda":
         raise ValueError(f"the split_cells kernel runs on cuda, not {dev}")
@@ -1370,8 +1427,12 @@ def launch_split_cells(a: SplitCellsArgs) -> SplitCellsOut:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    if a.grid.device != dev or a.grid.dtype != torch.uint8:
-        raise ValueError("the region grid must be uint8 on the card")
+    if (a.fine.device != dev or a.fine.dtype != torch.int16
+            or a.sub_codes.device != dev or a.sub_codes.dtype != torch.uint8
+            or a.sub_codes.dim() != 3 or len(a.sub_codes) < 1
+            or a.fine.shape != a.grid.shape):
+        raise ValueError("the refined region grid must be int16 (n, n) and "
+                         "uint8 (M >= 1, sub, sub) on the card")
     lib = load_kernel()
     ny, nx = a.eyebox_bins
     C, K = a.C, a.capacity
@@ -1384,22 +1445,35 @@ def launch_split_cells(a: SplitCellsArgs) -> SplitCellsOut:
         work=torch.empty(C, dtype=torch.int64, device=dev))
     if C == 0:
         return out
-    buf = torch.empty((C, 3, _NF, K), dtype=torch.float32, device=dev)
+    R2 = 2 * (1 + a.num_fc + a.num_oc)
+    buf = torch.empty((C, 4, _NF, K), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        shape = split_cells_shape(ny, nx, R2, a.edges)
+        q = cluster or cluster_size(C, K, shape["threads"], shape["sms"],
+                                    shape[1]["blocks_per_sm"])
+        if q not in CLUSTER_SIZES:
+            raise ValueError(f"cluster size {q} is not one of "
+                             f"{CLUSTER_SIZES}")
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.split_cells_launch(
             a.rec.data_ptr(), a.cell.data_ptr(), a.dirs.data_ptr(),
-            a.geom.data_ptr(), a.grid.data_ptr(), a.seeds.data_ptr(),
-            buf.data_ptr(), out.tiles.data_ptr(), out.trunc.data_ptr(),
-            out.pruned.data_ptr(), out.peak.data_ptr(), out.steps.data_ptr(),
-            out.work.data_ptr(), C, a.P, K, 2 * (1 + a.num_fc + a.num_oc),
-            a.num_fc, a.num_oc, ny, nx, a.max_steps,
-            int(a.seeds.dim() == 3), int(a.circle), a.grid.shape[0],
-            *a.edges, float(np.float32(a.weight_threshold)), stream)
+            a.geom.data_ptr(), a.fine.data_ptr(), a.sub_codes.data_ptr(),
+            a.seeds.data_ptr(), buf.data_ptr(), out.tiles.data_ptr(),
+            out.trunc.data_ptr(), out.pruned.data_ptr(), out.peak.data_ptr(),
+            out.steps.data_ptr(), out.work.data_ptr(), C, a.P, K, R2,
+            a.num_fc, a.num_oc, ny, nx, a.max_steps, int(a.seeds.dim() == 3),
+            int(a.circle), a.fine.shape[0], a.sub_codes.shape[1], *a.edges,
+            float(np.float32(a.weight_threshold)), q, stream)
     if err != 0:
         msg = lib.split_cells_error_string(err).decode()
         raise RuntimeError(f"split_cells launch failed: {msg} ({err})")
     launch_counts["split_cells"] += 1
+    last_launch["split_cells"] = {
+        "threads": shape["threads"], "cluster": q, "grid": C * q,
+        "blocks_per_sm": shape[q]["blocks_per_sm"],
+        "resident_blocks": shape[q]["resident"], "smem": shape[q]["smem"],
+        "registers": shape[q]["registers"],
+        "local_bytes": shape[q]["local_bytes"]}
     return out
 
 
@@ -1422,13 +1496,20 @@ def load_kernel():
     the compiler's output if the build fails."""
     global _LIB
     if _LIB is None:
-        lib = build.load_library("split_cells")
-        lib.split_cells_launch.argtypes = LAUNCH_ARGTYPES
-        lib.split_cells_launch.restype = ctypes.c_int
-        lib.split_cells_error_string.argtypes = [ctypes.c_int]
-        lib.split_cells_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+        _LIB = bind_library(build.load_library("split_cells"))
     return _LIB
+
+
+def bind_library(lib):
+    """Set the argument and result types of ``csrc/split_cells.cu``'s C
+    functions on the loaded library ``lib``; returns it."""
+    lib.split_cells_launch.argtypes = LAUNCH_ARGTYPES
+    lib.split_cells_launch.restype = ctypes.c_int
+    lib.split_cells_error_string.argtypes = [ctypes.c_int]
+    lib.split_cells_error_string.restype = ctypes.c_char_p
+    lib.split_cells_shape.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.split_cells_shape.restype = ctypes.c_int
+    return lib
 
 
 def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
@@ -1464,6 +1545,10 @@ def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
     G, G0 = _geometry(tgeom, device)
     G0 = {k: v.to(device) for k, v in G0.items()}
     packed = pack_geometry(G)
+    fine, sub_codes = trace_vector.region_subgrids(G)
+    if len(sub_codes) == 0:        # no open cell: one row, a valid pointer
+        sub_codes = torch.zeros((1,) + sub_codes.shape[1:], dtype=torch.uint8)
+    subgrids = (fine.to(device), sub_codes.to(device))
     if device.type == "cuda":
         load_kernel()
 
@@ -1484,7 +1569,7 @@ def make_splitting_cells_fn(tables: CellTables, tgeom: TraceGeometry,
             s = s.expand(6, C, P)
         return split_cells_args(Tc, packed, s, cfg, tgeom.num_fc,
                                 tgeom.num_oc, capacity, weight_threshold,
-                                max_steps)
+                                max_steps, subgrids)
 
     @torch.no_grad()
     def trace(cell_ids, seeds: dict):

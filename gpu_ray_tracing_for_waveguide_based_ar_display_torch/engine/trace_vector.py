@@ -251,6 +251,15 @@ def _vertices(hp: torch.Tensor) -> torch.Tensor:
     return torch.stack([x[feas], y[feas]], dim=1)
 
 
+def _corner_extremes(val: torch.Tensor) -> tuple:
+    """The largest and smallest of each box's four corner values, ``val``
+    (..., ny + 1, nx + 1) at the corners of (ny, nx) boxes."""
+    return (torch.maximum(torch.maximum(val[..., :-1, :-1], val[..., 1:, :-1]),
+                          torch.maximum(val[..., :-1, 1:], val[..., 1:, 1:])),
+            torch.minimum(torch.minimum(val[..., :-1, :-1], val[..., 1:, :-1]),
+                          torch.minimum(val[..., :-1, 1:], val[..., 1:, 1:])))
+
+
 def add_region_grids(G: dict, n: int = GRID_N) -> dict:
     """Stacked geometry with a classification grid per design: an n x n
     window over the whole-system region (padded by ``_GRID_PAD`` cells) in
@@ -286,10 +295,7 @@ def add_region_grids(G: dict, n: int = GRID_N) -> dict:
             hp = G[key][d].double()
             a, b, c = hp[:, 0, None, None], hp[:, 1, None, None], hp[:, 2, None, None]
             val = a * cx[None, None, :] + b * cy[None, :, None] - c  # (E, iy, ix)
-            cmax = torch.maximum(torch.maximum(val[:, :-1, :-1], val[:, 1:, :-1]),
-                                 torch.maximum(val[:, :-1, 1:], val[:, 1:, 1:]))
-            cmin = torch.minimum(torch.minimum(val[:, :-1, :-1], val[:, 1:, :-1]),
-                                 torch.minimum(val[:, :-1, 1:], val[:, 1:, 1:]))
+            cmax, cmin = _corner_extremes(val)
             slack = (_GRID_MARGIN * (a.abs() + b.abs())
                      + 2.0 ** -20 * (r * a.abs() + r * b.abs() + c.abs()))
             inside = (cmax + slack <= _EDGE_TOL).all(dim=0)
@@ -307,6 +313,71 @@ def add_region_grids(G: dict, n: int = GRID_N) -> dict:
                grid_inv_hx=torch.stack(ixs), grid_inv_hy=torch.stack(iys))
     out["geom_rows"] = pack_geometry(out)[0]
     return out
+
+
+SUBGRID = 8             # subcells per side of a refined grid cell
+
+
+def region_subgrids(G: dict) -> tuple:
+    """Design 0's region grid (:func:`add_region_grids`) refined where it
+    leaves a region open: ``(fine, codes)``.  ``fine`` (n, n) int16 holds
+    a cell's ``grid_code`` where it decides all three regions, else
+    ``-(t + 1)``: the cell's :data:`SUBGRID` x :data:`SUBGRID` subcells
+    are row ``t`` of ``codes`` (M, SUBGRID, SUBGRID) uint8.  A subcell is
+    classified as :func:`add_region_grids` classifies a cell (widened by
+    ``_GRID_MARGIN``, with the float32 bound of the test at the window's
+    largest coordinate) against the edges its cell leaves undecided; an edge
+    the whole cell passes, the subcell passes, and a region the cell
+    decides keeps the cell's code.  A position's subcell is
+    ``floor((fx - ix) * SUBGRID)`` of its float32 ``fx = (x - x0) * inv_h``
+    and ``ix = floor(fx)``, which misses its true subcell by far less than
+    the margin, so a subcode of 0 or 1 is what the exact test gives.  Cells
+    past 32,767 keep their open code."""
+    code = G["grid_code"][0].to(torch.int32).cpu()
+    n = code.shape[0]
+    cls = [(code >> (2 * k)) & 3 for k in range(len(_REGIONS))]
+    iy, ix = torch.nonzero((cls[0] == 2) | (cls[1] == 2) | (cls[2] == 2),
+                           as_tuple=True)
+    iy, ix = iy[:(1 << 15) - 1], ix[:(1 << 15) - 1]
+    M = iy.numel()
+    fine = code.to(torch.int16)
+    fine[iy, ix] = -1 - torch.arange(M, dtype=torch.int16)
+    x0, y0 = G["grid_x0"][0].double().cpu(), G["grid_y0"][0].double().cpu()
+    invx = G["grid_inv_hx"][0].double().cpu()
+    invy = G["grid_inv_hy"][0].double().cpu()
+    k = torch.arange(n + 1, dtype=torch.float64)
+    r = float(torch.cat([(x0 + k / invx).abs(), (y0 + k / invy).abs()]).max())
+    sub = SUBGRID
+    u = torch.arange(sub + 1, dtype=torch.float64) / sub
+    codes = torch.zeros((M, sub, sub), dtype=torch.int32)
+    for shift, key in enumerate(_REGIONS):
+        cell = cls[shift][iy, ix]
+        codes |= (cell << (2 * shift))[:, None, None]
+        t = torch.nonzero(cell == 2).squeeze(1)       # cells open here
+        hp = G[key][0].double().cpu()
+        a, b, c = hp[:, 0], hp[:, 1], hp[:, 2]
+        slack = (_GRID_MARGIN * (a.abs() + b.abs())
+                 + 2.0 ** -20 * (r * a.abs() + r * b.abs() + c.abs()))
+        # the edges each open cell leaves undecided, (edge, cell) pairs
+        cx = x0 + (ix[t].double()[:, None] + u[[0, -1]]) / invx    # (m, 2)
+        cy = y0 + (iy[t].double()[:, None] + u[[0, -1]]) / invy
+        val = (a[:, None, None, None] * cx[None, :, None, :]
+               + b[:, None, None, None] * cy[None, :, :, None]
+               - c[:, None, None, None])                        # (E, m, 2, 2)
+        cmax = _corner_extremes(val)[0][..., 0, 0]
+        e, j = torch.nonzero(cmax + slack[:, None] > _EDGE_TOL, as_tuple=True)
+        cx = x0 + (ix[t[j]].double()[:, None] + u) / invx          # (p, sub+1)
+        cy = y0 + (iy[t[j]].double()[:, None] + u) / invy
+        val = (a[e, None, None] * cx[:, None, :] + b[e, None, None]
+               * cy[:, :, None] - c[e, None, None])         # (p, sub+1, sub+1)
+        smax, smin = _corner_extremes(val)
+        fail = torch.zeros((t.numel(), sub, sub), dtype=torch.int32)
+        fail.index_add_(0, j, (smax + slack[e, None, None] > _EDGE_TOL).int())
+        out = torch.zeros((t.numel(), sub, sub), dtype=torch.int32)
+        out.index_add_(0, j, (smin - slack[e, None, None] > _EDGE_TOL).int())
+        sc = torch.where(fail == 0, 1, torch.where(out > 0, 0, 2)).int()
+        codes[t] = (codes[t] & ~(3 << (2 * shift))) | (sc << (2 * shift))
+    return fine, codes.to(torch.uint8)
 
 
 # the geometry scalars the kernels read, in their order (csrc/step_common.cuh

@@ -1044,6 +1044,104 @@ def test_split_kernel_chunks_are_independent_on_card(cuda_device):
         assert torch.equal(getattr(whole, f), getattr(again, f)), f
 
 
+_SPLIT_FIELDS = ("tiles", "trunc", "pruned", "peak", "steps", "work")
+
+
+def _split_bits_equal(x, y) -> bool:
+    """Every field of two ``SplitCellsOut`` equal bit for bit (on x's
+    device)."""
+    for f in _SPLIT_FIELDS:
+        u, v = getattr(x, f), getattr(y, f).to(getattr(x, f).device)
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        if not torch.equal(u.long(), v.long()):
+            return False
+    return True
+
+
+@pytest.mark.cuda
+def test_split_kernel_crowded_bins_equal_plain_version_on_card(cuda_device):
+    """A crowded fixture: 300 copies of one launch ray in every cell, so each
+    position of a step is held by hundreds of slots and its deposits fall
+    in one bin as one long run, across the passes of 256, 512 and 1,024
+    slots (clusters of 1, 2 and 4) and the 8,192-slot cut.  Against the
+    plain version on the card and the CPU: tiles, steps, peak and work bit
+    for bit, the ledgers within 1e-6 relative, and the same outputs at
+    every cluster size."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    trace, _, seeds = _split_fixture(8192, False)
+    crowd = {k: v[:1].repeat(300) for k, v in seeds.items()}
+    a = trace.args(np.array([0, 7, 15]), crowd)
+    n0 = tp.launch_counts["split_cells"]
+    got = splitting.split_cells(a)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["split_cells"] == n0 + 1
+    assert int(got.peak.max()) > 8192 and float(got.trunc.sum()) > 0
+    for ref in (splitting.split_cells_reference(a),
+                splitting.split_cells_reference(a.to("cpu"))):
+        g = {f: getattr(got, f).to(ref.tiles.device) for f in _SPLIT_FIELDS}
+        for f in ("tiles", "steps", "peak", "work"):
+            u, v = g[f], getattr(ref, f)
+            if u.dtype == torch.float32:
+                u, v = u.view(torch.int32), v.view(torch.int32)
+            assert torch.equal(u.long(), v.long()), f
+        torch.testing.assert_close(g["trunc"], ref.trunc, rtol=1e-6, atol=0)
+        torch.testing.assert_close(g["pruned"], ref.pruned, rtol=1e-6,
+                                   atol=0)
+    assert got.tiles.sum() > 0
+    for q in splitting.CLUSTER_SIZES:
+        assert _split_bits_equal(splitting.launch_split_cells(a, cluster=q),
+                                 got), q
+
+
+@pytest.mark.cuda
+def test_split_kernel_many_waves_and_clusters_equal_on_card(cuda_device):
+    """A chunk of 720 cells (the fixture's 18, forty times over) runs one
+    block a cell in more waves than the card holds at once; a chunk of 4 of
+    those cells runs each on a cluster of 4 blocks.  Every cell's outputs
+    are the 18-cell chunk's bit for bit in both, and the large chunk equals
+    the plain version on the card."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        splitting,
+    )
+
+    trace, cells, seeds = _split_fixture(8192, False)
+    base = splitting.launch_split_cells(trace.args(cells, seeds))
+    many = np.tile(cells, 40)
+    a = trace.args(many, seeds)
+    big = splitting.launch_split_cells(a)
+    torch.cuda.synchronize()
+    shape = splitting.last_launch["split_cells"]
+    assert shape["cluster"] == 1 and shape["grid"] > shape["resident_blocks"]
+    assert shape["blocks_per_sm"] >= 2
+    idx = torch.as_tensor(np.arange(len(many)) % len(cells),
+                          device=cuda_device)
+    for f in _SPLIT_FIELDS:
+        u, v = getattr(big, f), getattr(base, f).index_select(0, idx)
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v), f
+    ref = splitting.split_cells_reference(a)
+    for f in ("tiles", "steps", "peak", "work"):
+        u, v = getattr(big, f), getattr(ref, f)
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u.long(), v.long()), f
+    four = np.array([2, 9, 11, 17])
+    small = splitting.launch_split_cells(trace.args(four, seeds))
+    torch.cuda.synchronize()
+    assert splitting.last_launch["split_cells"]["cluster"] == 4
+    pick = torch.as_tensor(four, device=cuda_device)
+    for f in _SPLIT_FIELDS:
+        u, v = getattr(small, f), getattr(big, f).index_select(0, pick)
+        if u.dtype == torch.float32:
+            u, v = u.view(torch.int32), v.view(torch.int32)
+        assert torch.equal(u, v), f
+
+
 # ---------------------------------------------------------------------------
 # the vector engine's kernel (csrc/vector_trace.cu)
 
