@@ -185,7 +185,8 @@ Run from the repository root.  Phases:
    records, tile and seeds once, at 3.35 TB/s, or 200 float32 operations
    a stepped slot at 67 TFLOP/s);
 22. the vector engine's kernel (``csrc/vector_trace.cu``: one launch per
-   trace call runs every ray's whole bounce loop) against its plain
+   trace call runs every ray's whole bounce loop, a warp a bounce a round
+   with lanes that take their block's next rays) against its plain
    PyTorch version (``trace_vector.vector_trace_reference``) on the same
    arguments, on the card: (a) a 2,048-cell batch of phase 12's case at
    full width (10.24 M rays, the whole 100,000-bounce budget); (b) the
@@ -194,8 +195,10 @@ Run from the repository root.  Phases:
    8 designs at its widths (180,000 cells x 256 rays in one call); (d) the
    polygon in-coupler test (512 cells of phase 12's case; (a) to (c) run
    the default, the circle).  Every ray field, the per-design bounces and
-   the steps must be equal bit for bit; the kernel's time (CUDA events),
-   the plain version's (host clock), and the bound: each ray field read
+   the steps must be equal bit for bit; the kernel's registers, spills
+   (none allowed) and resident blocks per SM; its time (CUDA events behind
+   0.1 s of device spin), the plain version's (host clock), and the
+   bound: each ray field read
    once and each output field written once (68 + 52 B a ray), the tables
    of the cells the rays touch, the geometry and grids once, at 3.35
    TB/s, or ``VEC_BOUNCE_OPS`` float32 operations a bounce and
@@ -247,7 +250,9 @@ Run from the repository root.  Phases:
    phase 8's workload (22,500 cells, 5,000 rays per cell,
    the ray state built on the card, in 11 batches, 80 x 120 bins, a
    100,000-bounce bound, metrics on, ``num_iter=1``, the tail on the card
-   as ``simulate`` runs it), with its layers (setup, seeding on the host
+   as ``simulate`` runs it), with its layers (setup, split into its
+   ``setup_timings``: geometry, host tables, the kernel's build and bind,
+   the vector tracer's build with its refined grids; seeding on the host
    and the card, the bounce loop, compaction, scatter, the tail's
    perception, colorimetry and pull), the steps and the reads from the
    device of each batch, the wall and the peak device memory, with launch
@@ -753,7 +758,8 @@ def rows_built(ctx, phase: str, launches: dict, want: int) -> None:
 def setup_text(sim) -> str:
     """A Simulator's setup split: geometry, the rows' host inputs, their
     upload and kernel (host seconds; the kernel's CUDA-event time), the
-    trace geometry and the kernels' build and bind."""
+    trace geometry, the kernels' build and bind, and where the engine has
+    them the host tables and the vector tracer's build."""
     st = sim.setup_timings
     return (f"setup {sim.setup_seconds:.3f} s [geometry "
             f"{st.get('geometry_s', 0.0):.3f} s, host row inputs "
@@ -761,7 +767,12 @@ def setup_text(sim) -> str:
             f"{st.get('rows_s', 0.0):.4f} s (kernel "
             f"{st.get('rows_ms', float('nan')):.3f} ms), trace geometry "
             f"{st.get('trace_geometry_s', 0.0):.3f} s, kernel build and bind "
-            f"{st.get('kernel_build_s', 0.0):.3f} s]")
+            f"{st.get('kernel_build_s', 0.0):.3f} s"
+            + (f", host tables {st['host_tables_s']:.3f} s"
+               if "host_tables_s" in st else "")
+            + (f", vector tracer (tables, grids, subgrids) "
+               f"{st['vector_tracer_s']:.3f} s" if "vector_tracer_s" in st
+               else "") + "]")
 
 
 def phase1(ctx) -> None:
@@ -2374,7 +2385,9 @@ def phase12(ctx) -> None:
         "cells": n_cells, "rays_per_cell": cfg.rays_per_fov, "num_iter": 1,
         "segmented": sim._segmented,
         "segment_bounces": sim._segment_bounces, "wall_s": wall,
-        "setup_s": sim.setup_seconds, "trace_s": res.trace_seconds,
+        "setup_s": sim.setup_seconds,
+        "setup_timings": dict(sim.setup_timings),
+        "trace_s": res.trace_seconds,
         "seed_s": tm["seed_s"], "seed_ms": tm.get("seed_ms"),
         "bounce_ms": tm.get("bounce_ms", 0.0), "compact_ms": tm.get("compact_ms"),
         "scatter_ms": tm.get("scatter_ms", 0.0), "assemble_s": tm["assemble_s"],
@@ -2396,7 +2409,7 @@ def phase12(ctx) -> None:
                 else "one trace call a batch")
     print(f"phase 12: {n_cells} cells x {cfg.rays_per_fov} rays, vector "
           f"engine, {schedule}: wall {wall:.3f} s "
-          f"(setup {sim.setup_seconds:.3f} s), trace {res.trace_seconds:.3f} "
+          f"({setup_text(sim)}), trace {res.trace_seconds:.3f} "
           f"s, seeding {tm['seed_s']:.3f} s host, "
           f"{tm.get('seed_ms', float('nan')):.1f} ms device, bounce loop "
           f"{tm.get('bounce_ms', 0.0):.1f} ms, compaction "
@@ -4341,9 +4354,11 @@ def vector_compare(out, ref) -> dict:
 
 def _vector_case(name: str, a, reps: int) -> tuple:
     """One phase-22 call: the kernel against its plain version on the card,
-    the kernel's CUDA-event time, the plain version's (host clock, once)
-    and the bound from this call's rays and bounces; returns (the record,
-    the kernel's output)."""
+    the kernel's CUDA-event time (``device_ms``: queued behind 0.1 s of
+    device spin, so a card idle through the call's host setup has its
+    clocks up), the plain version's (host clock, once) and the bound from
+    this call's rays and bounces; returns (the record, the kernel's
+    output)."""
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
         trace_vector as tv,
@@ -4351,7 +4366,7 @@ def _vector_case(name: str, a, reps: int) -> tuple:
 
     out = tv.launch_vector_trace(a)
     torch.cuda.synchronize()
-    ms = cuda_ms(lambda: tv.launch_vector_trace(a), reps)
+    ms = device_ms(lambda: tv.launch_vector_trace(a), reps)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ref = tv.vector_trace_reference(a)
@@ -4376,8 +4391,16 @@ def _vector_case(name: str, a, reps: int) -> tuple:
     return e, out
 
 
-def phase22(ctx) -> None:
-    """The vector engine's kernel against its plain version."""
+def vector_cases(dev):
+    """Phase 22's trace calls, one at a time: yields ``(name,
+    VectorTraceArgs, reps)``.  (a) a 2,048-cell batch of phase 12's case
+    (simulate --engine vector); (b) the same rays in full mode with a
+    24-step budget, then in resume mode with the rest (the resume call
+    continues the kernel's own 24-step output); (c) the CLI's default
+    sweep, 8 designs at its widths, as run_design_sweep packs them (one
+    shared seed batch per in-coupler); (d) the other in-coupler test (the
+    default is the circle): the polygon's half-planes, 512 cells of phase
+    12's case."""
     import dataclasses as dc
 
     import numpy as np
@@ -4405,40 +4428,24 @@ def phase22(ctx) -> None:
         design_sweep,
     )
 
-    dev = ctx["dev"]
-    rec = ctx["record"].setdefault("phase22", {})
-    faults, cases = [], []
-
     def args_of(tracer, cfg, rays, mode, budget):
         return tv.vector_trace_args(
             rays, tracer.tables(), tracer.geometry(), mode=mode,
             max_bounces=budget, num_fc=tracer.num_fc, num_oc=tracer.num_oc,
             eyebox_bins=cfg.eyebox_bins, circle=cfg.ic_test == "circle")
 
-    # (a) a 2,048-cell batch of phase 12's case (simulate --engine vector)
     cfg = TraceConfig()
     sim = pipeline.Simulator(cfg=cfg, device=dev, engine="vector")
     rays = sim._vector_rays(np.arange(2048), cfg.rays_per_fov, 0)
-    e, whole = _vector_case("batch_2048", args_of(
-        sim.tracer, cfg, rays, "full", cfg.max_bounces), 3)
-    cases.append(e)
-    # (b) the same rays: full mode with a 24-step budget, then resume mode
-    # with the rest; together they must equal (a)
-    e24, first = _vector_case("batch_2048_full_24", args_of(
-        sim.tracer, cfg, rays, "full", 24), 3)
-    er, rest = _vector_case("batch_2048_resume_rest", args_of(
-        sim.tracer, cfg, first.rays, "resume", cfg.max_bounces - 24), 3)
-    split_ok = (all(torch.equal(rest.rays[k], whole.rays[k])
-                    for k in tv.RAY_KEYS)
-                and torch.equal(first.bounces + rest.bounces, whole.bounces))
-    er["full_24_then_resume_equals_whole"] = split_ok
-    cases += [e24, er]
-    if not split_ok:
-        faults.append("full 24 + resume differs from the whole trace")
-    del sim, rays, whole, first, rest
+    yield "batch_2048", args_of(sim.tracer, cfg, rays, "full",
+                                cfg.max_bounces), 3
+    a24 = args_of(sim.tracer, cfg, rays, "full", 24)
+    yield "batch_2048_full_24", a24, 3
+    first = tv.launch_vector_trace(a24).rays
+    yield "batch_2048_resume_rest", args_of(
+        sim.tracer, cfg, first, "resume", cfg.max_bounces - 24), 3
+    del sim, rays, a24, first
     torch.cuda.empty_cache()
-    # (c) the CLI's default sweep: 8 designs at its widths, as
-    # run_design_sweep packs them (one shared seed batch per in-coupler)
     sargs = cli.build_parser().parse_args(["sweep", "--engine", "vector"])
     designs, _ = cli.sweep_designs(sargs)
     cfg6 = cli.sweep_config(sargs)
@@ -4452,22 +4459,72 @@ def phase22(ctx) -> None:
     tracer = tv.VectorTracer(tables, tgeoms, cfg6, device=dev)
     rays = tv.stack_ray_states(states)
     del states
-    e, _ = _vector_case("sweep_8", args_of(tracer, cfg6, rays, "full",
-                                           cfg6.max_bounces), 2)
-    cases.append(e)
+    yield "sweep_8", args_of(tracer, cfg6, rays, "full",
+                             cfg6.max_bounces), 2
     del tracer, rays
     torch.cuda.empty_cache()
-    # (d) the other in-coupler test (the default is the circle): the
-    # polygon's half-planes, 512 cells of phase 12's case
     cfgc = dc.replace(TraceConfig(), ic_test="polygon")
     sim = pipeline.Simulator(cfg=cfgc, device=dev, engine="vector")
     rays = sim._vector_rays(np.arange(0, 22500, 44)[:512], cfgc.rays_per_fov,
                             0)
-    e, _ = _vector_case("polygon_512", args_of(sim.tracer, cfgc, rays, "full",
-                                               cfgc.max_bounces), 3)
-    cases.append(e)
+    yield "polygon_512", args_of(sim.tracer, cfgc, rays, "full",
+                                 cfgc.max_bounces), 3
     del sim, rays
     torch.cuda.empty_cache()
+
+
+def vector_occupancy() -> dict:
+    """The vector kernel's resident blocks per SM, registers, local bytes
+    and threads a block, and its spills in this run's build (None when the
+    library was built earlier)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        build, trace_vector as tv,
+    )
+
+    log = build.build_info.get("vector_trace", {}).get("log", "")
+    return dict(tv.kernel_occupancy(),
+                spill_bytes=ptxas_spills(log).get("[kernel]") if log
+                else None)
+
+
+def phase22(ctx) -> None:
+    """The vector engine's kernel against its plain version."""
+    import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    dev = ctx["dev"]
+    rec = ctx["record"].setdefault("phase22", {})
+    faults, cases, outs = [], [], {}
+    for name, a, reps in vector_cases(dev):
+        e, out = _vector_case(name, a, reps)
+        cases.append(e)
+        if name.startswith("batch_2048"):
+            outs[name] = out
+        del a, out
+        if name == "batch_2048_resume_rest":
+            # the 24-step call and the resume call together equal the whole
+            whole, first, rest = (outs.pop(k) for k in (
+                "batch_2048", "batch_2048_full_24", name))
+            split_ok = (all(torch.equal(rest.rays[k], whole.rays[k])
+                            for k in tv.RAY_KEYS)
+                        and torch.equal(first.bounces + rest.bounces,
+                                        whole.bounces))
+            e["full_24_then_resume_equals_whole"] = split_ok
+            if not split_ok:
+                faults.append("full 24 + resume differs from the whole trace")
+            del whole, first, rest
+            torch.cuda.empty_cache()
+    occ = vector_occupancy()
+    rec["occupancy"] = occ
+    print(f"phase 22 occupancy vector_trace: {occ['blocks_per_sm']} blocks "
+          f"of {occ['threads']} threads per SM, {occ['registers']} "
+          f"registers, {occ['local_bytes']} B local, spills "
+          f"{occ['spill_bytes'] if occ['spill_bytes'] is not None else '(not rebuilt)'} "
+          f"B, at most {occ['max_rays_per_block']} rays a block")
+    if occ["spill_bytes"]:
+        faults.append(f"ptxas reports {occ['spill_bytes']} B of spills")
     for e in cases:
         rec[e["name"]] = e
         print(f"phase 22 {e['name']}: {e['designs']} design(s), "

@@ -29,8 +29,9 @@
 // memory (cp.async) while the pass before ran.  The region tests come from
 // the region grid refined where it is open (trace_vector.region_subgrids),
 // the rest by the whole warp, an edge a lane, the hull and r2 only inside
-// r1 (regions_warp): bit for bit what the step reads of the exact test,
-// which one lane walked over its ~100 edges while the warp waited.  A pass has one wait: each warp sends its (A live, B live,
+// r1 (regions_warp, step_common.cuh): bit for bit what the step reads of
+// the exact test, which one lane walked over its ~100 edges while the warp
+// waited.  A pass has one wait: each warp sends its (A live, B live,
 // deposit) counts to every block of the cluster (st.async into the other
 // blocks' shared memory, counted on their mbarriers; a block barrier when
 // Q = 1), then waits for the cluster's, so each thread knows its children's
@@ -169,68 +170,6 @@ __device__ __forceinline__ void bar_wait(void* bar, unsigned parity) {
         : "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(parity)
         : "memory");
   }
-}
-
-// The region code of (x, y) from a grid refined where it is open
-// (engine/trace_vector.py::region_subgrids): `fine` holds the grid's code,
-// or -(t + 1) for a cell whose `sub` x `sub` subcells are row t of
-// `sub_codes`; the cell is regions()'s, from the same float32 operations.
-__device__ __forceinline__ int region_code_fine(const Geom& c,
-                                                const int16_t* fine,
-                                                const uint8_t* sub_codes,
-                                                int sub, float x, float y) {
-  const float n = (float)c.grid_n;
-  const float fx = (x - c.g[G_GRID_X0]) * c.g[G_GRID_INV_HX];
-  const float fy = (y - c.g[G_GRID_Y0]) * c.g[G_GRID_INV_HY];
-  const float ix = floorf(fx), iy = floorf(fy);
-  if (!(ix >= 0.0f && ix < n && iy >= 0.0f && iy < n)) return 0x2A;
-  const int v = fine[(int)iy * c.grid_n + (int)ix];
-  if (v >= 0) return v;
-  const int su = (int)floorf((fx - ix) * (float)sub);
-  const int sv = (int)floorf((fy - iy) * (float)sub);
-  return sub_codes[((-1 - v) * sub + sv) * sub + su];
-}
-
-// regions() of a warp's 32 positions where the step reads them, every
-// lane of the warp taking part (`active`: the lane's position counts),
-// their codes from the refined grid: then each region's exact test of each
-// lane that the code leaves open in that region, by the whole warp, an
-// edge a lane (the same float32 operations as hp_inside), the hull and r2
-// only where the position is in r1 (a slot outside r1 is dead, and the
-// step reads neither).  A code of 0 or 1 is what the exact test gives
-// (engine/trace_vector.py::add_region_grids, region_subgrids), so the step
-// sees regions()'s answers bit for bit, without a lane's serial walk over
-// its ~100 edges while the others wait.
-__device__ void regions_warp(const Geom& c, const int16_t* fine,
-                             const uint8_t* sub_codes, int sub, float x,
-                             float y, bool active, bool& r1, bool& hull,
-                             bool& r2) {
-  const int code =
-      active ? region_code_fine(c, fine, sub_codes, sub, x, y) : 0;
-  const int lane = threadIdx.x & 31;
-  bool in[3];
-  for (int k = 0; k < 3; ++k) {
-    const int cls = (code >> (2 * k)) & 3;
-    in[k] = cls == 1;
-    const float* hp = k == 0 ? c.r1_hp : (k == 1 ? c.hull_hp : c.r2_hp);
-    const int E = k == 0 ? c.e_r1 : (k == 1 ? c.e_hull : c.e_r2);
-    for (unsigned open = __ballot_sync(FULL, cls == 2 && (k == 0 || in[0]));
-         open; open &= open - 1) {
-      const int src = __ffs(open) - 1;
-      const float px = __shfl_sync(FULL, x, src);
-      const float py = __shfl_sync(FULL, y, src);
-      bool out = false;
-      for (int e = lane; e < E; e += 32) {
-        const float v = px * hp[3 * e] + py * hp[3 * e + 1] - hp[3 * e + 2];
-        out = out || !(v <= EDGE_TOL);
-      }
-      const bool inside = !__any_sync(FULL, out);
-      if (lane == src) in[k] = inside;
-    }
-  }
-  r1 = in[0];
-  hull = in[1];
-  r2 = in[2];
 }
 
 // a slot's 11 fields, copied from device memory into a shared row of

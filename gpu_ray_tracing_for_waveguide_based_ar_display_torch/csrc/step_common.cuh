@@ -1,7 +1,9 @@
 // Device functions of one bounce, shared by the step kernels
 // (split_cells.cu, vector_trace.cu): the table layouts, the Jones products,
-// the TIR phasor, the region grid with its exact half-plane test, the
-// in-coupler test, the record key with its strip bins, and the deposit bin.
+// the TIR phasor, the region grid with its exact half-plane test (one lane
+// walking the edges, or the warp an edge a lane over the grid refined where
+// it is open), the in-coupler test, the record key with its strip bins, and
+// the deposit bin.
 // Every function is float32 with the operations of the plain PyTorch step
 // (engine/trace_vector.py) in its order: build with -fmad=false so that no
 // multiply-add is contracted; a division by a tensor there is __fdiv_rn
@@ -108,6 +110,72 @@ __device__ void regions(const Geom& c, float x, float y, bool& r1,
     hull = k1 == 1;
     r2 = k2 == 1;
   }
+}
+
+// The region code of (x, y) from a grid refined where it is open
+// (engine/trace_vector.py::region_subgrids): `fine` holds the grid's code,
+// or -(t + 1) for a cell whose `sub` x `sub` subcells are row t of
+// `sub_codes`; the cell is regions()'s, from the same float32 operations.
+__device__ __forceinline__ int region_code_fine(const Geom& c,
+                                                const int16_t* fine,
+                                                const uint8_t* sub_codes,
+                                                int sub, float x, float y) {
+  const float n = (float)c.grid_n;
+  const float fx = (x - c.g[G_GRID_X0]) * c.g[G_GRID_INV_HX];
+  const float fy = (y - c.g[G_GRID_Y0]) * c.g[G_GRID_INV_HY];
+  const float ix = floorf(fx), iy = floorf(fy);
+  if (!(ix >= 0.0f && ix < n && iy >= 0.0f && iy < n)) return 0x2A;
+  const int v = fine[(int)iy * c.grid_n + (int)ix];
+  if (v >= 0) return v;
+  const int su = (int)floorf((fx - ix) * (float)sub);
+  const int sv = (int)floorf((fy - iy) * (float)sub);
+  return sub_codes[((-1 - v) * sub + sv) * sub + su];
+}
+
+// One region of a warp's 32 positions, every lane of the warp taking part
+// (the region's E half-planes hp are the same for every lane): `cls` is
+// the lane's code for it (0 outside, 1 inside, 2 open).  Each lane that
+// the code leaves open and whose step reads the region (`need`) has the
+// exact test done by the whole warp, an edge a lane (hp_inside's float32
+// operations), one such lane after another.  A code of 0 or 1 is what the
+// exact test gives (engine/trace_vector.py::add_region_grids,
+// region_subgrids), so wherever the step reads it the answer is
+// hp_inside's bit for bit, without a lane's serial walk over its ~100
+// edges while the others wait.
+__device__ __forceinline__ bool region_warp(const float* hp, int E, int cls,
+                                            bool need, float x, float y) {
+  const int lane = threadIdx.x & 31;
+  bool in = cls == 1;
+  for (unsigned open = __ballot_sync(0xffffffffu, need && cls == 2); open;
+       open &= open - 1) {
+    const int src = __ffs(open) - 1;
+    const float px = __shfl_sync(0xffffffffu, x, src);
+    const float py = __shfl_sync(0xffffffffu, y, src);
+    bool out = false;
+    for (int e = lane; e < E; e += 32) {
+      const float v = px * hp[3 * e] + py * hp[3 * e + 1] - hp[3 * e + 2];
+      out = out || !(v <= EDGE_TOL);
+    }
+    const bool inside = !__any_sync(0xffffffffu, out);
+    if (lane == src) in = inside;
+  }
+  return in;
+}
+
+// regions() of a warp's 32 positions where a splitting step reads them,
+// every lane of the warp taking part (`active`: the lane's position
+// counts): the codes from the refined grid, then region_warp's exact
+// tests, the hull and r2 only where the position is in r1 (a slot outside
+// r1 is dead, and the step reads neither).
+__device__ void regions_warp(const Geom& c, const int16_t* fine,
+                             const uint8_t* sub_codes, int sub, float x,
+                             float y, bool active, bool& r1, bool& hull,
+                             bool& r2) {
+  const int code =
+      active ? region_code_fine(c, fine, sub_codes, sub, x, y) : 0;
+  r1 = region_warp(c.r1_hp, c.e_r1, code & 3, true, x, y);
+  hull = region_warp(c.hull_hp, c.e_hull, (code >> 2) & 3, r1, x, y);
+  r2 = region_warp(c.r2_hp, c.e_r2, (code >> 4) & 3, r1, x, y);
 }
 
 // trace_vector.site_key: the interaction record's key, site * 2 + state

@@ -308,8 +308,14 @@ class Simulator:
                 load()
             st["kernel_build_s"] = time.perf_counter() - t1
         if engine == "vector":
+            # the packed tables, the region grids and their refinement,
+            # on the device by the end of the span
+            t1 = time.perf_counter()
             self.tracer = trace_vector.VectorTracer(
                 [self.tables], [self.tgeom], cfg, device=self.device)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            st["vector_tracer_s"] = time.perf_counter() - t1
         elif engine == "splitting":
             if splitting_capacity is None:
                 # one cell's widest wavefront, or the whole batch's

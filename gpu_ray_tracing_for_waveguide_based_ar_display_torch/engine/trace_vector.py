@@ -32,8 +32,10 @@ bin the JAX step computes in the step.
 
 The trace.  :func:`vector_trace` routes one trace call by device: on a GPU
 one launch of the hand-written kernel ``csrc/vector_trace.cu``
-(:func:`launch_vector_trace`: one thread per ray runs its whole bounce
-loop, no read of the device from the host), on the CPU its plain version
+(:func:`launch_vector_trace`: a lane runs a ray's whole bounce loop, its
+warp a bounce a round with the region tests shared, the lanes whose rays
+ended taking the next rays of their block's range; no read of the device
+from the host), on the CPU its plain version
 :func:`vector_trace_reference` (the eager loop above, which reads the
 device twice a step).  Both take a :class:`VectorTraceArgs` and agree bit
 for bit.
@@ -318,12 +320,14 @@ def add_region_grids(G: dict, n: int = GRID_N) -> dict:
 SUBGRID = 8             # subcells per side of a refined grid cell
 
 
-def region_subgrids(G: dict) -> tuple:
-    """Design 0's region grid (:func:`add_region_grids`) refined where it
-    leaves a region open: ``(fine, codes)``.  ``fine`` (n, n) int16 holds
-    a cell's ``grid_code`` where it decides all three regions, else
-    ``-(t + 1)``: the cell's :data:`SUBGRID` x :data:`SUBGRID` subcells
-    are row ``t`` of ``codes`` (M, SUBGRID, SUBGRID) uint8.  A subcell is
+def region_subgrids(G: dict, design: int = 0, base: int = 0) -> tuple:
+    """Design ``design``'s region grid (:func:`add_region_grids`) refined
+    where it leaves a region open: ``(fine, codes)``.  ``fine`` (n, n)
+    int16 holds a cell's ``grid_code`` where it decides all three regions,
+    else ``-(t + 1)``: the cell's :data:`SUBGRID` x :data:`SUBGRID`
+    subcells are row ``t - base`` of ``codes`` (M, SUBGRID, SUBGRID)
+    uint8, so the rows of several designs can follow one another
+    (:func:`region_subgrids_stacked`).  A subcell is
     classified as :func:`add_region_grids` classifies a cell (widened by
     ``_GRID_MARGIN``, with the float32 bound of the test at the window's
     largest coordinate) against the edges its cell leaves undecided; an edge
@@ -332,19 +336,22 @@ def region_subgrids(G: dict) -> tuple:
     ``floor((fx - ix) * SUBGRID)`` of its float32 ``fx = (x - x0) * inv_h``
     and ``ix = floor(fx)``, which misses its true subcell by far less than
     the margin, so a subcode of 0 or 1 is what the exact test gives.  Cells
-    past 32,767 keep their open code."""
-    code = G["grid_code"][0].to(torch.int32).cpu()
+    past row 32,767 (counting the ``base`` rows before) keep their open
+    code."""
+    d = design
+    code = G["grid_code"][d].to(torch.int32).cpu()
     n = code.shape[0]
     cls = [(code >> (2 * k)) & 3 for k in range(len(_REGIONS))]
     iy, ix = torch.nonzero((cls[0] == 2) | (cls[1] == 2) | (cls[2] == 2),
                            as_tuple=True)
-    iy, ix = iy[:(1 << 15) - 1], ix[:(1 << 15) - 1]
+    keep = max(0, (1 << 15) - 1 - base)
+    iy, ix = iy[:keep], ix[:keep]
     M = iy.numel()
     fine = code.to(torch.int16)
-    fine[iy, ix] = -1 - torch.arange(M, dtype=torch.int16)
-    x0, y0 = G["grid_x0"][0].double().cpu(), G["grid_y0"][0].double().cpu()
-    invx = G["grid_inv_hx"][0].double().cpu()
-    invy = G["grid_inv_hy"][0].double().cpu()
+    fine[iy, ix] = -1 - torch.arange(base, base + M, dtype=torch.int16)
+    x0, y0 = G["grid_x0"][d].double().cpu(), G["grid_y0"][d].double().cpu()
+    invx = G["grid_inv_hx"][d].double().cpu()
+    invy = G["grid_inv_hy"][d].double().cpu()
     k = torch.arange(n + 1, dtype=torch.float64)
     r = float(torch.cat([(x0 + k / invx).abs(), (y0 + k / invy).abs()]).max())
     sub = SUBGRID
@@ -354,7 +361,7 @@ def region_subgrids(G: dict) -> tuple:
         cell = cls[shift][iy, ix]
         codes |= (cell << (2 * shift))[:, None, None]
         t = torch.nonzero(cell == 2).squeeze(1)       # cells open here
-        hp = G[key][0].double().cpu()
+        hp = G[key][d].double().cpu()
         a, b, c = hp[:, 0], hp[:, 1], hp[:, 2]
         slack = (_GRID_MARGIN * (a.abs() + b.abs())
                  + 2.0 ** -20 * (r * a.abs() + r * b.abs() + c.abs()))
@@ -378,6 +385,23 @@ def region_subgrids(G: dict) -> tuple:
         sc = torch.where(fail == 0, 1, torch.where(out > 0, 0, 2)).int()
         codes[t] = (codes[t] & ~(3 << (2 * shift))) | (sc << (2 * shift))
     return fine, codes.to(torch.uint8)
+
+
+def region_subgrids_stacked(G: dict) -> tuple:
+    """Every design's refined region grid (:func:`region_subgrids`), as
+    the vector kernel reads them: ``fine`` (D, n, n) int16 and the subcell
+    rows of all designs in one (M, SUBGRID, SUBGRID) uint8 ``codes``,
+    design d's rows after those of the designs before it (design 0's
+    ``fine`` and rows are :func:`region_subgrids`' own), on ``G``'s
+    device."""
+    fines, codes, base = [], [], 0
+    for d in range(G["grid_code"].shape[0]):
+        f, c = region_subgrids(G, d, base)
+        fines.append(f)
+        codes.append(c)
+        base += c.shape[0]
+    dev = G["grid_code"].device
+    return torch.stack(fines).to(dev), torch.cat(codes).to(dev)
 
 
 # the geometry scalars the kernels read, in their order (csrc/step_common.cuh
@@ -753,9 +777,9 @@ RAY_KEYS = RAY_FLOATS + ("state", "rng", "dep", "cid", "idx")
 _RAY_INTS = {"state": torch.int32, "rng": torch.int64, "dep": torch.int32,
              "cid": torch.int64, "idx": torch.int64}
 _RAY_OUT = RAY_KEYS[:-2]
-# the C parameters of vector_trace_launch, in order: 5 table pointers, the
-# input and output pointer arrays, bounces and steps, 16 ints, the stream
-LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
+# the C parameters of vector_trace_launch, in order: 6 table pointers, the
+# input and output pointer arrays, bounces and steps, 17 ints, the stream
+LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 17
                    + [ctypes.c_void_p])
 
 
@@ -763,14 +787,19 @@ LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 16
 class VectorTraceArgs:
     """One trace call as the kernel takes it: the designs' packed tables
     (:func:`stack_tables` of :func:`pack_tables`), their geometry rows and
-    region grids (:func:`pack_geometry`), the (D, R) ray state and the
-    call's knobs.  ``mode="resume"`` skips the first in-coupler
-    interaction; ``max_bounces`` bounds the call's steps."""
+    region grids (:func:`pack_geometry`), the grids refined where they are
+    open (:func:`region_subgrids_stacked`: the kernel reads these, the
+    plain version the grids; None where only the plain version runs), the
+    (D, R) ray state and the call's knobs.  ``mode="resume"`` skips the
+    first in-coupler interaction; ``max_bounces`` bounds the call's
+    steps."""
     rec: torch.Tensor          # (26, D * C * R2)
     cell: torch.Tensor         # (26, D * C)
     dirs: torch.Tensor         # (6, D * C * 4)
     geom: torch.Tensor         # (D, len(GEOM_SCALARS) + 3 * sum(edges))
     grid: torch.Tensor         # (D, n, n) uint8 region codes
+    fine: Optional[torch.Tensor]       # (D, n, n) int16 refined codes
+    sub_codes: Optional[torch.Tensor]  # (M, SUBGRID, SUBGRID) uint8
     rays: dict                 # RAY_KEYS -> (D, R)
     edges: tuple               # half-planes of each pack of GEOM_HP
     mode: str
@@ -806,12 +835,15 @@ def vector_trace_args(rays: dict, T: dict, G: dict, *, mode: str,
                       eyebox_bins, circle: bool) -> VectorTraceArgs:
     """A trace call's :class:`VectorTraceArgs` from (D, R) rays, packed
     tables ``T`` and geometry ``G`` with its region grids
-    (:func:`add_region_grids`, which packs the geometry rows)."""
+    (:func:`add_region_grids`, which packs the geometry rows) and, for the
+    kernel, their refinement (``G["fine"]``, ``G["sub_codes"]``:
+    :func:`region_subgrids_stacked`)."""
     if mode not in ("full", "resume"):
         raise ValueError(f"mode must be 'full' or 'resume', got {mode!r}")
     return VectorTraceArgs(
         rec=T["rec"], cell=T["cell"], dirs=T["dirs"], geom=G["geom_rows"],
-        grid=G["grid_code"], rays=dict(rays),
+        grid=G["grid_code"], fine=G.get("fine"),
+        sub_codes=G.get("sub_codes"), rays=dict(rays),
         edges=tuple(int(G[k].shape[1]) for k in GEOM_HP), mode=mode,
         max_bounces=int(max_bounces), num_fc=int(num_fc),
         num_oc=int(num_oc), eyebox_bins=tuple(eyebox_bins),
@@ -869,8 +901,18 @@ def launch_vector_trace(a: VectorTraceArgs) -> VectorTraceOut:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 on {dev}, got "
                              f"{t.dtype} on {t.device}")
-    if a.grid.device != dev or a.grid.dtype != torch.uint8:
-        raise ValueError("the region grids must be uint8 on the card")
+    if a.fine is None or a.sub_codes is None:
+        raise ValueError("the kernel reads the refined region grids: give "
+                         "G region_subgrids_stacked's fine and sub_codes")
+    if (a.fine.device != dev or a.fine.dtype != torch.int16
+            or a.fine.dim() != 3 or a.fine.shape[1] != a.fine.shape[2]):
+        raise ValueError("the refined grids must be (D, n, n) int16 on the "
+                         "card")
+    if (a.sub_codes.device != dev or a.sub_codes.dtype != torch.uint8
+            or a.sub_codes.dim() != 3
+            or a.sub_codes.shape[1] != a.sub_codes.shape[2]):
+        raise ValueError("the subcell codes must be (M, s, s) uint8 on the "
+                         "card")
     rays = {k: a.rays[k].contiguous() for k in RAY_KEYS}
     D, R = rays["x"].shape
     for k, v in rays.items():
@@ -879,9 +921,9 @@ def launch_vector_trace(a: VectorTraceArgs) -> VectorTraceOut:
             raise ValueError(f"ray field {k} must be {want} ({D}, {R}) on "
                              f"{dev}, got {v.dtype} {tuple(v.shape)} on "
                              f"{v.device}")
-    if a.geom.shape[0] != D or a.grid.shape[0] != D:
+    if a.geom.shape[0] != D or a.fine.shape[0] != D:
         raise ValueError(f"{D} design rows against {a.geom.shape[0]} "
-                         f"geometry rows and {a.grid.shape[0]} grids")
+                         f"geometry rows and {a.fine.shape[0]} grids")
     C = a.cell.shape[1] // D
     R2 = 2 * (1 + a.num_fc + a.num_oc)
     if (a.cell.shape[1] != D * C or a.rec.shape[1] != D * C * R2
@@ -892,6 +934,7 @@ def launch_vector_trace(a: VectorTraceArgs) -> VectorTraceOut:
     steps = torch.zeros((), dtype=torch.int32, device=dev)
     if D * R:
         lib = load_kernel()
+        fine, sub_codes = a.fine.contiguous(), a.sub_codes.contiguous()
         ins = (ctypes.c_void_p * len(RAY_KEYS))(
             *[rays[k].data_ptr() for k in RAY_KEYS])
         outs = (ctypes.c_void_p * len(_RAY_OUT))(
@@ -901,11 +944,11 @@ def launch_vector_trace(a: VectorTraceArgs) -> VectorTraceOut:
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.vector_trace_launch(
                 a.rec.data_ptr(), a.cell.data_ptr(), a.dirs.data_ptr(),
-                a.geom.data_ptr(), a.grid.data_ptr(), ins, outs,
-                bounces.data_ptr(), steps.data_ptr(), D, R, C, R2,
-                a.num_fc, a.num_oc, ny, nx, a.max_bounces,
-                int(a.mode == "full"), int(a.circle), a.grid.shape[1],
-                *a.edges, stream)
+                a.geom.data_ptr(), fine.data_ptr(), sub_codes.data_ptr(),
+                ins, outs, bounces.data_ptr(), steps.data_ptr(), D, R, C,
+                R2, a.num_fc, a.num_oc, ny, nx, a.max_bounces,
+                int(a.mode == "full"), int(a.circle), fine.shape[1],
+                sub_codes.shape[1], *a.edges, stream)
         if err != 0:
             msg = lib.vector_trace_error_string(err).decode()
             raise RuntimeError(f"vector_trace launch failed: {msg} ({err})")
@@ -941,8 +984,26 @@ def load_kernel():
         lib.vector_trace_launch.restype = ctypes.c_int
         lib.vector_trace_error_string.argtypes = [ctypes.c_int]
         lib.vector_trace_error_string.restype = ctypes.c_char_p
+        lib.vector_trace_occupancy.argtypes = [ctypes.c_void_p]
+        lib.vector_trace_occupancy.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def kernel_occupancy() -> dict:
+    """What the card makes of the kernel: resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local bytes a thread, threads a block and the most rays a block's
+    range holds (the launch sizes the range).  Needs the card."""
+    lib = load_kernel()
+    out = (ctypes.c_int * 5)()
+    err = lib.vector_trace_occupancy(ctypes.addressof(out))
+    if err != 0:
+        msg = lib.vector_trace_error_string(err).decode()
+        raise RuntimeError(f"vector_trace_occupancy failed: {msg} ({err})")
+    keys = ("blocks_per_sm", "registers", "local_bytes", "threads",
+            "max_rays_per_block")
+    return dict(zip(keys, list(out)))
 
 
 def make_trace_fn_dynamic(cfg: TraceConfig, num_fc: int, num_oc: int,
@@ -1012,8 +1073,9 @@ def make_trace_fn(tables: CellTables, tgeom: TraceGeometry, cfg: TraceConfig,
     G = geom_tensors(tgeom, fdt)
     T = {k: v.to(device) for k, v in pack_tables(as_tables(tables, fdt),
                                                    G).items()}
-    G = {k: v.to(device)
-         for k, v in add_region_grids(stack_geoms([G])).items()}
+    G = add_region_grids(stack_geoms([G]))
+    G["fine"], G["sub_codes"] = region_subgrids_stacked(G)
+    G = {k: v.to(device) for k, v in G.items()}
     core = make_trace_fn_dynamic(cfg, tgeom.num_fc, tgeom.num_oc)
 
     def trace(rays, **kw):
@@ -1033,8 +1095,10 @@ class VectorTracer(nn.Module):
                  tgeoms: Sequence[TraceGeometry], cfg: TraceConfig,
                  dtype=torch.float32, device="cuda"):
         """The tables are packed and the region grids built on ``device``
-        (the card unless the caller asks for the CPU); on a GPU the kernel
-        is built and bound here, and only float32 is taken."""
+        (the card unless the caller asks for the CPU), each design's grid
+        refined where it is open (:func:`region_subgrids_stacked`, buffers
+        ``G_fine`` and ``G_sub_codes``, which the kernel reads); on a GPU
+        the kernel is built and bound here, and only float32 is taken."""
         super().__init__()
         if torch.device(device).type == "cuda" and dtype != torch.float32:
             raise ValueError(f"{dtype} traces on the CPU only: the "
@@ -1055,7 +1119,9 @@ class VectorTracer(nn.Module):
                           for t, G in zip(tables, Gs)])
         for k, v in T.items():
             self.register_buffer(f"T_{k}", v)
-        for k, v in add_region_grids(stack_geoms(Gs)).items():
+        G = add_region_grids(stack_geoms(Gs))
+        G["fine"], G["sub_codes"] = region_subgrids_stacked(G)
+        for k, v in G.items():
             self.register_buffer(f"G_{k}", v)
         self.cfg = cfg
         self.num_fc, self.num_oc = num_fc, num_oc

@@ -1185,7 +1185,8 @@ def _vector_fixture(n_designs: int, circle: bool):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_designs,circle", [(1, False), (3, False),
-                                              (1, True), (3, True)])
+                                              (1, True), (3, True),
+                                              (2, False), (2, True)])
 def test_vector_kernel_equals_plain_version_on_card(cuda_device, n_designs,
                                                     circle):
     """The vector kernel (one launch a call, counted) against its plain
@@ -1231,6 +1232,75 @@ def test_vector_kernel_equals_plain_version_on_card(cuda_device, n_designs,
     assert whole.bounces.shape == (n_designs,)
     for k, v in keep.items():
         assert torch.equal(rays[k], v), k
+
+
+def _vector_equal(got, ref) -> None:
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+
+    for k in tv.RAY_KEYS:
+        assert got.rays[k].dtype == ref.rays[k].dtype, k
+        assert torch.equal(got.rays[k].cpu(), ref.rays[k].cpu()), k
+    assert torch.equal(got.bounces.cpu(), ref.bounces.cpu())
+    assert int(got.steps) == int(ref.steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_designs", [2, 3])
+def test_vector_kernel_near_region_edges_on_card(cuda_device, n_designs):
+    """Distinct designs with the polygon in-coupler, so the kernel reads
+    each design's refined grid: full mode with 24 steps then resume mode
+    with the rest equals the whole call; then every ray still alive after
+    the 24 steps is moved to within 1e-4 mm of an edge of its design's r1,
+    hull or r2 (where the grids leave the regions open and the warp's exact
+    test decides) and resumed: each call one counted launch, every field,
+    the bounces and the steps equal to the plain version's on the card and
+    on the CPU bit for bit."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        trace_vector as tv,
+    )
+    from test_torch_vector_subgrids import REGIONS, edge_points
+
+    cfg, tracer, rays = _vector_fixture(n_designs, False)
+    T, G = tracer.tables(), tracer.geometry()
+
+    def args(r, mode, budget):
+        return tv.vector_trace_args(
+            r, T, G, mode=mode, max_bounces=budget, num_fc=tracer.num_fc,
+            num_oc=tracer.num_oc, eyebox_bins=cfg.eyebox_bins, circle=False)
+
+    n0 = tp.launch_counts["vector_trace"]
+    whole = tv.vector_trace(args(rays, "full", cfg.max_bounces))
+    first = tv.vector_trace(args(rays, "full", 24))
+    rest = tv.vector_trace(args(first.rays, "resume", cfg.max_bounces - 24))
+    torch.cuda.synchronize()
+    assert tp.launch_counts["vector_trace"] == n0 + 3
+    for k in tv.RAY_KEYS:
+        assert torch.equal(rest.rays[k], whole.rays[k]), k
+    assert torch.equal(first.bounces + rest.bounces, whole.bounces)
+    assert int(first.steps) == 24
+    rng = np.random.default_rng(12)
+    moved = {k: v.clone() for k, v in first.rays.items()}
+    R = moved["x"].shape[1]
+    for d in range(n_designs):
+        pts = [edge_points(G[key][d].cpu(), R // 8 + 1, rng)
+               for key in REGIONS]
+        x = torch.cat([p[0] for p in pts])
+        y = torch.cat([p[1] for p in pts])
+        pick = torch.from_numpy(rng.permutation(len(x))[:R])
+        live = moved["state"][d] < 6
+        moved["x"][d] = torch.where(live, x[pick].cuda(), moved["x"][d])
+        moved["y"][d] = torch.where(live, y[pick].cuda(), moved["y"][d])
+        assert int(live.sum()) > 0
+    a = args(moved, "resume", cfg.max_bounces - 24)
+    got = tv.vector_trace(a)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["vector_trace"] == n0 + 4
+    for ref in (tv.vector_trace_reference(a),
+                tv.vector_trace_reference(a.to("cpu"))):
+        _vector_equal(got, ref)
+    assert int(got.bounces.sum()) > 0
 
 
 # ---------------------------------------------------------------------------
