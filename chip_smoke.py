@@ -147,19 +147,26 @@ Run from the repository root.  Phases:
    versions on the card, on a seeded (3, 75, 100, 80, 120) histogram (the
    reference workload's; 20 % empty bins and an empty FoV corner): the
    perception (``pupil_window_sum``) bit for bit
-   ``eye_perceived_reference`` at the sampled grid's stride (8, 12) and at
-   the dense scan's (1, 1), with ``F.conv2d``'s time at the same shape
-   (the library call, TF32 off; its first call timed apart, the process's
-   first cuDNN call when the script runs whole); the colorimetry against
-   ``_make_eval_core`` on the card for ``simulate``'s stack with the
-   eye-view image (and phase 3's bars against the host float64 colorimetry),
-   an 8-design ``evaluate_batch`` stack and the dense scan's 51 x 91
-   positions: metrics within 1e-5 relative, the image within rtol 1e-5 /
-   atol 1e-6, ``u_eb``'s zeros and the starved counts equal; each kernel's
-   device time (CUDA events around calls queued behind device spin, so the
-   host's launch cost is not counted), its plain version's and its bound
-   (bytes read and written once at 3.35 TB/s, or the operations at 67
-   TFLOP/s);
+   ``eye_perceived_reference`` at the sampled grid's stride (8, 12), at
+   the dense scan's (1, 1), and on the sweep's per-design launch (6a's
+   22,500 cells as tiles of 128 lanes cut to 120, each scaled by a seeded
+   Wald factor), with ``F.conv2d``'s time at the unscaled shapes (the
+   library call, TF32 off; its first call timed apart, the process's first
+   cuDNN call when the script runs whole); for each case the kernel's
+   launch shape (form, windows a thread, stages, threads, summing ones,
+   blocks per SM, registers, local bytes, spills from this run's build,
+   staging by bulk copies or loads), held to the Python rule
+   ``eye_tail.window_sum_plan``, and its achieved GB/s; the colorimetry
+   against ``_make_eval_core`` on the card for ``simulate``'s stack with
+   the eye-view image (and phase 3's bars against the host float64
+   colorimetry), an 8-design ``evaluate_batch`` stack and the dense scan's
+   51 x 91 positions: metrics within 1e-5 relative, the image within rtol
+   1e-5 / atol 1e-6, ``u_eb``'s zeros and the starved counts equal; each
+   kernel's device time (CUDA events around calls queued behind device
+   spin, so the host's launch cost is not counted), its plain version's
+   and its bound (bytes read and written once at 3.35 TB/s, or the
+   operations at 67 TFLOP/s; the perception's adds at one lane instruction
+   each, 33.45e12 a second);
 21. the per-cell splitting kernel (``csrc/split_cells.cu``: one launch per
    chunk runs every cell's wavefront loop, each cell on a cluster of 1, 2
    or 4 blocks) against its plain PyTorch version
@@ -461,6 +468,9 @@ LIBRARIES = list(dict.fromkeys(Path(src).stem for src, _ in KERNELS.values()))
 # tensor cores and HBM rate, for the bounds of the kernel line
 PEAK_FP32_OPS = 67e12
 PEAK_FP64_OPS = 34e12
+# float32 adds: an add is one lane instruction, issued at 132 SMs x 128 lanes
+# x 1.98 GHz (the SXM part's boost clock); PEAK_FP32_OPS counts an FMA as two
+PEAK_FP32_ADDS = 132 * 128 * 1.98e9
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -3839,48 +3849,74 @@ IMAGE_OPS = 40
 TAIL_HISTOGRAM = (3, 75, 100, 80, 120)
 
 
-def _perception_case(h, mask, stride, reps: int) -> dict:
+def window_spills(shape: dict, scaled: bool):
+    """Spill bytes of the window sum's instantiation for ``shape``'s form
+    in this run's build (None when the library was built earlier)."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        build,
+    )
+
+    log = build.build_info.get("eye_tail", {}).get("log", "")
+    return ptxas_spills(log).get(f"[{shape['form']},{int(scaled)}]")
+
+
+def _perception_case(name: str, h, mask, stride, reps: int,
+                     scale=None) -> dict:
     """The perception kernel against its plain version on ``h`` at
-    ``stride``: bit for bit, times, bound and ``F.conv2d``'s time (the
-    library call; its first call timed apart when it is the process's
-    first)."""
+    ``stride`` (each image scaled by ``scale`` when given): bit for bit,
+    times, the kernel's launch shape (its plan against the Python rule),
+    bound and ``F.conv2d``'s time (the library call, unscaled only; its
+    first call timed apart when it is the process's first)."""
     import numpy as np
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
-        metrics,
+        eye_tail, metrics,
     )
 
-    out = metrics.pupil_window_sum(h, mask, stride)
+    out = metrics.pupil_window_sum(h, mask, stride, scale)
     torch.cuda.synchronize()
-    plain = metrics.eye_perceived_reference(h, mask, stride)
+    launch = dict(eye_tail.last_launch)
+    launch["spill_bytes"] = window_spills(launch, scale is not None)
+    plan = eye_tail.window_sum_plan(*h.shape[-2:], *np.shape(mask), *stride,
+                                    smem_limit=launch["smem_limit"])
+    launch["plan_equal"] = all(plan[k] == launch[k] for k in plan
+                               if k in launch)
+    plain = metrics.eye_perceived_reference(h, mask, stride, scale)
     torch.cuda.synchronize()
     same = bool(torch.equal(out.view(torch.int32), plain.view(torch.int32)))
     max_abs = float((out - plain).abs().max())
     del plain
-    ms = device_ms(lambda: metrics.pupil_window_sum(h, mask, stride), reps)
-    plain_ms = device_ms(lambda: metrics.eye_perceived_reference(h, mask,
-                                                               stride), 1)
-    kernel = torch.as_tensor(mask, dtype=torch.float32, device=h.device)
-    t0 = time.perf_counter()
-    conv = metrics.pupil_conv(h, kernel, stride)
-    torch.cuda.synchronize()
-    conv_first_ms = (time.perf_counter() - t0) * 1e3
-    # cuDNN's algorithms leave rounding noise where a window is empty, so
-    # its gap is taken against the largest window sum
-    conv_rel = float((conv - out).abs().max() / out.abs().max())
-    del conv
-    library_ms = device_ms(lambda: metrics.pupil_conv(h, kernel, stride),
-                           reps)
-    nbytes = (h.numel() + out.numel()) * 4
+    ms = device_ms(lambda: metrics.pupil_window_sum(h, mask, stride, scale),
+                   reps)
+    plain_ms = device_ms(lambda: metrics.eye_perceived_reference(
+        h, mask, stride, scale), 1)
+    e = {"name": name, "stride": list(stride), "shape": list(out.shape),
+         "scaled": scale is not None, "identical_plain": same,
+         "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+         "launch": launch, "library_ms": None}
+    if scale is None:
+        kernel = torch.as_tensor(mask, dtype=torch.float32, device=h.device)
+        t0 = time.perf_counter()
+        conv = metrics.pupil_conv(h, kernel, stride)
+        torch.cuda.synchronize()
+        e["library_first_ms"] = (time.perf_counter() - t0) * 1e3
+        # cuDNN's algorithms leave rounding noise where a window is empty,
+        # so its gap is taken against the largest window sum
+        e["library_max_rel"] = float((conv - out).abs().max()
+                                     / out.abs().max())
+        del conv
+        e["library_ms"] = device_ms(
+            lambda: metrics.pupil_conv(h, kernel, stride), reps)
+    # images read once (a strided view: the rows of ebx bins it holds) and
+    # windows written once; an add is one lane instruction
+    n_images = out.numel() // (out.shape[-2] * out.shape[-1])
+    nbytes = (n_images * h.shape[-2] * h.shape[-1] + out.numel()) * 4
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    t_ops = out.numel() * float(np.sum(mask)) / PEAK_FP32_OPS * 1e3
-    return {"stride": list(stride), "shape": list(out.shape),
-            "identical_plain": same, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_first_ms": conv_first_ms,
-            "library_max_rel": conv_rel,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_ops = out.numel() * float(np.sum(mask)) / PEAK_FP32_ADDS * 1e3
+    e.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             achieved_gb_s=nbytes / (ms * 1e-3) / 1e9)
+    return e
 
 
 def _colorimetry_case(name: str, stack, inv_norm: float,
@@ -3955,7 +3991,7 @@ def phase20(ctx) -> None:
     call's time beside the perception's."""
     import torch
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
-        metrics,
+        eye_tail, metrics,
     )
 
     dev = ctx["dev"]
@@ -3969,18 +4005,48 @@ def phase20(ctx) -> None:
     mask = metrics.pupil_mask(30)
     perc_modes = []
     for stride, reps in (((8, 12), 20), ((1, 1), 3)):
-        e = _perception_case(h, mask, stride, reps)
-        perc_modes.append(e)
-        print(f"phase 20 perception at stride {stride}: {tuple(e['shape'])}: "
-              f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.3f} ms, "
-              f"F.conv2d {e['library_ms']:.4f} ms loaded "
-              f"({e['library_first_ms']:.1f} ms its first call here, within "
-              f"{e['library_max_rel']:.3g} of the largest sum), bound "
-              f"{e['bound_ms']:.4f} ms ({e['bound_by']}); kernel = plain "
-              f"{e['identical_plain']}, max |diff| {e['max_abs_err']}")
+        perc_modes.append(_perception_case(f"stride_{stride[0]}_{stride[1]}",
+                                           h, mask, stride, reps))
+    # the sweep's per-design launch (6a's cells): the 22,500 tiles of 128
+    # lanes cut to 120, each scaled by its cell's Wald factor
+    tiles = torch.zeros((h.numel() // (80 * 120), 80, 128), device=dev)
+    tiles[:, :, :120] = h.reshape(-1, 80, 120)
+    factor = 0.5 + torch.rand(tiles.shape[0], device=dev,
+                              generator=torch.Generator(
+                                  device=dev).manual_seed(21))
+    perc_modes.append(_perception_case("sweep_6a_tiles", tiles[:, :, :120],
+                                       mask, (8, 12), 20, factor))
+    del tiles, factor
+    for e in perc_modes:
+        ln = e["launch"]
+        form = eye_tail.FORMS[ln["form"]]
+        spills = ("(not rebuilt)" if ln["spill_bytes"] is None
+                  else ln["spill_bytes"])
+        print(f"phase 20 perception {e['name']} at stride "
+              f"{tuple(e['stride'])}{', scaled' if e['scaled'] else ''}: "
+              f"{tuple(e['shape'])}: kernel {e['ms']:.4f} ms "
+              f"({e['achieved_gb_s']:.0f} GB/s), plain {e['plain_ms']:.3f} ms"
+              + (f", F.conv2d {e['library_ms']:.4f} ms loaded "
+                 f"({e['library_first_ms']:.1f} ms its first call here, "
+                 f"within {e['library_max_rel']:.3g} of the largest sum)"
+                 if e["library_ms"] is not None else "")
+              + f", bound {e['bound_ms']:.4f} ms ({e['bound_by']}); kernel "
+              f"= plain {e['identical_plain']}, max |diff| "
+              f"{e['max_abs_err']}; launch: {form}, {ln['k']} window(s) a "
+              f"thread, {ln['stages']} stages of {ln['band_rows']} window "
+              f"rows ({ln['bands']} a image), "
+              f"{ln['active']} of {ln['consumers']} consumers summing "
+              f"+ {eye_tail.PRODUCER} threads, "
+              f"{ln['blocks_per_sm']} block(s) per SM, grid {ln['grid']}, "
+              f"{ln['smem']:,} B shared, {ln['registers']} registers, "
+              f"{ln['local_bytes']} B local, spills {spills} B, "
+              f"{'bulk copies' if ln['bulk'] else 'loads'}; plan = Python "
+              f"rule {ln['plan_equal']}")
         if not e["identical_plain"]:
             fail(f"phase 20: the perception kernel differs from its plain "
-                 f"version at stride {stride}")
+                 f"version ({e['name']})")
+        if not ln["plan_equal"] or ln["spill_bytes"] or ln["local_bytes"]:
+            fail(f"phase 20: the perception kernel's launch {ln}")
     rec["perception"] = perc_modes
     inv_norm = metrics._inv_norm(20000.0)
     perc = metrics.eye_perceived_torch(h)

@@ -13,11 +13,42 @@
 //
 // pupil_window_sum: (B, eby, ebx) float32 images -> (B, epy, epx) sums of the
 // pupil disc's window at stride (sy, sx).  The disc goes in as per-row
-// [start, end) column runs.  One block stages one image in shared memory
-// (multiplied by the image's scale, when given, as the plain version scales
-// before it sums); one thread per output adds the disc's bins row-major into
-// one float32 accumulator, the plain version's order, so the two agree bit
-// for bit.  Bound: the images' bytes, read once (the adds are ~0.1 of it).
+// [start, end) column runs.  Each window's bins are added row-major into one
+// float32 accumulator, each bin first multiplied by the image's scale when
+// one is given (the product rounded to float32 before the add, as the plain
+// version scales the image before it sums; -fmad=false keeps the two
+// apart), so kernel and plain version agree bit for bit.  Bound: the
+// images' bytes, read once, at the sampled grid's stride (the adds are ~0.1
+// of it); the adds, one lane instruction each, at the dense stride.
+//
+// Design: a persistent grid, each block a ring of `stages` stages in
+// shared memory (an image's rows that some window covers, or a band of
+// them when an image does not fit twice) and one producer warp that stages
+// the block's images in order, by cp.async.bulk copies completing on a
+// stage's `full` mbarrier (one copy an image, or one a row for a strided
+// view; loads and stores by the warp where the strides or the base break
+// the copies' 16-byte rule).  The consumer threads take the items of the
+// block's units in turn, each item waiting on its stage's `full` barrier
+// and arriving on its `empty` barrier when summed; the producer refills a
+// stage once all its items arrived, while the consumers sum the others.
+// The ring's order (a wait on a barrier's parity is only sound while the
+// barrier's previous phase has completed): `lead` (stages - 2, or
+// stages - 1 in a ring of 2 or 3) units hold the items of the `active`
+// consumers, at most lead * items of them, so a thread's first unit is
+// below `lead` and its next item at most `lead` units on; and the producer
+// issues unit n only once unit n - (stages - lead) landed, so when a
+// thread's unit n' landed, every unit up to n' - (stages - lead) landed
+// too, whatever order the copies complete in, and with it unit n - stages,
+// its stage's previous phase.  A plan of one stage (a window row that
+// does not fit twice) has no ring and no barriers: the whole block loads a
+// unit, then sums it, between block barriers.  An item is `k` windows of
+// one window row: at stride (sy, 1) DENSE_K horizontally adjacent windows,
+// each bin of a row's run read once from shared memory and added to every
+// window that covers it, in ascending column (each accumulator still takes
+// its window's bins in the plain version's order); otherwise one window,
+// read as float4 where the stride keeps every window 16-byte aligned.  The
+// launch shape follows from the shape alone (window_sum_plan, mirrored by
+// eval/eye_tail.py::window_sum_plan); an output never depends on it.
 //
 // colorimetry_partials / colorimetry_finish: (D, 3, fy*fx, P) perception
 // stacks -> per design mean CIEDE2000 against D65, the sum over positions of
@@ -42,13 +73,33 @@
 #include <math.h>
 #include <string.h>
 
+#include <mutex>
+
 namespace {
 
 // ---- perception ----------------------------------------------------------
 
-constexpr int SUM_THREADS = 256;
+// WS_MARK phases: setup wait sum release empty_wait stage
+#ifndef WS_MARK
+#define WS_BEGIN()
+#define WS_MARK(k)
+#define WS_END()
+#endif
+
 constexpr int MAX_DISC_ROWS = 128;
-constexpr int MAX_STATIC_SMEM = 48 * 1024;
+constexpr int MAX_STAGES = 8;        // stages a ring holds at most
+constexpr int MAX_CONSUMERS = 512;   // summing threads a block at most
+constexpr int PRODUCER = 32;         // the staging warp
+constexpr int DENSE_K = 13;          // windows a thread at stride (sy, 1);
+                                     // odd, so a warp's runs start in 32
+                                     // distinct banks
+constexpr int VEC_CHUNKS = 8;        // float4 chunks a row read at once
+                                     // (a 30-bin row: 8 at most)
+constexpr int BAR_BYTES = 16;        // a ring stage's full and empty
+                                     // mbarriers
+constexpr long long WAIT_POLLS = 1LL << 24;   // a longer wait traps
+
+enum { FORM_SCALAR = 0, FORM_VEC4 = 1, FORM_DENSE = 2 };
 
 struct Disc {
   int rows;                  // window rows
@@ -56,47 +107,526 @@ struct Disc {
   int end[MAX_DISC_ROWS];    // per row: one past its last column
 };
 
-struct Window {
-  const float* images;       // image b, row y, column x at
-                             // b * image_stride + y * row_stride + x
-  const float* scale;        // (B,) or null
-  float* out;                // (B, epy, epx)
-  long long image_stride;
-  int row_stride, eby, ebx, epy, epx, sy, sx;
+// The launch shape (window_sum_plan).  A unit is one stage's load: the
+// window rows [band * band_rows, ...) of one image; an item is k windows of
+// one of its window rows.
+struct Plan {
+  int form;          // FORM_*
+  int k;             // windows an item: DENSE_K (FORM_DENSE) or 1
+  int rows;          // the disc's rows
+  int epy, epx;      // windows a column and a row of an image
+  int band_rows;     // window rows a unit
+  int bands;         // units an image
+  int xblocks;       // items a window row
+  int items;         // items a unit
+  int stage_rows;    // image rows a full unit stages
+  int stage_floats;  // floats a stage (a multiple of 4)
+  int stages;        // the ring's stages (1: no ring)
+  int lead;          // units whose items the consumers hold at once
+  int consumers;     // consumer threads (a multiple of 32)
+  int active;        // the consumers that sum: at most lead * items
+  int smem;          // dynamic shared bytes: the stages, then the mbarriers
 };
 
-__global__ void __launch_bounds__(SUM_THREADS)
-pupil_window_sum(const Window w, const Disc disc) {
-  extern __shared__ float img[];   // eby * ebx
-  const long long b = blockIdx.x;
-  const float* src = w.images + b * w.image_stride;
-  const int n = w.eby * w.ebx;
-  if (w.scale) {
-    const float f = w.scale[b];
-    for (int k = threadIdx.x; k < n; k += SUM_THREADS) {
-      const int y = k / w.ebx;
-      img[k] = src[(long long)y * w.row_stride + (k - y * w.ebx)] * f;
+struct Sum {
+  const float* images;   // image b, row y, column x at
+                         // b * image_stride + y * row_stride + x
+  const float* scale;    // (B,) or null
+  float* out;            // (B, epy, epx)
+  long long image_stride;
+  long long units;       // B * bands
+  int row_stride, ebx, sy, sx;
+  int bulk;              // 1: cp.async.bulk copies; 0: loads and stores
+  Plan p;
+};
+
+__host__ __device__ inline long long ceil_div(long long a, long long b) {
+  return (a + b - 1) / b;
+}
+
+// The launch shape of a (rows x cols) disc over (eby x ebx) images at
+// stride (sy, sx), given `limit` shared bytes a block: false when not one
+// window row fits a stage.  A stage packs the rows that some window covers
+// (ebx floats apart).  The form: DENSE_K windows a thread at stride
+// (sy, 1) with at least DENSE_K windows a row, float4 reads where sx and
+// ebx are multiples of 4, else scalar reads; a form whose
+// window row does not fit falls back to the scalar one (no padding).  A
+// stage holds every window row of an image if two such stages and their
+// barriers fit, else the most window rows of which two (then one, with no
+// barriers) fit.  The ring takes as many stages as fit (at most
+// MAX_STAGES; one only where two do not).  The consumers: whole warps, at
+// most the items of `lead` units (stages - 2, stages - 1 in a ring of 2 or
+// 3, 1 without a ring), so that the producer refills the other stages
+// while the consumers sum; of them the first lead * items sum where a
+// warp is more.
+static bool window_sum_plan(int eby, int ebx, int rows, int cols, int sy,
+                            int sx, long long limit, Plan* p) {
+  if (rows < 1 || cols < 1 || rows > eby || cols > ebx || sy < 1 || sx < 1)
+    return false;
+  p->rows = rows;
+  p->epy = (eby - rows) / sy + 1;
+  p->epx = (ebx - cols) / sx + 1;
+  int form = sx == 1 && p->epx >= DENSE_K            ? FORM_DENSE
+             : sx % 4 == 0 && ebx % 4 == 0            ? FORM_VEC4
+                                                      : FORM_SCALAR;
+  int pad = 0, band = 0;
+  for (;;) {
+    // floats a run reads past its row's end at most
+    pad = form == FORM_DENSE ? DENSE_K - 1 : form == FORM_VEC4 ? 3 : 0;
+    for (int want = 2; want >= 1 && band == 0; --want) {
+      const long long fit =
+          (want == 2 ? limit / 2 - BAR_BYTES : limit) / 4 / 4 * 4;
+      const long long stage_rows = (fit - pad) / ebx;
+      if (stage_rows >= rows)
+        band = (int)(p->epy < (stage_rows - rows) / sy + 1
+                         ? p->epy : (stage_rows - rows) / sy + 1);
     }
+    if (band > 0) break;
+    if (form == FORM_SCALAR) return false;
+    form = FORM_SCALAR;
+  }
+  p->form = form;
+  p->k = form == FORM_DENSE ? DENSE_K : 1;
+  p->band_rows = band;
+  p->bands = (int)ceil_div(p->epy, band);
+  p->xblocks = (int)ceil_div(p->epx, p->k);
+  p->items = band * p->xblocks;
+  p->stage_rows = (band - 1) * sy + rows;
+  p->stage_floats =
+      (int)ceil_div((long long)p->stage_rows * ebx + pad, 4) * 4;
+  const long long stage_bytes = (long long)p->stage_floats * 4 + BAR_BYTES;
+  const long long fits = limit / stage_bytes;
+  p->stages = (int)(fits < 2 ? 1 : fits < MAX_STAGES ? fits : MAX_STAGES);
+  p->smem = (int)(p->stages > 1 ? p->stages * stage_bytes
+                                : (long long)p->stage_floats * 4);
+  p->lead = p->stages >= 4 ? p->stages - 2
+            : p->stages >= 2 ? p->stages - 1
+                             : 1;
+  const long long held = (long long)p->lead * p->items;
+  const long long most = held / 32 * 32;
+  p->consumers = (int)(most < 32              ? 32
+                       : most > MAX_CONSUMERS ? MAX_CONSUMERS
+                                              : most);
+  p->active = (int)(held < p->consumers ? held : p->consumers);
+  return true;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* ptr) {
+  return (unsigned)__cvta_generic_to_shared(ptr);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// a wait on the barrier's phase `parity`; a wait past WAIT_POLLS polls (far
+// beyond any unit's load or sum) traps rather than hang the card
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  for (long long polls = 0; !done; ++polls) {
+    if (polls > WAIT_POLLS) __trap();
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <bool SCALED>
+__device__ __forceinline__ float bin(float v, float f) {
+  return SCALED ? v * f : v;
+}
+
+// FORM_SCALAR: one window, a bin a load
+template <bool SCALED>
+__device__ __forceinline__ float sum_scalar(const float* base, int pitch,
+                                            const Disc& disc, float f) {
+  float acc = 0.0f;
+  for (int dy = 0; dy < disc.rows; ++dy) {
+    const float* r = base + dy * pitch;
+    for (int c = disc.start[dy]; c < disc.end[dy]; ++c)
+      acc += bin<SCALED>(r[c], f);
+  }
+  return acc;
+}
+
+// FORM_VEC4: one window whose rows start 16-byte aligned, read as float4
+// chunks from the run's aligned start (c0); a chunk adds only the run's
+// bins, in ascending column.
+__device__ __forceinline__ void load_chunks(float4 (&v)[VEC_CHUNKS],
+                                            const float* row, int c0,
+                                            int e) {
+  const float4* r = reinterpret_cast<const float4*>(row + c0);
+#pragma unroll
+  for (int i = 0; i < VEC_CHUNKS; ++i)
+    if (c0 + 4 * i < e) v[i] = r[i];
+}
+
+template <bool SCALED>
+__device__ __forceinline__ void add_chunks(float& acc,
+                                           const float4 (&v)[VEC_CHUNKS],
+                                           int c0, int s, int e, float f) {
+#pragma unroll
+  for (int i = 0; i < VEC_CHUNKS; ++i) {
+    const int c = c0 + 4 * i;
+    if (c >= s && c < e) acc += bin<SCALED>(v[i].x, f);
+    if (c + 1 >= s && c + 1 < e) acc += bin<SCALED>(v[i].y, f);
+    if (c + 2 >= s && c + 2 < e) acc += bin<SCALED>(v[i].z, f);
+    if (c + 3 >= s && c + 3 < e) acc += bin<SCALED>(v[i].w, f);
+  }
+}
+
+// A row's run, VEC_CHUNKS chunks at a time: every load of a piece before
+// its adds, so the chain of adds waits on one load latency a piece.
+template <bool SCALED>
+__device__ __forceinline__ float sum_vec4(const float* base, int pitch,
+                                          const Disc& disc, float f) {
+  float acc = 0.0f;
+  for (int dy = 0; dy < disc.rows; ++dy) {
+    const int s = disc.start[dy], e = disc.end[dy];
+    for (int c0 = s & ~3; c0 < e; c0 += 4 * VEC_CHUNKS) {
+      float4 v[VEC_CHUNKS];
+      load_chunks(v, base + dy * pitch, c0, e);
+      add_chunks<SCALED>(acc, v, c0, s, e, f);
+    }
+  }
+  return acc;
+}
+
+// FORM_DENSE: DENSE_K horizontally adjacent windows at stride (sy, 1),
+// window j's row covering the columns [start + j, end + j).  A row's run
+// [start, end + K - 1) is read once: bin c goes to windows
+// max(0, c - end + 1) .. min(K - 1, c - start), in ascending c, so each
+// accumulator takes its window's bins in the plain version's order.  A run
+// shorter than K - 1 bins is added window by window.
+template <bool SCALED>
+__device__ __forceinline__ void sum_dense(const float* base, int pitch,
+                                          const Disc& disc, float f,
+                                          float (&acc)[DENSE_K]) {
+  constexpr int K = DENSE_K;
+  for (int dy = 0; dy < disc.rows; ++dy) {
+    const int s = disc.start[dy], e = disc.end[dy];
+    const float* r = base + dy * pitch;
+    if (e - s >= K - 1) {
+#pragma unroll
+      for (int h = 0; h < K - 1; ++h) {      // bins s .. s + K - 2
+        const float x = bin<SCALED>(r[s + h], f);
+#pragma unroll
+        for (int j = 0; j <= h; ++j) acc[j] += x;
+      }
+#pragma unroll 4
+      for (int c = s + K - 1; c < e; ++c) {  // every window
+        const float x = bin<SCALED>(r[c], f);
+#pragma unroll
+        for (int j = 0; j < K; ++j) acc[j] += x;
+      }
+#pragma unroll
+      for (int t = 0; t < K - 1; ++t) {      // bins e .. e + K - 2
+        const float x = bin<SCALED>(r[e + t], f);
+#pragma unroll
+        for (int j = t + 1; j < K; ++j) acc[j] += x;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        for (int c = s; c < e; ++c) acc[j] += bin<SCALED>(r[c + j], f);
+    }
+  }
+}
+
+// Item `item` of a staged unit (window rows band * band_rows + ..., of
+// image b): its k windows summed into the output (none past the image's
+// last window row).
+template <int FORM, bool SCALED>
+__device__ __forceinline__ void sum_item(const Sum& a, const Disc& disc,
+                                         const float* stage, long long b,
+                                         int band, int item) {
+  const Plan& p = a.p;
+  const int wy = item / p.xblocks;
+  const int xb = item - wy * p.xblocks;
+  const int iy = band * p.band_rows + wy;
+  if (iy >= p.epy) return;
+  const float f = SCALED ? a.scale[b] : 1.0f;
+  const float* base =
+      stage + (size_t)wy * a.sy * a.ebx + (size_t)xb * p.k * a.sx;
+  float* dst = a.out + ((size_t)b * p.epy + iy) * p.epx;
+  if constexpr (FORM == FORM_DENSE) {
+    float acc[DENSE_K];
+#pragma unroll
+    for (int j = 0; j < DENSE_K; ++j) acc[j] = 0.0f;
+    sum_dense<SCALED>(base, a.ebx, disc, f, acc);
+    const int x0 = xb * DENSE_K;
+#pragma unroll
+    for (int j = 0; j < DENSE_K; ++j)
+      if (x0 + j < p.epx) dst[x0 + j] = acc[j];
+  } else if constexpr (FORM == FORM_VEC4) {
+    dst[xb] = sum_vec4<SCALED>(base, a.ebx, disc, f);
   } else {
-    for (int k = threadIdx.x; k < n; k += SUM_THREADS) {
-      const int y = k / w.ebx;
-      img[k] = src[(long long)y * w.row_stride + (k - y * w.ebx)];
+    dst[xb] = sum_scalar<SCALED>(base, a.ebx, disc, f);
+  }
+}
+
+// Unit u: its image, band, and the source of its image rows and their
+// count.
+struct Unit {
+  long long b;
+  int band, nrows;
+  const float* src;
+};
+
+__device__ __forceinline__ Unit unit_at(const Sum& a, long long u) {
+  const Plan& p = a.p;
+  Unit t;
+  t.b = u / p.bands;
+  t.band = (int)(u - t.b * p.bands);
+  const int wy = min(p.band_rows, p.epy - t.band * p.band_rows);
+  t.nrows = (wy - 1) * a.sy + p.rows;
+  t.src = a.images + t.b * a.image_stride +
+          (long long)t.band * p.band_rows * a.sy * a.row_stride;
+  return t;
+}
+
+// Unit t's rows into dst, packed ebx floats apart, by loads and stores of
+// `count` threads from `first`.
+__device__ __forceinline__ void stage_rows(const Sum& a, const Unit& t,
+                                           float* dst, int first,
+                                           int count) {
+  const int n = t.nrows * a.ebx;
+  for (int i = first; i < n; i += count) {
+    const int y = i / a.ebx;
+    dst[i] = t.src[(long long)y * a.row_stride + (i - y * a.ebx)];
+  }
+}
+
+template <int FORM, bool SCALED>
+__global__ void __launch_bounds__(MAX_CONSUMERS + PRODUCER)
+pupil_window_sum(const Sum a, const Disc disc) {
+  extern __shared__ __align__(16) float ring[];
+  const Plan& p = a.p;
+  const int tid = threadIdx.x;
+  const long long grid = gridDim.x;
+  const int mine = (int)((a.units - 1 - blockIdx.x) / grid + 1);
+  WS_BEGIN();
+  if (p.stages == 1) {
+    // no ring: the block loads a unit, then its active threads sum it
+    for (int n = 0; n < mine; ++n) {
+      const Unit t = unit_at(a, blockIdx.x + (long long)n * grid);
+      __syncthreads();                // the unit before it summed
+      WS_MARK(5);
+      stage_rows(a, t, ring, tid, blockDim.x);
+      __syncthreads();
+      WS_MARK(6);
+      for (int item = tid; item < p.items && tid < p.active;
+           item += p.active)
+        sum_item<FORM, SCALED>(a, disc, ring, t.b, t.band, item);
+      WS_MARK(3);
     }
+    WS_END();
+    return;
+  }
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(
+      ring + (size_t)p.stages * p.stage_floats);
+  unsigned long long* empty = full + p.stages;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, a.bulk ? 1 : PRODUCER);
+      mbar_init(empty + s, p.items);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
-  const int nout = w.epy * w.epx;
-  float* dst = w.out + b * nout;
-  for (int o = threadIdx.x; o < nout; o += SUM_THREADS) {
-    const int iy = o / w.epx;
-    const int ix = o - iy * w.epx;
-    const float* base = img + iy * w.sy * w.ebx + ix * w.sx;
-    float acc = 0.0f;
-    for (int dy = 0; dy < disc.rows; ++dy) {
-      const float* r = base + dy * w.ebx;
-      for (int dx = disc.start[dy]; dx < disc.end[dy]; ++dx) acc += r[dx];
+  WS_MARK(1);
+  if (tid >= p.consumers) {
+    // the producer warp: the block's units in order, unit n into stage
+    // n % stages once the consumers released the unit before it there and
+    // unit n - ahead landed
+    const int lane = tid & 31;
+    const int ahead = p.stages - p.lead;
+    for (int n = 0; n < mine; ++n) {
+      const int s = n % p.stages;
+      const int use = n / p.stages;
+      if (use > 0) mbar_wait(empty + s, (unsigned)(use - 1) & 1u);
+      if (n >= ahead)
+        mbar_wait(full + (n - ahead) % p.stages,
+                  (unsigned)((n - ahead) / p.stages) & 1u);
+      WS_MARK(5);
+      const Unit t = unit_at(a, blockIdx.x + (long long)n * grid);
+      float* dst = ring + (size_t)s * p.stage_floats;
+      if (a.bulk) {
+        const unsigned bytes = (unsigned)t.nrows * (unsigned)a.ebx * 4u;
+        if (lane == 0) mbar_expect(full + s, bytes);
+        __syncwarp();
+        if (a.row_stride == a.ebx) {               // one copy
+          if (lane == 0) bulk_load(dst, t.src, bytes, full + s);
+        } else {                                   // one copy a row
+          for (int y = lane; y < t.nrows; y += 32)
+            bulk_load(dst + (size_t)y * a.ebx,
+                      t.src + (long long)y * a.row_stride,
+                      (unsigned)a.ebx * 4u, full + s);
+        }
+      } else {
+        stage_rows(a, t, dst, lane, 32);
+        mbar_arrive(full + s);   // each lane: its stores released
+      }
+      WS_MARK(6);
     }
-    dst[o] = acc;
+    WS_END();
+    return;
   }
+  if (tid >= p.active) {
+    WS_END();
+    return;
+  }
+  // the active consumers: item g of the block's units (unit g / items),
+  // every active-th, stepped in 32 bits (a 64-bit division is a long
+  // subroutine); each waits on its stage's full barrier (also an item past
+  // the image's last window row: its arrival then counts to its own unit)
+  // and arrives on its empty barrier when summed
+  const int step_n = p.active / p.items, step_i = p.active % p.items;
+  int n = tid / p.items, item = tid % p.items;
+  for (; n < mine; n += step_n, item += step_i) {
+    if (item >= p.items) {
+      item -= p.items;
+      if (++n >= mine) break;
+    }
+    const int s = n % p.stages;
+    const long long u = blockIdx.x + (long long)n * grid;
+    long long b = u;
+    int band = 0;
+    if (p.bands > 1) {
+      b = u / p.bands;
+      band = (int)(u - b * p.bands);
+    }
+    mbar_wait(full + s, (unsigned)(n / p.stages) & 1u);
+    WS_MARK(2);
+    sum_item<FORM, SCALED>(a, disc, ring + (size_t)s * p.stage_floats, b,
+                           band, item);
+    WS_MARK(3);
+    mbar_arrive(empty + s);
+    WS_MARK(4);
+  }
+  WS_END();
+}
+
+const void* window_kernel(int form, bool scaled) {
+  switch (form * 2 + (scaled ? 1 : 0)) {
+    case 0: return (const void*)pupil_window_sum<FORM_SCALAR, false>;
+    case 1: return (const void*)pupil_window_sum<FORM_SCALAR, true>;
+    case 2: return (const void*)pupil_window_sum<FORM_VEC4, false>;
+    case 3: return (const void*)pupil_window_sum<FORM_VEC4, true>;
+    case 4: return (const void*)pupil_window_sum<FORM_DENSE, false>;
+    default: return (const void*)pupil_window_sum<FORM_DENSE, true>;
+  }
+}
+
+// The card's shared bytes a block may take: the opt-in maximum less the
+// largest static shared memory of the six instantiations (none in this
+// build), read once.
+cudaError_t window_sum_limit(long long* limit) {
+  static long long cached = -1;
+  if (cached < 0) {
+    int dev = 0, optin = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    size_t most = 0;
+    for (int i = 0; i < 6 && err == cudaSuccess; ++i) {
+      cudaFuncAttributes attr;
+      err = cudaFuncGetAttributes(&attr, window_kernel(i / 2, i % 2));
+      if (err == cudaSuccess && attr.sharedSizeBytes > most)
+        most = attr.sharedSizeBytes;
+    }
+    if (err != cudaSuccess) return err;
+    cached = (long long)optin - (long long)most;
+  }
+  *limit = cached;
+  return cudaSuccess;
+}
+
+// The plan on this card for one shape, its kernel (its dynamic shared
+// memory raised to the card's limit), resident blocks per SM and the SMs.
+struct Setup {
+  int key[8];   // device, eby, ebx, rows, cols, sy, sx, scaled
+  Plan p;
+  const void* fn;
+  int blocks_per_sm, sms;
+};
+
+constexpr int SETUPS = 32;   // shapes kept (the oldest replaced)
+std::mutex setup_mutex;      // guards setups and last_launch
+Setup setups[SETUPS];
+int setups_made = 0;
+long long last_launch[2];    // the last launch's grid and staging (bulk)
+
+// The setup of a shape, worked out at its first call and kept: a launch
+// then asks the runtime for the current device alone.  Caller holds
+// setup_mutex.
+cudaError_t window_sum_setup(int eby, int ebx, int rows, int cols, int sy,
+                             int sx, bool scaled, const Setup** out,
+                             long long* limit) {
+  cudaError_t err = window_sum_limit(limit);
+  int dev = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int key[8] = {dev, eby, ebx, rows, cols, sy, sx, scaled ? 1 : 0};
+  const int kept = setups_made < SETUPS ? setups_made : SETUPS;
+  for (int i = 0; i < kept; ++i)
+    if (memcmp(setups[i].key, key, sizeof(key)) == 0) {
+      *out = setups + i;
+      return cudaSuccess;
+    }
+  Setup t;
+  memcpy(t.key, key, sizeof(key));
+  if (!window_sum_plan(eby, ebx, rows, cols, sy, sx, *limit, &t.p))
+    return cudaErrorInvalidValue;
+  t.fn = window_kernel(t.p.form, scaled);
+  err = cudaDeviceGetAttribute(&t.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        t.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*limit);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &t.blocks_per_sm, t.fn, t.p.consumers + PRODUCER, t.p.smem);
+  if (err == cudaSuccess && t.blocks_per_sm < 1) err = cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  Setup* slot = setups + setups_made++ % SETUPS;
+  *slot = t;
+  *out = slot;
+  return cudaSuccess;
 }
 
 // ---- colorimetry ---------------------------------------------------------
@@ -367,13 +897,39 @@ colorimetry_finish(const Color a) {
 // cudaError_t code (0: loaded).
 extern "C" int eye_tail_prepare(void) {
   cudaFuncAttributes attr;
-  const void* fns[] = {(const void*)pupil_window_sum,
-                       (const void*)colorimetry_partials,
+  const void* fns[] = {(const void*)colorimetry_partials,
                        (const void*)colorimetry_finish};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;
   }
+  long long limit = 0;
+  return (int)window_sum_limit(&limit);
+}
+
+// The window sum's launch shape on this card for a (rows x cols) disc over
+// (eby x ebx) images at stride (sy, sx), scaled or not: out[17] = form,
+// windows a thread, stages, lead, consumers, active consumers, threads a
+// block, window rows a unit, units an image, items a unit, floats a stage,
+// dynamic shared bytes, resident blocks per SM, registers, local bytes a
+// thread, SMs, shared bytes a block may take.  Returns a cudaError_t code
+// (cudaErrorInvalidValue: no window row fits a stage).
+extern "C" int window_sum_shape(int eby, int ebx, int rows, int cols, int sy,
+                                int sx, int scaled, int* out) {
+  std::lock_guard<std::mutex> hold(setup_mutex);
+  const Setup* t = nullptr;
+  long long limit = 0;
+  cudaError_t err = window_sum_setup(eby, ebx, rows, cols, sy, sx,
+                                     scaled != 0, &t, &limit);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, t->fn);
+  if (err != cudaSuccess) return (int)err;
+  const Plan& p = t->p;
+  const int v[17] = {p.form, p.k, p.stages, p.lead, p.consumers, p.active,
+                     p.consumers + PRODUCER, p.band_rows, p.bands, p.items,
+                     p.stage_floats, p.smem, t->blocks_per_sm, attr.numRegs,
+                     (int)attr.localSizeBytes, t->sms, (int)limit};
+  memcpy(out, v, sizeof(v));
   return 0;
 }
 
@@ -381,7 +937,8 @@ extern "C" int eye_tail_prepare(void) {
 // (image b at images + b * image_stride, rows row_stride apart), each first
 // multiplied by scale[b] when scale is not null.  The disc: `rows` rows,
 // row r covering columns [segments[2r], segments[2r + 1]) (host array).
-// Returns a cudaError_t code (0: launched).
+// The grid: the card's resident blocks of the plan's kernel, at most one a
+// unit.  Returns a cudaError_t code (0: launched).
 extern "C" int pupil_window_sum_launch(
     const void* images, const void* scale, void* out, long long image_stride,
     int row_stride, int B, int eby, int ebx, int sy, int sx,
@@ -399,28 +956,47 @@ extern "C" int pupil_window_sum_launch(
         disc.end[r] > cols)
       return (int)cudaErrorInvalidValue;
   }
-  Window w;
-  w.images = static_cast<const float*>(images);
-  w.scale = static_cast<const float*>(scale);
-  w.out = static_cast<float*>(out);
-  w.image_stride = image_stride;
-  w.row_stride = row_stride;
-  w.eby = eby;
-  w.ebx = ebx;
-  w.epy = (eby - rows) / sy + 1;
-  w.epx = (ebx - cols) / sx + 1;
-  w.sy = sy;
-  w.sx = sx;
-  const size_t smem = (size_t)eby * ebx * sizeof(float);
-  if (smem > MAX_STATIC_SMEM) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pupil_window_sum, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  pupil_window_sum<<<B, SUM_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(w, disc);
+  std::lock_guard<std::mutex> hold(setup_mutex);
+  const Setup* t = nullptr;
+  long long limit = 0;
+  cudaError_t err = window_sum_setup(eby, ebx, rows, cols, sy, sx,
+                                     scale != nullptr, &t, &limit);
+  if (err != cudaSuccess) return (int)err;
+  Sum a;
+  a.p = t->p;
+  a.images = static_cast<const float*>(images);
+  a.scale = static_cast<const float*>(scale);
+  a.out = static_cast<float*>(out);
+  a.image_stride = image_stride;
+  a.units = (long long)B * a.p.bands;
+  a.row_stride = row_stride;
+  a.ebx = ebx;
+  a.sy = sy;
+  a.sx = sx;
+  // a ring's copies, under their 16-byte rule: base, image and row
+  // strides, row length
+  a.bulk = a.p.stages > 1 &&
+           reinterpret_cast<unsigned long long>(images) % 16 == 0 &&
+           image_stride % 4 == 0 && row_stride % 4 == 0 && ebx % 4 == 0;
+  const long long resident = (long long)t->blocks_per_sm * t->sms;
+  const unsigned grid =
+      (unsigned)(a.units < resident ? a.units : resident);
+  last_launch[0] = grid;
+  last_launch[1] = a.bulk;
+  void* args[] = {(void*)&a, (void*)&disc};
+  err = cudaLaunchKernel(t->fn, dim3(grid), dim3(a.p.consumers + PRODUCER),
+                         args, (size_t)a.p.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The last pupil_window_sum_launch's grid and staging (1: bulk copies, 0:
+// loads and stores): out[2].
+extern "C" void window_sum_last_launch(long long* out) {
+  std::lock_guard<std::mutex> hold(setup_mutex);
+  out[0] = last_launch[0];
+  out[1] = last_launch[1];
 }
 
 // Launch on `stream`: the colorimetry of D (3, npix, P) stacks.  `image`

@@ -7,7 +7,10 @@ first tail:
 
 - :func:`launch_window_sum`: the pupil-window perception, (B, eby, ebx)
   images -> (B, epy, epx) window sums of the disc at a stride, bit for bit
-  :func:`.metrics.eye_perceived_reference`;
+  :func:`.metrics.eye_perceived_reference`; its launch shape follows from
+  the shape alone (:func:`window_sum_plan`, the C rule
+  ``window_sum_plan`` written out in Python; :func:`window_sum_shape` reads
+  the card's, with the kernel's registers and resident blocks);
 - :func:`launch_colorimetry`: the colorimetry of (D, 3, fy, fx, epy, epx)
   perception stacks, :func:`.metrics._make_eval_core`'s outputs in its
   operation order (within float32 association of it: its sums run in
@@ -44,6 +47,25 @@ PARTIALS = 6   # per (design, split, position): delta E, Y, min Y, max Y,
                # any Y = 0, peak
 NCONST = 51    # the float32 constants of metrics.colorimetry_constants
 
+# the window sum's launch rule (csrc/eye_tail.cu, mirrored by
+# window_sum_plan): its forms, the stages a ring at most, the summing
+# threads a block at most, the staging warp, the windows a thread at stride
+# (sy, 1), the float4 chunks of a row read at once, a ring stage's
+# mbarrier bytes, and an H100's shared bytes a block
+FORMS = ("scalar", "vec4", "dense")
+MAX_STAGES = 8
+MAX_CONSUMERS = 512
+PRODUCER = 32
+DENSE_K = 13
+VEC_CHUNKS = 8
+BAR_BYTES = 16
+SMEM_LIMIT = 232_448
+# window_sum_shape's out[17], in its order
+SHAPE_KEYS = ("form", "k", "stages", "lead", "consumers", "active",
+              "threads", "band_rows", "bands", "items", "stage_floats",
+              "smem", "blocks_per_sm", "registers", "local_bytes", "sms",
+              "smem_limit")
+
 WINDOW_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -63,6 +85,93 @@ def _raise(lib, err: int, what: str) -> None:
     if err != 0:
         msg = lib.eye_tail_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def window_sum_plan(eby: int, ebx: int, rows: int, cols: int, sy: int,
+                    sx: int, smem_limit: int = SMEM_LIMIT) -> dict:
+    """The window sum's launch shape for a ``rows x cols`` disc over ``eby
+    x ebx`` images at stride ``(sy, sx)`` with ``smem_limit`` shared bytes a
+    block: ``csrc/eye_tail.cu``'s ``window_sum_plan``, step for step (the
+    card's own is :func:`window_sum_shape`).  Keys: ``form`` (an index of
+    :data:`FORMS`), ``k`` (windows a thread), ``epy``, ``epx``,
+    ``band_rows`` (window rows a unit: one stage's load), ``bands`` (units
+    an image), ``xblocks``, ``items`` (items a unit), ``stage_rows``,
+    ``stage_floats``, ``stages`` (1: no ring, no barriers), ``lead``
+    (units whose items the consumers hold at once: ``stages - 2``, or
+    ``stages - 1`` in a ring of 2 or 3), ``consumers`` (whole warps, at
+    most the items of ``lead`` units), ``active`` (the consumers that sum:
+    at most ``lead * items``), ``threads``, ``smem`` (dynamic shared
+    bytes).  Raises ValueError if not one window row fits a stage."""
+    if rows < 1 or cols < 1 or rows > eby or cols > ebx or sy < 1 or sx < 1:
+        raise ValueError(f"a {rows} x {cols} disc at stride ({sy}, {sx}) "
+                         f"does not fit {eby} x {ebx} images")
+    epy, epx = (eby - rows) // sy + 1, (ebx - cols) // sx + 1
+    if sx == 1 and epx >= DENSE_K:
+        form = 2
+    elif sx % 4 == 0 and ebx % 4 == 0:
+        form = 1
+    else:
+        form = 0
+    while True:
+        pad = DENSE_K - 1 if form == 2 else 3 if form == 1 else 0
+        band = 0
+        for want in (2, 1):   # two stages and their barriers, or one
+            fit = (smem_limit // 2 - BAR_BYTES if want == 2
+                   else smem_limit) // 4 // 4 * 4
+            stage_rows = (fit - pad) // ebx
+            if stage_rows >= rows:
+                band = min(epy, (stage_rows - rows) // sy + 1)
+                break
+        if band > 0:
+            break
+        if form == 0:
+            raise ValueError(f"no window row of a {rows} x {cols} disc over "
+                             f"{ebx}-bin rows fits {smem_limit} B")
+        form = 0
+    k = DENSE_K if form == 2 else 1
+    xblocks = -(-epx // k)
+    items = band * xblocks
+    stage_rows = (band - 1) * sy + rows
+    stage_floats = -(-(stage_rows * ebx + pad) // 4) * 4
+    stage_bytes = stage_floats * 4 + BAR_BYTES
+    fits = smem_limit // stage_bytes
+    stages = 1 if fits < 2 else min(MAX_STAGES, fits)
+    lead = stages - 2 if stages >= 4 else stages - 1 if stages >= 2 else 1
+    consumers = min(MAX_CONSUMERS, max(32, lead * items // 32 * 32))
+    return {"form": form, "k": k, "epy": epy, "epx": epx, "band_rows": band,
+            "bands": -(-epy // band), "xblocks": xblocks, "items": items,
+            "stage_rows": stage_rows, "stage_floats": stage_floats,
+            "stages": stages, "lead": lead, "consumers": consumers,
+            "active": min(consumers, lead * items),
+            "threads": consumers + PRODUCER,
+            "smem": stages * stage_bytes if stages > 1 else stage_floats * 4}
+
+
+_SHAPES = {}
+
+
+def window_sum_shape(eby: int, ebx: int, rows: int, cols: int, sy: int,
+                     sx: int, scaled: bool = False) -> dict:
+    """The window sum's launch shape on the current card (cached per
+    shape): :data:`SHAPE_KEYS` from ``csrc/eye_tail.cu``'s
+    ``window_sum_shape`` (its plan with the kernel's registers, local bytes
+    and resident blocks per SM from the runtime)."""
+    key = (torch.cuda.current_device(), eby, ebx, rows, cols, sy, sx,
+           bool(scaled))
+    if key not in _SHAPES:
+        lib = load_kernel()
+        out = (ctypes.c_int * len(SHAPE_KEYS))()
+        _raise(lib, lib.window_sum_shape(eby, ebx, rows, cols, sy, sx,
+                                         int(bool(scaled)), out),
+               "window_sum_shape")
+        _SHAPES[key] = dict(zip(SHAPE_KEYS, list(out)))
+    return _SHAPES[key]
+
+
+# the last launch_window_sum's shape (window_sum_shape), units, and the
+# launch's grid and staging (``bulk``: cp.async.bulk copies, else loads)
+last_launch = {}
+_LAST = (ctypes.c_longlong * 2)()
 
 
 def launch_window_sum(images: torch.Tensor, segments: np.ndarray, cols: int,
@@ -98,6 +207,8 @@ def launch_window_sum(images: torch.Tensor, segments: np.ndarray, cols: int,
     if B:
         seg = np.ascontiguousarray(segments, dtype=np.int32)
         with torch.cuda.device(flat.device):
+            shape = window_sum_shape(eby, ebx, rows, int(cols), sy, sx,
+                                     scale is not None)
             stream = torch.cuda.current_stream(flat.device).cuda_stream
             err = lib.pupil_window_sum_launch(
                 flat.data_ptr(), None if scale is None else scale.data_ptr(),
@@ -105,6 +216,10 @@ def launch_window_sum(images: torch.Tensor, segments: np.ndarray, cols: int,
                 sy, sx, seg.ctypes.data, rows, int(cols), stream)
         _raise(lib, err, "pupil_window_sum")
         launch_counts["eye_perceive"] += 1
+        lib.window_sum_last_launch(_LAST)
+        last_launch.clear()
+        last_launch.update(shape, units=B * shape["bands"], grid=_LAST[0],
+                           bulk=bool(_LAST[1]))
     return out.reshape(lead + (epy, epx))
 
 
@@ -181,6 +296,10 @@ def load_kernel():
         lib = build.load_library("eye_tail")
         lib.pupil_window_sum_launch.argtypes = WINDOW_ARGTYPES
         lib.pupil_window_sum_launch.restype = ctypes.c_int
+        lib.window_sum_shape.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.window_sum_shape.restype = ctypes.c_int
+        lib.window_sum_last_launch.argtypes = [ctypes.c_void_p]
+        lib.window_sum_last_launch.restype = None
         lib.colorimetry_launch.argtypes = COLOR_ARGTYPES
         lib.colorimetry_launch.restype = ctypes.c_int
         lib.eye_tail_prepare.argtypes = []

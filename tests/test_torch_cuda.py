@@ -869,35 +869,127 @@ def _tail_histogram(device, shape=(3, 12, 16, 80, 120), seed=15):
     return torch.from_numpy(h).to(device)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("stride", [(8, 12), (1, 1)])
-def test_eye_perceive_kernel_equals_plain_version_on_card(cuda_device,
-                                                          stride):
-    """The perception kernel equals its plain version on the card bit for
-    bit, with and without per-image scales (the sweep's Wald factors) and
-    on a strided view (the sweep's 128-lane tiles cut to 120); one launch
-    counted per call."""
+def _window_case(case, device):
+    """``(images, mask, stride, scale)`` of a window-sum case on the card:
+    the tail histogram at both strides, the sweep's 128-lane tiles cut to
+    120 with per-tile scales, odd shapes and discs, B = 1 and a B that
+    fills no round, views whose strides or base break the bulk copies'
+    16-byte rule, a disc row with an empty run, images staged in row
+    bands; many units a block with fewer items than a warp (four windows
+    an image, or one); a window row that fills one stage."""
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
         metrics,
     )
 
-    h = _tail_histogram(cuda_device)
-    mask = metrics.pupil_mask(30)
+    kind, stride = case
+    rng = np.random.default_rng([ord(c) for c in kind] + list(stride))
+
+    def images(*shape):
+        x = rng.random(shape).astype(np.float32) * 100.0
+        x[x < 20.0] = 0.0
+        return torch.from_numpy(x).to(device)
+
+    def scales(n):
+        return torch.from_numpy(rng.random(n).astype(np.float32) + 0.5).to(
+            device)
+
+    disc = metrics.pupil_mask(30)
+    if kind == "histogram":
+        return _tail_histogram(device), disc, stride, None
+    if kind == "tiles_scaled":          # the sweep's per-design launch
+        tiles = torch.zeros((48, 80, 128), device=device)
+        tiles[:, :, :120] = _tail_histogram(device)[0, :3].reshape(48, 80,
+                                                                   120)
+        return tiles[:, :, :120], disc, stride, scales(48)
+    if kind.startswith("odd_13x17_disc"):
+        scaled = kind.endswith("_scaled")
+        bins = int(kind.split("disc")[1].split("_")[0])
+        return (images(5, 13, 17), metrics.pupil_mask(bins), stride,
+                scales(5) if scaled else None)
+    if kind == "odd_37x41_disc30":
+        return images(4, 37, 41), disc, stride, None
+    if kind == "odd_37x41_disc30_b6000":
+        return images(6000, 37, 41), disc, stride, None
+    if kind == "b1":
+        return images(1, 80, 120), disc, stride, None
+    if kind == "b2000":
+        return images(2000, 80, 120), disc, stride, None
+    if kind == "b1003_scaled":
+        return images(1003, 80, 120), disc, stride, scales(1003)
+    if kind == "row_stride_121":        # rows 484 B apart
+        return images(50, 80, 121)[:, :, :120], disc, stride, None
+    if kind == "base_offset":           # images 4 B past an aligned base
+        flat = images(50 * 80 * 120 + 1)
+        return flat[1:].view(50, 80, 120), disc, stride, scales(50)
+    if kind == "empty_row":
+        m = metrics.pupil_mask(9)
+        m[4] = 0.0
+        return images(6, 40, 44), m, stride, None
+    if kind == "bands":                 # 300 x 256 does not fit twice
+        return images(3, 300, 256), disc, stride, scales(3)
+    if kind == "one_stage":             # 128 x 256 bins do not fit twice
+        return images(3, 300, 256), metrics.pupil_mask(128), stride, None
+    raise ValueError(kind)
+
+
+WINDOW_CASES = [
+    ("histogram", (8, 12)), ("histogram", (1, 1)),
+    ("tiles_scaled", (8, 12)), ("tiles_scaled", (1, 1)),
+    ("odd_13x17_disc1", (1, 1)), ("odd_13x17_disc5", (1, 1)),
+    ("odd_13x17_disc5_scaled", (8, 12)), ("odd_13x17_disc5", (3, 5)),
+    ("odd_13x17_disc1_scaled", (3, 5)), ("odd_37x41_disc30", (1, 1)),
+    ("odd_37x41_disc30", (3, 5)), ("odd_37x41_disc30", (8, 12)),
+    ("b1", (8, 12)), ("b1", (1, 1)), ("b1003_scaled", (8, 12)),
+    ("row_stride_121", (8, 12)), ("row_stride_121", (1, 1)),
+    ("base_offset", (8, 12)), ("base_offset", (1, 1)),
+    ("empty_row", (1, 1)), ("empty_row", (2, 3)), ("empty_row", (3, 4)),
+    ("bands", (1, 1)), ("bands", (8, 12)),
+    ("b2000", (50, 90)), ("odd_37x41_disc30_b6000", (8, 12)),
+    ("one_stage", (2, 2)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WINDOW_CASES,
+                         ids=[f"{k}-{s[0]}x{s[1]}" for k, s in WINDOW_CASES])
+def test_eye_perceive_kernel_equals_plain_version_on_card(cuda_device, case):
+    """The perception kernel equals its plain version on the card bit for
+    bit, with and without per-image scales (the sweep's Wald factors), on
+    strided views (the sweep's 128-lane tiles cut to 120; rows or a base
+    off the 16-byte grid, staged by loads), odd shapes and discs, a disc
+    row with an empty run, B = 1, 1,003, 2,000 and 6,000, images staged
+    in row bands or in one stage without a ring, and blocks that run many
+    units with fewer items than a warp; one launch counted per call; the
+    card's launch shape is the Python rule's."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        eye_tail, metrics,
+    )
+
+    h, mask, stride, scale = _window_case(case, cuda_device)
     n0 = tp.launch_counts["eye_perceive"]
-    got = metrics.pupil_window_sum(h, mask, stride)
+    got = metrics.pupil_window_sum(h, mask, stride, scale)
     torch.cuda.synchronize()
     assert tp.launch_counts["eye_perceive"] == n0 + 1
-    want = metrics.eye_perceived_reference(h, mask, stride)
+    want = metrics.eye_perceived_reference(h, mask, stride, scale)
     assert got.shape == want.shape and got.sum() > 0
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-    tiles = torch.zeros((48, 80, 128), device=cuda_device)
-    tiles[:, :, :120] = h[0, :3].reshape(48, 80, 120)
-    scale = torch.from_numpy(np.random.default_rng(3).random(48).astype(
-        np.float32)).to(cuda_device)
-    got = metrics.pupil_window_sum(tiles[:, :, :120], mask, stride, scale)
-    want = metrics.eye_perceived_reference(tiles[:, :, :120], mask, stride,
-                                           scale)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    shape = eye_tail.last_launch
+    plan = eye_tail.window_sum_plan(*h.shape[-2:], *mask.shape, *stride,
+                                    smem_limit=shape["smem_limit"])
+    assert {k: shape[k] for k in plan if k in shape} == {
+        k: plan[k] for k in plan if k in shape}
+    assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] >= 1
+    # a ring's bulk copies where the base, the strides and the rows keep 16
+    # bytes
+    assert shape["bulk"] == (shape["stages"] > 1 and h.shape[-1] % 4 == 0
+                             and case[0] not in ("row_stride_121",
+                                                 "base_offset"))
+    if case in (("b2000", (50, 90)), ("odd_37x41_disc30_b6000", (8, 12))):
+        # more units a block than stages, fewer items a unit than a warp
+        assert shape["units"] > shape["grid"] * shape["stages"]
+        assert shape["active"] < 32 == shape["consumers"]
+    if case[0] == "one_stage":
+        assert shape["stages"] == 1
 
 
 @pytest.mark.cuda
