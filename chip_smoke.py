@@ -471,6 +471,9 @@ PEAK_FP64_OPS = 34e12
 # float32 adds: an add is one lane instruction, issued at 132 SMs x 128 lanes
 # x 1.98 GHz (the SXM part's boost clock); PEAK_FP32_OPS counts an FMA as two
 PEAK_FP32_ADDS = 132 * 128 * 1.98e9
+# float64 lane instructions: 64 FP64 lanes an SM at the same clock (half
+# the FP32 lanes; PEAK_FP64_OPS counts a DFMA as two)
+PEAK_FP64_LANES = 132 * 64 * 1.98e9
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -523,6 +526,22 @@ def ptxas_spills(log: str) -> dict:
         if spill and name is not None:
             out[name] = int(spill.group(1)) + int(spill.group(2))
     return out
+
+
+def named_spills(log: str, name: str):
+    """Spill store and load bytes of the kernel whose mangled name holds
+    ``name`` in nvcc's -Xptxas -v output (None when the log has none)."""
+    cur = None
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", ln)
+        if entry:
+            cur = entry.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+        if spill and cur is not None and name in cur:
+            return int(spill.group(1)) + int(spill.group(2))
+    return None
 
 
 def live_fraction(nb, slots_per_cell: int) -> float:
@@ -3717,12 +3736,16 @@ def phase18(ctx) -> None:
         fail(f"the port loaded {jax_modules()}")
     ctx["k1_native_launches"] = launches
 
-# float64 operations of one (branch, cell) item of the rows' kernel: the
-# scale (2 multiplies, a division, a square root) and eight real-times-
-# complex products of 6 operations; float32 operations of a cell's scalar
-# columns
-ROWS_F64_OPS = 4 + 8 * 6
-ROWS_F32_OPS = 14
+# lane instructions of one (branch, cell) item of the rows' kernel: the
+# scale's 2 multiplies and eight real-times-complex products of 6
+# operations, one FP64 instruction each, with the fast paths of __ddiv_rn
+# (16 instructions, 9 FP64) and __dsqrt_rn (15, 9 FP64) from their SASS
+# (tools/cell_rows_phases.py, which counts them with tools/sass_paths.py;
+# NVIDIA H100 80GB HBM3, CUDA 12.8); and of a cell's scalar columns, 11
+# operations and three IEEE float32 divisions of 10
+ROWS_ITEM_LANES = 50 + 16 + 15
+ROWS_ITEM_FP64 = 50 + 9 + 9
+ROWS_ROW_LANES = 11 + 3 * 10
 
 
 def phase19(ctx) -> None:
@@ -3737,7 +3760,7 @@ def phase19(ctx) -> None:
         generate_geometry,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
-        cell_rows as cr, trace_rows,
+        build, cell_rows as cr, trace_rows,
     )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.luts.packing import (
         build_cell_tables, build_cell_tables_synthetic_batch,
@@ -3780,7 +3803,7 @@ def phase19(ctx) -> None:
         args = cr.upload_inputs(inputs, eb, dev)
         rows = cr.launch_rows(args, inputs, bins)
         torch.cuda.synchronize()
-        ms = cuda_ms(lambda: cr.launch_rows(args, inputs, bins), 10)
+        ms = device_ms(lambda: cr.launch_rows(args, inputs, bins), 10)
         plain = cr.cell_rows_reference(inputs, eb, bins, dev)
         torch.cuda.synchronize()
         plain_ms = cuda_ms(
@@ -3798,8 +3821,17 @@ def phase19(ctx) -> None:
         nbytes = rows.numel() * 4 + sum(a.numel() * a.element_size()
                                         for a in args)
         t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-        t_ops = (len(inputs.table) * n * ROWS_F64_OPS / PEAK_FP64_OPS
-                 + n * ROWS_F32_OPS / PEAK_FP32_OPS) * 1e3
+        # the FP64 lanes' instructions, or all of them at the issue rate
+        items = len(inputs.table) * n
+        t_ops = max(items * ROWS_ITEM_FP64 / PEAK_FP64_LANES,
+                    (items * ROWS_ITEM_LANES + n * ROWS_ROW_LANES)
+                    / PEAK_FP32_ADDS) * 1e3
+        launch = cr.rows_shape(n)
+        launch["grid_equal"] = launch["grid"] == cr.rows_grid(
+            n, launch["blocks_per_sm"] * launch["sms"])
+        launch["spill_bytes"] = named_spills(
+            build.build_info.get("cell_rows", {}).get("log", ""),
+            "cell_rows_kernel")
         entry = {"name": name, "designs": inputs.D, "cells": n,
                  "rows_bytes": rows.numel() * 4, "input_bytes":
                  nbytes - rows.numel() * 4, "ms": ms, "plain_ms": plain_ms,
@@ -3807,7 +3839,8 @@ def phase19(ctx) -> None:
                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                  "max_abs_err": max_abs, "identical_plain": same_plain,
                  "identical_host": same_host, "host_pipeline_s": host_s,
-                 "host_inputs_s": inputs_s}
+                 "host_inputs_s": inputs_s, "launch": launch,
+                 "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9}
         words = ""
         if packed:
             nf, no = inputs.num_fc, inputs.num_oc
@@ -3819,14 +3852,27 @@ def phase19(ctx) -> None:
         rec[name] = entry
         modes.append(entry)
         save_record(ctx)
+        spills = ("(not rebuilt)" if launch["spill_bytes"] is None
+                  else launch["spill_bytes"])
         print(f"phase 19 {name}: {inputs.D} design(s), {n:,} cell rows "
               f"({rows.numel() * 4 / 1e6:.1f} MB, inputs "
-              f"{entry['input_bytes'] / 1e6:.1f} MB): kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
-              f"({entry['bound_by']}); host inputs {inputs_s:.3f} s, host "
+              f"{entry['input_bytes'] / 1e6:.1f} MB): kernel {ms:.4f} ms "
+              f"({entry['achieved_gb_s']:.0f} GB/s), plain {plain_ms:.3f} "
+              f"ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+              f"operations {t_ops:.4f} ms); launch: grid {launch['grid']} "
+              f"of {launch['threads']} threads, tiles of {launch['tile']} "
+              f"rows in {launch['buffers']} buffers ({launch['smem']:,} B "
+              f"shared), {launch['blocks_per_sm']} block(s) per SM, "
+              f"{launch['registers']} registers, {launch['local_bytes']} B "
+              f"local, spills {spills} B, grid = Python rule "
+              f"{launch['grid_equal']}; host inputs {inputs_s:.3f} s, host "
               f"pipeline {host_s:.3f} s; kernel = plain "
               f"{same_plain}, kernel = host {same_host}, max |diff| "
               f"{max_abs}{words}")
+        if (launch["spill_bytes"] or launch["local_bytes"]
+                or not launch["grid_equal"]):
+            fail(f"phase 19 {name}: the rows' kernel spills or its grid is "
+                 f"not the Python rule's: {launch}")
         if not (same_plain and same_host and entry.get("identical_packed",
                                                        True)):
             fail(f"phase 19 {name}: the rows' kernel disagrees (plain "
@@ -3838,13 +3884,20 @@ def phase19(ctx) -> None:
     ctx["rows_modes"] = modes
 
 
-# float32 operations of the colorimetry per (pixel, position), counted from
-# csrc/eye_tail.cu with each library call (powf, atan2f, sinf ...) as one
-# operation, so the bound is a floor: scaling 6, the XYZ product 15, Y's
-# sums and tests 4, Lab 22, CIEDE2000 111, its sum 1; the eye views add the
-# RGB product, clamp, gamma and peak (36) and the normalisation (4)
-COLOR_OPS = 159
-IMAGE_OPS = 40
+# lane instructions of the colorimetry per (pixel, position), at the
+# card's issue rate (PEAK_FP32_ADDS): csrc/eye_tail.cu's 159 operations
+# (scaling 6, the XYZ product 15, Y's sums and tests 4, Lab 22, CIEDE2000
+# 111, its sum 1), each of its 38 library calls (13 IEEE divisions, 5
+# powf, 5 sqrtf, 4 hypotf, 4 cosf, 2 each of atan2f, fmodf and sinf, an
+# expf) at its fast path's lane instructions from the SASS (division 10,
+# powf 66, sqrtf 7, hypotf 25, cosf 26, sinf 25, atan2f 10, fmodf 10, expf
+# 7) and every other operation at one; the eye views' 40 (the RGB product,
+# clamp, gamma and peak 36, the normalisation 4) with their 3 powf and 3
+# divisions so (tools/colorimetry_phases.py with tools/sass_paths.py;
+# NVIDIA H100 80GB HBM3, CUDA 12.8).  A fast path is the shortest through
+# the call's code, so the count is a floor
+COLOR_OPS = 917
+IMAGE_OPS = 262
 # phase 20's histogram: the reference workload's (L, FoVy, FoVx, eby, ebx)
 TAIL_HISTOGRAM = (3, 75, 100, 80, 120)
 
@@ -3929,8 +3982,11 @@ def _colorimetry_case(name: str, stack, inv_norm: float,
     bound."""
     import numpy as np
     import torch
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        build,
+    )
     from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
-        metrics,
+        eye_tail, metrics,
     )
 
     core = metrics._make_eval_core(with_image)
@@ -3968,17 +4024,36 @@ def _colorimetry_case(name: str, stack, inv_norm: float,
               + (stack.numel() if with_image else 0)) * 4
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     t_ops = (items * (COLOR_OPS + (IMAGE_OPS if with_image else 0))
-             / PEAK_FP32_OPS * 1e3)
+             / PEAK_FP32_ADDS * 1e3)
+    plan = eye_tail.colorimetry_plan(D, epy * epx, fy * fx)
+    log = build.build_info.get("eye_tail", {}).get("log", "")
+    launch = dict(eye_tail.colorimetry_shape(), splits=plan["S"],
+                  chunk=plan["chunk"], grid=list(plan["grid"]),
+                  units_spill_bytes=named_spills(log, "colorimetry_units"),
+                  image_spill_bytes=named_spills(log, "colorimetry_image"))
     entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                  bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 launch=launch)
+    spills = ("(not rebuilt)" if launch["units_spill_bytes"] is None else
+              f"{launch['units_spill_bytes']} / "
+              f"{launch['image_spill_bytes']}")
     print(f"phase 20 colorimetry {name}: stack {tuple(stack.shape)}"
           f"{' with the image' if with_image else ''}: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {entry['bound_ms']:.4f} ms "
-          f"({entry['bound_by']}); against the plain version: "
+          f"({entry['bound_by']}; bytes {t_bytes:.4f} ms); launch: "
+          f"{plan['S']} splits of {plan['chunk']} pixels, units grid "
+          f"{tuple(plan['grid'])} of 256 threads, "
+          f"{launch['units_blocks_per_sm']} block(s) per SM, "
+          f"{launch['units_registers']} registers, "
+          f"{launch['units_local_bytes']} B local (the image pass "
+          f"{launch['image_registers']} registers), spills {spills} B; "
+          f"against the plain version: "
           + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
           + f" relative, image {'within' if img_ok else 'BEYOND'} rtol 1e-5 "
           f"/ atol 1e-6, u_eb zeros equal {zeros_equal}, starved {starved}")
+    if launch["units_spill_bytes"] or launch["image_spill_bytes"]:
+        fail(f"phase 20 colorimetry {name}: the kernels spill: {launch}")
     if (max(rel.values()) > 1e-5 or not img_ok or not zeros_equal
             or starved[0] != starved[1]):
         fail(f"phase 20 colorimetry {name}: the kernel disagrees with its "

@@ -50,24 +50,35 @@
 // launch shape follows from the shape alone (window_sum_plan, mirrored by
 // eval/eye_tail.py::window_sum_plan); an output never depends on it.
 //
-// colorimetry_partials / colorimetry_finish: (D, 3, fy*fx, P) perception
-// stacks -> per design mean CIEDE2000 against D65, the sum over positions of
-// min / max of Y, the per-position mean of Y (starved positions 0) and, with
-// an image buffer, the eye views (D, fy*fx, 3, P) normalised by each
+// colorimetry_units / colorimetry_image: (D, 3, fy*fx, P) perception stacks
+// -> per design mean CIEDE2000 against D65, the sum over positions of min /
+// max of Y, the per-position mean of Y (starved positions 0) and, with an
+// image buffer, the eye views (D, fy*fx, 3, P) normalised by each
 // position's peak.  The arithmetic is the plain version's, operation for
 // operation in its order, with the constants the plain version rounds to
 // float32 (the 3 x 3 products written out, no contraction: -fmad=false).
-// A block is 32 positions (the lanes: coalesced reads and image writes)
-// by 8 groups of pixels; the pixels of a position are split over S blocks
-// so that a stack of 56 positions fills the card.  Sums run in a fixed
-// order: per thread over its pixels, a fixed tree over the 8 groups, then
-// the S partials in order (colorimetry_finish), then over positions in the
-// design's last block (a block-wide fixed tree; the last block is found by
-// an integer atomic ticket).  Min, max and "any Y = 0" are exact in any
-// order.  A run repeats itself bit for bit, and a design's results do not
-// depend on the other designs of its launch.  Bound: bytes (the stack read
-// once, the image written once); the per-pixel transcendentals are far
-// below the card's float32 rate.
+// What bounds it: the lane instructions of each (pixel, position) item's
+// dependent chain (powf, atan2f, four cosf, expf, IEEE divisions and
+// roots), not the bytes (the stack read once, the image written once).
+//
+// Design: a unit is 32 positions (the lanes: coalesced reads and image
+// writes) by 8 groups of one split's pixels; the pixels of a position are
+// split over S units (eval/eye_tail.py::colorimetry_splits, by the stack's
+// shape alone), so that a stack of 56 positions and one of 4,641 each fill
+// the card's resident blocks (5 blocks of 256 threads an SM: the kernel
+// takes at most 48 registers).  Sums run in a fixed order that depends on
+// the shape alone: per thread over its pixels, a fixed tree over the 8
+// groups (the unit's partial), then, in the last unit of its 32 positions
+// to finish (an integer atomic ticket), each of 8 groups over the splits
+// s = g, g + 8, ... in order and a fixed tree over the groups, then over
+// positions in the design's last such unit (a block-wide fixed tree,
+// another ticket).  Min, max and "any Y = 0" are exact in any order; so
+// is the peak of each position's eye view, which the same finisher takes
+// over the splits.  With an image, the units write the views unnormalised
+// and colorimetry_image, a second launch, divides each by its position's
+// peak (the one pass that needs every split's peak): the image is read and
+// written once more.  A run repeats itself bit for bit, and a design's
+// results do not depend on the other designs of its launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -631,9 +642,12 @@ cudaError_t window_sum_setup(int eby, int ebx, int rows, int cols, int sy,
 
 // ---- colorimetry ---------------------------------------------------------
 
-constexpr int LANES = 32;    // positions per block
-constexpr int GROUPS = 8;    // pixel groups per block
+constexpr int LANES = 32;    // positions per unit
+constexpr int GROUPS = 8;    // pixel groups per unit
 constexpr int COLOR_THREADS = LANES * GROUPS;
+constexpr int COLOR_MIN_BLOCKS = 5;    // blocks an SM: 48 registers at most
+constexpr int IMAGE_THREADS = 256;
+constexpr int IMAGE_BLOCKS_PER_SM = 8; // colorimetry_image's grid an SM
 
 // the float32 constants, in eval/eye_tail.py::colorimetry_constants' order
 enum {
@@ -655,18 +669,22 @@ struct Consts {
 
 // per (design, split, position) partials
 enum { P_DE, P_Y, P_YMIN, P_YMAX, P_ZERO, P_PEAK, NPART };
+// per (design, position) results
+enum { Q_DE, Q_RATIO, Q_PEAK, NPOS };
 
 struct Color {
   const float* perc;   // (D, 3, npix, P), (B, G, R) wavelength order
   float* image;        // (D, npix, 3, P) or null
   float* part;         // (D, S, NPART, P)
-  float* pos;          // (D, 2, P): delta E sum and min / max ratio
-  int* done;           // (D,): position blocks finished, zeroed per launch
+  float* pos;          // (D, NPOS, P): delta E sum, min / max ratio, peak
+  int* done;           // (D * tiles + D,), zeroed per launch: the units
+                       // finished per (design, tile), then the tiles
+                       // finished per design
   float* delta_e;      // (D,)
   float* ratio_sum;    // (D,)
   float* u_eb;         // (D, P)
   float inv_norm;
-  int npix, P, S, chunk, chunk2;
+  int npix, P, S, chunk, tiles;
 };
 
 // torch.remainder(x, 360.0)
@@ -740,26 +758,42 @@ __device__ __forceinline__ float sum8(const float* v) {
   return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
 }
 
-__global__ void __launch_bounds__(COLOR_THREADS)
-colorimetry_partials(const Color a, const Consts k) {
-  __shared__ float red[NPART][GROUPS][LANES];
+// COLOR_MARK phases: items reduce finish design image
+#ifndef COLOR_MARK
+#define COLOR_BEGIN()
+#define COLOR_MARK(k)
+#define COLOR_END()
+#endif
+
+// a unit's partials of the 32 positions of position tile `tile`: per
+// thread over the pixels s * chunk + ty, + 8, ..., then a fixed tree over
+// the 8 groups; the eye views written unnormalised
+__device__ __forceinline__ void color_unit(const Color& a, const Consts& k,
+                                           int d, int s, int tile,
+                                           float (&red)[NPART][GROUPS][LANES]) {
   const float* c = k.c;
-  const int d = blockIdx.z, s = blockIdx.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int p = blockIdx.x * LANES + tx;
+  const int p = tile * LANES + tx;
   float de = 0.0f, ys = 0.0f, ymin = INFINITY, ymax = -INFINITY;
   float zero = 0.0f, peak = -INFINITY;
   if (p < a.P) {
     const size_t plane = (size_t)a.npix * a.P;
     const float* src = a.perc + (size_t)d * 3 * plane + p;
-    const int i1 = min(a.npix, (s + 1) * a.chunk);
-    for (int i = s * a.chunk + ty; i < i1; i += GROUPS) {
-      const size_t o = (size_t)i * a.P;
+    const int i0 = s * a.chunk + ty, i1 = min(a.npix, (s + 1) * a.chunk);
+    // each item's three channels are loaded one item ahead
+    float next[3] = {0.0f, 0.0f, 0.0f};
+    if (i0 < i1)
+      for (int j = 0; j < 3; ++j) next[j] = src[(size_t)i0 * a.P + j * plane];
+    for (int i = i0; i < i1; i += GROUPS) {
+      const float in[3] = {next[0], next[1], next[2]};
+      if (i + GROUPS < i1)
+        for (int j = 0; j < 3; ++j)
+          next[j] = src[(size_t)(i + GROUPS) * a.P + j * plane];
       // the (B, G, R) histogram order flipped to (R, G, B), each scaled by
       // 1 / norm, then by the drive
       float ep[3];
       for (int j = 0; j < 3; ++j)
-        ep[j] = c[K_DRIVE + j] * (src[o + (2 - j) * plane] * a.inv_norm);
+        ep[j] = c[K_DRIVE + j] * (in[2 - j] * a.inv_norm);
       float xyz[3];
       for (int j = 0; j < 3; ++j) {
         const float* m = c + K_MXYZ + 3 * j;
@@ -805,89 +839,137 @@ colorimetry_partials(const Color a, const Consts k) {
   red[P_YMAX][ty][tx] = ymax;
   red[P_ZERO][ty][tx] = zero;
   red[P_PEAK][ty][tx] = peak;
-  __syncthreads();
-  if (ty != 0 || p >= a.P) return;
-  float v[GROUPS];
-  float* out = a.part + ((size_t)d * a.S + s) * NPART * a.P + p;
-  for (int q = 0; q < NPART; ++q) {
-    for (int g = 0; g < GROUPS; ++g) v[g] = red[q][g][tx];
-    float r = v[0];
-    if (q == P_DE || q == P_Y) {
-      r = sum8(v);
-    } else {
-      for (int g = 1; g < GROUPS; ++g)
-        r = q == P_YMIN ? fminf(r, v[g]) : fmaxf(r, v[g]);
-    }
-    out[(size_t)q * a.P] = r;
-  }
 }
 
-__global__ void __launch_bounds__(COLOR_THREADS)
-colorimetry_finish(const Color a) {
-  __shared__ float red[2][COLOR_THREADS];
+// the 8 groups' values of quantity q at lane tx, combined: a fixed tree
+// for the sums, min / max for the rest
+__device__ __forceinline__ float combine8(
+    const float (&red)[NPART][GROUPS][LANES], int q, int tx) {
+  float v[GROUPS];
+  for (int g = 0; g < GROUPS; ++g) v[g] = red[q][g][tx];
+  if (q == P_DE || q == P_Y) return sum8(v);
+  float r = v[0];
+  for (int g = 1; g < GROUPS; ++g)
+    r = q == P_YMIN ? fminf(r, v[g]) : fmaxf(r, v[g]);
+  return r;
+}
+
+// quantity q's value of two partials a, b
+__device__ __forceinline__ float merge(int q, float x, float y) {
+  return q == P_DE || q == P_Y ? x + y
+         : q == P_YMIN         ? fminf(x, y)
+                               : fmaxf(x, y);
+}
+
+__global__ void __launch_bounds__(COLOR_THREADS, COLOR_MIN_BLOCKS)
+colorimetry_units(const Color a, const Consts k) {
+  __shared__ float red[NPART][GROUPS][LANES];
   __shared__ int last;
-  const int d = blockIdx.z;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int p = blockIdx.x * LANES + tx;
-  const float* part = a.part + (size_t)d * a.S * NPART * a.P + p;
+  COLOR_BEGIN();
+  const int s = blockIdx.x, tile = blockIdx.y, d = blockIdx.z;
+  const int tx = threadIdx.x, ty = threadIdx.y, t = ty * LANES + tx;
+  const int p = tile * LANES + tx;
+  color_unit(a, k, d, s, tile, red);
+  COLOR_MARK(1);
+  __syncthreads();
+  float* part = a.part + (size_t)d * a.S * NPART * a.P + p;
   const size_t stride = (size_t)NPART * a.P;
-  if (a.image && p < a.P) {
-    float peak = -INFINITY;
-    for (int s = 0; s < a.S; ++s)
-      peak = fmaxf(peak, part[s * stride + (size_t)P_PEAK * a.P]);
-    if (peak > 0.0f) {
-      const int n3 = 3 * a.npix;
-      float* img = a.image + (size_t)d * n3 * a.P + p;
-      const int e1 = min(n3, (blockIdx.y + 1) * a.chunk2);
-      for (int e = blockIdx.y * a.chunk2 + ty; e < e1; e += GROUPS)
-        img[(size_t)e * a.P] = img[(size_t)e * a.P] / peak;
-    }
-  }
-  if (blockIdx.y != 0) return;
   if (ty == 0 && p < a.P) {
-    float de = 0.0f, ys = 0.0f, ymin = INFINITY, ymax = -INFINITY;
-    float zero = 0.0f;
-    for (int s = 0; s < a.S; ++s) {
-      const float* q = part + s * stride;
-      de += q[(size_t)P_DE * a.P];
-      ys += q[(size_t)P_Y * a.P];
-      ymin = fminf(ymin, q[(size_t)P_YMIN * a.P]);
-      ymax = fmaxf(ymax, q[(size_t)P_YMAX * a.P]);
-      zero = fmaxf(zero, q[(size_t)P_ZERO * a.P]);
-    }
-    const bool starved = zero != 0.0f;
-    a.u_eb[(size_t)d * a.P + p] = starved ? 0.0f : ys / (float)a.npix;
-    a.pos[(size_t)d * 2 * a.P + p] = de;
-    a.pos[((size_t)d * 2 + 1) * a.P + p] =
-        starved ? 0.0f : ymin / (ymax > 0.0f ? ymax : 1.0f);
+    for (int q = 0; q < NPART; ++q)
+      part[s * stride + (size_t)q * a.P] = combine8(red, q, tx);
     __threadfence();
   }
   __syncthreads();
-  const int t = ty * LANES + tx;
-  if (t == 0) last = atomicAdd(a.done + d, 1) == (int)gridDim.x - 1;
+  if (t == 0)
+    last = atomicAdd(a.done + d * a.tiles + tile, 1) == a.S - 1;
   __syncthreads();
-  if (!last) return;
-  // the design's last position block: sum over positions, fixed order
-  const float* pos = a.pos + (size_t)d * 2 * a.P;
+  COLOR_MARK(2);
+  if (!last) {
+    COLOR_END();
+    return;
+  }
+  // the tile's last unit: each group over the splits s = ty, ty + 8, ...
+  // in order, then the groups' fixed tree
+  __threadfence();
+  if (p < a.P) {
+    float acc[NPART];
+    for (int q = 0; q < NPART; ++q)
+      acc[q] = q == P_DE || q == P_Y || q == P_ZERO ? 0.0f
+               : q == P_YMIN                        ? INFINITY
+                                                    : -INFINITY;
+    for (int j = ty; j < a.S; j += GROUPS)
+      for (int q = 0; q < NPART; ++q)
+        acc[q] =
+            merge(q, acc[q], __ldcg(part + j * stride + (size_t)q * a.P));
+    for (int q = 0; q < NPART; ++q) red[q][ty][tx] = acc[q];
+  }
+  __syncthreads();
+  if (ty == 0 && p < a.P) {
+    const float de = combine8(red, P_DE, tx);
+    const float ys = combine8(red, P_Y, tx);
+    const float ymin = combine8(red, P_YMIN, tx);
+    const float ymax = combine8(red, P_YMAX, tx);
+    const bool starved = combine8(red, P_ZERO, tx) != 0.0f;
+    float* pos = a.pos + (size_t)d * NPOS * a.P + p;
+    a.u_eb[(size_t)d * a.P + p] = starved ? 0.0f : ys / (float)a.npix;
+    pos[(size_t)Q_DE * a.P] = de;
+    pos[(size_t)Q_RATIO * a.P] =
+        starved ? 0.0f : ymin / (ymax > 0.0f ? ymax : 1.0f);
+    pos[(size_t)Q_PEAK * a.P] = combine8(red, P_PEAK, tx);
+    __threadfence();
+  }
+  __syncthreads();
+  if (t == 0)
+    last = atomicAdd(a.done + (size_t)gridDim.z * a.tiles + d, 1) ==
+           a.tiles - 1;
+  __syncthreads();
+  COLOR_MARK(3);
+  if (!last) {
+    COLOR_END();
+    return;
+  }
+  // the design's last tile: sum over positions, fixed order
+  __threadfence();
+  __shared__ float sums[2][COLOR_THREADS];
+  const float* pos = a.pos + (size_t)d * NPOS * a.P;
   float de = 0.0f, ratio = 0.0f;
   for (int i = t; i < a.P; i += COLOR_THREADS) {
-    de += __ldcg(pos + i);
-    ratio += __ldcg(pos + a.P + i);
+    de += __ldcg(pos + (size_t)Q_DE * a.P + i);
+    ratio += __ldcg(pos + (size_t)Q_RATIO * a.P + i);
   }
-  red[0][t] = de;
-  red[1][t] = ratio;
+  sums[0][t] = de;
+  sums[1][t] = ratio;
   __syncthreads();
   for (int w = COLOR_THREADS / 2; w > 0; w >>= 1) {
     if (t < w) {
-      red[0][t] += red[0][t + w];
-      red[1][t] += red[1][t + w];
+      sums[0][t] += sums[0][t + w];
+      sums[1][t] += sums[1][t + w];
     }
     __syncthreads();
   }
   if (t == 0) {
-    a.delta_e[d] = red[0][0] / (float)((long long)a.P * a.npix);
-    a.ratio_sum[d] = red[1][0];
+    a.delta_e[d] = sums[0][0] / (float)((long long)a.P * a.npix);
+    a.ratio_sum[d] = sums[1][0];
   }
+  COLOR_MARK(4);
+  COLOR_END();
+}
+
+// design blockIdx.y's eye views divided by their position's peak, where it
+// is positive
+__global__ void __launch_bounds__(IMAGE_THREADS)
+colorimetry_image(const Color a) {
+  COLOR_BEGIN();
+  const int d = blockIdx.y, n = 3 * a.npix * a.P;
+  float* img = a.image + (size_t)d * n;
+  const float* peak = a.pos + ((size_t)d * NPOS + Q_PEAK) * a.P;
+  for (int e = blockIdx.x * IMAGE_THREADS + threadIdx.x; e < n;
+       e += gridDim.x * IMAGE_THREADS) {
+    const float m = peak[e % a.P];
+    if (m > 0.0f) img[e] = img[e] / m;
+  }
+  COLOR_MARK(5);
+  COLOR_END();
 }
 
 }  // namespace
@@ -897,8 +979,8 @@ colorimetry_finish(const Color a) {
 // cudaError_t code (0: loaded).
 extern "C" int eye_tail_prepare(void) {
   cudaFuncAttributes attr;
-  const void* fns[] = {(const void*)colorimetry_partials,
-                       (const void*)colorimetry_finish};
+  const void* fns[] = {(const void*)colorimetry_units,
+                       (const void*)colorimetry_image};
   for (const void* fn : fns) {
     const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;
@@ -999,20 +1081,47 @@ extern "C" void window_sum_last_launch(long long* out) {
   out[1] = last_launch[1];
 }
 
+// The colorimetry's kernels on this card: out[7] = colorimetry_units'
+// registers, local bytes a thread and resident blocks per SM, the same of
+// colorimetry_image, and the SMs.  Returns a cudaError_t code (0: read).
+extern "C" int colorimetry_shape(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const void* fns[2] = {(const void*)colorimetry_units,
+                        (const void*)colorimetry_image};
+  const int threads[2] = {COLOR_THREADS, IMAGE_THREADS};
+  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
+    cudaFuncAttributes attr;
+    int blocks = 0;
+    err = cudaFuncGetAttributes(&attr, fns[i]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fns[i],
+                                                          threads[i], 0);
+    out[3 * i] = attr.numRegs;
+    out[3 * i + 1] = (int)attr.localSizeBytes;
+    out[3 * i + 2] = blocks;
+  }
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out + 6, cudaDevAttrMultiProcessorCount, dev);
+  return (int)err;
+}
+
 // Launch on `stream`: the colorimetry of D (3, npix, P) stacks.  `image`
-// may be null (no eye views).  Scratch: part (D * S * 6 floats), pos (D * 2
-// * P floats), done (D ints, zeroed here).  consts: the NCONST float32
-// constants (host array).  S splits of `chunk` pixels; the image's 3 * npix
-// entries of a position in splits of `chunk2`.  Returns a cudaError_t code
-// (0: launched).
+// may be null (no eye views; no second launch).  Scratch: part (D * S * 6
+// * P floats), pos (D * 3 * P floats), done (D * ceil(P / 32) + D ints,
+// zeroed here).  consts: the NCONST float32 constants (host array).  S
+// splits of `chunk` pixels (every split holding some).  Returns a
+// cudaError_t code (0: launched).
 extern "C" int colorimetry_launch(
     const void* perc, void* image, void* part, void* pos, void* done,
     void* delta_e, void* ratio_sum, void* u_eb, const float* consts,
     int nconst, float inv_norm, int D, int npix, int P, int S, int chunk,
-    int chunk2, void* stream) {
+    void* stream) {
   if (D <= 0) return 0;
+  const int tiles = (int)(((long long)P + LANES - 1) / LANES);
   if (nconst != NCONST || npix <= 0 || P <= 0 || S <= 0 || chunk <= 0 ||
-      (long long)S * chunk < npix || chunk2 <= 0)
+      (long long)S * chunk < npix || (long long)(S - 1) * chunk >= npix ||
+      tiles > 65535 || D > 65535 || 3LL * npix * P > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   Consts k;
   memcpy(k.c, consts, sizeof(k.c));
@@ -1030,18 +1139,24 @@ extern "C" int colorimetry_launch(
   a.P = P;
   a.S = S;
   a.chunk = chunk;
-  a.chunk2 = chunk2;
+  a.tiles = tiles;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(int) * D, st);
+  cudaError_t err =
+      cudaMemsetAsync(done, 0, sizeof(int) * ((size_t)D * tiles + D), st);
   if (err != cudaSuccess) return (int)err;
-  const unsigned tiles = (unsigned)((P + LANES - 1) / LANES);
-  const dim3 block(LANES, GROUPS);
-  colorimetry_partials<<<dim3(tiles, S, D), block, 0, st>>>(a, k);
+  colorimetry_units<<<dim3(S, tiles, D), dim3(LANES, GROUPS), 0, st>>>(a, k);
   err = cudaGetLastError();
+  if (err != cudaSuccess || !image) return (int)err;
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const unsigned splits2 =
-      image ? (unsigned)((3LL * npix + chunk2 - 1) / chunk2) : 1u;
-  colorimetry_finish<<<dim3(tiles, splits2, D), block, 0, st>>>(a);
+  const long long n = 3LL * npix * P;
+  const long long want = (n + IMAGE_THREADS - 1) / IMAGE_THREADS;
+  const long long most = ((long long)IMAGE_BLOCKS_PER_SM * sms + D - 1) / D;
+  colorimetry_image<<<dim3((unsigned)(want < most ? want : most), D),
+                      IMAGE_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -19,7 +19,9 @@ Both use only correctly rounded operations (float64 ``+ - * /`` and
 ``sqrt``, float32 ``+ - * /``, float64 -> float32 rounding) in numpy's
 order, so kernel, plain version and host route agree bit for bit.  The
 kernel replaces host numpy, not a TPU kernel; it is bound by the bytes it
-writes (2,816 B a cell row).
+writes (2,816 B a cell row) and reads.  Its grid is :func:`rows_grid`
+blocks, each owning a contiguous range of rows in tiles of :data:`TILE`;
+:func:`rows_shape` reads the card's launch shape.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ EXTRA_ONE, EXTRA_NG, EXTRA_INV_NG = range(3)
 # the C parameters of cell_rows_launch: 8 pointers, 8 ints, tol, the stream
 LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_void_p])
+
+# rows a tile of the kernel (csrc/cell_rows.cu)
+TILE = 32
+# cell_rows_shape's out[10], in its order
+SHAPE_KEYS = ("grid", "threads", "tile", "buffers", "smem", "blocks_per_sm",
+              "sms", "registers", "local_bytes", "pitch")
 
 
 @dataclasses.dataclass
@@ -106,6 +114,12 @@ def branch_table(num_fc: int, num_oc: int) -> np.ndarray:
                  (COS_OC, COS_OC, EXTRA_ONE, off + 32),     # oc2 stay
                  (COS_OC, COS_AIR, EXTRA_INV_NG, off + 40)]  # oc2 out
     return np.asarray(rows, np.int32)
+
+
+def rows_grid(total: int, resident: int) -> int:
+    """The kernel's grid for ``total`` rows: a block per :data:`TILE` rows,
+    at most ``resident`` (the card's resident blocks)."""
+    return min(-(-total // TILE), resident)
 
 
 def _branches(A: dict, seed: int):
@@ -343,6 +357,20 @@ def launch_rows(args: list, inputs: RowInputs,
     return rows
 
 
+def rows_shape(total: int) -> dict:
+    """The kernel's launch shape for ``total`` rows on the current card:
+    :data:`SHAPE_KEYS` from ``csrc/cell_rows.cu``'s ``cell_rows_shape``
+    (its grid, with the kernel's registers, local bytes and resident blocks
+    per SM from the runtime)."""
+    lib = load_kernel()
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    err = lib.cell_rows_shape(int(total), out)
+    if err != 0:
+        msg = lib.cell_rows_error_string(err).decode()
+        raise RuntimeError(f"cell_rows_shape failed: {msg} ({err})")
+    return dict(zip(SHAPE_KEYS, list(out)))
+
+
 def cell_rows(inputs: RowInputs, eyebox_range,
               eyebox_bins: Sequence[int] = (80, 120), device="cuda",
               timer: Optional[EventTimer] = None) -> torch.Tensor:
@@ -372,6 +400,8 @@ def load_kernel():
         lib = build.load_library("cell_rows")
         lib.cell_rows_launch.argtypes = LAUNCH_ARGTYPES
         lib.cell_rows_launch.restype = ctypes.c_int
+        lib.cell_rows_shape.argtypes = [ctypes.c_longlong, ctypes.c_void_p]
+        lib.cell_rows_shape.restype = ctypes.c_int
         lib.cell_rows_error_string.argtypes = [ctypes.c_int]
         lib.cell_rows_error_string.restype = ctypes.c_char_p
         _LIB = lib

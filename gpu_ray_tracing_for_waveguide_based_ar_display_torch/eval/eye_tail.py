@@ -14,8 +14,10 @@ first tail:
 - :func:`launch_colorimetry`: the colorimetry of (D, 3, fy, fx, epy, epx)
   perception stacks, :func:`.metrics._make_eval_core`'s outputs in its
   operation order (within float32 association of it: its sums run in
-  another fixed order, and the card's ``powf``, ``atan2f``, ``sinf`` ...
-  are not the host's).
+  another fixed order, set by the stack's shape alone through
+  :func:`colorimetry_splits`, and the card's ``powf``, ``atan2f``,
+  ``sinf`` ... are not the host's); :func:`colorimetry_shape` reads its
+  kernels' registers and resident blocks.
 
 Both replace no TPU kernel: the JAX package's tail is jnp
 (``eval/metrics.py::eye_perceived_jnp``, ``_make_eval_core``).  Each launch
@@ -36,15 +38,22 @@ import torch
 from ..engine import build
 from ..engine.trace_persistent import launch_counts
 
-# colorimetry blocks: 32 positions (lanes) x 8 pixel groups
+# colorimetry units: 32 positions (lanes) x 8 pixel groups
 LANES = 32
 GROUPS = 8
-# blocks a launch aims at whatever its stack: two on each of an H100's 132
-# SMs.  The split depends on the stack's shape alone, so a design's results
-# do not depend on the designs that share its launch.
-TARGET_BLOCKS = 264
+# the unit slots a design's units are to fill whatever its stack: five
+# blocks of 256 threads on each of an H100's 132 SMs.  The split depends on
+# the stack's shape alone, so a design's results do not depend on the
+# designs that share its launch, nor on the card.
+SLOTS = 660
+SPLIT_WAVES = 4   # the most waves of SLOTS units a split rule weighs
 PARTIALS = 6   # per (design, split, position): delta E, Y, min Y, max Y,
                # any Y = 0, peak
+POSITION_RESULTS = 3   # per (design, position): delta E sum, ratio, peak
+# colorimetry_shape's out[7], in its order
+COLOR_SHAPE_KEYS = ("units_registers", "units_local_bytes",
+                    "units_blocks_per_sm", "image_registers",
+                    "image_local_bytes", "image_blocks_per_sm", "sms")
 NCONST = 51    # the float32 constants of metrics.colorimetry_constants
 
 # the window sum's launch rule (csrc/eye_tail.cu, mirrored by
@@ -70,7 +79,7 @@ WINDOW_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 COLOR_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_float]
-                  + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def _check(t: torch.Tensor, what: str) -> None:
@@ -224,17 +233,53 @@ def launch_window_sum(images: torch.Tensor, segments: np.ndarray, cols: int,
 
 
 def colorimetry_splits(P: int, npix: int) -> tuple:
-    """``(S, chunk, chunk2)``: the colorimetry's split of a position's
-    ``npix`` pixels over S blocks of ``chunk`` pixels, and of its ``3 *
-    npix`` image entries in blocks of ``chunk2``, so that ``P`` positions
-    make about :data:`TARGET_BLOCKS` blocks a design."""
+    """``(S, chunk)``: the colorimetry's split of a position's ``npix``
+    pixels over S units of ``chunk`` pixels (each unit holding some), from
+    the shape alone.  A design has ``ceil(P / LANES) * S`` units; of the
+    splits that make 1 to :data:`SPLIT_WAVES` waves of :data:`SLOTS` units
+    (a split keeping a pixel a group at least), the one whose last wave is
+    fullest, the fewest waves on a tie."""
     tiles = -(-P // LANES)
-    want = -(-TARGET_BLOCKS // tiles)
-    S = max(1, min(want, -(-npix // GROUPS)))
-    chunk = -(-npix // S)
-    S = -(-npix // chunk)
-    chunk2 = -(-3 * npix // max(1, min(want, -(-3 * npix // GROUPS))))
-    return S, chunk, chunk2
+    most = -(-npix // GROUPS)
+    best = None
+    for waves in range(1, SPLIT_WAVES + 1):
+        S = max(1, min(most, waves * SLOTS // tiles))
+        chunk = -(-npix // S)
+        S = -(-npix // chunk)
+        units = tiles * S
+        fill = units / (-(-units // SLOTS) * SLOTS)
+        if best is None or fill > best[0]:
+            best = (fill, S, chunk)
+    return best[1], best[2]
+
+
+def colorimetry_plan(D: int, P: int, npix: int) -> dict:
+    """The colorimetry's launch for D stacks of ``npix`` pixels at ``P``
+    positions: ``S`` and ``chunk`` (:func:`colorimetry_splits`, which fix
+    the order of every sum and do not depend on D), ``tiles`` of
+    :data:`LANES` positions, the units' ``grid`` (S, tiles, D), and the
+    scratch sizes ``part`` and ``pos`` (floats) and ``done`` (ints)."""
+    S, chunk = colorimetry_splits(P, npix)
+    tiles = -(-P // LANES)
+    return {"S": S, "chunk": chunk, "tiles": tiles, "grid": (S, tiles, D),
+            "part": D * S * PARTIALS * P, "pos": D * POSITION_RESULTS * P,
+            "done": D * tiles + D}
+
+
+_COLOR_SHAPE = {}
+
+
+def colorimetry_shape() -> dict:
+    """The colorimetry kernels on the current card (cached per device):
+    :data:`COLOR_SHAPE_KEYS` from ``csrc/eye_tail.cu``'s
+    ``colorimetry_shape``."""
+    dev = torch.cuda.current_device()
+    if dev not in _COLOR_SHAPE:
+        lib = load_kernel()
+        out = (ctypes.c_int * len(COLOR_SHAPE_KEYS))()
+        _raise(lib, lib.colorimetry_shape(out), "colorimetry_shape")
+        _COLOR_SHAPE[dev] = dict(zip(COLOR_SHAPE_KEYS, list(out)))
+    return _COLOR_SHAPE[dev]
 
 
 def launch_colorimetry(stack: torch.Tensor, consts: np.ndarray,
@@ -265,10 +310,10 @@ def launch_colorimetry(stack: torch.Tensor, consts: np.ndarray,
                                    dtype=torch.float32, device=dev)
     if D == 0 or npix == 0 or P == 0:
         return out
-    S, chunk, chunk2 = colorimetry_splits(P, npix)
-    part = torch.empty(D * S * PARTIALS * P, dtype=torch.float32, device=dev)
-    pos = torch.empty(D * 2 * P, dtype=torch.float32, device=dev)
-    done = torch.empty(D, dtype=torch.int32, device=dev)
+    plan = colorimetry_plan(D, P, npix)
+    part = torch.empty(plan["part"], dtype=torch.float32, device=dev)
+    pos = torch.empty(plan["pos"], dtype=torch.float32, device=dev)
+    done = torch.empty(plan["done"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.colorimetry_launch(
@@ -277,7 +322,7 @@ def launch_colorimetry(stack: torch.Tensor, consts: np.ndarray,
             part.data_ptr(), pos.data_ptr(), done.data_ptr(),
             out["delta_e"].data_ptr(), out["ratio_sum"].data_ptr(),
             out["u_eb"].data_ptr(), consts.ctypes.data, NCONST,
-            float(inv_norm), D, npix, P, S, chunk, chunk2, stream)
+            float(inv_norm), D, npix, P, plan["S"], plan["chunk"], stream)
     _raise(lib, err, "colorimetry")
     launch_counts["colorimetry"] += 1
     return out
@@ -302,6 +347,8 @@ def load_kernel():
         lib.window_sum_last_launch.restype = None
         lib.colorimetry_launch.argtypes = COLOR_ARGTYPES
         lib.colorimetry_launch.restype = ctypes.c_int
+        lib.colorimetry_shape.argtypes = [ctypes.c_void_p]
+        lib.colorimetry_shape.restype = ctypes.c_int
         lib.eye_tail_prepare.argtypes = []
         lib.eye_tail_prepare.restype = ctypes.c_int
         lib.eye_tail_error_string.argtypes = [ctypes.c_int]

@@ -794,6 +794,48 @@ def test_cell_rows_kernel_equals_plain_and_host_on_card(cuda_device, n_glass):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fov,designs,num_fc,num_oc", [
+    ((1, 1), 1, 7, 6), ((5, 1), 1, 0, 0), ((3, 2), 1, 7, 6),
+    ((1, 1), 17, 3, 2), ((7, 5), 2, 1, 6), ((4, 3), 3, 7, 0)])
+def test_cell_rows_kernel_tiles_and_strips_on_card(cuda_device, fov, designs,
+                                                   num_fc, num_oc):
+    """Row counts off the kernel's tile of 32 (3, 15, 18, 51, 210 and 108),
+    one design and several (cell-major rows across tiles), strip counts
+    from none to the largest branch count (7 FC, 6 OC: 70 branches): the
+    kernel's rows equal its plain version's as int32, and the host
+    route's where it builds them (it needs a strip of each kind), and its
+    grid is the Python rule's."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.engine import (
+        cell_rows,
+    )
+
+    geoms = [generate_geometry(dataclasses.replace(
+        WaveguideDesign(), num_fc=num_fc, num_oc=num_oc,
+        lambda_ic=388.0 + 2.0 * d), *fov) for d in range(designs)]
+    eb = np.stack([g.eyebox_range for g in geoms])
+    inputs = cell_rows.synthetic_row_inputs(geoms, 5, pinned=True)
+    total = designs * 3 * fov[0] * fov[1]
+    n0 = tp.launch_counts["cell_rows"]
+    got = cell_rows.cell_rows(inputs, eb, (80, 120), cuda_device)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["cell_rows"] == n0 + 1
+    assert got.shape == (total, 704)
+    plain = cell_rows.cell_rows_reference(inputs, eb, (80, 120), cuda_device)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    if num_fc and num_oc:
+        host = _host_rows(geoms, 5, (80, 120))
+        rows = got.cpu().numpy()
+        nan = np.isnan(host)
+        np.testing.assert_array_equal(np.isnan(rows), nan)
+        np.testing.assert_array_equal(rows.view(np.int32)[~nan],
+                                      host.view(np.int32)[~nan])
+    shape = cell_rows.rows_shape(total)
+    assert shape["grid"] == cell_rows.rows_grid(
+        total, shape["blocks_per_sm"] * shape["sms"])
+    assert shape["local_bytes"] == 0 and shape["blocks_per_sm"] >= 1
+
+
+@pytest.mark.cuda
 def test_synthetic_rows_built_only_by_the_kernel_on_card(small, cuda_device,
                                                          monkeypatch):
     """On the card, the kernel engines' Simulators and the sweep's chunks
@@ -1030,6 +1072,53 @@ def test_colorimetry_kernel_within_bars_on_card(cuda_device, designs,
                                      with_image)
     for k, v in last.items():
         np.testing.assert_array_equal(v.cpu().numpy()[0], got[k][-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_position", "positions_off_32",
+                                  "pixels_below_groups", "designs_8_image"])
+def test_colorimetry_kernel_shapes_on_card(cuda_device, case):
+    """The colorimetry kernel at shapes off its plan's tiles: one position,
+    45 positions (a tile of 13), 4 pixels (fewer than a unit's 8 groups)
+    and 8 designs with the image.  Within the bars of its plain version,
+    ``u_eb``'s zeros equal; every design's outputs, the image included,
+    equal its solo launch bit for bit."""
+    from gpu_ray_tracing_for_waveguide_based_ar_display_torch.eval import (
+        eye_tail, metrics,
+    )
+
+    designs, fy, fx, epy, epx = {"one_position": (1, 12, 16, 1, 1),
+                                 "positions_off_32": (2, 12, 16, 5, 9),
+                                 "pixels_below_groups": (2, 2, 2, 7, 8),
+                                 "designs_8_image": (8, 12, 16, 7, 8)}[case]
+    rng = np.random.default_rng(24)
+    stack = rng.random((designs, 3, fy, fx, epy, epx)).astype(np.float32)
+    stack[stack < 0.1] = 0.0
+    stack[-1, :, 0, 0, 0, 0] = 0.0          # a starved position
+    stack = torch.from_numpy(stack).to(cuda_device)
+    inv_norm = metrics._inv_norm(3.0)
+    S, chunk = eye_tail.colorimetry_splits(epy * epx, fy * fx)
+    assert (S - 1) * chunk < fy * fx <= S * chunk
+    n0 = tp.launch_counts["colorimetry"]
+    got = metrics.colorimetry_stack(stack, inv_norm, True)
+    torch.cuda.synchronize()
+    assert tp.launch_counts["colorimetry"] == n0 + 1
+    want = metrics._make_eval_core(True)(stack, inv_norm)
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    for k in ("delta_e", "ratio_sum", "u_eb"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=0)
+    np.testing.assert_array_equal(got["u_eb"] == 0, want["u_eb"] == 0)
+    assert (got["u_eb"] == 0).any()
+    np.testing.assert_allclose(got["image"], want["image"], rtol=1e-5,
+                               atol=1e-6)
+    for d in range(designs):
+        solo = metrics.colorimetry_stack(stack[d:d + 1].contiguous(),
+                                         inv_norm, True)
+        for k, v in solo.items():
+            np.testing.assert_array_equal(v.cpu().numpy()[0].view(np.int32),
+                                          got[k][d].view(np.int32))
+    assert eye_tail.colorimetry_shape()["units_blocks_per_sm"] >= 5
 
 
 def _split_fixture(capacity, per_cell):
